@@ -1,0 +1,239 @@
+"""Fused whole-decoder serving path — the counterpart of
+``paddle_tpu/incubate/nn/functional/fused_transformer.py``.
+
+Per-layer weights are stacked on a leading layer axis (``[L, …]``, qkv
+packed ``[q | k | v]`` and ffn1 packed ``[gate | up]`` on the output dim,
+in the JAX ``[in, out]`` layout), and the layer loop is a Python loop.
+The matrix products stay ``torch.matmul``; attention goes through the
+flash dispatch (prefill) and the paged decode kernel (decode).
+
+Caches are updated IN PLACE: where the JAX code threads new cache arrays
+out of a ``lax.scan`` and relies on buffer donation, these functions write
+into the tensors they were given (``index_put_`` through indexed
+assignment) and return the same tensors.
+"""
+
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+
+import torch
+
+from ....nn.functional import rms_norm, swiglu
+from ....ops.cuda.paged_attention import paged_attention
+from ....ops.fused.flash_attention import flash_attention
+from ....ops.fused.rope import apply_rotary_position_embedding as _rope
+
+__all__ = ["FusedTransformerWeights", "fused_weights_from_llama",
+           "fused_multi_transformer", "fused_multi_transformer_paged_ragged"]
+
+
+@dataclass
+class FusedTransformerWeights:
+    """Per-layer weights stacked on axis 0 (length L)."""
+
+    ln_scale: torch.Tensor      # [L, D]
+    qkv_w: torch.Tensor         # [L, D, (h + 2*hk) * dh]
+    out_w: torch.Tensor         # [L, h*dh, D]
+    ffn_ln_scale: torch.Tensor  # [L, D]
+    ffn1_w: torch.Tensor        # [L, D, 2*I]  (gate | up)
+    ffn2_w: torch.Tensor        # [L, I, D]
+
+    @property
+    def num_layers(self) -> int:
+        return self.ln_scale.shape[0]
+
+    def layer(self, i: int) -> tuple:
+        return (self.ln_scale[i], self.qkv_w[i], self.out_w[i],
+                self.ffn_ln_scale[i], self.ffn1_w[i], self.ffn2_w[i])
+
+
+def fused_weights_from_llama(model) -> FusedTransformerWeights:
+    """Stack a ``LlamaForCausalLM``'s decoder weights into the fused
+    layout. Each stacked tensor is allocated once and filled layer by
+    layer, so the peak is the model plus one copy of its decoder weights."""
+    layers = model.model.layers
+    at, mlp = layers[0].self_attn, layers[0].mlp
+    nq, nk = at.q_proj.out_features, at.k_proj.out_features
+    D, inter = at.q_proj.in_features, mlp.gate_proj.out_features
+    ref = at.q_proj.weight
+    new = lambda *shape: torch.empty(  # noqa: E731
+        (len(layers),) + shape, dtype=ref.dtype, device=ref.device)
+    w = FusedTransformerWeights(
+        ln_scale=new(D), qkv_w=new(D, nq + 2 * nk), out_w=new(nq, D),
+        ffn_ln_scale=new(D), ffn1_w=new(D, 2 * inter), ffn2_w=new(inter, D))
+    with torch.no_grad():
+        for i, layer in enumerate(layers):
+            at, mlp = layer.self_attn, layer.mlp
+            w.ln_scale[i].copy_(layer.input_layernorm.weight)
+            w.qkv_w[i, :, :nq].copy_(at.q_proj.weight.t())
+            w.qkv_w[i, :, nq:nq + nk].copy_(at.k_proj.weight.t())
+            w.qkv_w[i, :, nq + nk:].copy_(at.v_proj.weight.t())
+            w.out_w[i].copy_(at.o_proj.weight.t())
+            w.ffn_ln_scale[i].copy_(layer.post_attention_layernorm.weight)
+            w.ffn1_w[i, :, :inter].copy_(mlp.gate_proj.weight.t())
+            w.ffn1_w[i, :, inter:].copy_(mlp.up_proj.weight.t())
+            w.ffn2_w[i].copy_(mlp.down_proj.weight.t())
+    return w
+
+
+def _paged_qkv_rope(h, w, hq, hk, eps, rope_cos, rope_sin):
+    """RMS norm -> QKV projection -> head split -> rope on q and k: the
+    pre-attention glue every layer body here shares (dense and paged), so
+    the paths compute per-layer math identically."""
+    b, s = h.shape[0], h.shape[1]
+    ln_s, qkv_w = w[0], w[1]
+    dh = qkv_w.shape[-1] // (hq + 2 * hk)
+    qkv = rms_norm(h, ln_s, eps) @ qkv_w
+    q = qkv[..., :hq * dh].reshape(b, s, hq, dh)
+    k = qkv[..., hq * dh:(hq + hk) * dh].reshape(b, s, hk, dh)
+    v = qkv[..., (hq + hk) * dh:].reshape(b, s, hk, dh)
+    return _rope(q, rope_cos, rope_sin), _rope(k, rope_cos, rope_sin), v
+
+
+def _paged_out_ffn(h, attn, w, eps):
+    """Output projection -> residual -> RMS norm -> SwiGLU FFN -> residual,
+    shared like :func:`_paged_qkv_rope`."""
+    b, s = h.shape[0], h.shape[1]
+    out_w, ffn_ln_s, ffn1_w, ffn2_w = w[2], w[3], w[4], w[5]
+    h = h + attn.reshape(b, s, -1) @ out_w
+    gu = rms_norm(h, ffn_ln_s, eps) @ ffn1_w
+    inter = gu.shape[-1] // 2
+    return h + swiglu(gu[..., :inter], gu[..., inter:]) @ ffn2_w
+
+
+def fused_multi_transformer(x, weights: FusedTransformerWeights, cache_k,
+                            cache_v, cache_index: int, rope_cos, rope_sin,
+                            num_heads: int, num_kv_heads: int,
+                            epsilon: float = 1e-6):
+    """One step of ``s`` tokens through all L layers over dense caches.
+
+    x ``[b, s, D]``; cache_k/v ``[L, b, S_max, hk, dh]``; ``cache_index``
+    (int) tokens already in the cache; rope_cos/sin ``[s, dh]`` for this
+    step's positions. Writes the step's k/v into the caches at
+    ``cache_index`` in place and returns ``(h, cache_k, cache_v)``.
+
+    s <= 8: a dense masked attention over the cached columns plus the
+    step's own causal block, one joint softmax. s > 8: the flash forward
+    over the cache with ``causal=True, q_offset=cache_index`` — row r sees
+    column c iff ``c <= cache_index + r``, the JAX ``step_mask`` rule
+    without materialising a mask."""
+    b, s, _ = x.shape
+    hq, hk = num_heads, num_kv_heads
+    idx = int(cache_index)
+    s_max, dh = cache_k.shape[2], cache_k.shape[-1]
+    if idx < 0 or idx + s > s_max:
+        raise ValueError(f"fused_multi_transformer: {s} tokens at index "
+                         f"{idx} overflow a cache of {s_max}")
+    h = x
+    if s > 8:
+        for i in range(weights.num_layers):
+            w = weights.layer(i)
+            q, k, v = _paged_qkv_rope(h, w, hq, hk, epsilon, rope_cos,
+                                      rope_sin)
+            cache_k[i, :, idx:idx + s] = k
+            cache_v[i, :, idx:idx + s] = v
+            attn = flash_attention(q, cache_k[i], cache_v[i], causal=True,
+                                   q_offset=idx)
+            h = _paged_out_ffn(h, attn, w, epsilon)
+        return h, cache_k, cache_v
+
+    dev, dtype = x.device, x.dtype
+    col = torch.arange(s_max, device=dev)
+    row = torch.arange(s, device=dev)
+    cache_mask = torch.where(col < idx, 0.0, -1e30)[None, None, None]
+    self_mask = torch.where(row[None, :] <= row[:, None], 0.0,
+                            -1e30)[None, None]
+    r = hq // hk
+    new_k, new_v = [], []
+    for i in range(weights.num_layers):
+        w = weights.layer(i)
+        q, k, v = _paged_qkv_rope(h, w, hq, hk, epsilon, rope_cos,
+                                  rope_sin)
+        kk, vv = cache_k[i], cache_v[i]
+        kn, vn = k, v
+        if r > 1:
+            kk, vv, kn, vn = (t.repeat_interleave(r, dim=2)
+                              for t in (kk, vv, kn, vn))
+        qf = (q.float() / math.sqrt(dh)).to(dtype).float()
+        lc = torch.einsum("bqhd,bkhd->bhqk", qf, kk.float()) + cache_mask
+        ls = torch.einsum("bqhd,bkhd->bhqk", qf, kn.float()) + self_mask
+        probs = torch.softmax(torch.cat([lc, ls], dim=-1), dim=-1)
+        pc = probs[..., :s_max].to(dtype).float()
+        pn = probs[..., s_max:].to(dtype).float()
+        attn = (torch.einsum("bhqk,bkhd->bqhd", pc, vv.float())
+                + torch.einsum("bhqk,bkhd->bqhd", pn, vn.float())).to(dtype)
+        h = _paged_out_ffn(h, attn, w, epsilon)
+        new_k.append(k)
+        new_v.append(v)
+    # the caches stay read-only inside the loop; one write commits the step
+    cache_k[:, :, idx:idx + s] = torch.stack(new_k).to(cache_k.dtype)
+    cache_v[:, :, idx:idx + s] = torch.stack(new_v).to(cache_v.dtype)
+    return h, cache_k, cache_v
+
+
+def _paged_decode_layer(h, w, ck, cv, *, table, lens, rope_cos, rope_sin, hq,
+                        hk, epsilon):
+    """One decoder layer of a paged decode step (s == 1): the paged kernel
+    over the row's history, then the exact online-softmax merge of the
+    step's own k/v through the kernel's (m, l) stats, so the pages stay
+    read-only here. Returns ``(h, (k[:, 0], v[:, 0]))``."""
+    dh = ck.shape[-1]
+    scale = 1.0 / math.sqrt(dh)
+    q, k, v = _paged_qkv_rope(h, w, hq, hk, epsilon, rope_cos, rope_sin)
+    q0 = q[:, 0]
+    out_old, m, l = paged_attention(q0, ck, cv, table, lens, scale=scale,
+                                    return_stats=True)   # [b, hq, dh], [b, hq]
+    kn, vn = k[:, 0], v[:, 0]                            # [b, hk, dh]
+    if hk != hq:
+        kn = kn.repeat_interleave(hq // hk, dim=1)
+        vn = vn.repeat_interleave(hq // hk, dim=1)
+    logit_self = (q0.float() * kn.float()).sum(dim=-1) * scale
+    m2 = torch.maximum(m, logit_self)
+    w_old = l * torch.exp(m - m2)
+    w_new = torch.exp(logit_self - m2)
+    attn = (w_old[..., None] * out_old.float()
+            + w_new[..., None] * vn.float()) / (w_old + w_new)[..., None]
+    h = _paged_out_ffn(h, attn[:, None].to(h.dtype), w, epsilon)
+    return h, (k[:, 0], v[:, 0])
+
+
+def fused_multi_transformer_paged_ragged(x, weights: FusedTransformerWeights,
+                                         k_pages, v_pages, page_table,
+                                         seq_lens, rope_cos, rope_sin,
+                                         num_heads: int, num_kv_heads: int,
+                                         epsilon: float = 1e-6):
+    """One decode step (s == 1) through all L layers with per-row block
+    tables and lengths (the continuous-batching layer stack).
+
+    k_pages/v_pages ``[L, kvh, num_blocks, page, dh]`` (block 0 is the null
+    block); page_table ``[B, pps]`` int32; seq_lens ``[B]`` int32 tokens
+    already cached per row (the position the step's token lands at);
+    rope_cos/sin ``[B, 1, dh]``. After the layer loop one per-row scatter
+    commits the step's k/v in place at ``(table[b, len // page],
+    len % page)``; idle rows (all-null table, len 0) write into the null
+    block. Returns ``(h, k_pages, v_pages)``."""
+    b, s, _ = x.shape
+    if s != 1:
+        raise ValueError("fused_multi_transformer_paged_ragged is decode-only "
+                         f"(s == 1), got s={s}")
+    page, pps = k_pages.shape[-2], page_table.shape[1]
+    table = page_table.to(torch.int32).contiguous()
+    lens = seq_lens.to(torch.int32).contiguous()
+    h, ys_k, ys_v = x, [], []
+    for i in range(weights.num_layers):
+        h, (k, v) = _paged_decode_layer(
+            h, weights.layer(i), k_pages[i], v_pages[i], table=table,
+            lens=lens, rope_cos=rope_cos, rope_sin=rope_sin, hq=num_heads,
+            hk=num_kv_heads, epsilon=epsilon)
+        ys_k.append(k)
+        ys_v.append(v)
+    rows = torch.arange(b, device=x.device)
+    phys = table[rows, torch.clamp(lens // page, max=pps - 1)].long()
+    slot = (lens % page).long()
+    k_pages[:, :, phys, slot] = torch.stack(ys_k).transpose(1, 2).to(
+        k_pages.dtype)                                   # [L, kvh, B, dh]
+    v_pages[:, :, phys, slot] = torch.stack(ys_v).transpose(1, 2).to(
+        v_pages.dtype)
+    return h, k_pages, v_pages

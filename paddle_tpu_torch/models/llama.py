@@ -1,0 +1,200 @@
+"""Llama-2/3-style decoder-only LM as ``torch.nn`` modules.
+
+The counterpart of ``paddle_tpu/models/llama.py`` for the serving slice:
+the same parameter names and shapes (linear weights in PyTorch's
+``[out, in]``; ``models/convert.py`` transposes the JAX ``[in, out]``
+ones), attention through the flash dispatch, and logits from the shared
+f32 tail (``lm_head_tail``: final RMS norm and LM head in f32), which is
+what the serving engine computes too.
+"""
+
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+from typing import Optional
+
+import torch
+from torch import nn
+
+from ..core.device import make_generator, resolve_device
+from ..core.dtype import to_torch_dtype
+from ..nn.functional import RMSNorm, swiglu
+from ..ops.fused.flash_attention import flash_attention
+from ..ops.fused.rope import apply_rotary_position_embedding, build_rope_cache
+from .generation import lm_head_tail
+
+__all__ = ["LlamaConfig", "LLAMA_PRESETS", "LlamaForCausalLM", "LlamaModel"]
+
+
+@dataclass
+class LlamaConfig:
+    vocab_size: int = 32000
+    hidden_size: int = 4096
+    intermediate_size: int = 11008
+    num_hidden_layers: int = 32
+    num_attention_heads: int = 32
+    num_key_value_heads: Optional[int] = None
+    max_position_embeddings: int = 4096
+    rms_norm_eps: float = 1e-5
+    rope_theta: float = 10000.0
+    initializer_range: float = 0.02
+    dtype: str = "bfloat16"
+
+    def __post_init__(self):
+        if self.num_key_value_heads is None:
+            self.num_key_value_heads = self.num_attention_heads
+
+    @property
+    def head_dim(self) -> int:
+        return self.hidden_size // self.num_attention_heads
+
+    def num_params(self) -> int:
+        h, v, i = self.hidden_size, self.vocab_size, self.intermediate_size
+        kvh = self.num_key_value_heads * self.head_dim
+        per_layer = 2 * h * h + 2 * h * kvh + 3 * h * i + 2 * h
+        return 2 * v * h + self.num_hidden_layers * per_layer + h
+
+
+LLAMA_PRESETS = {
+    "llama2-7b": LlamaConfig(vocab_size=32000, hidden_size=4096,
+                             intermediate_size=11008, num_hidden_layers=32,
+                             num_attention_heads=32, num_key_value_heads=32),
+    "llama2-13b": LlamaConfig(vocab_size=32000, hidden_size=5120,
+                              intermediate_size=13824, num_hidden_layers=40,
+                              num_attention_heads=40, num_key_value_heads=40),
+    "llama2-70b": LlamaConfig(vocab_size=32000, hidden_size=8192,
+                              intermediate_size=28672, num_hidden_layers=80,
+                              num_attention_heads=64, num_key_value_heads=8),
+    "llama3-8b": LlamaConfig(vocab_size=128256, hidden_size=4096,
+                             intermediate_size=14336, num_hidden_layers=32,
+                             num_attention_heads=32, num_key_value_heads=8,
+                             rope_theta=500000.0,
+                             max_position_embeddings=8192),
+    "llama-tiny": LlamaConfig(vocab_size=2048, hidden_size=256,
+                              intermediate_size=688, num_hidden_layers=4,
+                              num_attention_heads=8, num_key_value_heads=4,
+                              max_position_embeddings=512),
+}
+
+
+class LlamaAttention(nn.Module):
+    def __init__(self, cfg: LlamaConfig, **dd):
+        super().__init__()
+        h, hd = cfg.hidden_size, cfg.head_dim
+        self.num_heads = cfg.num_attention_heads
+        self.num_kv_heads = cfg.num_key_value_heads
+        self.head_dim = hd
+        self.q_proj = nn.Linear(h, self.num_heads * hd, bias=False, **dd)
+        self.k_proj = nn.Linear(h, self.num_kv_heads * hd, bias=False, **dd)
+        self.v_proj = nn.Linear(h, self.num_kv_heads * hd, bias=False, **dd)
+        self.o_proj = nn.Linear(self.num_heads * hd, h, bias=False, **dd)
+
+    def forward(self, x, cos, sin):
+        b, s = x.shape[0], x.shape[1]
+        q = self.q_proj(x).view(b, s, self.num_heads, self.head_dim)
+        k = self.k_proj(x).view(b, s, self.num_kv_heads, self.head_dim)
+        v = self.v_proj(x).view(b, s, self.num_kv_heads, self.head_dim)
+        q = apply_rotary_position_embedding(q, cos, sin)
+        k = apply_rotary_position_embedding(k, cos, sin)
+        out = flash_attention(q, k, v, causal=True)
+        return self.o_proj(out.reshape(b, s, -1))
+
+
+class LlamaMLP(nn.Module):
+    def __init__(self, cfg: LlamaConfig, **dd):
+        super().__init__()
+        h, i = cfg.hidden_size, cfg.intermediate_size
+        self.gate_proj = nn.Linear(h, i, bias=False, **dd)
+        self.up_proj = nn.Linear(h, i, bias=False, **dd)
+        self.down_proj = nn.Linear(i, h, bias=False, **dd)
+
+    def forward(self, x):
+        return self.down_proj(swiglu(self.gate_proj(x), self.up_proj(x)))
+
+
+class LlamaDecoderLayer(nn.Module):
+    def __init__(self, cfg: LlamaConfig, **dd):
+        super().__init__()
+        self.input_layernorm = RMSNorm(cfg.hidden_size, cfg.rms_norm_eps, **dd)
+        self.self_attn = LlamaAttention(cfg, **dd)
+        self.post_attention_layernorm = RMSNorm(cfg.hidden_size,
+                                                cfg.rms_norm_eps, **dd)
+        self.mlp = LlamaMLP(cfg, **dd)
+
+    def forward(self, x, cos, sin):
+        x = x + self.self_attn(self.input_layernorm(x), cos, sin)
+        return x + self.mlp(self.post_attention_layernorm(x))
+
+
+class LlamaModel(nn.Module):
+    """Embedding and decoder layers. ``forward`` returns the hidden states
+    BEFORE the final norm: the f32 tail (``lm_head_tail``) applies it."""
+
+    def __init__(self, cfg: LlamaConfig, **dd):
+        super().__init__()
+        self.config = cfg
+        self.embed_tokens = nn.Embedding(cfg.vocab_size, cfg.hidden_size, **dd)
+        self.layers = nn.ModuleList(
+            [LlamaDecoderLayer(cfg, **dd)
+             for _ in range(cfg.num_hidden_layers)])
+        self.norm = RMSNorm(cfg.hidden_size, cfg.rms_norm_eps, **dd)
+        cos, sin = build_rope_cache(cfg.max_position_embeddings, cfg.head_dim,
+                                    cfg.rope_theta, device=dd["device"])
+        self.register_buffer("rope_cos", cos, persistent=False)
+        self.register_buffer("rope_sin", sin, persistent=False)
+
+    def forward(self, input_ids):
+        s = input_ids.shape[1]
+        if s > self.rope_cos.shape[0]:
+            raise ValueError(f"sequence {s} exceeds max_position_embeddings "
+                             f"{self.rope_cos.shape[0]}")
+        x = self.embed_tokens(input_ids)
+        cos, sin = self.rope_cos[:s], self.rope_sin[:s]
+        for layer in self.layers:
+            x = layer(x, cos, sin)
+        return x
+
+
+class LlamaForCausalLM(nn.Module):
+    """Causal LM over :class:`LlamaModel`, for serving: parameters do not
+    require grad. Weights are drawn on ``device`` (default ``cuda``) from a
+    ``torch.Generator`` seeded with ``seed``: normal with the config's
+    ``initializer_range`` (the output projections scaled by 1/sqrt(2L)),
+    RMS norm weights one."""
+
+    def __init__(self, config: LlamaConfig, device=None, seed: int = 0):
+        super().__init__()
+        self.config = config
+        dev = resolve_device(device)
+        dd = {"device": dev, "dtype": to_torch_dtype(config.dtype)}
+        self.model = LlamaModel(config, **dd)
+        self.lm_head = nn.Linear(config.hidden_size, config.vocab_size,
+                                 bias=False, **dd)
+        self.requires_grad_(False)
+        self._init_weights(make_generator(seed, dev))
+
+    @property
+    def device(self) -> torch.device:
+        return self.lm_head.weight.device
+
+    def _init_weights(self, gen: torch.Generator):
+        std = self.config.initializer_range
+        out_std = std / math.sqrt(2 * self.config.num_hidden_layers)
+        for name, p in self.named_parameters():
+            if name.endswith("norm.weight"):
+                p.fill_(1.0)
+            elif name.endswith(("o_proj.weight", "down_proj.weight")):
+                nn.init.normal_(p, 0.0, out_std, generator=gen)
+            else:
+                nn.init.normal_(p, 0.0, std, generator=gen)
+
+    def forward(self, input_ids: torch.Tensor) -> torch.Tensor:
+        """``input_ids [b, s]`` -> f32 logits ``[b, s, vocab]``."""
+        h = self.model(input_ids)
+        b, s, d = h.shape
+        logits = lm_head_tail(h.reshape(b * s, d), self.model.norm.weight,
+                              self.lm_head.weight.t(),
+                              self.config.rms_norm_eps)
+        return logits.view(b, s, -1)
+

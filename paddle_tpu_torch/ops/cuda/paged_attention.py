@@ -1,0 +1,138 @@
+"""Paged decode attention: the plain PyTorch version and the wrapper of the
+hand-written kernel (``csrc/paged_attention.cu``).
+
+Replaces the TPU kernel ``paddle_tpu/ops/pallas/paged_attention.py``
+``paged_attention_pallas`` (``pl.pallas_call`` at :580 with stats, :561
+without). Bounded on the H100 by the device-memory bytes of the K/V rows it
+reads; the kernel reads each valid row once and never touches a page past a
+row's length. CPU tensors take the plain version; CUDA tensors launch the
+kernel or raise.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+from typing import Optional
+
+import torch
+
+from . import _build
+
+__all__ = ["paged_attention", "paged_attention_reference", "NEG_INF",
+           "launches"]
+
+NEG_INF = -1e30
+
+#: kernel launches since the count was last set to 0
+launches = 0
+
+#: pages one CTA walks: a row of ``pps`` pages is split into
+#: ``ceil(pps / PAGES_PER_SPLIT)`` ranges processed in parallel
+PAGES_PER_SPLIT = 16
+
+_c_int, _ptr = ctypes.c_int, ctypes.c_void_p
+
+
+def paged_attention_reference(q, k_pages, v_pages, page_table, seq_lens,
+                              scale: Optional[float] = None,
+                              return_stats: bool = False):
+    """Gather the pages, mask, softmax, in f32. q ``[B, H, D]``; k/v pages
+    ``[KVH, P, page, D]``; page_table ``[B, PPS]``; seq_lens ``[B]``.
+    Returns out ``[B, H, D]`` in q's dtype and, with ``return_stats``,
+    ``(m, l)`` ``[B, H]`` f32: m the masked row max (``NEG_INF`` for an
+    empty row), l = Σ exp(s − m) over the valid columns."""
+    b, h, d = q.shape
+    kvh, _, page, _ = k_pages.shape
+    pps = page_table.shape[1]
+    group = h // kvh
+    scale = 1.0 / math.sqrt(d) if scale is None else float(scale)
+    table = page_table.long()
+    k = k_pages[:, table].transpose(0, 1).reshape(b, kvh, pps * page, d)
+    v = v_pages[:, table].transpose(0, 1).reshape(b, kvh, pps * page, d)
+    qg = q.reshape(b, kvh, group, d).float()
+    scores = torch.einsum("bkgd,bksd->bkgs", qg, k.float()) * scale
+    pos = torch.arange(pps * page, device=q.device)
+    mask = (pos[None, :] < seq_lens.long()[:, None])[:, None, None, :]
+    scores = torch.where(mask, scores, torch.full_like(scores, NEG_INF))
+    m = scores.amax(dim=-1)
+    ps = torch.where(mask, torch.exp(scores - m[..., None]),
+                     torch.zeros_like(scores))
+    l = ps.sum(dim=-1)
+    acc = torch.einsum("bkgs,bksd->bkgd", ps, v.float())
+    out = (acc / l.clamp_min(1e-30)[..., None]).reshape(b, h, d).to(q.dtype)
+    if not return_stats:
+        return out
+    return out, m.reshape(b, h), l.reshape(b, h)
+
+
+def _lib():
+    lib = _build.load("paged_attention")
+    if lib.ptt_paged_decode.argtypes is None:
+        lib.ptt_paged_decode.argtypes = [_ptr] * 11 + [_c_int] * 8 \
+            + [ctypes.c_float, _ptr]
+        lib.ptt_paged_decode.restype = _c_int
+    return lib
+
+
+def paged_attention(q, k_pages, v_pages, page_table, seq_lens,
+                    scale: Optional[float] = None,
+                    return_stats: bool = False):
+    """Decode attention over paged K/V: the kernel on CUDA tensors (bf16 q
+    and pages, int32 table and lens, all contiguous), the plain version on
+    CPU tensors. Same contract as :func:`paged_attention_reference`."""
+    global launches
+    if q.device.type == "cpu":
+        return paged_attention_reference(q, k_pages, v_pages, page_table,
+                                         seq_lens, scale, return_stats)
+    if q.device.type != "cuda":
+        raise ValueError(f"paged_attention: unsupported device {q.device}")
+    b, h, d = q.shape
+    if k_pages.dim() != 4 or k_pages.shape != v_pages.shape \
+            or k_pages.shape[3] != d:
+        raise ValueError(f"paged_attention: q {tuple(q.shape)} pages "
+                         f"{tuple(k_pages.shape)}/{tuple(v_pages.shape)} "
+                         f"disagree")
+    kvh, num_pages, page, _ = k_pages.shape
+    if h % kvh or h // kvh not in (1, 2, 4, 8) or d not in (64, 128):
+        raise ValueError(f"paged_attention: needs group h/kvh in "
+                         f"(1, 2, 4, 8) and d in (64, 128), got h={h} "
+                         f"kvh={kvh} d={d}")
+    if page_table.dim() != 2 or page_table.shape[0] != b \
+            or seq_lens.shape != (b,):
+        raise ValueError(f"paged_attention: page_table "
+                         f"{tuple(page_table.shape)} / seq_lens "
+                         f"{tuple(seq_lens.shape)} do not match batch {b}")
+    for name, t, dtype in (("q", q, torch.bfloat16),
+                           ("k_pages", k_pages, torch.bfloat16),
+                           ("v_pages", v_pages, torch.bfloat16),
+                           ("page_table", page_table, torch.int32),
+                           ("seq_lens", seq_lens, torch.int32)):
+        if t.dtype != dtype or t.device != q.device \
+                or not t.is_contiguous():
+            raise ValueError(f"paged_attention: {name} must be a contiguous "
+                             f"{dtype} tensor on {q.device}, got {t.dtype} "
+                             f"on {t.device}")
+    scale = 1.0 / math.sqrt(d) if scale is None else float(scale)
+    pps = page_table.shape[1]
+    splits = -(-pps // PAGES_PER_SPLIT)
+    f32 = dict(device=q.device, dtype=torch.float32)
+    out = torch.empty_like(q)
+    m = l = None
+    if return_stats:
+        m, l = torch.empty((b, h), **f32), torch.empty((b, h), **f32)
+    part_m = torch.empty((b, h, splits), **f32)
+    part_l = torch.empty((b, h, splits), **f32)
+    part_acc = torch.empty((b, h, splits, d), **f32)
+    lib = _lib()
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    rc = lib.ptt_paged_decode(
+        q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+        page_table.data_ptr(), seq_lens.data_ptr(), out.data_ptr(),
+        m.data_ptr() if return_stats else None,
+        l.data_ptr() if return_stats else None, part_m.data_ptr(),
+        part_l.data_ptr(), part_acc.data_ptr(), b, h, kvh, num_pages, page,
+        pps, PAGES_PER_SPLIT, d, scale, stream)
+    _build.check(lib, rc, "paged_attention")
+    launches += 1
+    return (out, m, l) if return_stats else out

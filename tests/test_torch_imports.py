@@ -1,0 +1,75 @@
+"""The port stands alone: it imports neither ``jax`` nor ``paddle_tpu``,
+and its entry points refuse to fall back to the CPU silently."""
+
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+from paddle_tpu_torch.serving import ServingConfig, ServingEngine
+
+ROOT = Path(__file__).resolve().parents[1]
+FORBIDDEN = ("jax", "jaxlib", "paddle_tpu")
+
+TINY = LlamaConfig(vocab_size=64, hidden_size=32, intermediate_size=48,
+                   num_hidden_layers=1, num_attention_heads=4,
+                   num_key_value_heads=2, max_position_embeddings=32,
+                   dtype="float32")
+
+
+def _forbidden(module: str) -> bool:
+    # paddle_tpu_torch shares the prefix and is allowed
+    return any(module == f or module.startswith(f + ".") for f in FORBIDDEN)
+
+
+def _port_files():
+    files = sorted((ROOT / "paddle_tpu_torch").rglob("*.py"))
+    return files + [ROOT / "chip_smoke.py"]
+
+
+def test_no_forbidden_imports_in_source():
+    bad = []
+    for path in _port_files():
+        for node in ast.walk(ast.parse(path.read_text(), str(path))):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                names = [node.module or ""]
+            else:
+                continue
+            bad += [f"{path.relative_to(ROOT)}:{node.lineno} {n}"
+                    for n in names if _forbidden(n)]
+    assert not bad, bad
+
+
+def test_import_leaves_jax_and_paddle_tpu_unloaded():
+    code = (
+        "import sys, pkgutil, importlib, paddle_tpu_torch\n"
+        "for m in pkgutil.walk_packages(paddle_tpu_torch.__path__,\n"
+        "                               'paddle_tpu_torch.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "print(' '.join(sorted(m for m in sys.modules\n"
+        "               if m.split('.')[0] in %r)))\n" % (FORBIDDEN,))
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == ""
+
+
+def test_entry_points_raise_without_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        LlamaForCausalLM(TINY)
+    model = LlamaForCausalLM(TINY, device="cpu")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ServingEngine(model, ServingConfig(max_seq_len=32), device="cuda")
+    eng = ServingEngine(model, ServingConfig(max_seq_len=32, block_size=8))
+    assert eng.device.type == "cpu"
+    assert len(eng.generate_batch([np.arange(5)], max_new_tokens=3)[0]) == 3

@@ -1,0 +1,143 @@
+"""The port's fused transformer and Llama model against the JAX package on
+the CPU, in f32, with the JAX model's weights loaded into the port through
+``load_paddle_tpu_state``.
+
+Tolerances: hidden states and caches 2e-5 absolute, whole-model logits
+1e-4 absolute (f32 sums in another order across the layers).
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import paddle_tpu as paddle
+from paddle_tpu.incubate.nn.functional.fused_transformer import (
+    fused_multi_transformer as jax_fmt,
+    fused_multi_transformer_paged_ragged as jax_fmt_paged,
+    fused_weights_from_llama as jax_fused_weights)
+from paddle_tpu.models import LlamaConfig as JaxLlamaConfig
+from paddle_tpu.models import LlamaForCausalLM as JaxLlama
+from paddle_tpu.ops.fused.rope import build_rope_cache as jax_rope_cache
+from paddle_tpu_torch.incubate.nn.functional import (
+    fused_multi_transformer, fused_multi_transformer_paged_ragged,
+    fused_weights_from_llama)
+from paddle_tpu_torch.models import (LlamaConfig, LlamaForCausalLM,
+                                     load_paddle_tpu_state)
+from paddle_tpu_torch.ops.fused.rope import build_rope_cache
+
+torch.set_num_threads(2)
+
+TINY = dict(vocab_size=256, hidden_size=64, intermediate_size=176,
+            num_hidden_layers=2, num_attention_heads=4,
+            num_key_value_heads=2, max_position_embeddings=64,
+            dtype="float32")
+HQ, HK, DH, L = 4, 2, 16, 2
+EPS = 1e-5
+
+
+def state_numpy(jax_model):
+    return {k: np.asarray(v.numpy()) for k, v in
+            jax_model.state_dict().items()}
+
+
+def make_pair(seed):
+    """A JAX tiny Llama and the port's copy of it (CPU)."""
+    paddle.seed(seed)
+    jm = JaxLlama(JaxLlamaConfig(**TINY))
+    jm.eval()
+    tm = LlamaForCausalLM(LlamaConfig(**TINY), device="cpu")
+    load_paddle_tpu_state(tm, state_numpy(jm))
+    return jm, tm
+
+
+@pytest.fixture(scope="module")
+def pair():
+    return make_pair(5)
+
+
+@pytest.mark.parametrize("s,offset", [(16, 0), (16, 11), (4, 9)])
+def test_fused_multi_transformer_matches_jax(pair, s, offset):
+    """s = 16 runs the flash branch (causal, q_offset = offset); s = 4 the
+    dense s <= 8 branch."""
+    jm, tm = pair
+    rng = np.random.RandomState(4)
+    s_max = 48
+    x = rng.standard_normal((2, s, 64)).astype(np.float32)
+    ck = np.zeros((L, 2, s_max, HK, DH), np.float32)
+    cv = np.zeros_like(ck)
+    ck[:, :, :offset] = rng.standard_normal((L, 2, offset, HK, DH))
+    cv[:, :, :offset] = rng.standard_normal((L, 2, offset, HK, DH))
+    cos, sin = build_rope_cache(s_max, DH)
+    jcos, jsin = jax_rope_cache(s_max, DH)
+    h, nk, nv = fused_multi_transformer(
+        torch.from_numpy(x), fused_weights_from_llama(tm),
+        torch.from_numpy(ck.copy()), torch.from_numpy(cv.copy()), offset,
+        cos[offset:offset + s], sin[offset:offset + s], HQ, HK, EPS)
+    jh, jk, jv = jax_fmt(jnp.asarray(x), jax_fused_weights(jm),
+                         jnp.asarray(ck), jnp.asarray(cv), offset,
+                         jcos[offset:offset + s], jsin[offset:offset + s],
+                         HQ, HK, EPS)
+    np.testing.assert_allclose(h.numpy(), np.asarray(jh), atol=2e-5)
+    np.testing.assert_allclose(nk.numpy(), np.asarray(jk), atol=2e-5)
+    np.testing.assert_allclose(nv.numpy(), np.asarray(jv), atol=2e-5)
+
+
+def test_paged_ragged_decode_matches_jax(pair):
+    """Per-row tables and lengths, including an idle row (len 0, null
+    table) and a row whose token lands on a page boundary."""
+    jm, tm = pair
+    rng = np.random.RandomState(6)
+    page, pps, blocks = 8, 4, 14
+    lens = np.array([5, 0, 16, 23], np.int32)
+    table = np.zeros((4, pps), np.int32)
+    ids = list(rng.permutation(np.arange(1, blocks)))
+    for i, n in enumerate(lens):
+        for j in range(n // page + 1 if n else 0):
+            table[i, j] = ids.pop()
+    kp = rng.standard_normal((L, HK, blocks, page, DH)).astype(np.float32)
+    vp = rng.standard_normal((L, HK, blocks, page, DH)).astype(np.float32)
+    x = rng.standard_normal((4, 1, 64)).astype(np.float32)
+    cos, sin = build_rope_cache(64, DH)
+    jcos, jsin = jax_rope_cache(64, DH)
+    h, nk, nv = fused_multi_transformer_paged_ragged(
+        torch.from_numpy(x), fused_weights_from_llama(tm),
+        torch.from_numpy(kp.copy()), torch.from_numpy(vp.copy()),
+        torch.from_numpy(table), torch.from_numpy(lens),
+        cos[lens][:, None], sin[lens][:, None], HQ, HK, EPS)
+    jh, jk, jv = jax_fmt_paged(
+        jnp.asarray(x), jax_fused_weights(jm), jnp.asarray(kp),
+        jnp.asarray(vp), jnp.asarray(table), jnp.asarray(lens),
+        jcos[lens][:, None], jsin[lens][:, None], HQ, HK, EPS,
+        interpret=True)
+    live = lens > 0        # an idle row's output is garbage the engine drops
+    np.testing.assert_allclose(h.numpy()[live], np.asarray(jh)[live],
+                               atol=2e-5)
+    # the commit: every live row's k/v landed at (table[len // page],
+    # len % page) and nothing else moved (block 0 takes the idle row)
+    np.testing.assert_allclose(nk.numpy()[:, :, 1:], np.asarray(jk)[:, :, 1:],
+                               atol=2e-5)
+    np.testing.assert_allclose(nv.numpy()[:, :, 1:], np.asarray(jv)[:, :, 1:],
+                               atol=2e-5)
+    assert not np.array_equal(nk.numpy(), kp)
+
+
+def test_llama_logits_match_jax(pair):
+    jm, tm = pair
+    ids = np.random.RandomState(7).randint(0, 256, (2, 24))
+    ours = tm(torch.from_numpy(ids)).numpy()
+    ref = np.asarray(jm(paddle.to_tensor(ids)).numpy())
+    assert ours.shape == ref.shape == (2, 24, 256)
+    np.testing.assert_allclose(ours, ref, atol=1e-4)
+
+
+def test_load_state_rejects_mismatch(pair):
+    jm, tm = pair
+    state = state_numpy(jm)
+    state.pop("lm_head.weight")
+    with pytest.raises(KeyError, match="lm_head.weight"):
+        load_paddle_tpu_state(tm, state)
+    state = state_numpy(jm)
+    state["model.norm.weight"] = state["model.norm.weight"][:-1]
+    with pytest.raises(ValueError, match="model.norm.weight"):
+        load_paddle_tpu_state(tm, state)

@@ -1,0 +1,109 @@
+"""Token parity of the whole slice: the port's ``ServingEngine`` on the CPU
+against the JAX ``ServingEngine`` (``interpret=True``, prefix cache off) on
+the same tiny f32 Llama. Greedy tokens must match exactly, including a
+prompt longer than ``prefill_token_budget`` (chunked prefill) and a pool
+small enough to force a preemption. The JAX engine's trace counts are not
+asserted here.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import paddle_tpu as paddle
+from paddle_tpu.models import LlamaConfig as JaxLlamaConfig
+from paddle_tpu.models import LlamaForCausalLM as JaxLlama
+from paddle_tpu.serving import ServingConfig as JaxServingConfig
+from paddle_tpu.serving import ServingEngine as JaxServingEngine
+from paddle_tpu_torch.models import (LlamaConfig, LlamaForCausalLM,
+                                     load_paddle_tpu_state)
+from paddle_tpu_torch.serving import ServingConfig, ServingEngine
+
+torch.set_num_threads(2)
+
+TINY = dict(vocab_size=256, hidden_size=64, intermediate_size=176,
+            num_hidden_layers=2, num_attention_heads=4,
+            num_key_value_heads=2, max_position_embeddings=64,
+            dtype="float32")
+
+
+@pytest.fixture(scope="module")
+def models():
+    paddle.seed(21)
+    jm = JaxLlama(JaxLlamaConfig(**TINY))
+    jm.eval()
+    tm = LlamaForCausalLM(LlamaConfig(**TINY), device="cpu")
+    load_paddle_tpu_state(tm, {k: np.asarray(v.numpy())
+                               for k, v in jm.state_dict().items()})
+    return jm, tm
+
+
+def _run(engine, prompts, max_new):
+    reqs = [engine.submit(p, max_new, rid=f"r{i}")
+            for i, p in enumerate(prompts)]
+    engine.run_until_complete()
+    return reqs
+
+
+# name -> (engine kwargs, prompt lengths, max_new_tokens)
+SCENARIOS = {
+    # the 41-token prompt exceeds the 16-token budget: 3 chunks
+    "chunked": (dict(max_batch=4, prefill_token_budget=16),
+                [5, 41, 13, 9], 12),
+    # 4 usable blocks of 8; two requests grow to 4 blocks each
+    "preemption": (dict(max_batch=4, num_blocks=5), [15, 15], 12),
+}
+
+
+@pytest.mark.parametrize("name", sorted(SCENARIOS))
+def test_engine_tokens_match_jax(models, name):
+    jm, tm = models
+    kw, lens, max_new = SCENARIOS[name]
+    base = dict(max_seq_len=64, block_size=8, prefill_buckets=(16,), **kw)
+    rng = np.random.RandomState(len(name))
+    prompts = [rng.randint(0, 256, (n,)).astype(np.int32) for n in lens]
+    ref = _run(JaxServingEngine(jm, JaxServingConfig(
+        interpret=True, prefix_cache=False, **base)), prompts, max_new)
+    eng = ServingEngine(tm, ServingConfig(**base))
+    ours = _run(eng, prompts, max_new)
+    for r, o in zip(ref, ours):
+        assert o.status == r.status == "finished"
+        assert o.tokens == r.tokens, (o.rid, o.tokens, r.tokens)
+        assert o.preemptions == r.preemptions
+        assert o.prefill_chunks == r.prefill_chunks
+    s = eng.drain()
+    assert s["pool"]["free_blocks"] == s["pool"]["num_blocks"]
+    if name == "preemption":
+        assert s["preemptions"] >= 1
+    else:
+        assert max(r.prefill_chunks for r in ours) == 3
+
+
+def test_stream_and_dense_forward_agree(models):
+    """The streamed tokens are the dense forward's greedy argmax,
+    teacher-forced (what chip_smoke.py checks on the card)."""
+    _, tm = models
+    eng = ServingEngine(tm, ServingConfig(max_seq_len=64, block_size=8))
+    prompt = np.arange(3, 22, dtype=np.int32)
+    toks = list(eng.stream(eng.submit(prompt, 8)))
+    logits = tm(torch.tensor(np.concatenate([prompt, toks])[None]))
+    assert logits[0, len(prompt) - 1:-1].argmax(-1).tolist() == toks
+    s = eng.stats()
+    assert s["latency"]["finished"] == 1 and s["decode_steps"] == 7
+
+
+@pytest.mark.parametrize("field,value", [
+    ("speculative", (None, 2)), ("quantize", "int8"),
+    ("kv_cache_dtype", "int8"), ("prefix_cache", True)])
+def test_unported_features_raise(field, value):
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        ServingConfig(**{field: value}).resolve()
+
+
+def test_config_defaults_match_jax():
+    c = ServingConfig().resolve()
+    j = JaxServingConfig(interpret=True).resolve()
+    for f in ("block_size", "max_batch", "prefill_token_budget",
+              "prefill_buckets", "preemption", "max_seq_len"):
+        assert getattr(c, f) == getattr(j, f), f
+    assert c.prefix_cache is False
