@@ -11,22 +11,37 @@ Phases, each of which fails the run (non-zero exit, no result line):
 2. build: compiles every ``paddle_tpu_torch/csrc/*.cu`` with nvcc (one
    process per source, in parallel) into ``build/paddle_tpu_torch/``;
 3. kernels: each hand-written kernel against its plain PyTorch version on
-   the card at the serving path's shapes (bf16 out: max abs <= 2e-2;
-   paged m, l: |diff| <= 1e-3 * max(|ref|, 1)), with its time, its bound
-   (H100 SXM: 3.35 TB/s HBM, 989 TFLOP/s bf16 dense), the plain version's
-   time and a library yardstick (``scaled_dot_product_attention``, timed
-   here only, never called by the port);
-4. slice: Llama-3-8B at full width and depth (random weights from a seeded
-   generator, drawn on the card) behind ``ServingEngine(max_seq_len=2048)``
-   serves 8 requests of 32 new tokens; checks the tokens, the kernels'
-   launch counts (L x prefill chunks, L x decode steps), a clean drain, and
-   teacher-forced agreement with the dense forward.
+   the card at its path's shapes (bf16 out: max abs <= 2e-2; paged m, l
+   and flash lse: |diff| <= 1e-3 * max(|ref|, 1); flash backward dq, dk,
+   dv: max |diff| <= 2e-2 * max |ref|; fused AdamW p, m, v: max |diff| <=
+   1e-6 * max(|ref|, 1)), with its time, its bound (H100 SXM: 3.35 TB/s
+   HBM, 989 TFLOP/s bf16 dense), the plain version's time and a library
+   yardstick (``scaled_dot_product_attention`` forward or backward,
+   ``torch.optim.AdamW(fused=True)``; timed here only, never called by the
+   port);
+4. serving: Llama-3-8B at full width and depth (random weights from a
+   seeded generator, drawn on the card) behind
+   ``ServingEngine(max_seq_len=2048)`` serves 8 requests of 32 new tokens;
+   checks the tokens, the kernels' launch counts (L x prefill chunks, L x
+   decode steps), a clean drain, and teacher-forced agreement with the
+   dense forward;
+5. where a decode step's time goes (host clock, ``torch.profiler``);
+6. training: the Llama-2-7B widths (``bench.py``'s 7B proxy: vocab 32000,
+   hidden 4096, intermediate 11008, 32 heads, bf16, fused loss) at 4
+   layers, batch 2 x 2048 seeded tokens, 10 ``TrainStep`` steps with AdamW
+   (lr 3e-4, weight decay 0.1, bf16 moments) and clip 1.0; checks finite,
+   falling losses and L flash forward + L flash backward launches per
+   step; times the step at 4 and 2 layers and profiles one;
+7. eager: the same model rebuilt, 5 steps of ``loss.backward();
+   FusedAdamW.step()``; checks falling losses and one fused AdamW launch
+   per step.
 
 The last lines are the kernels' JSON, the card's name and power limit, and
 ``{"ok": true, "device": {...}}``.
 """
 
 import argparse
+import gc
 import json
 import math
 import os
@@ -37,11 +52,15 @@ import time
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM, NVIDIA data sheet
 BF16_FLOP_PER_S = 989e12         # dense tensor-core bf16
 OUT_ATOL = 2e-2                  # bf16 outputs vs the f32 plain version
-STATS_RTOL = 1e-3                # paged (m, l) vs the plain version
+STATS_RTOL = 1e-3                # paged (m, l), flash lse vs the plain version
+BWD_RTOL = 2e-2                  # flash dq/dk/dv: max |diff| / max |plain| (bf16)
+ADAMW_TOL = 1e-6                 # fused AdamW: max |diff| / max(|plain|, 1)
 AGREE_MIN = 0.90                 # teacher-forced greedy agreement (bf16 ties)
 LOGITS_REL_L2 = 0.1              # first-token logits, engine vs dense
 PROMPT_LENS = (17, 64, 200, 333, 511, 700, 1024, 1500)
 NEW_TOKENS = 32
+TRAIN_BATCH, TRAIN_SEQ = 2, 2048
+TRAIN_STEPS, EAGER_STEPS = 10, 5
 
 
 class SmokeFailure(Exception):
@@ -263,7 +282,148 @@ def phase_kernels(torch, gen, flush):
     rows["paged_attention"] = dict(ms=ms, plain_ms=plain, bound_ms=b_ms,
                                    bound_by=b_by, library_ms=None,
                                    max_abs_err=err)
+    del kp, vp, q, out, m, l, rout, rm, rl
+    rows["flash_attention_bwd"] = check_flash_backward(torch, gen, flush)
+    torch.cuda.empty_cache()
+    rows["fused_adamw"] = check_fused_adamw(torch, gen)
+    torch.cuda.empty_cache()
     return rows
+
+
+def check_flash_backward(torch, gen, flush):
+    """The forward's lse and the backward against their plain versions: the
+    slice's shape (timed), Llama-3-8B's GQA heads, a ragged tile with
+    ``q_offset`` and ``kv_len``, head_dim 64 (non-causal and causal GQA),
+    and rows that see no column."""
+    import torch.nn.functional as F
+
+    from paddle_tpu_torch.ops.cuda.flash_attention import (
+        flash_attention_bwd_cuda, flash_attention_cuda)
+    from paddle_tpu_torch.ops.fused.flash_attention import (
+        flash_attn_bwd_reference, flash_attn_reference)
+
+    dev, row, err_max = "cuda", None, 0.0
+    # (label, b, sq, sk, hq, hk, d, causal, q_offset, kv_len, timed)
+    cases = [("slice b=2 S=2048 heads 32/32 d=128", TRAIN_BATCH, TRAIN_SEQ,
+              TRAIN_SEQ, 32, 32, 128, True, 0, TRAIN_SEQ, True),
+             ("GQA S=2048 heads 32/8", 1, 2048, 2048, 32, 8, 128, True, 0,
+              2048, False),
+             ("ragged sq=49 q_offset=21 kv_len=70", 2, 49, 96, 32, 8, 128,
+              True, 21, 70, False),
+             ("d=64 non-causal kv_len=100", 2, 100, 128, 8, 2, 64, False, 0,
+              100, False),
+             ("d=64 causal S=512 heads 16/4", 2, 512, 512, 16, 4, 64, True,
+              0, 512, False),
+             ("rows 0-15 see nothing (q_offset=-16)", 1, 80, 64, 8, 8, 128,
+              True, -16, 64, False)]
+    for label, b, sq, sk, hq, hk, d, causal, off, kv_len, timed in cases:
+        scale = d ** -0.5
+        q = torch.randn(b, sq, hq, d, generator=gen, device=dev).bfloat16()
+        k = torch.randn(b, sk, hk, d, generator=gen, device=dev).bfloat16()
+        v = torch.randn(b, sk, hk, d, generator=gen, device=dev).bfloat16()
+        do = torch.randn(b, sq, hq, d, generator=gen, device=dev).bfloat16()
+        fwd = lambda: flash_attention_cuda(  # noqa: E731
+            q, k, v, causal, scale, off, kv_len, return_lse=True)
+        bwd = lambda: flash_attention_bwd_cuda(  # noqa: E731
+            q, k, v, out, lse, do, causal, scale, off, kv_len)
+        plain_bwd = lambda: flash_attn_bwd_reference(  # noqa: E731
+            q, k, v, out, lse, do, causal, scale, kv_len, off)
+        out, lse = fwd()
+        rout, rlse = flash_attn_reference(q, k, v, causal, scale, kv_len, off,
+                                          return_lse=True)
+        torch.cuda.synchronize()
+        err = (out.float() - rout.float()).abs().max().item()
+        check(math.isfinite(err) and err <= OUT_ATOL,
+              f"flash fwd {label}: max |kernel - plain| = {err:.3e} <= "
+              f"{OUT_ATOL}")
+        rel = ((lse - rlse).abs() / rlse.abs().clamp_min(1.0)).max().item()
+        check(rel <= STATS_RTOL, f"flash fwd {label} lse: max |diff| / "
+                                 f"max(|ref|, 1) = {rel:.3e} <= {STATS_RTOL}")
+        del rout, rlse
+        grads, refs = bwd(), plain_bwd()
+        torch.cuda.synchronize()
+        for name, g, r in zip(("dq", "dk", "dv"), grads, refs):
+            diff = (g.float() - r.float()).abs().max().item()
+            peak = r.float().abs().max().item()
+            check(math.isfinite(diff) and diff <= BWD_RTOL * peak,
+                  f"flash bwd {label} {name}: max |kernel - plain| = "
+                  f"{diff:.3e} = {diff / peak:.3e} of max |plain| <= "
+                  f"{BWD_RTOL}")
+            err_max = max(err_max, diff)
+        del grads, refs
+        if timed:
+            fwd_ms = time_ms(torch, fwd, flush=flush)
+            ms = time_ms(torch, bwd, flush=flush)
+            plain = time_ms(torch, plain_bwd, reps=3, flush=flush)
+            qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
+                          for t in (q, k, v))
+            sdpa_out = F.scaled_dot_product_attention(qt, kt, vt,
+                                                      is_causal=causal)
+            dot = do.transpose(1, 2)
+            lib = time_ms(torch, lambda: torch.autograd.grad(
+                sdpa_out, (qt, kt, vt), dot, retain_graph=True), flush=flush)
+            del qt, kt, vt, sdpa_out
+            pairs = b * sum(min(kv_len, off + r + 1) for r in range(sq))
+            flops = 10 * d * hq * pairs          # 5 products, 2.5 x forward
+            nbytes = (2 * b * (3 * sq * hq * d + 2 * sk * hk * d)  # q,o,dO,k,v
+                      + 4 * b * hq * sq                            # lse
+                      + 2 * b * (sq * hq * d + 2 * sk * hk * d))   # dq,dk,dv
+            b_ms, b_by = bound(flops, nbytes)
+            print(f"  flash bwd {label}: {ms:.4f} ms (bound {b_ms:.4f} ms by "
+                  f"{b_by}, {b_ms / ms:.1%} of it), plain {plain:.3f} ms, "
+                  f"sdpa backward {lib:.4f} ms; the forward with lse "
+                  f"{fwd_ms:.4f} ms")
+            row = dict(ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
+                       library_ms=lib)
+        del q, k, v, do, out, lse
+    row["max_abs_err"] = err_max
+    return row
+
+
+def check_fused_adamw(torch, gen):
+    """The fused AdamW kernel against its plain version at the slice's
+    parameter count and at an unaligned n = 1000."""
+    from paddle_tpu_torch.ops.cuda.fused_adamw import (fused_adamw,
+                                                       fused_adamw_reference)
+
+    dev, hyper, step = "cuda", (3e-4, 0.9, 0.95, 1e-8, 0.1), 10
+    row, err_max = None, 0.0
+    for n in (train_config(4).num_params(), 1000):
+        p = torch.randn(n, generator=gen, device=dev)
+        g = torch.randn(n, generator=gen, device=dev) * 1e-2
+        m = torch.randn(n, generator=gen, device=dev) * 1e-3
+        v = torch.rand(n, generator=gen, device=dev) * 1e-5
+        refs = fused_adamw_reference(p, g, m, v, *hyper, step)
+        fused_adamw(p, g, m, v, *hyper, step)
+        torch.cuda.synchronize()
+        for name, a, r in zip(("p", "m", "v"), (p, m, v), refs):
+            err = (a - r).abs().max().item()
+            tol = ADAMW_TOL * max(r.abs().max().item(), 1.0)
+            check(math.isfinite(err) and err <= tol,
+                  f"fused_adamw n={n} {name}: max |kernel - plain| = "
+                  f"{err:.3e} <= {tol:.3e}")
+            err_max = max(err_max, err)
+        del refs
+        if row is None:
+            ms = time_ms(torch, lambda: fused_adamw(p, g, m, v, *hyper, step))
+            plain = time_ms(torch, lambda: fused_adamw_reference(
+                p, g, m, v, *hyper, step), reps=3)
+            param = torch.nn.Parameter(p)
+            param.grad = g
+            opt = torch.optim.AdamW([param], lr=hyper[0],
+                                    betas=hyper[1:3], eps=hyper[3],
+                                    weight_decay=hyper[4], fused=True)
+            lib = time_ms(torch, opt.step)
+            del opt, param
+            b_ms, b_by = bound(15 * n, 28 * n)
+            print(f"  fused_adamw n={n}: {ms:.4f} ms (bound {b_ms:.4f} ms by "
+                  f"{b_by}, {b_ms / ms:.1%} of it), plain {plain:.3f} ms, "
+                  f"torch.optim.AdamW(fused=True) {lib:.4f} ms")
+            row = dict(ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
+                       library_ms=lib)
+        del p, g, m, v
+    row["max_abs_err"] = err_max
+    return row
 
 
 def phase_slice(torch, seed):
@@ -272,8 +432,6 @@ def phase_slice(torch, seed):
 
     from paddle_tpu_torch.core.device import make_generator
     from paddle_tpu_torch.models import LLAMA_PRESETS, LlamaForCausalLM
-    from paddle_tpu_torch.ops.cuda import flash_attention as fa
-    from paddle_tpu_torch.ops.cuda import paged_attention as pa
     from paddle_tpu_torch.serving import ServingConfig, ServingEngine
 
     cfg = LLAMA_PRESETS["llama3-8b"]
@@ -293,14 +451,14 @@ def phase_slice(torch, seed):
     rng = np.random.RandomState(seed)
     prompts = [rng.randint(0, cfg.vocab_size, (n,)).astype(np.int32)
                for n in PROMPT_LENS]
-    fa.launches = 0
-    pa.launches = 0
+    reset_counts()
     t0 = time.perf_counter()
     reqs = [engine.submit(p, NEW_TOKENS) for p in prompts]
     engine.run_until_complete()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    flash_n, paged_n = fa.launches, pa.launches
+    counts = read_counts()
+    flash_n, paged_n = counts["flash_attention"], counts["paged_attention"]
     s = engine.stats()
 
     for r in reqs:
@@ -446,6 +604,224 @@ def profile_decode(torch, engine, vocab, seed, steps=8):
         print(f"    {ms:8.3f} ms  {name[:100]}")
 
 
+def train_config(layers):
+    """``bench.py``'s Llama-2-7B proxy widths at ``layers`` layers."""
+    from paddle_tpu_torch.models import LlamaConfig
+
+    return LlamaConfig(vocab_size=32000, hidden_size=4096,
+                       intermediate_size=11008, num_hidden_layers=layers,
+                       num_attention_heads=32, num_key_value_heads=32,
+                       max_position_embeddings=TRAIN_SEQ, dtype="bfloat16",
+                       fused_loss=True)
+
+
+def train_tokens(torch, seed):
+    import numpy as np
+
+    ids = np.random.RandomState(seed).randint(0, 32000,
+                                              (TRAIN_BATCH, TRAIN_SEQ))
+    return torch.from_numpy(ids).cuda()
+
+
+def reset_counts():
+    from paddle_tpu_torch.ops.cuda import fused_adamw as fw
+    from paddle_tpu_torch.ops.cuda import flash_attention as fa
+    from paddle_tpu_torch.ops.cuda import paged_attention as pa
+
+    fa.launches = fa.bwd_launches = pa.launches = fw.launches = 0
+
+
+def read_counts():
+    from paddle_tpu_torch.ops.cuda import fused_adamw as fw
+    from paddle_tpu_torch.ops.cuda import flash_attention as fa
+    from paddle_tpu_torch.ops.cuda import paged_attention as pa
+
+    return {"flash_attention": fa.launches,
+            "flash_attention_bwd": fa.bwd_launches,
+            "paged_attention": pa.launches, "fused_adamw": fw.launches}
+
+
+def check_losses(losses, what):
+    print(f"  {what} losses: {[round(x, 4) for x in losses]}")
+    check(all(math.isfinite(x) for x in losses)
+          and losses[-1] < losses[0] - 0.1,
+          f"{what}: losses finite, last {losses[-1]:.4f} < first "
+          f"{losses[0]:.4f} - 0.1")
+
+
+def free_cuda(torch):
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def run_train_steps(torch, layers, steps, seed):
+    """A fresh model of ``layers`` layers and ``steps`` TrainStep calls;
+    returns the model, the step, the losses and each step's host ms."""
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.models import LlamaForCausalLM
+    from paddle_tpu_torch.optimizer import AdamW
+
+    model = LlamaForCausalLM(train_config(layers), seed=seed)
+    step = TrainStep(model, None, AdamW(
+        learning_rate=3e-4, weight_decay=0.1, moment_dtype="bfloat16",
+        parameters=model.parameters()), clip_norm=1.0)
+    ids = train_tokens(torch, seed)
+    torch.cuda.synchronize()
+    losses, times = [], []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        losses.append(step(ids, ids).item())
+        times.append((time.perf_counter() - t0) * 1e3)
+    return model, step, ids, losses, times
+
+
+def phase_train(torch, seed):
+    print("== phase 6: training the Llama-2-7B widths with TrainStep + AdamW")
+    L = 4
+    cfg = train_config(L)
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    model, step, ids, losses, times = run_train_steps(torch, L, TRAIN_STEPS,
+                                                      seed)
+    n = read_counts()
+    print(f"  model: {cfg.num_params() / 1e9:.3f} B params, {L} layers, "
+          f"batch {TRAIN_BATCH} x {TRAIN_SEQ}; step host ms "
+          f"{[round(t, 1) for t in times]}")
+    check_losses(losses, f"TrainStep x {TRAIN_STEPS}")
+    # a fixed batch is memorised within a few steps; a fresh batch must
+    # stay near ln(vocab), or attention saw the tokens it predicts
+    with torch.no_grad():
+        fresh = train_tokens(torch, seed + 1)
+        held = model(fresh, labels=fresh)[0].item()
+    check(math.isfinite(held) and held > 0.5 * math.log(cfg.vocab_size),
+          f"loss on a fresh batch {held:.3f} > ln(vocab) / 2 = "
+          f"{0.5 * math.log(cfg.vocab_size):.3f} (no causal leak)")
+    check(n["flash_attention"] == L * TRAIN_STEPS
+          and n["flash_attention_bwd"] == L * TRAIN_STEPS
+          and n["paged_attention"] == 0 and n["fused_adamw"] == 0,
+          f"launches over {TRAIN_STEPS} steps: flash fwd "
+          f"{n['flash_attention']}, flash bwd {n['flash_attention_bwd']} "
+          f"(L x steps = {L * TRAIN_STEPS} each), paged "
+          f"{n['paged_attention']}, fused_adamw {n['fused_adamw']} (0 each)")
+    step_ms4 = sum(times[2:]) / len(times[2:])
+    profile_train_step(torch, step, ids, step_ms4)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"  peak device memory {peak:.1f} GiB")
+    del model, step
+    free_cuda(torch)
+    _, _, _, _, times2 = run_train_steps(torch, 2, 4, seed)
+    free_cuda(torch)
+    step_ms2 = sum(times2[2:]) / len(times2[2:])
+    per_layer = (step_ms4 - step_ms2) / 2
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    tps = tokens / (step_ms4 / 1e3)
+    # bench.py:56-59: 6 N + the causal attention term, per token
+    flops_tok = 6 * cfg.num_params() + 12 * L * TRAIN_SEQ \
+        * cfg.hidden_size * 0.5
+    mfu = flops_tok * tps / BF16_FLOP_PER_S
+    print(f"  step host ms: {step_ms4:.1f} at 4 layers, {step_ms2:.1f} at 2 "
+          f"layers: {per_layer:.1f} ms per layer, "
+          f"{step_ms2 - 2 * per_layer:.1f} ms of embedding, head, loss and "
+          f"update; {tps:.0f} tokens/s, model-FLOP share {mfu:.1%} of "
+          f"989 TFLOP/s at 4 layers on {smi()}")
+    return n
+
+
+def profile_train_step(torch, step, ids, step_ms):
+    """One TrainStep under ``torch.profiler``: device ms by group and the
+    device's idle share of the unprofiled step."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    opt = step._opt
+    apply = opt.apply_gradients
+
+    def traced(*args, **kw):
+        with record_function("ptt::apply_gradients"):
+            return apply(*args, **kw)
+
+    opt.apply_gradients = traced
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        step(ids, ids).item()
+    del opt.apply_gradients
+    # the annotation shows up as a device range too: its span is the
+    # optimizer's device time, and it is no kernel
+    kernels, adamw = {}, 0.0
+    for e in prof.key_averages():
+        t = getattr(e, "self_device_time_total", 0.0)
+        if e.key == "ptt::apply_gradients":
+            adamw = max(adamw, t / 1e3)
+        elif t > 0 and e.device_type.name == "CUDA":
+            kernels[e.key] = kernels.get(e.key, 0.0) + t / 1e3
+    busy = sum(kernels.values())
+    if busy == 0:
+        print(f"  train step {step_ms:.1f} ms on the host clock; the profiler "
+              f"recorded no device time (device breakdown not measured)")
+        return
+    groups = {"flash fwd": ("flash_fwd",), "flash bwd": ("flash_bwd",),
+              "matmul": ("gemm", "gemv", "nvjet", "cutlass", "xmma")}
+    by_group = dict.fromkeys(groups, 0.0)
+    rest = 0.0
+    for name, ms in kernels.items():
+        low = name.lower()
+        group = next((g for g, keys in groups.items()
+                      if any(k in low for k in keys)), None)
+        if group is None:
+            rest += ms
+        else:
+            by_group[group] += ms
+    if 0 < adamw <= rest:
+        by_group["AdamW elementwise (its device span)"] = adamw
+        by_group["other"] = rest - adamw
+    else:
+        by_group["AdamW elementwise"] = "not measured"
+        by_group["other"] = rest
+    print(f"  train step: {step_ms:.1f} ms on the host clock, device busy "
+          f"{busy:.1f} ms: idle share {1 - busy / step_ms:.1%}")
+    print("  device ms per step by group: " + ", ".join(
+        f"{g} {ms:.2f}" if isinstance(ms, float) else f"{g} {ms}"
+        for g, ms in by_group.items()))
+    for name, ms in sorted(kernels.items(), key=lambda kv: -kv[1])[:8]:
+        print(f"    {ms:8.3f} ms  {name[:100]}")
+
+
+def phase_eager(torch, seed):
+    print("== phase 7: the eager loop with FusedAdamW")
+    from paddle_tpu_torch.models import LlamaForCausalLM
+    from paddle_tpu_torch.optimizer import FusedAdamW
+
+    L = 4
+    model = LlamaForCausalLM(train_config(L), seed=seed)
+    opt = FusedAdamW(learning_rate=3e-4, weight_decay=0.1,
+                     parameters=model.parameters())
+    ids = train_tokens(torch, seed)
+    torch.cuda.synchronize()
+    reset_counts()
+    losses, times = [], []
+    for _ in range(EAGER_STEPS):
+        t0 = time.perf_counter()
+        loss, _ = model(ids, labels=ids)
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        losses.append(loss.item())
+        times.append((time.perf_counter() - t0) * 1e3)
+    n = read_counts()
+    check_losses(losses, f"FusedAdamW x {EAGER_STEPS}")
+    check(n["fused_adamw"] == EAGER_STEPS
+          and n["flash_attention"] == n["flash_attention_bwd"]
+          == L * EAGER_STEPS,
+          f"launches over {EAGER_STEPS} steps: fused_adamw "
+          f"{n['fused_adamw']} (1 per step), flash fwd "
+          f"{n['flash_attention']} and bwd {n['flash_attention_bwd']} "
+          f"({L * EAGER_STEPS} each)")
+    print(f"  eager step host ms {[round(t, 1) for t in times]}; flat "
+          f"master + moments {3 * opt._flat.numel() * 4 / 2**30:.1f} GiB")
+    del model, opt
+    free_cuda(torch)
+    return n
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -467,16 +843,27 @@ def main():
         flush = torch.empty(64 * 2**20, dtype=torch.uint8, device="cuda")
         rows = phase_kernels(torch, gen, flush)
         del flush
-        torch.cuda.empty_cache()
+        free_cuda(torch)
         launches = phase_slice(torch, args.seed)
+        free_cuda(torch)
+        launches["flash_attention_bwd"] = \
+            phase_train(torch, args.seed)["flash_attention_bwd"]
+        launches["fused_adamw"] = phase_eager(torch, args.seed)["fused_adamw"]
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
+    # launches: the serving kernels' counts on the serving run, the flash
+    # backward's on the TrainStep run, fused AdamW's on the eager run
     meta = {
         "flash_attention": ("paddle_tpu_torch/csrc/flash_attention.cu",
                             "paddle_tpu/ops/pallas/flash_attention.py:266"),
+        "flash_attention_bwd": (
+            "paddle_tpu_torch/csrc/flash_attention_bwd.cu",
+            "paddle_tpu/ops/pallas/flash_attention.py:453"),
         "paged_attention": ("paddle_tpu_torch/csrc/paged_attention.cu",
                             "paddle_tpu/ops/pallas/paged_attention.py:580"),
+        "fused_adamw": ("paddle_tpu_torch/csrc/fused_adamw.cu",
+                        "paddle_tpu/ops/pallas/fused_adamw.py:100"),
     }
     kernels = []
     for name, (source, replaces) in meta.items():

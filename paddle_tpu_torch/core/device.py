@@ -8,7 +8,7 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["resolve_device", "make_generator"]
+__all__ = ["resolve_device", "entry_device", "make_generator"]
 
 
 def resolve_device(device=None) -> torch.device:
@@ -22,6 +22,18 @@ def resolve_device(device=None) -> torch.device:
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"paddle_tpu_torch: unsupported device {dev}")
     return dev
+
+
+def entry_device(owned: torch.device, device, what: str) -> torch.device:
+    """The device of an entry point that works on tensors living on
+    ``owned``: ``device`` defaults to ``owned``, is resolved as
+    :func:`resolve_device` does (so an explicit ``cuda`` without a card
+    raises), and must match ``owned``."""
+    dev = resolve_device(device if device is not None else owned)
+    if dev.type != owned.type or dev.index not in (None, owned.index):
+        raise ValueError(f"{what}: its tensors live on {owned}, it was asked "
+                         f"for {dev}")
+    return owned
 
 
 def make_generator(seed: int, device) -> torch.Generator:

@@ -2,7 +2,8 @@
 //
 // Replaces the TPU kernel paddle_tpu/ops/pallas/flash_attention.py `_fwd`
 // (pl.pallas_call at :266, body `_fwd_kernel` at :100) on the serving
-// prefill path (fused_multi_transformer, s > 8 branch).
+// prefill path (fused_multi_transformer, s > 8 branch) and the training
+// forward (LlamaAttention through the autograd Function).
 //
 // What it computes: out = softmax(scale * q k^T + mask) v, per (batch, query
 // head), with
@@ -12,7 +13,12 @@
 //     c <= q_offset + r;
 //   * kv_len: columns >= kv_len are masked.
 // Layout is BSHD: q [b, sq, hq, d], k/v [b, sk, hk, d], out [b, sq, hq, d],
-// all contiguous; d is 64 or 128.
+// all contiguous; d is 64 or 128. With a non-null `lse` it also writes the
+// f32 row logsumexp lse [b, hq, sq] of the scaled, masked scores in
+// natural-log units (JAX's lse [b, h, sq, 1] at :192), which the backward
+// (flash_attention_bwd.cu) reads; a row that sees no column gets
+// -1e30 * ln 2, as the JAX kernel writes, and the backward gives it zero
+// gradients. A null `lse` skips the write (the serving path).
 //
 // What bounds it on the H100: tensor-core operations (prefill at S >= 512
 // does ~S*d operations per byte of q/k/v, far above the card's ~295 ops per
@@ -26,20 +32,11 @@
 // last visible column (q_offset + last row, or kv_len) are skipped, not
 // masked. wgmma, TMA and warp specialisation are later work.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
-
-typedef __nv_bfloat16 bf16;
+#include "flash_common.cuh"
 
 namespace {
 
-constexpr int BM = 64;               // q rows per CTA
-constexpr int BN = 64;               // kv rows per tile
-constexpr int WARPS = BM / 16;       // each warp owns 16 q rows
-constexpr int THREADS = WARPS * 32;
-constexpr float NEG_BIG = -1e30f;
-constexpr float LOG2E = 1.4426950408889634f;
+using namespace ptt;
 
 template <int D>
 struct Layout {
@@ -48,66 +45,12 @@ struct Layout {
   static constexpr size_t BYTES = size_t(BM * LD + 4 * TILE) * 2;  // Q + 2 x (K, V)
 };
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16-byte async copy; src_bytes 0 zero-fills the destination
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
-               "l"(src), "r"(src_bytes));
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n"); }
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-
-// c += a (16x16, row) * b (16x8, col); bf16 in, f32 accumulate
-__device__ __forceinline__ void mma16816(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// rows [row0, row0 + rows) of a [*, d] slab with row stride `stride`
-// elements into a padded shared tile; rows at or past `limit` are zeros
-template <int D>
-__device__ __forceinline__ void load_tile(bf16* dst, const bf16* src, long stride, int row0,
-                                          int rows, int limit, int tid) {
-  constexpr int CH = D / 8;  // 16-byte chunks per row
-  for (int i = tid; i < rows * CH; i += THREADS) {
-    const int r = i / CH, c = (i % CH) * 8;
-    const bool ok = row0 + r < limit;
-    const bf16* g = ok ? src + (row0 + r) * stride + c : src;
-    cp_async16(dst + r * Layout<D>::LD + c, g, ok ? 16 : 0);
-  }
-}
-
 template <int D>
 __global__ void __launch_bounds__(THREADS)
 flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                 const bf16* __restrict__ v, bf16* __restrict__ out, int sq, int sk, int hq,
-                 int hk, int kv_len, int q_offset, int causal, float scale_log2) {
+                 const bf16* __restrict__ v, bf16* __restrict__ out, float* __restrict__ lse,
+                 int sq, int sk, int hq, int hk, int kv_len, int q_offset, int causal,
+                 float scale_log2) {
   using L = Layout<D>;
   constexpr int LD = L::LD;
   constexpr int KS = D / 16;   // k-steps of Q K^T
@@ -260,29 +203,26 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
   const float inv_a = l_a > 0.f ? 1.f / l_a : 0.f;
   const float inv_b = l_b > 0.f ? 1.f / l_b : 0.f;
-  bf16* stage = sQ + warp * 16 * LD;
+  if (lse != nullptr && lane % 4 == 0) {
+    // m is base 2 and scaled; lse = (m + log2 l) ln 2, l = 0 read as 1
+    float* lb = lse + (long(b) * hq + h) * sq;
+    if (row_a < sq) lb[row_a] = (m_a + log2f(l_a > 0.f ? l_a : 1.f)) * LN2;
+    if (row_b < sq) lb[row_b] = (m_b + log2f(l_b > 0.f ? l_b : 1.f)) * LN2;
+  }
 #pragma unroll
   for (int d = 0; d < OT; ++d) {
-    *reinterpret_cast<uint32_t*>(stage + g * LD + d * 8 + c2) =
-        pack_bf16(o[d][0] * inv_a, o[d][1] * inv_a);
-    *reinterpret_cast<uint32_t*>(stage + (g + 8) * LD + d * 8 + c2) =
-        pack_bf16(o[d][2] * inv_b, o[d][3] * inv_b);
+    o[d][0] *= inv_a;
+    o[d][1] *= inv_a;
+    o[d][2] *= inv_b;
+    o[d][3] *= inv_b;
   }
-  __syncwarp();
-  constexpr int CH = D / 8;
-  for (int i = lane; i < 16 * CH; i += 32) {
-    const int r = i / CH, c = (i % CH) * 8;
-    const int row = q0 + warp * 16 + r;
-    if (row < sq)
-      *reinterpret_cast<uint4*>(ob + row * q_stride + c) =
-          *reinterpret_cast<const uint4*>(stage + r * LD + c);
-  }
+  store_rows<D>(ob, q_stride, q0 + warp * 16, sq, sQ + warp * 16 * LD, o, 1.f, lane);
 }
 
 template <int D>
-cudaError_t launch(const void* q, const void* k, const void* v, void* out, int b, int sq,
-                   int sk, int hq, int hk, int kv_len, int q_offset, int causal, float scale,
-                   cudaStream_t stream) {
+cudaError_t launch(const void* q, const void* k, const void* v, void* out, float* lse, int b,
+                   int sq, int sk, int hq, int hk, int kv_len, int q_offset, int causal,
+                   float scale, cudaStream_t stream) {
   const size_t bytes = Layout<D>::BYTES;
   cudaError_t err = cudaFuncSetAttribute(flash_fwd_kernel<D>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -291,7 +231,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out, int b
   dim3 grid((sq + BM - 1) / BM, hq, b);
   flash_fwd_kernel<D><<<grid, THREADS, bytes, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<bf16*>(out), sq, sk, hq, hk, kv_len, q_offset, causal, scale * LOG2E);
+      static_cast<bf16*>(out), lse, sq, sk, hq, hk, kv_len, q_offset, causal, scale * LOG2E);
   return cudaGetLastError();
 }
 
@@ -303,18 +243,21 @@ const char* ptt_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// q [b, sq, hq, d], k/v [b, sk, hk, d], out [b, sq, hq, d]: contiguous bf16.
-// Returns cudaGetLastError() after the launch (0 on success).
-int ptt_flash_fwd(const void* q, const void* k, const void* v, void* out, int b, int sq,
-                  int sk, int hq, int hk, int d, int kv_len, int q_offset, int causal,
+// q [b, sq, hq, d], k/v [b, sk, hk, d], out [b, sq, hq, d]: contiguous bf16;
+// lse [b, hq, sq] f32 or null. Returns cudaGetLastError() after the launch
+// (0 on success).
+int ptt_flash_fwd(const void* q, const void* k, const void* v, void* out, void* lse, int b,
+                  int sq, int sk, int hq, int hk, int d, int kv_len, int q_offset, int causal,
                   float scale, void* stream) {
   if (b <= 0 || sq <= 0 || sk <= 0 || hk <= 0 || hq % hk != 0)
     return int(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (d == 128)
-    return int(launch<128>(q, k, v, out, b, sq, sk, hq, hk, kv_len, q_offset, causal, scale, s));
+    return int(launch<128>(q, k, v, out, static_cast<float*>(lse), b, sq, sk, hq, hk, kv_len,
+                           q_offset, causal, scale, s));
   if (d == 64)
-    return int(launch<64>(q, k, v, out, b, sq, sk, hq, hk, kv_len, q_offset, causal, scale, s));
+    return int(launch<64>(q, k, v, out, static_cast<float*>(lse), b, sq, sk, hq, hk, kv_len,
+                          q_offset, causal, scale, s));
   return int(cudaErrorInvalidValue);
 }
 

@@ -20,7 +20,7 @@ from dataclasses import dataclass
 
 import torch
 
-from ....nn.functional import rms_norm, swiglu
+from ....nn.functional import rms_norm_f32, swiglu_f32
 from ....ops.cuda.paged_attention import paged_attention
 from ....ops.fused.flash_attention import flash_attention
 from ....ops.fused.rope import apply_rotary_position_embedding as _rope
@@ -85,7 +85,7 @@ def _paged_qkv_rope(h, w, hq, hk, eps, rope_cos, rope_sin):
     b, s = h.shape[0], h.shape[1]
     ln_s, qkv_w = w[0], w[1]
     dh = qkv_w.shape[-1] // (hq + 2 * hk)
-    qkv = rms_norm(h, ln_s, eps) @ qkv_w
+    qkv = rms_norm_f32(h, ln_s, eps) @ qkv_w
     q = qkv[..., :hq * dh].reshape(b, s, hq, dh)
     k = qkv[..., hq * dh:(hq + hk) * dh].reshape(b, s, hk, dh)
     v = qkv[..., (hq + hk) * dh:].reshape(b, s, hk, dh)
@@ -98,9 +98,9 @@ def _paged_out_ffn(h, attn, w, eps):
     b, s = h.shape[0], h.shape[1]
     out_w, ffn_ln_s, ffn1_w, ffn2_w = w[2], w[3], w[4], w[5]
     h = h + attn.reshape(b, s, -1) @ out_w
-    gu = rms_norm(h, ffn_ln_s, eps) @ ffn1_w
+    gu = rms_norm_f32(h, ffn_ln_s, eps) @ ffn1_w
     inter = gu.shape[-1] // 2
-    return h + swiglu(gu[..., :inter], gu[..., inter:]) @ ffn2_w
+    return h + swiglu_f32(gu[..., :inter], gu[..., inter:]) @ ffn2_w
 
 
 def fused_multi_transformer(x, weights: FusedTransformerWeights, cache_k,

@@ -1,11 +1,13 @@
 """Llama-2/3-style decoder-only LM as ``torch.nn`` modules.
 
-The counterpart of ``paddle_tpu/models/llama.py`` for the serving slice:
+The counterpart of ``paddle_tpu/models/llama.py`` for serving and training:
 the same parameter names and shapes (linear weights in PyTorch's
 ``[out, in]``; ``models/convert.py`` transposes the JAX ``[in, out]``
-ones), attention through the flash dispatch, and logits from the shared
-f32 tail (``lm_head_tail``: final RMS norm and LM head in f32), which is
-what the serving engine computes too.
+ones), the JAX model's bf16 rounding in its layers, and attention through
+the flash dispatch (differentiable when grad is on). Without labels the
+forward returns logits from the shared f32 tail (``lm_head_tail``: final
+RMS norm and LM head in f32), which is what the serving engine computes
+too; with labels it returns the training loss as the JAX model does.
 """
 
 from __future__ import annotations
@@ -15,14 +17,18 @@ from dataclasses import dataclass
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from ..core.device import make_generator, resolve_device
 from ..core.dtype import to_torch_dtype
 from ..nn.functional import RMSNorm, swiglu
+from ..ops.fused.cross_entropy import fused_linear_cross_entropy
 from ..ops.fused.flash_attention import flash_attention
 from ..ops.fused.rope import apply_rotary_position_embedding, build_rope_cache
 from .generation import lm_head_tail
+
+IGNORE_INDEX = -100
 
 __all__ = ["LlamaConfig", "LLAMA_PRESETS", "LlamaForCausalLM", "LlamaModel"]
 
@@ -40,6 +46,12 @@ class LlamaConfig:
     rope_theta: float = 10000.0
     initializer_range: float = 0.02
     dtype: str = "bfloat16"
+    # with labels, forward returns (loss, None) from the chunked fused
+    # linear + cross-entropy instead of (loss, logits)
+    fused_loss: bool = False
+    # per-layer rematerialisation: not ported yet (ROADMAP A2,
+    # framework/recompute.py); True raises NotImplementedError
+    recompute: bool = False
 
     def __post_init__(self):
         if self.num_key_value_heads is None:
@@ -157,22 +169,27 @@ class LlamaModel(nn.Module):
 
 
 class LlamaForCausalLM(nn.Module):
-    """Causal LM over :class:`LlamaModel`, for serving: parameters do not
-    require grad. Weights are drawn on ``device`` (default ``cuda``) from a
-    ``torch.Generator`` seeded with ``seed``: normal with the config's
-    ``initializer_range`` (the output projections scaled by 1/sqrt(2L)),
-    RMS norm weights one."""
+    """Causal LM over :class:`LlamaModel`. Its parameters are trainable, as
+    the JAX model's are; the serving engine runs it under
+    ``torch.inference_mode()``. Weights are drawn on ``device`` (default
+    ``cuda``) from a ``torch.Generator`` seeded with ``seed``: normal with
+    the config's ``initializer_range`` (the output projections scaled by
+    1/sqrt(2L)), RMS norm weights one."""
 
     def __init__(self, config: LlamaConfig, device=None, seed: int = 0):
         super().__init__()
+        if config.recompute:
+            raise NotImplementedError(
+                "LlamaConfig.recompute: per-layer rematerialisation is not "
+                "ported yet (ROADMAP A2, framework/recompute.py)")
         self.config = config
         dev = resolve_device(device)
         dd = {"device": dev, "dtype": to_torch_dtype(config.dtype)}
         self.model = LlamaModel(config, **dd)
         self.lm_head = nn.Linear(config.hidden_size, config.vocab_size,
                                  bias=False, **dd)
-        self.requires_grad_(False)
-        self._init_weights(make_generator(seed, dev))
+        with torch.no_grad():
+            self._init_weights(make_generator(seed, dev))
 
     @property
     def device(self) -> torch.device:
@@ -189,12 +206,32 @@ class LlamaForCausalLM(nn.Module):
             else:
                 nn.init.normal_(p, 0.0, std, generator=gen)
 
-    def forward(self, input_ids: torch.Tensor) -> torch.Tensor:
-        """``input_ids [b, s]`` -> f32 logits ``[b, s, vocab]``."""
+    def forward(self, input_ids: torch.Tensor,
+                labels: Optional[torch.Tensor] = None):
+        """Without ``labels``: ``input_ids [b, s]`` -> f32 logits
+        ``[b, s, vocab]`` from the f32 tail (where the JAX model keeps the
+        model dtype). With ``labels [b, s]`` (``-100`` is ignored), as
+        ``paddle_tpu/models/llama.py:334-357``: the final norm and the LM
+        head in the model dtype, position t predicting label t + 1, and the
+        mean f32 cross-entropy. Returns ``(loss, None)`` from the chunked
+        fused loss when ``config.fused_loss``, else ``(loss, logits)``."""
         h = self.model(input_ids)
-        b, s, d = h.shape
-        logits = lm_head_tail(h.reshape(b * s, d), self.model.norm.weight,
-                              self.lm_head.weight.t(),
-                              self.config.rms_norm_eps)
-        return logits.view(b, s, -1)
+        if labels is None:
+            b, s, d = h.shape
+            logits = lm_head_tail(h.reshape(b * s, d), self.model.norm.weight,
+                                  self.lm_head.weight.t(),
+                                  self.config.rms_norm_eps)
+            return logits.view(b, s, -1)
+        h = self.model.norm(h)
+        if self.config.fused_loss:
+            return fused_linear_cross_entropy(
+                h[:, :-1], self.lm_head.weight, labels[:, 1:],
+                ignore_index=IGNORE_INDEX), None
+        logits = self.lm_head(h)
+        shift_labels = labels[:, 1:].reshape(-1)
+        per_token = F.cross_entropy(
+            logits[:, :-1].reshape(-1, self.config.vocab_size).float(),
+            shift_labels, ignore_index=IGNORE_INDEX, reduction="none")
+        count = (shift_labels != IGNORE_INDEX).sum().clamp_min(1)
+        return per_token.sum() / count, logits
 

@@ -2,8 +2,9 @@
 
 Each ``paddle_tpu_torch/csrc/<name>.cu`` becomes one shared library
 ``build/paddle_tpu_torch/<name>-<hash>.so`` (``build/`` under the checkout
-root), keyed by a hash of its source and the flags, so an edited source is
-rebuilt and an unchanged one is loaded as it is. The interface is plain C:
+root), keyed by a hash of its source, the shared ``csrc/*.cuh`` headers and
+the flags, so an edited source or header is rebuilt and an unchanged one is
+loaded as it is. The interface is plain C:
 every pointer and the stream cross as ``c_void_p``, and every entry returns
 ``cudaGetLastError()`` so a refused launch surfaces at once.
 
@@ -46,8 +47,11 @@ def nvcc_path() -> str:
 
 
 def _target(name: str) -> Path:
-    src = (SRC_DIR / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    # every shared header is hashed too, so an edited header rebuilds
+    key = (SRC_DIR / f"{name}.cu").read_bytes() \
+        + b"".join(p.read_bytes() for p in sorted(SRC_DIR.glob("*.cuh"))) \
+        + " ".join(NVCC_FLAGS).encode()
+    digest = hashlib.sha256(key).hexdigest()
     return BUILD_DIR / f"{name}-{digest[:16]}.so"
 
 

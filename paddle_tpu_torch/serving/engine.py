@@ -39,7 +39,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from ..core.device import resolve_device
+from ..core.device import entry_device
 from ..incubate.nn.functional.fused_transformer import (
     fused_multi_transformer, fused_multi_transformer_paged_ragged,
     fused_weights_from_llama)
@@ -152,13 +152,8 @@ class ServingEngine:
                  device=None):
         cfg = model.config
         self.config = c = (config or ServingConfig()).resolve()
-        model_dev = model.lm_head.weight.device
-        dev = resolve_device(device if device is not None else model_dev)
-        if dev.type != model_dev.type or dev.index not in (None,
-                                                           model_dev.index):
-            raise ValueError(f"ServingEngine: the model lives on {model_dev}, "
-                             f"the engine was asked for {dev}")
-        self.device = model_dev
+        self.device = entry_device(model.lm_head.weight.device, device,
+                                   "ServingEngine")
         if c.max_seq_len > cfg.max_position_embeddings:
             raise ValueError(
                 f"ServingConfig.max_seq_len {c.max_seq_len} exceeds the "

@@ -3,6 +3,7 @@ and its entry points refuse to fall back to the CPU silently."""
 
 import ast
 import os
+import pkgutil
 import subprocess
 import sys
 from pathlib import Path
@@ -11,7 +12,11 @@ import numpy as np
 import pytest
 import torch
 
+import paddle_tpu_torch
+
+from paddle_tpu_torch.jit import TrainStep
 from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+from paddle_tpu_torch.optimizer import AdamW, FusedAdamW
 from paddle_tpu_torch.serving import ServingConfig, ServingEngine
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -63,6 +68,15 @@ def test_import_leaves_jax_and_paddle_tpu_unloaded():
     assert out.stdout.strip() == ""
 
 
+def test_walk_covers_the_training_modules():
+    names = {m.name for m in pkgutil.walk_packages(
+        paddle_tpu_torch.__path__, "paddle_tpu_torch.")}
+    assert {"paddle_tpu_torch.jit", "paddle_tpu_torch.optimizer.adam",
+            "paddle_tpu_torch.optimizer.fused",
+            "paddle_tpu_torch.ops.cuda.fused_adamw",
+            "paddle_tpu_torch.ops.fused.cross_entropy"} <= names
+
+
 def test_entry_points_raise_without_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
@@ -73,3 +87,24 @@ def test_entry_points_raise_without_cuda(monkeypatch):
     eng = ServingEngine(model, ServingConfig(max_seq_len=32, block_size=8))
     assert eng.device.type == "cpu"
     assert len(eng.generate_batch([np.arange(5)], max_new_tokens=3)[0]) == 3
+    # the training path: the model, TrainStep and the optimizers
+    train_cfg = LlamaConfig(**{**TINY.__dict__, "fused_loss": True})
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        LlamaForCausalLM(train_cfg)
+    model = LlamaForCausalLM(train_cfg, device="cpu")
+    for make in (lambda: AdamW(parameters=model.parameters(), device="cuda"),
+                 lambda: FusedAdamW(parameters=model.parameters(),
+                                    device="cuda"),
+                 lambda: TrainStep(model, None,
+                                   AdamW(parameters=model.parameters()),
+                                   device="cuda")):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            make()
+    ids = torch.from_numpy(np.arange(12).reshape(2, 6))
+    step = TrainStep(model, None, AdamW(parameters=model.parameters(),
+                                        device="cpu"), clip_norm=1.0)
+    assert step.device.type == "cpu" and torch.isfinite(step(ids, ids))
+    opt = FusedAdamW(parameters=model.parameters(), device="cpu")
+    model(ids, labels=ids)[0].backward()
+    opt.step()
+    assert opt._flat.device.type == "cpu" and opt._step_count == 1

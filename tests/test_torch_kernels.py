@@ -3,9 +3,14 @@
 The same seeded numpy inputs go through the JAX function and the port's
 plain PyTorch version (the version a CPU tensor takes), in f32.
 Tolerances: attention outputs and (m, l) stats 2e-5 absolute (f32 sums in
-another order); rope and RMS norm 1e-5.
+another order); rope and RMS norm 1e-5; attention gradients 1e-4 absolute
+and the row logsumexp 1e-5 relative (longer f32 sums); the AdamW step
+1e-6 x max(|ref|, 1) absolute (the same f32 operations, but XLA may fuse a
+multiply and an add into one rounding, and numpy takes the bias
+corrections' f32 pow); the fused cross-entropy and its gradients 1e-5.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -17,14 +22,22 @@ from paddle_tpu.ops.fused.flash_attention import (
 from paddle_tpu.ops.fused.rope import (
     apply_rotary_position_embedding as jax_rope)
 from paddle_tpu.ops.fused.rope import build_rope_cache as jax_rope_cache
+from paddle_tpu.ops.fused.cross_entropy import _flce as jax_flce
+from paddle_tpu.ops.pallas import flash_attention as jax_pallas_flash
 from paddle_tpu.ops.pallas.flash_attention import flash_attention_bhsd
+from paddle_tpu.ops.pallas.fused_adamw import fused_adamw_flat
 from paddle_tpu.ops.pallas.paged_attention import (
     paged_attention_pallas, paged_attention_reference as jax_paged_reference)
 from paddle_tpu_torch.nn.functional import rms_norm
 from paddle_tpu_torch.ops.cuda.paged_attention import (
     paged_attention, paged_attention_reference)
+from paddle_tpu_torch.ops.cuda.fused_adamw import (fused_adamw,
+                                                   fused_adamw_reference)
+from paddle_tpu_torch.ops.fused.cross_entropy import (
+    fused_linear_cross_entropy)
 from paddle_tpu_torch.ops.fused.flash_attention import (
-    flash_attention, flash_attn_reference)
+    EMPTY_ROW_LSE, flash_attention, flash_attn_bwd_reference,
+    flash_attn_reference)
 from paddle_tpu_torch.ops.fused.rope import (apply_rotary_position_embedding,
                                              build_rope_cache)
 
@@ -70,6 +83,43 @@ FLASH_CASES = {
     "kv_len": (2, 8, 32, 4, 2, 16, False, None, 19),
     "kv_len_causal": (1, 16, 64, 4, 1, 16, True, 7, 30),
 }
+# the backward cases add rows that see no column (rows 0-3: c <= r - 4).
+# Their forward output is left out of the comparison with Pallas: the
+# Pallas forward gives such a row the mean of v over the blocks it visits
+# (exp2(NEG_INF - NEG_INF) = 1), the port zeros; lse and gradients agree.
+BWD_CASES = dict(FLASH_CASES, empty_rows=(1, 16, 32, 4, 2, 16, True, -4,
+                                          None))
+GRAD_ATOL = 1e-4
+LSE_RTOL = 1e-5
+ADAMW_TOL = 1e-6
+
+
+def _flash_inputs(case, seed=2):
+    b, sq, sk, hq, hk, d, causal, q_offset, kv_len = BWD_CASES[case]
+    rng = np.random.RandomState(seed)
+    q = rng.standard_normal((b, sq, hq, d)).astype(np.float32)
+    k = rng.standard_normal((b, sk, hk, d)).astype(np.float32)
+    v = rng.standard_normal((b, sk, hk, d)).astype(np.float32)
+    do = rng.standard_normal((b, sq, hq, d)).astype(np.float32)
+    return (q, k, v, do), dict(causal=causal, q_offset=q_offset,
+                               kv_len=kv_len)
+
+
+def _pallas_lse(q, k, v, causal, q_offset, kv_len):
+    """The Pallas forward's lse ``[b, h, sq]`` (``_fwd`` in interpret mode,
+    with the padding ``flash_attention_bhsd`` applies)."""
+    t = lambda a: jnp.swapaxes(jnp.asarray(a), 1, 2)  # noqa: E731
+    qt, kt, vt = t(q), t(k), t(v)
+    sq, sk, d = q.shape[1], k.shape[1], q.shape[3]
+    kv_len = sk if kv_len is None else kv_len
+    q_offset = kv_len - sq if q_offset is None else q_offset
+    bq, bk = jax_pallas_flash._block_sizes(sq, sk, d, causal, dtype=qt.dtype)
+    pad = lambda a, n: jnp.pad(  # noqa: E731
+        a, ((0, 0), (0, 0), (0, (-a.shape[2]) % n), (0, 0)))
+    _, lse = jax_pallas_flash._fwd(
+        pad(qt, bq), pad(kt, bk), pad(vt, bk), None, None, None, None,
+        d ** -0.5, causal, q_offset, kv_len, bq, bk, 0.0, True)
+    return np.asarray(lse)[:, :, :sq, 0]
 
 
 @pytest.mark.parametrize("case", sorted(FLASH_CASES))
@@ -146,3 +196,105 @@ def test_paged_reference_matches_jax(case):
     assert np.all(l.numpy()[empty] == 0)
     assert np.all(out.numpy()[empty] == 0)
     assert np.isfinite(out.numpy()).all()
+
+
+@pytest.mark.parametrize("case", sorted(BWD_CASES))
+def test_flash_lse_and_backward_match_pallas(case):
+    """The plain ``(out, lse)`` against the Pallas forward, and the plain
+    backward against ``jax.grad`` through ``flash_attention_bhsd`` in
+    interpret mode, which runs the Pallas ``_bwd``."""
+    (q, k, v, do), kw = _flash_inputs(case)
+    tq, tk, tv, tdo = (torch.from_numpy(a) for a in (q, k, v, do))
+    out, lse = flash_attn_reference(tq, tk, tv, return_lse=True, **kw)
+    np.testing.assert_array_equal(
+        out.numpy(), flash_attn_reference(tq, tk, tv, **kw).numpy())
+    ref_lse = _pallas_lse(q, k, v, **kw)
+    np.testing.assert_allclose(lse.numpy(), ref_lse, rtol=LSE_RTOL)
+    empty = ref_lse < -1e29
+    assert np.all(lse.numpy()[empty] == np.float32(EMPTY_ROW_LSE))
+    assert empty.any() == (case == "empty_rows")
+
+    t = lambda a: jnp.swapaxes(jnp.asarray(a), 1, 2)  # noqa: E731
+
+    def loss(q_, k_, v_):
+        o = flash_attention_bhsd(q_, k_, v_, interpret=True, **kw)
+        return jnp.sum(o * t(do))
+
+    grads = jax.grad(loss, argnums=(0, 1, 2))(t(q), t(k), t(v))
+    ours = flash_attn_bwd_reference(tq, tk, tv, out, lse, tdo, **kw)
+    for name, g, r in zip("qkv", ours, grads):
+        np.testing.assert_allclose(g.numpy(), np.asarray(jnp.swapaxes(r, 1, 2)),
+                                   atol=GRAD_ATOL, err_msg=f"d{name}")
+
+
+@pytest.mark.parametrize("case", sorted(BWD_CASES))
+def test_flash_autograd_function_matches_dense_autograd(case):
+    """The dispatch's autograd Function on CPU tensors (plain forward and
+    backward) against torch autograd through the dense reference."""
+    (q, k, v, do), kw = _flash_inputs(case, seed=3)
+    ins = [torch.from_numpy(a).requires_grad_() for a in (q, k, v)]
+    out = flash_attention(*ins, **kw)
+    assert out.grad_fn is not None
+    ours = torch.autograd.grad(out, ins, torch.from_numpy(do))
+    ins2 = [torch.from_numpy(a).requires_grad_() for a in (q, k, v)]
+    ref_out = flash_attn_reference(*ins2, **kw)
+    np.testing.assert_allclose(out.detach().numpy(),
+                               ref_out.detach().numpy(), atol=ATOL)
+    refs = torch.autograd.grad(ref_out, ins2, torch.from_numpy(do))
+    for name, g, r in zip("qkv", ours, refs):
+        np.testing.assert_allclose(g.numpy(), r.numpy(), atol=GRAD_ATOL,
+                                   err_msg=f"d{name}")
+    with torch.no_grad():
+        assert flash_attention(*ins, **kw).grad_fn is None
+
+
+def test_fused_adamw_reference_matches_pallas():
+    """Three steps at N = 1000 (not a tile multiple) against
+    ``fused_adamw_flat`` in interpret mode; the CPU dispatch updates in
+    place with the plain version's values."""
+    n = 1000
+    rng = np.random.RandomState(4)
+    p = rng.standard_normal(n).astype(np.float32)
+    m = np.zeros(n, np.float32)
+    v = np.zeros(n, np.float32)
+    tp, tm, tv = (torch.from_numpy(a.copy()) for a in (p, m, v))
+    jp, jm_, jv = (jnp.asarray(a) for a in (p, m, v))
+    hyper = (3e-3, 0.9, 0.95, 1e-8, 0.1)
+    for step in (1, 2, 3):
+        g = rng.standard_normal(n).astype(np.float32)
+        jp, jm_, jv = fused_adamw_flat(jp, jnp.asarray(g), jm_, jv, *hyper,
+                                       jnp.int32(step), interpret=True)
+        rp, rm, rv = fused_adamw_reference(tp, torch.from_numpy(g), tm, tv,
+                                           *hyper, step)
+        fused_adamw(tp, torch.from_numpy(g), tm, tv, *hyper, step)
+        for ours, ref, exact in ((tp, jp, rp), (tm, jm_, rm), (tv, jv, rv)):
+            np.testing.assert_array_equal(ours.numpy(), exact.numpy())
+            ref = np.asarray(ref)
+            np.testing.assert_allclose(
+                ours.numpy(), ref, rtol=0,
+                atol=ADAMW_TOL * max(float(np.abs(ref).max()), 1.0))
+
+
+def test_fused_linear_cross_entropy_matches_jax():
+    """Value and gradients against the JAX chunked loss at chunk 16: 46
+    rows make two full chunks and a ragged tail, and some labels are
+    ignored (-100)."""
+    rng = np.random.RandomState(5)
+    n, h, vocab = 46, 32, 80
+    hidden = rng.standard_normal((n, h)).astype(np.float32)
+    weight = (rng.standard_normal((vocab, h)) * 0.2).astype(np.float32)
+    labels = rng.randint(0, vocab, (n,))
+    labels[[0, 17, 45]] = -100
+    th = torch.from_numpy(hidden).requires_grad_()
+    tw = torch.from_numpy(weight).requires_grad_()
+    loss = fused_linear_cross_entropy(th, tw, torch.from_numpy(labels),
+                                      chunk=16)
+    loss.backward()
+    jloss, (jdh, jdw) = jax.value_and_grad(
+        lambda a, w: jax_flce(a, w, jnp.asarray(labels), transpose_y=False,
+                              chunk=16, ignore_index=-100),
+        argnums=(0, 1))(jnp.asarray(hidden), jnp.asarray(weight.T))
+    np.testing.assert_allclose(loss.item(), float(jloss), rtol=1e-5)
+    np.testing.assert_allclose(th.grad.numpy(), np.asarray(jdh), atol=1e-5)
+    np.testing.assert_allclose(tw.grad.numpy(), np.asarray(jdw).T, atol=1e-5)
+    assert np.all(th.grad.numpy()[[0, 17, 45]] == 0)
