@@ -14,11 +14,14 @@ Phases, each of which fails the run (non-zero exit, no result line):
    the card at its path's shapes (bf16 out: max abs <= 2e-2; paged m, l
    and flash lse: |diff| <= 1e-3 * max(|ref|, 1); flash backward dq, dk,
    dv: max |diff| <= 2e-2 * max |ref|; fused AdamW p, m, v: max |diff| <=
-   1e-6 * max(|ref|, 1)), with its time, its bound (H100 SXM: 3.35 TB/s
-   HBM, 989 TFLOP/s bf16 dense), the plain version's time and a library
-   yardstick (``scaled_dot_product_attention`` forward or backward,
-   ``torch.optim.AdamW(fused=True)``; timed here only, never called by the
-   port);
+   1e-6 * max(|ref|, 1); int8 / int4 weight-only GEMMs: max |diff| <=
+   1e-2 * max |plain|, the bf16 output's rounding, at m = 8, 32, 64 and
+   256; int8 paged as the bf16 one), with its time, its bound (H100 SXM:
+   3.35 TB/s HBM, 989 TFLOP/s bf16 dense), the plain version's time and a
+   library yardstick (``scaled_dot_product_attention`` forward or
+   backward, ``torch.optim.AdamW(fused=True)``, a bf16 ``torch.matmul`` of
+   the same shape; timed here only, never called by the port), and the
+   host ms of one decode step's 128 weight-only wrapper calls;
 4. serving: Llama-3-8B at full width and depth (random weights from a
    seeded generator, drawn on the card) behind
    ``ServingEngine(max_seq_len=2048)`` serves 8 requests of 32 new tokens;
@@ -26,6 +29,18 @@ Phases, each of which fails the run (non-zero exit, no result line):
    decode steps), a clean drain, and teacher-forced agreement with the
    dense forward;
 5. where a decode step's time goes (host clock, ``torch.profiler``);
+5b. quantized serving: the same requests through two engines, one at a
+   time: A (``quantize="int8"``, ``kv_cache_dtype="int8"``) and B
+   (``quantize="int4"``); checks the tokens, the launch counts (int8 paged
+   = L x decode steps and no bf16 paged launch in A, the reverse in B;
+   weight-only GEMMs = 4 L x (decode steps + prefill chunks of bucket <=
+   256); flash = L x prefill chunks), a clean drain, and first-token
+   logits and teacher-forced agreement against the dense forward over the
+   run's dequantized weights, ties within the bf16 noise (run A: or within
+   the int8 pool's own first-token logit change against a bf16 pool, which
+   must stay <= 1.0); profiles a decode step of each;
+5c. decode steps of bf16, int8 and int4 engines (bf16 pools) over one
+   model, alternated round by round: host ms per step, paired;
 6. training: the Llama-2-7B widths (``bench.py``'s 7B proxy: vocab 32000,
    hidden 4096, intermediate 11008, 32 heads, bf16, fused loss) at 4
    layers, batch 2 x 2048 seeded tokens, 10 ``TrainStep`` steps with AdamW
@@ -45,6 +60,7 @@ import gc
 import json
 import math
 import os
+import statistics
 import subprocess
 import sys
 import time
@@ -57,6 +73,8 @@ BWD_RTOL = 2e-2                  # flash dq/dk/dv: max |diff| / max |plain| (bf1
 ADAMW_TOL = 1e-6                 # fused AdamW: max |diff| / max(|plain|, 1)
 AGREE_MIN = 0.90                 # teacher-forced greedy agreement (bf16 ties)
 LOGITS_REL_L2 = 0.1              # first-token logits, engine vs dense
+WO_RTOL = 1e-2                   # weight-only GEMM: max |diff| / max |plain|
+KV_NOISE_MAX = 1.0               # int8 vs bf16 pool, max first-token logit change
 PROMPT_LENS = (17, 64, 200, 333, 511, 700, 1024, 1500)
 NEW_TOKENS = 32
 TRAIN_BATCH, TRAIN_SEQ = 2, 2048
@@ -239,18 +257,11 @@ def phase_kernels(torch, gen, flush):
     # [8, 1025, 16, 128], table [8, 128]; empty rows, page boundaries and
     # null table tails
     B, page, pps, blocks = 8, 16, 128, 1025
-    lens_list = [0, 1, 16, 17, 1000, 2048, 700, 1532]
+    lens_list = PAGED_LENS
     kp = torch.randn(hk, blocks, page, d, generator=gen, device=dev).bfloat16()
     vp = torch.randn(hk, blocks, page, d, generator=gen, device=dev).bfloat16()
     q = torch.randn(B, hq, d, generator=gen, device=dev).bfloat16()
-    perm = torch.randperm(blocks - 1, generator=gen, device=dev) + 1
-    table = torch.zeros(B, pps, dtype=torch.int32, device=dev)
-    at = 0
-    for i, n in enumerate(lens_list):
-        used = -(-n // page)
-        table[i, :used] = perm[at:at + used].int()
-        at += used
-    lens = torch.tensor(lens_list, dtype=torch.int32, device=dev)
+    table, lens = paged_inputs(torch, gen)
     out, m, l = paged_attention(q, kp, vp, table, lens, return_stats=True)
     rout, rm, rl = paged_attention_reference(q, kp, vp, table, lens,
                                              return_stats=True)
@@ -283,11 +294,208 @@ def phase_kernels(torch, gen, flush):
                                    bound_by=b_by, library_ms=None,
                                    max_abs_err=err)
     del kp, vp, q, out, m, l, rout, rm, rl
+    rows["paged_attention_int8"] = check_paged_int8(torch, gen, flush)
+    rows["int8_matmul"] = check_weight_only(torch, gen, flush, int4=False)
+    rows["int4_matmul"] = check_weight_only(torch, gen, flush, int4=True)
+    torch.cuda.empty_cache()
     rows["flash_attention_bwd"] = check_flash_backward(torch, gen, flush)
     torch.cuda.empty_cache()
     rows["fused_adamw"] = check_fused_adamw(torch, gen)
     torch.cuda.empty_cache()
     return rows
+
+
+PAGED_LENS = [0, 1, 16, 17, 1000, 2048, 700, 1532]
+
+
+def paged_inputs(torch, gen, blocks=1025, B=8, page=16, pps=128):
+    """The serving path's decode table: rows of PAGED_LENS tokens on
+    distinct shuffled blocks, null table tails."""
+    perm = torch.randperm(blocks - 1, generator=gen, device="cuda") + 1
+    table = torch.zeros(B, pps, dtype=torch.int32, device="cuda")
+    at = 0
+    for i, n in enumerate(PAGED_LENS):
+        used = -(-n // page)
+        table[i, :used] = perm[at:at + used].int()
+        at += used
+    lens = torch.tensor(PAGED_LENS, dtype=torch.int32, device="cuda")
+    return table, lens
+
+
+def check_paged_int8(torch, gen, flush):
+    """The int8-page paged kernel against its plain version at the path's
+    shapes: q [8, 32, 128], one layer's int8 pool [8, 1025, 16, 128] with
+    its block-major scales [1025, 8, 16], lens PAGED_LENS."""
+    from paddle_tpu_torch.models.kv_cache import quantize_kv
+    from paddle_tpu_torch.ops.cuda.paged_attention import (
+        paged_attention, paged_attention_reference)
+
+    hq, hk, d, blocks, page = 32, 8, 128, 1025, 16
+    B = len(PAGED_LENS)
+    kq, ks = quantize_kv(torch.randn(hk, blocks, page, d, generator=gen,
+                                     device="cuda"))
+    vq, vs = quantize_kv(torch.randn(hk, blocks, page, d, generator=gen,
+                                     device="cuda"))
+    ks, vs = ks.transpose(0, 1).contiguous(), vs.transpose(0, 1).contiguous()
+    q = torch.randn(B, hq, d, generator=gen, device="cuda").bfloat16()
+    table, lens = paged_inputs(torch, gen)
+    args = (q, kq, vq, table, lens)
+    kw = dict(return_stats=True, k_scales=ks, v_scales=vs)
+    out, m, l = paged_attention(*args, **kw)
+    rout, rm, rl = paged_attention_reference(*args, **kw)
+    torch.cuda.synchronize()
+    err = (out.float() - rout.float()).abs().max().item()
+    check(math.isfinite(err) and err <= OUT_ATOL,
+          f"paged int8 out: max |kernel - plain| = {err:.3e} <= {OUT_ATOL}")
+    for name, a, r in (("m", m, rm), ("l", l, rl)):
+        rel = ((a - r).abs() / r.abs().clamp_min(1.0)).max().item()
+        check(rel <= STATS_RTOL, f"paged int8 {name}: max |diff|/max(|ref|,"
+                                 f"1) = {rel:.3e} <= {STATS_RTOL}")
+    check(bool((m[0] == -1e30).all() and (l[0] == 0).all()
+               and (out[0] == 0).all()),
+          "paged int8 empty row: m = -1e30, l = 0, out = 0")
+    ms = time_ms(torch, lambda: paged_attention(*args, **kw), reps=20,
+                 flush=flush)
+    plain = time_ms(torch, lambda: paged_attention_reference(*args, **kw),
+                    reps=5, flush=flush)
+    tokens = sum(PAGED_LENS)
+    flops = 4 * hq * d * tokens
+    nbytes = (tokens * hk * (2 * d + 2 * 4)      # int8 K, V rows + 2 scales
+              + 2 * 2 * B * hq * d               # q in, out back
+              + 4 * (table.numel() + B) + 2 * 4 * B * hq)  # table, lens, m, l
+    b_ms, b_by = bound(flops, nbytes)
+    print(f"  paged decode, int8 pages (lens {PAGED_LENS}): {ms:.4f} ms "
+          f"(bound {b_ms:.4f} ms by {b_by}, {b_ms / ms:.1%} of it), plain "
+          f"{plain:.3f} ms, library: none")
+    return dict(ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
+                library_ms=None, max_abs_err=err)
+
+
+# Llama-3-8B's four decode products of one layer: (name, K, N)
+WO_SHAPES = (("qkv", 4096, 6144), ("out", 4096, 4096),
+             ("ffn1", 4096, 28672), ("ffn2", 14336, 4096))
+
+
+def library_int8pack(torch, x, w, scale, int4):
+    """PyTorch's own weight-only product at the same shape, timed as a
+    yardstick only: ``_weight_int8pack_mm`` (int8, per-channel scales) or
+    ``_weight_int4pack_mm`` (int4 in its own packing, group 128 with zero
+    points, on random codes)."""
+    K, N = x.shape[1], scale.shape[0]
+    if not int4:
+        wt, sc = w.t().contiguous(), scale.bfloat16()
+        return lambda: torch._weight_int8pack_mm(x, wt, sc)
+    raw = torch.randint(0, 256, (N, K // 2), dtype=torch.uint8,
+                        device=x.device)
+    packed = torch._convert_weight_to_int4pack(raw, 8)
+    sz = torch.ones(K // 128, N, 2, dtype=torch.bfloat16, device=x.device)
+    return lambda: torch._weight_int4pack_mm(x, packed, 128, sz)
+
+
+def check_weight_only(torch, gen, flush, int4):
+    """The int8 (int4) weight-only GEMM against its plain version at the
+    four products of Llama-3-8B at every row count the serving path gives
+    the kernel: m = 8 (decode) and the prefill buckets m = 32, 64 and 256
+    (16- and 64-row tiles, split K, masked rows). Timed: the four decode
+    products and ffn1 at m = 256; the kernels line's numbers sum one
+    layer's four decode products. Then the host cost of one decode step's
+    128 wrapper calls."""
+    from paddle_tpu_torch.ops.cuda.int8_matmul import (
+        int4_weight_matmul, int4_weight_matmul_reference, int8_weight_matmul,
+        int8_weight_matmul_reference, unpack_int4_packed)
+
+    kind = "int4" if int4 else "int8"
+    fn = int4_weight_matmul if int4 else int8_weight_matmul
+    plain_fn = int4_weight_matmul_reference if int4 \
+        else int8_weight_matmul_reference
+    row = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0,
+               max_abs_err=0.0)
+    by = set()
+    timed = [(name, 8, K, N) for name, K, N in WO_SHAPES] \
+        + [("ffn1", 256, 4096, 28672)]
+    cases = timed + [(name, m, K, N) for m in (32, 64, 256)
+                     for name, K, N in WO_SHAPES
+                     if (name, m, K, N) not in timed]
+    decode = []     # the four m = 8 products, kept for the host timing
+    for name, m, K, N in cases:
+        rows_w = K // 2 if int4 else K
+        w = torch.randint(-128, 128, (rows_w, N), dtype=torch.int8,
+                          device="cuda", generator=gen)
+        if not int4:
+            w.clamp_(-127, 127)
+        scale = torch.rand(N, generator=gen, device="cuda") * 2e-3 + 1e-4
+        x = torch.randn(m, K, generator=gen, device="cuda").bfloat16()
+        out = fn(x, w, scale)
+        ref = plain_fn(x, w, scale)
+        torch.cuda.synchronize()
+        err = (out.float() - ref.float()).abs().max().item()
+        peak = ref.float().abs().max().item()
+        check(out.dtype == torch.bfloat16 and math.isfinite(err)
+              and err <= WO_RTOL * peak,
+              f"{kind} GEMM {name} m={m} K={K} N={N}: max |kernel - plain| "
+              f"= {err:.3e} = {err / peak:.2e} of max |plain| <= {WO_RTOL}")
+        row["max_abs_err"] = max(row["max_abs_err"], err)
+        if (name, m, K, N) not in timed:
+            del w, x, out, ref
+            continue
+        ms = time_ms(torch, lambda: fn(x, w, scale), reps=20, flush=flush)
+        plain = time_ms(torch, lambda: plain_fn(x, w, scale), reps=5,
+                        flush=flush)
+        wb = (unpack_int4_packed(w) if int4 else w).bfloat16()
+        lib = time_ms(torch, lambda: torch.matmul(x, wb), reps=20,
+                      flush=flush)
+        nbytes = rows_w * N + 2 * m * K + 2 * m * N + 4 * N
+        b_ms, b_by = bound(2 * m * K * N, nbytes)
+        pack = time_ms(torch, library_int8pack(torch, x, w, scale, int4),
+                       reps=20, flush=flush)
+        print(f"  {kind} GEMM {name} m={m} K={K} N={N}: {ms:.4f} ms (bound "
+              f"{b_ms:.4f} ms by {b_by}, {b_ms / ms:.1%} of it), plain "
+              f"{plain:.3f} ms, bf16 torch.matmul {lib:.4f} ms, "
+              f"torch._weight_{kind}pack_mm {pack:.4f} ms")
+        if m == 8:
+            row["ms"] += ms
+            row["plain_ms"] += plain
+            row["bound_ms"] += b_ms
+            row["library_ms"] += lib
+            by.add(b_by)
+            decode.append((x, w, scale, wb))
+        del w, x, wb, out, ref
+    row["bound_by"] = "bytes" if by == {"bytes"} else "operations"
+    print(f"  {kind} GEMMs of one decode layer (4 products, m = 8): "
+          f"{row['ms']:.4f} ms, bound {row['bound_ms']:.4f} ms, plain "
+          f"{row['plain_ms']:.3f} ms, bf16 torch.matmul "
+          f"{row['library_ms']:.4f} ms")
+    wrapper = host_ms_per_step(torch, [lambda a=a: fn(*a[:3])
+                                       for a in decode])
+    bf16 = host_ms_per_step(torch, [lambda a=a: torch.matmul(a[0], a[3])
+                                    for a in decode])
+    print(f"  {kind} host ms to enqueue one decode step's 128 products "
+          f"(32 layers x 4, m = 8), runs {fmt_ms(wrapper)}: "
+          f"{1e3 * min(wrapper) / 128:.1f} us per wrapper call at best; "
+          f"bf16 torch.matmul at the same shapes {fmt_ms(bf16)}")
+    return row
+
+
+def host_ms_per_step(torch, calls, layers=32, reps=7):
+    """Host ms to enqueue ``layers`` rounds of ``calls`` back to back (the
+    device drained before each round, so no launch waits for a full
+    queue), one number per rep after two warm-up reps."""
+    out = []
+    for rep in range(reps + 2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(layers):
+            for c in calls:
+                c()
+        t = (time.perf_counter() - t0) * 1e3
+        torch.cuda.synchronize()
+        if rep >= 2:
+            out.append(t)
+    return out
+
+
+def fmt_ms(ts):
+    return "[" + ", ".join(f"{t:.3f}" for t in ts) + "] ms"
 
 
 def check_flash_backward(torch, gen, flush):
@@ -541,15 +749,16 @@ def phase_slice(torch, seed):
           f"bf16 noise) {strict + ties}/{total} = "
           f"{(strict + ties) / total:.1%} >= {AGREE_MIN:.0%}")
     profile_decode(torch, engine, cfg.vocab_size, seed)
-    return {"flash_attention": flash_n, "paged_attention": paged_n}
+    return {"flash_attention": flash_n, "paged_attention": paged_n}, noise
 
 
-def profile_decode(torch, engine, vocab, seed, steps=8):
+def profile_decode(torch, engine, vocab, seed, steps=8,
+                   title="phase 5: where a decode step's time goes"):
     """Where a full decode step's time goes: ``steps`` decode iterations
     over ``max_batch`` rows timed on the host clock, then ``steps`` more
     under ``torch.profiler`` for the device time by kernel and the
     device's idle share."""
-    print("== phase 5: where a decode step's time goes")
+    print(f"== {title}")
     import numpy as np
     from torch.profiler import ProfilerActivity, profile
 
@@ -586,8 +795,9 @@ def profile_decode(torch, engine, vocab, seed, steps=8):
               f"breakdown not measured)")
         return
     groups = {"paged_attention": ("paged_partial", "paged_merge"),
+              "weight_only_gemm": ("wo_gemm", "wo_reduce"),
               "matmul": ("gemm", "gemv", "nvjet", "cutlass", "xmma")}
-    by_group = {"paged_attention": 0.0, "matmul": 0.0, "other": 0.0}
+    by_group = dict.fromkeys(list(groups) + ["other"], 0.0)
     for name, ms in kernels.items():
         low = name.lower()
         group = next((g for g, keys in groups.items()
@@ -602,6 +812,284 @@ def profile_decode(torch, engine, vocab, seed, steps=8):
     top = sorted(kernels.items(), key=lambda kv: -kv[1])[:8]
     for name, ms in top:
         print(f"    {ms:8.3f} ms  {name[:100]}")
+
+
+def chunked_first_logits(engine, prompt):
+    """The f32 logits ``[vocab]`` of the first token after ``prompt``
+    through the engine's own prefill steps, in chunks of the prefill
+    budget (chunk 2 onwards carries the prefix from the pool), in a slot it
+    admits and releases. The engine must be idle."""
+    import numpy as np
+
+    pool, budget = engine.pool, engine.config.prefill_token_budget
+    slot = pool.admit(len(prompt), 1)
+    if slot is None:
+        raise SmokeFailure("chunked_first_logits: the engine is not idle")
+    offset = 0
+    while offset < len(prompt):
+        chunk = min(len(prompt) - offset, budget)
+        ids = np.zeros((engine._bucket_for(chunk),), np.int32)
+        ids[:chunk] = prompt[offset:offset + chunk]
+        _, logits = engine._prefill(ids, chunk, offset, pool.table[slot])
+        offset += chunk
+    pool.release(slot)
+    return logits[0]
+
+
+def dequantize_into(torch, model, weights, int4):
+    """Overwrite the model's decoder projections in place with the engine's
+    dequantized weights, bf16(q x scale): the dense reference of a
+    quantized run."""
+    from paddle_tpu_torch.ops.cuda.int8_matmul import unpack_int4_packed
+    from paddle_tpu_torch.ops.quant_ops import weight_dequantize
+
+    with torch.no_grad():
+        for i, layer in enumerate(model.model.layers):
+            at, mlp = layer.self_attn, layer.mlp
+            for stack, scale, projs in (
+                    (weights.qkv_w, weights.qkv_scale,
+                     (at.q_proj, at.k_proj, at.v_proj)),
+                    (weights.out_w, weights.out_scale, (at.o_proj,)),
+                    (weights.ffn1_w, weights.ffn1_scale,
+                     (mlp.gate_proj, mlp.up_proj)),
+                    (weights.ffn2_w, weights.ffn2_scale, (mlp.down_proj,))):
+                q = unpack_int4_packed(stack[i]) if int4 else stack[i]
+                full = weight_dequantize(q, scale[i], torch.bfloat16)
+                col = 0
+                for p in projs:
+                    n = p.out_features
+                    p.weight.copy_(full[:, col:col + n].t())
+                    col += n
+                del full
+
+
+def dense_agreement(torch, model, reqs, firsts, noise, what):
+    """First-token logits of the engine (``firsts[i]``) within
+    LOGITS_REL_L2 of the dense forward, and teacher-forced agreement >=
+    AGREE_MIN where a mismatch within ``noise`` counts as a tie, on the
+    first and the last request."""
+    import numpy as np
+
+    strict = ties = total = 0
+    for i in (0, len(reqs) - 1):
+        r = reqs[i]
+        ids = torch.from_numpy(np.concatenate(
+            [r.prompt, np.asarray(r.tokens, np.int32)])).long().cuda()[None]
+        p = r.prompt_len
+        with torch.inference_mode():
+            logits = model(ids)[0, p - 1:-1]
+        toks = torch.tensor(r.tokens, device=logits.device)
+        best = logits.max(dim=-1)
+        deficit = best.values - logits.gather(1, toks[:, None])[:, 0]
+        match = best.indices == toks
+        strict += int(match.sum())
+        total += len(r.tokens)
+        deficits = deficit[~match].tolist()
+        ties += sum(d <= noise for d in deficits)
+        print(f"  {what} {r.rid}: {int(match.sum())}/{len(r.tokens)} argmax "
+              f"matches; mismatch logit deficits "
+              f"{[round(d, 4) for d in deficits]}")
+        dense = logits[0]
+        rel = ((firsts[i] - dense).norm() / dense.norm()).item()
+        check(rel <= LOGITS_REL_L2,
+              f"{what} {r.rid} first-token logits: ||engine - dense|| / "
+              f"||dense|| = {rel:.3e} <= {LOGITS_REL_L2} (max |engine - "
+              f"dense| {(firsts[i] - dense).abs().max().item():.3e})")
+    print(f"  {what}: strict argmax agreement {strict}/{total} = "
+          f"{strict / total:.1%}; ties counted within {noise:.4f}")
+    check((strict + ties) / total >= AGREE_MIN,
+          f"{what} teacher-forced greedy agreement (argmax, or a tie within "
+          f"the noise) {strict + ties}/{total} = "
+          f"{(strict + ties) / total:.1%} >= {AGREE_MIN:.0%}")
+
+
+def serve_quantized(torch, model, prompts, quant, kv_dtype, chunked, seed):
+    """One quantized run: an engine over ``model`` serves ``prompts`` with
+    its launch counts, drain and timings checked, gives its first-token
+    logits (``firsts``, by prompt index) and a profiled decode step, then
+    writes its dequantized weights into ``model``. The engine is freed on
+    return. Returns ``(reqs, firsts, launch counts)``."""
+    import numpy as np
+
+    from paddle_tpu_torch.serving import ServingConfig, ServingEngine
+
+    cfg = model.config
+    L = cfg.num_hidden_layers
+    what = f"run {'A' if kv_dtype else 'B'} (quantize={quant!r}, " \
+           f"kv_cache_dtype={kv_dtype!r})"
+    torch.cuda.reset_peak_memory_stats()
+    engine = ServingEngine(model, ServingConfig(
+        max_seq_len=2048, quantize=quant, kv_cache_dtype=kv_dtype))
+    torch.cuda.synchronize()
+    w = engine.weights
+    wbytes = sum(t.numel() * t.element_size()
+                 for t in (w.qkv_w, w.out_w, w.ffn1_w, w.ffn2_w))
+    print(f"  {what}: pool {tuple(engine.pool.k_pages.shape)} "
+          f"{engine.pool.k_pages.dtype} x2, {engine.spec.bytes_per_block} "
+          f"bytes per block; decoder weight stacks {wbytes / 1e9:.2f} GB")
+    buckets = []
+    prefill = engine._prefill
+
+    def recorded(ids, *a):
+        buckets.append(ids.shape[0])
+        return prefill(ids, *a)
+
+    engine._prefill = recorded
+    reset_counts()
+    t0 = time.perf_counter()
+    reqs = [engine.submit(p, NEW_TOKENS) for p in prompts]
+    engine.run_until_complete()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    n = read_counts()
+    del engine._prefill
+    s = engine.stats()
+    for r in reqs:
+        check(r.status == "finished" and len(r.tokens) == NEW_TOKENS
+              and all(0 <= t < cfg.vocab_size for t in r.tokens),
+              f"{what} {r.rid} (prompt {r.prompt_len}) finished with "
+              f"{len(r.tokens)} in-vocab tokens")
+    steps, chunks = s["decode_steps"], s["prefill_chunks"]
+    small = sum(b <= 256 for b in buckets)
+    paged, idle = (("paged_attention_int8", "paged_attention") if kv_dtype
+                   else ("paged_attention", "paged_attention_int8"))
+    gemm, other = (("int4_matmul", "int8_matmul") if quant == "int4"
+                   else ("int8_matmul", "int4_matmul"))
+    check(n[paged] == L * steps > 0 and n[idle] == 0,
+          f"{what} {paged} launches {n[paged]} == L x decode steps "
+          f"({L} x {steps}); {idle} {n[idle]} == 0")
+    check(n[gemm] == 4 * L * (steps + small) and n[other] == 0,
+          f"{what} {gemm} launches {n[gemm]} == 4 L x (decode steps + "
+          f"chunks of bucket <= 256) = 4 x {L} x ({steps} + {small}); "
+          f"{other} {n[other]} == 0 (chunk buckets {buckets})")
+    check(n["flash_attention"] == L * chunks > 0,
+          f"{what} flash launches {n['flash_attention']} == L x prefill "
+          f"chunks ({L} x {chunks})")
+    drained = engine.drain()["pool"]
+    check(drained["free_blocks"] == drained["num_blocks"],
+          f"{what} drain: pool free {drained['free_blocks']} == total "
+          f"{drained['num_blocks']}")
+    generated = sum(len(r.tokens) for r in reqs)
+    ttft = [r.ttft_ms for r in reqs]
+    tpot = [r.decode_ms_per_token for r in reqs]
+    print(f"  {what}: {generated} tokens in {wall:.3f} s ({steps} decode "
+          f"steps, {chunks} prefill chunks); TTFT ms mean "
+          f"{np.mean(ttft):.1f}, min {min(ttft):.1f}, max {max(ttft):.1f}; "
+          f"decode ms/token mean {np.mean(tpot):.2f}; generated tokens/s "
+          f"{generated / wall:.1f}; peak "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB on {smi()}")
+    firsts = {i: chunked_first_logits(engine, prompts[i])
+              for i in sorted({0, len(prompts) - 1, *chunked})}
+    profile_decode(torch, engine, cfg.vocab_size, seed,
+                   title=f"phase 5b: where a decode step of {what} goes")
+    dequantize_into(torch, model, engine.weights, quant == "int4")
+    return reqs, firsts, n
+
+
+def phase_quant_serving(torch, seed, noise_bf16):
+    """Runs A (int8 weights, int8 KV pool) and B (int4 weights, bf16 pool)
+    of Llama-3-8B, one engine at a time, each held against a dense forward
+    over its dequantized weights. Returns the int8 paged kernel's and the
+    weight-only GEMMs' launches: run A's for the int8 kernels, run B's for
+    the int4 GEMM."""
+    print("== phase 5b: quantized serving, Llama-3-8B")
+    import numpy as np
+
+    from paddle_tpu_torch.models import LLAMA_PRESETS, LlamaForCausalLM
+    from paddle_tpu_torch.serving import ServingConfig, ServingEngine
+
+    cfg = LLAMA_PRESETS["llama3-8b"]
+    rng = np.random.RandomState(seed)
+    prompts = [rng.randint(0, cfg.vocab_size, (n,)).astype(np.int32)
+               for n in PROMPT_LENS]
+    budget = ServingConfig().resolve().prefill_token_budget
+    chunked = [i for i, n in enumerate(PROMPT_LENS) if n > budget]
+    launches = {}
+    for quant, kv_dtype in (("int8", "int8"), ("int4", "")):
+        model = LlamaForCausalLM(cfg, device="cuda", seed=seed)
+        noise = noise_bf16
+        if kv_dtype:
+            # the int8 pool's own noise: the chunked prompts' first-token
+            # logits over a bf16 pool with the same int8 weights
+            aux = ServingEngine(model, ServingConfig(max_seq_len=2048,
+                                                     quantize=quant))
+            bf16_kv = {i: chunked_first_logits(aux, prompts[i])
+                       for i in chunked}
+            del aux
+            free_cuda(torch)
+        reqs, firsts, n = serve_quantized(torch, model, prompts, quant,
+                                          kv_dtype, chunked, seed)
+        free_cuda(torch)
+        what = f"run {'A' if kv_dtype else 'B'}"
+        if kv_dtype:
+            kv_noise = max((firsts[i] - bf16_kv[i]).abs().max().item()
+                           for i in chunked)
+            # checked against a fixed bound before it may widen the window
+            # that judges the same int8 scatter and carry
+            check(kv_noise <= KV_NOISE_MAX,
+                  f"{what}: largest first-token logit change, int8 vs bf16 "
+                  f"pool, over the chunked prompts "
+                  f"{[PROMPT_LENS[i] for i in chunked]}: {kv_noise:.4f} <= "
+                  f"{KV_NOISE_MAX} (bf16 noise {noise_bf16:.4f})")
+            noise = max(noise, kv_noise)
+        dense_agreement(torch, model, reqs, firsts, noise, what)
+        # run A's int8 paged and int8 GEMM counts, run B's int4 GEMM's
+        launches.update({k: n[k] for k in (
+            ("paged_attention_int8", "int8_matmul") if kv_dtype
+            else ("int4_matmul",))})
+        del model
+        free_cuda(torch)
+    return launches
+
+
+def phase_paired_decode(torch, seed, rounds=5, steps=8):
+    """Decode steps of three engines over one Llama-3-8B model (bf16, int8
+    and int4 weights; bf16 pools, batch 8), alternated round by round in
+    one process so that the host's drift falls on all three alike. Prints
+    the host ms per step of each round."""
+    print("== phase 5c: decode step host ms, bf16 vs int8 / int4 weights, "
+          "paired")
+    import numpy as np
+
+    from paddle_tpu_torch.models import LLAMA_PRESETS, LlamaForCausalLM
+    from paddle_tpu_torch.serving import ServingConfig, ServingEngine
+
+    cfg = LLAMA_PRESETS["llama3-8b"]
+    model = LlamaForCausalLM(cfg, device="cuda", seed=seed)
+    rng = np.random.RandomState(seed + 2)
+    prompts = [rng.randint(0, cfg.vocab_size, (64,)) for _ in range(8)]
+    new = rounds * steps + 4
+    engines = {}
+    for quant in (False, "int8", "int4"):
+        eng = ServingEngine(model, ServingConfig(max_seq_len=2048,
+                                                 quantize=quant))
+        reqs = [eng.submit(p, new) for p in prompts]
+        while eng.scheduler.has_queued() or eng.stats()["prefilling"]:
+            eng.step()
+        engines[quant or "bf16"] = (eng, reqs)
+    times = {k: [] for k in engines}
+    for _ in range(rounds):
+        for k, (eng, _) in engines.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(steps):
+                eng.step()
+            torch.cuda.synchronize()
+            times[k].append((time.perf_counter() - t0) * 1e3 / steps)
+    for k, (eng, reqs) in engines.items():
+        eng.run_until_complete()
+        check(all(len(r.tokens) == new for r in reqs),
+              f"paired {k}: {len(reqs)} requests finished with {new} tokens")
+        drained = eng.drain()["pool"]
+        check(drained["free_blocks"] == drained["num_blocks"],
+              f"paired {k} drain: pool free {drained['free_blocks']} == "
+              f"total {drained['num_blocks']}")
+    for k, ts in times.items():
+        print(f"  {k}: host ms per decode step by round {fmt_ms(ts)}, "
+              f"median {statistics.median(ts):.2f}")
+    print(f"  on {smi()}")
+    del engines, model
+    free_cuda(torch)
 
 
 def train_config(layers):
@@ -626,19 +1114,25 @@ def train_tokens(torch, seed):
 def reset_counts():
     from paddle_tpu_torch.ops.cuda import fused_adamw as fw
     from paddle_tpu_torch.ops.cuda import flash_attention as fa
+    from paddle_tpu_torch.ops.cuda import int8_matmul as wo
     from paddle_tpu_torch.ops.cuda import paged_attention as pa
 
     fa.launches = fa.bwd_launches = pa.launches = fw.launches = 0
+    pa.int8_launches = wo.launches = wo.int4_launches = 0
 
 
 def read_counts():
     from paddle_tpu_torch.ops.cuda import fused_adamw as fw
     from paddle_tpu_torch.ops.cuda import flash_attention as fa
+    from paddle_tpu_torch.ops.cuda import int8_matmul as wo
     from paddle_tpu_torch.ops.cuda import paged_attention as pa
 
     return {"flash_attention": fa.launches,
             "flash_attention_bwd": fa.bwd_launches,
-            "paged_attention": pa.launches, "fused_adamw": fw.launches}
+            "paged_attention": pa.launches,
+            "paged_attention_int8": pa.int8_launches,
+            "int8_matmul": wo.launches, "int4_matmul": wo.int4_launches,
+            "fused_adamw": fw.launches}
 
 
 def check_losses(losses, what):
@@ -844,16 +1338,21 @@ def main():
         rows = phase_kernels(torch, gen, flush)
         del flush
         free_cuda(torch)
-        launches = phase_slice(torch, args.seed)
+        launches, noise = phase_slice(torch, args.seed)
         free_cuda(torch)
+        launches.update(phase_quant_serving(torch, args.seed, noise))
+        free_cuda(torch)
+        phase_paired_decode(torch, args.seed)
         launches["flash_attention_bwd"] = \
             phase_train(torch, args.seed)["flash_attention_bwd"]
         launches["fused_adamw"] = phase_eager(torch, args.seed)["fused_adamw"]
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
-    # launches: the serving kernels' counts on the serving run, the flash
-    # backward's on the TrainStep run, fused AdamW's on the eager run
+    # launches: the serving kernels' counts on the serving run, the int8
+    # paged and int8 GEMM's on quantized run A, the int4 GEMM's on run B,
+    # the flash backward's on the TrainStep run, fused AdamW's on the eager
+    # run
     meta = {
         "flash_attention": ("paddle_tpu_torch/csrc/flash_attention.cu",
                             "paddle_tpu/ops/pallas/flash_attention.py:266"),
@@ -862,6 +1361,13 @@ def main():
             "paddle_tpu/ops/pallas/flash_attention.py:453"),
         "paged_attention": ("paddle_tpu_torch/csrc/paged_attention.cu",
                             "paddle_tpu/ops/pallas/paged_attention.py:580"),
+        "paged_attention_int8": (
+            "paddle_tpu_torch/csrc/paged_attention.cu",
+            "paddle_tpu/ops/pallas/paged_attention.py:580"),
+        "int8_matmul": ("paddle_tpu_torch/csrc/int8_matmul.cu",
+                        "paddle_tpu/ops/pallas/int8_matmul.py:143"),
+        "int4_matmul": ("paddle_tpu_torch/csrc/int8_matmul.cu",
+                        "paddle_tpu/ops/pallas/int8_matmul.py:197"),
         "fused_adamw": ("paddle_tpu_torch/csrc/fused_adamw.cu",
                         "paddle_tpu/ops/pallas/fused_adamw.py:100"),
     }

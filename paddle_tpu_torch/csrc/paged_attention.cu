@@ -1,10 +1,13 @@
-// Paged decode attention for Hopper (sm_90a), bf16 q/pages, f32 stats.
+// Paged decode attention for Hopper (sm_90a): bf16 q, bf16 or int8 pages,
+// f32 stats.
 //
 // Replaces the TPU kernel paddle_tpu/ops/pallas/paged_attention.py
 // `paged_attention_pallas` with return_stats=True (pl.pallas_call at :580,
 // bodies `_kernel_stats` :129 / `_kernel_body` :151), and without stats
 // (:561, `_kernel` :123); the streaming seq-grid variant (:423,
-// `_kernel_seq` :216) computes the same function.
+// `_kernel_seq` :216) computes the same function. Its int8 variants
+// (`_kernel_quant`, `_kernel_quant_stats` :136-148, `_kernel_seq_quant`
+// :357) are the same kernel instantiated on int8 pages (`ptt_paged_decode_int8`).
 //
 // What it computes, per decode row b and query head h (one query token):
 //   s_j = scale * q[b, h] . k[h / group, page_table[b, j / page], j % page]
@@ -16,6 +19,11 @@
 // Layouts: q [B, H, D] contiguous; k/v pages [KVH, P, page, D] contiguous
 // (one layer of the pool); page_table [B, pps] int32; seq_lens [B] int32;
 // out [B, H, D] bf16; m, l [B, H] f32.
+// int8 pages: k/v pages [KVH, P, page, D] int8 and their block-major scales
+// k/v_scales [P, KVH, page] f32 (one layer of the scales pool). Each K/V
+// element is dequantized in f32 as float(q) * scale[phys, kv head, slot]
+// right before the dot, as `_kernel_body` does (:175-182), so the device
+// reads int8 rows plus 8 bytes of scales per (token, kv head).
 //
 // What bounds it on the H100: device-memory bytes of the K/V it reads (one
 // query token per row does 2 operations per byte). The simple design reads
@@ -45,7 +53,7 @@ constexpr int CHUNK = 8;  // tokens whose loads are in flight together
 constexpr float NEG_INF = -1e30f;
 
 template <int N>
-__device__ __forceinline__ void load_bf16(const bf16* p, float (&out)[N]) {
+__device__ __forceinline__ void load_kv(const bf16* p, float (&out)[N]) {
   static_assert(N == 2 || N == 4, "2 or 4 dims per lane");
   if constexpr (N == 4) {
     const uint2 raw = *reinterpret_cast<const uint2*>(p);
@@ -59,16 +67,31 @@ __device__ __forceinline__ void load_bf16(const bf16* p, float (&out)[N]) {
   }
 }
 
-// partial state of (row b, head h, range s) at [(b * H + h) * splits + s]
-template <int D, int G>
+template <int N>
+__device__ __forceinline__ void load_kv(const int8_t* p, float (&out)[N]) {
+  static_assert(N == 2 || N == 4, "2 or 4 dims per lane");
+  if constexpr (N == 4) {
+    const char4 raw = *reinterpret_cast<const char4*>(p);
+    out[0] = float(raw.x); out[1] = float(raw.y); out[2] = float(raw.z); out[3] = float(raw.w);
+  } else {
+    const char2 raw = *reinterpret_cast<const char2*>(p);
+    out[0] = float(raw.x); out[1] = float(raw.y);
+  }
+}
+
+// partial state of (row b, head h, range s) at [(b * H + h) * splits + s].
+// KV is bf16 or int8; with int8, ks/vs are the layer's [P, KVH, page] scales.
+template <int D, int G, typename KV>
 __global__ void __launch_bounds__(THREADS)
-paged_partial_kernel(const bf16* __restrict__ q, const bf16* __restrict__ kp,
-                     const bf16* __restrict__ vp, const int* __restrict__ table,
+paged_partial_kernel(const bf16* __restrict__ q, const KV* __restrict__ kp,
+                     const KV* __restrict__ vp, const float* __restrict__ ks,
+                     const float* __restrict__ vs, const int* __restrict__ table,
                      const int* __restrict__ lens, float* __restrict__ part_m,
                      float* __restrict__ part_l, float* __restrict__ part_acc,
                      int H, int num_pages, int page, int pps, int pages_per_split,
                      float scale) {
   constexpr int DPL = D / 32;  // dims per lane
+  constexpr bool QUANT = sizeof(KV) == 1;
   __shared__ float s_m[WARPS][G];
   __shared__ float s_l[WARPS][G];
   __shared__ float s_acc[WARPS][G][D];
@@ -86,7 +109,7 @@ paged_partial_kernel(const bf16* __restrict__ q, const bf16* __restrict__ kp,
   float qf[G][DPL];
 #pragma unroll
   for (int g = 0; g < G; ++g) {
-    load_bf16<DPL>(q + (long(b) * H + kh * G + g) * D + lane * DPL, qf[g]);
+    load_kv<DPL>(q + (long(b) * H + kh * G + g) * D + lane * DPL, qf[g]);
 #pragma unroll
     for (int e = 0; e < DPL; ++e) qf[g][e] *= scale;
   }
@@ -100,14 +123,17 @@ paged_partial_kernel(const bf16* __restrict__ q, const bf16* __restrict__ kp,
   }
 
   const long page_elems = long(page) * D;
-  const bf16* kbase = kp + long(kh) * num_pages * page_elems + lane * DPL;
-  const bf16* vbase = vp + long(kh) * num_pages * page_elems + lane * DPL;
+  const KV* kbase = kp + long(kh) * num_pages * page_elems + lane * DPL;
+  const KV* vbase = vp + long(kh) * num_pages * page_elems + lane * DPL;
   const int* trow = table + long(b) * pps;
+  const int KVH = gridDim.y;
 
   for (int p = p_begin + warp; p < p_end; p += WARPS) {
     const long phys = trow[p];
-    const bf16* kpage = kbase + phys * page_elems;
-    const bf16* vpage = vbase + phys * page_elems;
+    const KV* kpage = kbase + phys * page_elems;
+    const KV* vpage = vbase + phys * page_elems;
+    // this page's scale row of this kv head (block-major scales)
+    const long srow = (phys * KVH + kh) * page;
     const int t_end = min(page, len - p * page);
     for (int t0 = 0; t0 < t_end; t0 += CHUNK) {
       const int n = min(CHUNK, t_end - t0);
@@ -115,8 +141,16 @@ paged_partial_kernel(const bf16* __restrict__ q, const bf16* __restrict__ kp,
 #pragma unroll
       for (int c = 0; c < CHUNK; ++c) {
         if (c < n) {
-          load_bf16<DPL>(kpage + long(t0 + c) * D, kr[c]);
-          load_bf16<DPL>(vpage + long(t0 + c) * D, vr[c]);
+          load_kv<DPL>(kpage + long(t0 + c) * D, kr[c]);
+          load_kv<DPL>(vpage + long(t0 + c) * D, vr[c]);
+          if constexpr (QUANT) {
+            const float sk = ks[srow + t0 + c], sv = vs[srow + t0 + c];
+#pragma unroll
+            for (int e = 0; e < DPL; ++e) {
+              kr[c][e] *= sk;
+              vr[c][e] *= sv;
+            }
+          }
         }
       }
 #pragma unroll
@@ -222,19 +256,20 @@ paged_merge_kernel(const float* __restrict__ part_m, const float* __restrict__ p
 }
 
 struct Args {
-  const void *q, *k, *v, *table, *lens;
+  const void *q, *k, *v, *ks, *vs, *table, *lens;
   void *out, *m, *l, *part_m, *part_l, *part_acc;
   int B, H, KVH, num_pages, page, pps, pages_per_split;
   float scale;
   cudaStream_t stream;
 };
 
-template <int D, int G>
+template <int D, int G, typename KV>
 cudaError_t launch(const Args& a) {
   const int splits = (a.pps + a.pages_per_split - 1) / a.pages_per_split;
-  paged_partial_kernel<D, G><<<dim3(a.B, a.KVH, splits), THREADS, 0, a.stream>>>(
-      static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
-      static_cast<const bf16*>(a.v), static_cast<const int*>(a.table),
+  paged_partial_kernel<D, G, KV><<<dim3(a.B, a.KVH, splits), THREADS, 0, a.stream>>>(
+      static_cast<const bf16*>(a.q), static_cast<const KV*>(a.k),
+      static_cast<const KV*>(a.v), static_cast<const float*>(a.ks),
+      static_cast<const float*>(a.vs), static_cast<const int*>(a.table),
       static_cast<const int*>(a.lens), static_cast<float*>(a.part_m),
       static_cast<float*>(a.part_l), static_cast<float*>(a.part_acc), a.H, a.num_pages,
       a.page, a.pps, a.pages_per_split, a.scale);
@@ -247,15 +282,25 @@ cudaError_t launch(const Args& a) {
   return cudaGetLastError();
 }
 
-template <int D>
+template <int D, typename KV>
 cudaError_t launch_group(const Args& a) {
   switch (a.H / a.KVH) {
-    case 1: return launch<D, 1>(a);
-    case 2: return launch<D, 2>(a);
-    case 4: return launch<D, 4>(a);
-    case 8: return launch<D, 8>(a);
+    case 1: return launch<D, 1, KV>(a);
+    case 2: return launch<D, 2, KV>(a);
+    case 4: return launch<D, 4, KV>(a);
+    case 8: return launch<D, 8, KV>(a);
     default: return cudaErrorInvalidValue;
   }
+}
+
+template <typename KV>
+int launch_dim(const Args& a, int d) {
+  if (a.B <= 0 || a.KVH <= 0 || a.H % a.KVH != 0 || a.page <= 0 || a.pps <= 0 ||
+      a.pages_per_split <= 0)
+    return int(cudaErrorInvalidValue);
+  if (d == 128) return int(launch_group<128, KV>(a));
+  if (d == 64) return int(launch_group<64, KV>(a));
+  return int(cudaErrorInvalidValue);
 }
 
 }  // namespace
@@ -274,14 +319,25 @@ int ptt_paged_decode(const void* q, const void* k_pages, const void* v_pages,
                      void* l, void* part_m, void* part_l, void* part_acc, int B, int H,
                      int KVH, int num_pages, int page, int pps, int pages_per_split, int d,
                      float scale, void* stream) {
-  if (B <= 0 || KVH <= 0 || H % KVH != 0 || page <= 0 || pps <= 0 || pages_per_split <= 0)
-    return int(cudaErrorInvalidValue);
-  const Args a{q, k_pages, v_pages, page_table, seq_lens, out, m, l, part_m, part_l,
-               part_acc, B, H, KVH, num_pages, page, pps, pages_per_split, scale,
-               static_cast<cudaStream_t>(stream)};
-  if (d == 128) return int(launch_group<128>(a));
-  if (d == 64) return int(launch_group<64>(a));
-  return int(cudaErrorInvalidValue);
+  const Args a{q, k_pages, v_pages, nullptr, nullptr, page_table, seq_lens, out, m, l,
+               part_m, part_l, part_acc, B, H, KVH, num_pages, page, pps, pages_per_split,
+               scale, static_cast<cudaStream_t>(stream)};
+  return launch_dim<bf16>(a, d);
+}
+
+// The same over int8 pages [KVH, P, page, D] with their f32 scales
+// k_scales / v_scales [P, KVH, page].
+int ptt_paged_decode_int8(const void* q, const void* k_pages, const void* v_pages,
+                          const void* k_scales, const void* v_scales, const void* page_table,
+                          const void* seq_lens, void* out, void* m, void* l, void* part_m,
+                          void* part_l, void* part_acc, int B, int H, int KVH, int num_pages,
+                          int page, int pps, int pages_per_split, int d, float scale,
+                          void* stream) {
+  if (k_scales == nullptr || v_scales == nullptr) return int(cudaErrorInvalidValue);
+  const Args a{q, k_pages, v_pages, k_scales, v_scales, page_table, seq_lens, out, m, l,
+               part_m, part_l, part_acc, B, H, KVH, num_pages, page, pps, pages_per_split,
+               scale, static_cast<cudaStream_t>(stream)};
+  return launch_dim<int8_t>(a, d);
 }
 
 }  // extern "C"

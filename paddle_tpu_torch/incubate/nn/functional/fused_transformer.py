@@ -4,8 +4,10 @@
 Per-layer weights are stacked on a leading layer axis (``[L, …]``, qkv
 packed ``[q | k | v]`` and ffn1 packed ``[gate | up]`` on the output dim,
 in the JAX ``[in, out]`` layout), and the layer loop is a Python loop.
-The matrix products stay ``torch.matmul``; attention goes through the
-flash dispatch (prefill) and the paged decode kernel (decode).
+The matrix products stay ``torch.matmul``, or, with weight-only int8/int4
+weights, go through the weight-only GEMM (``ops/cuda/int8_matmul.py``);
+attention goes through the flash dispatch (prefill) and the paged decode
+kernel (decode, over bf16 or int8 pages).
 
 Caches are updated IN PLACE: where the JAX code threads new cache arrays
 out of a ``lax.scan`` and relies on buffer donation, these functions write
@@ -17,13 +19,18 @@ from __future__ import annotations
 
 import math
 from dataclasses import dataclass
+from typing import Optional
 
 import torch
 
+from ....models.kv_cache import quantize_kv
 from ....nn.functional import rms_norm_f32, swiglu_f32
+from ....ops.cuda.int8_matmul import (int4_weight_matmul, int8_weight_matmul,
+                                      pack_int4)
 from ....ops.cuda.paged_attention import paged_attention
 from ....ops.fused.flash_attention import flash_attention
 from ....ops.fused.rope import apply_rotary_position_embedding as _rope
+from ....ops.quant_ops import weight_quantize
 
 __all__ = ["FusedTransformerWeights", "fused_weights_from_llama",
            "fused_multi_transformer", "fused_multi_transformer_paged_ragged"]
@@ -31,7 +38,9 @@ __all__ = ["FusedTransformerWeights", "fused_weights_from_llama",
 
 @dataclass
 class FusedTransformerWeights:
-    """Per-layer weights stacked on axis 0 (length L)."""
+    """Per-layer weights stacked on axis 0 (length L). With weight-only
+    quantization the four weight stacks are int8 (int4: packed
+    ``[L, K/2, N]``) with f32 per-output-channel scales (``*_scale``)."""
 
     ln_scale: torch.Tensor      # [L, D]
     qkv_w: torch.Tensor         # [L, D, (h + 2*hk) * dh]
@@ -39,43 +48,98 @@ class FusedTransformerWeights:
     ffn_ln_scale: torch.Tensor  # [L, D]
     ffn1_w: torch.Tensor        # [L, D, 2*I]  (gate | up)
     ffn2_w: torch.Tensor        # [L, I, D]
+    qkv_scale: Optional[torch.Tensor] = None   # [L, (h + 2*hk) * dh]
+    out_scale: Optional[torch.Tensor] = None   # [L, D]
+    ffn1_scale: Optional[torch.Tensor] = None  # [L, 2*I]
+    ffn2_scale: Optional[torch.Tensor] = None  # [L, D]
 
     @property
     def num_layers(self) -> int:
         return self.ln_scale.shape[0]
 
+    @property
+    def quantized(self) -> bool:
+        return self.qkv_scale is not None
+
     def layer(self, i: int) -> tuple:
+        """Layer ``i``'s six tensors and four scales (None unquantized)."""
+        scales = ((self.qkv_scale[i], self.out_scale[i], self.ffn1_scale[i],
+                   self.ffn2_scale[i]) if self.quantized else (None,) * 4)
         return (self.ln_scale[i], self.qkv_w[i], self.out_w[i],
-                self.ffn_ln_scale[i], self.ffn1_w[i], self.ffn2_w[i])
+                self.ffn_ln_scale[i], self.ffn1_w[i], self.ffn2_w[i]) + scales
 
 
-def fused_weights_from_llama(model) -> FusedTransformerWeights:
+def fused_weights_from_llama(model, quantize=False) -> FusedTransformerWeights:
     """Stack a ``LlamaForCausalLM``'s decoder weights into the fused
-    layout. Each stacked tensor is allocated once and filled layer by
-    layer, so the peak is the model plus one copy of its decoder weights."""
+    layout. ``quantize``: False, True or "int8" (per-channel int8
+    weight-only), or "int4" (two values per byte, ``pack_int4``).
+
+    Each stacked tensor is allocated once and filled layer by layer, so the
+    peak is the model plus one copy of its decoder weights. Quantized stacks
+    are filled layer by layer too (the JAX function stacks the whole decoder
+    in the model dtype first); per-column quantization makes the result
+    bit-equal either way."""
     layers = model.model.layers
     at, mlp = layers[0].self_attn, layers[0].mlp
     nq, nk = at.q_proj.out_features, at.k_proj.out_features
     D, inter = at.q_proj.in_features, mlp.gate_proj.out_features
     ref = at.q_proj.weight
-    new = lambda *shape: torch.empty(  # noqa: E731
-        (len(layers),) + shape, dtype=ref.dtype, device=ref.device)
+    int4 = quantize == "int4"
+    algo = "weight_only_int4" if int4 else "weight_only_int8"
+    L = len(layers)
+
+    def new(*shape, dtype=ref.dtype):
+        return torch.empty((L,) + shape, dtype=dtype, device=ref.device)
+
+    def new_w(k, n):
+        if not quantize:
+            return new(k, n)
+        return new(k // 2 if int4 else k, n, dtype=torch.int8)
+
     w = FusedTransformerWeights(
-        ln_scale=new(D), qkv_w=new(D, nq + 2 * nk), out_w=new(nq, D),
-        ffn_ln_scale=new(D), ffn1_w=new(D, 2 * inter), ffn2_w=new(inter, D))
+        ln_scale=new(D), qkv_w=new_w(D, nq + 2 * nk), out_w=new_w(nq, D),
+        ffn_ln_scale=new(D), ffn1_w=new_w(D, 2 * inter),
+        ffn2_w=new_w(inter, D))
+    if quantize:
+        f32 = torch.float32
+        w.qkv_scale, w.out_scale = new(nq + 2 * nk, dtype=f32), new(D, dtype=f32)
+        w.ffn1_scale, w.ffn2_scale = new(2 * inter, dtype=f32), new(D, dtype=f32)
     with torch.no_grad():
         for i, layer in enumerate(layers):
             at, mlp = layer.self_attn, layer.mlp
             w.ln_scale[i].copy_(layer.input_layernorm.weight)
-            w.qkv_w[i, :, :nq].copy_(at.q_proj.weight.t())
-            w.qkv_w[i, :, nq:nq + nk].copy_(at.k_proj.weight.t())
-            w.qkv_w[i, :, nq + nk:].copy_(at.v_proj.weight.t())
-            w.out_w[i].copy_(at.o_proj.weight.t())
             w.ffn_ln_scale[i].copy_(layer.post_attention_layernorm.weight)
-            w.ffn1_w[i, :, :inter].copy_(mlp.gate_proj.weight.t())
-            w.ffn1_w[i, :, inter:].copy_(mlp.up_proj.weight.t())
-            w.ffn2_w[i].copy_(mlp.down_proj.weight.t())
+            mats = ((w.qkv_w, w.qkv_scale, (at.q_proj, at.k_proj, at.v_proj)),
+                    (w.out_w, w.out_scale, (at.o_proj,)),
+                    (w.ffn1_w, w.ffn1_scale, (mlp.gate_proj, mlp.up_proj)),
+                    (w.ffn2_w, w.ffn2_scale, (mlp.down_proj,)))
+            for stack, scale, projs in mats:
+                if not quantize:
+                    col = 0
+                    for p in projs:
+                        n = p.out_features
+                        stack[i, :, col:col + n].copy_(p.weight.t())
+                        col += n
+                    continue
+                # the [in, out] matrix in the model dtype, one layer at a time
+                q, sc = weight_quantize(
+                    torch.cat([p.weight.t() for p in projs], dim=1), algo=algo)
+                stack[i].copy_(pack_int4(q) if int4 else q)
+                scale[i].copy_(sc)
     return w
+
+
+def _dequant_matmul(x, w, scale, compute_dtype):
+    """``x @ w`` in the compute dtype, or with weight-only int8/int4 ``w``
+    and its per-column ``scale``, the weight-only GEMM (int4 is told apart
+    by shape: ``[K/2, N]`` packed rows against x's K), as
+    ``_maybe_dequant_matmul`` (``fused_transformer.py:79-103``)."""
+    if scale is None:
+        return x @ w
+    lead, K = x.shape[:-1], x.shape[-1]
+    fn = int4_weight_matmul if w.shape[-2] * 2 == K else int8_weight_matmul
+    y = fn(x.reshape(-1, K), w, scale, out_dtype=compute_dtype)
+    return y.reshape(*lead, -1)
 
 
 def _paged_qkv_rope(h, w, hq, hk, eps, rope_cos, rope_sin):
@@ -83,9 +147,9 @@ def _paged_qkv_rope(h, w, hq, hk, eps, rope_cos, rope_sin):
     pre-attention glue every layer body here shares (dense and paged), so
     the paths compute per-layer math identically."""
     b, s = h.shape[0], h.shape[1]
-    ln_s, qkv_w = w[0], w[1]
+    ln_s, qkv_w, qkv_sc = w[0], w[1], w[6]
     dh = qkv_w.shape[-1] // (hq + 2 * hk)
-    qkv = rms_norm_f32(h, ln_s, eps) @ qkv_w
+    qkv = _dequant_matmul(rms_norm_f32(h, ln_s, eps), qkv_w, qkv_sc, h.dtype)
     q = qkv[..., :hq * dh].reshape(b, s, hq, dh)
     k = qkv[..., hq * dh:(hq + hk) * dh].reshape(b, s, hk, dh)
     v = qkv[..., (hq + hk) * dh:].reshape(b, s, hk, dh)
@@ -97,10 +161,13 @@ def _paged_out_ffn(h, attn, w, eps):
     shared like :func:`_paged_qkv_rope`."""
     b, s = h.shape[0], h.shape[1]
     out_w, ffn_ln_s, ffn1_w, ffn2_w = w[2], w[3], w[4], w[5]
-    h = h + attn.reshape(b, s, -1) @ out_w
-    gu = rms_norm_f32(h, ffn_ln_s, eps) @ ffn1_w
+    out_sc, ffn1_sc, ffn2_sc = w[7], w[8], w[9]
+    dt = h.dtype
+    h = h + _dequant_matmul(attn.reshape(b, s, -1), out_w, out_sc, dt)
+    gu = _dequant_matmul(rms_norm_f32(h, ffn_ln_s, eps), ffn1_w, ffn1_sc, dt)
     inter = gu.shape[-1] // 2
-    return h + swiglu_f32(gu[..., :inter], gu[..., inter:]) @ ffn2_w
+    act = swiglu_f32(gu[..., :inter], gu[..., inter:])
+    return h + _dequant_matmul(act, ffn2_w, ffn2_sc, dt)
 
 
 def fused_multi_transformer(x, weights: FusedTransformerWeights, cache_k,
@@ -173,18 +240,20 @@ def fused_multi_transformer(x, weights: FusedTransformerWeights, cache_k,
     return h, cache_k, cache_v
 
 
-def _paged_decode_layer(h, w, ck, cv, *, table, lens, rope_cos, rope_sin, hq,
-                        hk, epsilon):
+def _paged_decode_layer(h, w, ck, cv, ksc, vsc, *, table, lens, rope_cos,
+                        rope_sin, hq, hk, epsilon):
     """One decoder layer of a paged decode step (s == 1): the paged kernel
-    over the row's history, then the exact online-softmax merge of the
-    step's own k/v through the kernel's (m, l) stats, so the pages stay
-    read-only here. Returns ``(h, (k[:, 0], v[:, 0]))``."""
+    over the row's history (int8 pages when ``ksc``/``vsc``, the layer's
+    scales, are given), then the exact online-softmax merge of the step's
+    own k/v, unquantized, through the kernel's (m, l) stats, so the pages
+    stay read-only here. Returns ``(h, (k[:, 0], v[:, 0]))``."""
     dh = ck.shape[-1]
     scale = 1.0 / math.sqrt(dh)
     q, k, v = _paged_qkv_rope(h, w, hq, hk, epsilon, rope_cos, rope_sin)
     q0 = q[:, 0]
     out_old, m, l = paged_attention(q0, ck, cv, table, lens, scale=scale,
-                                    return_stats=True)   # [b, hq, dh], [b, hq]
+                                    return_stats=True, k_scales=ksc,
+                                    v_scales=vsc)   # [b, hq, dh], [b, hq]
     kn, vn = k[:, 0], v[:, 0]                            # [b, hk, dh]
     if hk != hq:
         kn = kn.repeat_interleave(hq // hk, dim=1)
@@ -203,7 +272,8 @@ def fused_multi_transformer_paged_ragged(x, weights: FusedTransformerWeights,
                                          k_pages, v_pages, page_table,
                                          seq_lens, rope_cos, rope_sin,
                                          num_heads: int, num_kv_heads: int,
-                                         epsilon: float = 1e-6):
+                                         epsilon: float = 1e-6,
+                                         k_scales=None, v_scales=None):
     """One decode step (s == 1) through all L layers with per-row block
     tables and lengths (the continuous-batching layer stack).
 
@@ -213,27 +283,47 @@ def fused_multi_transformer_paged_ragged(x, weights: FusedTransformerWeights,
     rope_cos/sin ``[B, 1, dh]``. After the layer loop one per-row scatter
     commits the step's k/v in place at ``(table[b, len // page],
     len % page)``; idle rows (all-null table, len 0) write into the null
-    block. Returns ``(h, k_pages, v_pages)``."""
+    block. Returns ``(h, k_pages, v_pages)``.
+
+    Quantized pool (``k_scales``/``v_scales`` ``[L, num_blocks, kvh,
+    page]`` f32): the pages are int8, the kernel dequantizes them, and the
+    commit quantizes the step's k/v with ``quantize_kv`` and writes value
+    and scale at the same (block, slot); returns ``(h, k_pages, v_pages,
+    k_scales, v_scales)``."""
     b, s, _ = x.shape
     if s != 1:
         raise ValueError("fused_multi_transformer_paged_ragged is decode-only "
                          f"(s == 1), got s={s}")
+    if (k_scales is None) != (v_scales is None):
+        raise ValueError("fused_multi_transformer_paged_ragged: pass both "
+                         "k_scales and v_scales or neither")
+    quant = k_scales is not None
     page, pps = k_pages.shape[-2], page_table.shape[1]
     table = page_table.to(torch.int32).contiguous()
     lens = seq_lens.to(torch.int32).contiguous()
     h, ys_k, ys_v = x, [], []
     for i in range(weights.num_layers):
         h, (k, v) = _paged_decode_layer(
-            h, weights.layer(i), k_pages[i], v_pages[i], table=table,
-            lens=lens, rope_cos=rope_cos, rope_sin=rope_sin, hq=num_heads,
-            hk=num_kv_heads, epsilon=epsilon)
+            h, weights.layer(i), k_pages[i], v_pages[i],
+            k_scales[i] if quant else None, v_scales[i] if quant else None,
+            table=table, lens=lens, rope_cos=rope_cos, rope_sin=rope_sin,
+            hq=num_heads, hk=num_kv_heads, epsilon=epsilon)
         ys_k.append(k)
         ys_v.append(v)
     rows = torch.arange(b, device=x.device)
     phys = table[rows, torch.clamp(lens // page, max=pps - 1)].long()
     slot = (lens % page).long()
-    k_pages[:, :, phys, slot] = torch.stack(ys_k).transpose(1, 2).to(
-        k_pages.dtype)                                   # [L, kvh, B, dh]
-    v_pages[:, :, phys, slot] = torch.stack(ys_v).transpose(1, 2).to(
-        v_pages.dtype)
-    return h, k_pages, v_pages
+    new_k = torch.stack(ys_k).transpose(1, 2)            # [L, kvh, B, dh]
+    new_v = torch.stack(ys_v).transpose(1, 2)
+    if not quant:
+        k_pages[:, :, phys, slot] = new_k.to(k_pages.dtype)
+        v_pages[:, :, phys, slot] = new_v.to(v_pages.dtype)
+        return h, k_pages, v_pages
+    for pages, scales, vals in ((k_pages, k_scales, new_k),
+                                (v_pages, v_scales, new_v)):
+        qv, sc = quantize_kv(vals)                       # sc [L, kvh, B]
+        pages[:, :, phys, slot] = qv
+        # block-major scales: the two advanced indices are not adjacent, so
+        # the indexed shape is [B, L, kvh]
+        scales[:, phys, :, slot] = sc.permute(2, 0, 1)
+    return h, k_pages, v_pages, k_scales, v_scales

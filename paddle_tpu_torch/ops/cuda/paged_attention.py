@@ -3,10 +3,12 @@ hand-written kernel (``csrc/paged_attention.cu``).
 
 Replaces the TPU kernel ``paddle_tpu/ops/pallas/paged_attention.py``
 ``paged_attention_pallas`` (``pl.pallas_call`` at :580 with stats, :561
-without). Bounded on the H100 by the device-memory bytes of the K/V rows it
-reads; the kernel reads each valid row once and never touches a page past a
-row's length. CPU tensors take the plain version; CUDA tensors launch the
-kernel or raise.
+without), over bf16 pages and, with ``k_scales``/``v_scales``, over int8
+pages (the Pallas ``_kernel_quant*`` variants). Bounded on the H100 by the
+device-memory bytes of the K/V rows it reads (plus 8 bytes of scales per
+token and kv head on int8 pages); the kernel reads each valid row once and
+never touches a page past a row's length. CPU tensors take the plain
+version; CUDA tensors launch the kernel or raise.
 """
 
 from __future__ import annotations
@@ -17,15 +19,18 @@ from typing import Optional
 
 import torch
 
+from ...models.kv_cache import dequantize_kv
 from . import _build
 
 __all__ = ["paged_attention", "paged_attention_reference", "NEG_INF",
-           "launches"]
+           "launches", "int8_launches"]
 
 NEG_INF = -1e30
 
-#: kernel launches since the count was last set to 0
+#: kernel launches over bf16 pages since the count was last set to 0
 launches = 0
+#: kernel launches over int8 pages since the count was last set to 0
+int8_launches = 0
 
 #: pages one CTA walks: a row of ``pps`` pages is split into
 #: ``ceil(pps / PAGES_PER_SPLIT)`` ranges processed in parallel
@@ -36,12 +41,17 @@ _c_int, _ptr = ctypes.c_int, ctypes.c_void_p
 
 def paged_attention_reference(q, k_pages, v_pages, page_table, seq_lens,
                               scale: Optional[float] = None,
-                              return_stats: bool = False):
+                              return_stats: bool = False, k_scales=None,
+                              v_scales=None):
     """Gather the pages, mask, softmax, in f32. q ``[B, H, D]``; k/v pages
     ``[KVH, P, page, D]``; page_table ``[B, PPS]``; seq_lens ``[B]``.
     Returns out ``[B, H, D]`` in q's dtype and, with ``return_stats``,
     ``(m, l)`` ``[B, H]`` f32: m the masked row max (``NEG_INF`` for an
-    empty row), l = Σ exp(s − m) over the valid columns."""
+    empty row), l = Σ exp(s − m) over the valid columns.
+
+    With ``k_scales``/``v_scales`` ``[P, KVH, page]`` f32 the pages are int8
+    and only the gathered slice is dequantized, with ``dequantize_kv``, as
+    the JAX ``paged_attention_reference`` does (:96-104)."""
     b, h, d = q.shape
     kvh, _, page, _ = k_pages.shape
     pps = page_table.shape[1]
@@ -50,6 +60,11 @@ def paged_attention_reference(q, k_pages, v_pages, page_table, seq_lens,
     table = page_table.long()
     k = k_pages[:, table].transpose(0, 1).reshape(b, kvh, pps * page, d)
     v = v_pages[:, table].transpose(0, 1).reshape(b, kvh, pps * page, d)
+    if k_scales is not None:
+        # [B, PPS, KVH, page] -> [B, KVH, PPS * page]
+        ks = k_scales[table].transpose(1, 2).reshape(b, kvh, pps * page)
+        vs = v_scales[table].transpose(1, 2).reshape(b, kvh, pps * page)
+        k, v = dequantize_kv(k, ks), dequantize_kv(v, vs)
     qg = q.reshape(b, kvh, group, d).float()
     scores = torch.einsum("bkgd,bksd->bkgs", qg, k.float()) * scale
     pos = torch.arange(pps * page, device=q.device)
@@ -72,19 +87,29 @@ def _lib():
         lib.ptt_paged_decode.argtypes = [_ptr] * 11 + [_c_int] * 8 \
             + [ctypes.c_float, _ptr]
         lib.ptt_paged_decode.restype = _c_int
+        lib.ptt_paged_decode_int8.argtypes = [_ptr] * 13 + [_c_int] * 8 \
+            + [ctypes.c_float, _ptr]
+        lib.ptt_paged_decode_int8.restype = _c_int
     return lib
 
 
 def paged_attention(q, k_pages, v_pages, page_table, seq_lens,
                     scale: Optional[float] = None,
-                    return_stats: bool = False):
-    """Decode attention over paged K/V: the kernel on CUDA tensors (bf16 q
-    and pages, int32 table and lens, all contiguous), the plain version on
-    CPU tensors. Same contract as :func:`paged_attention_reference`."""
-    global launches
+                    return_stats: bool = False, k_scales=None,
+                    v_scales=None):
+    """Decode attention over paged K/V: the kernel on CUDA tensors (bf16 q,
+    bf16 pages or int8 pages with f32 ``k_scales``/``v_scales``
+    ``[P, KVH, page]``, int32 table and lens, all contiguous), the plain
+    version on CPU tensors. Same contract as
+    :func:`paged_attention_reference`."""
+    global launches, int8_launches
+    if (k_scales is None) != (v_scales is None):
+        raise ValueError("paged_attention: pass both k_scales and v_scales "
+                         "for int8 pages, or neither")
     if q.device.type == "cpu":
         return paged_attention_reference(q, k_pages, v_pages, page_table,
-                                         seq_lens, scale, return_stats)
+                                         seq_lens, scale, return_stats,
+                                         k_scales, v_scales)
     if q.device.type != "cuda":
         raise ValueError(f"paged_attention: unsupported device {q.device}")
     b, h, d = q.shape
@@ -103,11 +128,22 @@ def paged_attention(q, k_pages, v_pages, page_table, seq_lens,
         raise ValueError(f"paged_attention: page_table "
                          f"{tuple(page_table.shape)} / seq_lens "
                          f"{tuple(seq_lens.shape)} do not match batch {b}")
-    for name, t, dtype in (("q", q, torch.bfloat16),
-                           ("k_pages", k_pages, torch.bfloat16),
-                           ("v_pages", v_pages, torch.bfloat16),
-                           ("page_table", page_table, torch.int32),
-                           ("seq_lens", seq_lens, torch.int32)):
+    quant = k_scales is not None
+    page_dtype = torch.int8 if quant else torch.bfloat16
+    checks = [("q", q, torch.bfloat16), ("k_pages", k_pages, page_dtype),
+              ("v_pages", v_pages, page_dtype),
+              ("page_table", page_table, torch.int32),
+              ("seq_lens", seq_lens, torch.int32)]
+    if quant:
+        if k_scales.shape != (num_pages, kvh, page) \
+                or v_scales.shape != k_scales.shape:
+            raise ValueError(f"paged_attention: scales "
+                             f"{tuple(k_scales.shape)}/"
+                             f"{tuple(v_scales.shape)} must be "
+                             f"{(num_pages, kvh, page)}")
+        checks += [("k_scales", k_scales, torch.float32),
+                   ("v_scales", v_scales, torch.float32)]
+    for name, t, dtype in checks:
         if t.dtype != dtype or t.device != q.device \
                 or not t.is_contiguous():
             raise ValueError(f"paged_attention: {name} must be a contiguous "
@@ -126,13 +162,20 @@ def paged_attention(q, k_pages, v_pages, page_table, seq_lens,
     part_acc = torch.empty((b, h, splits, d), **f32)
     lib = _lib()
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    rc = lib.ptt_paged_decode(
-        q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-        page_table.data_ptr(), seq_lens.data_ptr(), out.data_ptr(),
-        m.data_ptr() if return_stats else None,
-        l.data_ptr() if return_stats else None, part_m.data_ptr(),
-        part_l.data_ptr(), part_acc.data_ptr(), b, h, kvh, num_pages, page,
-        pps, PAGES_PER_SPLIT, d, scale, stream)
-    _build.check(lib, rc, "paged_attention")
-    launches += 1
+    pages = (k_pages.data_ptr(), v_pages.data_ptr())
+    rest = (page_table.data_ptr(), seq_lens.data_ptr(), out.data_ptr(),
+            m.data_ptr() if return_stats else None,
+            l.data_ptr() if return_stats else None, part_m.data_ptr(),
+            part_l.data_ptr(), part_acc.data_ptr(), b, h, kvh, num_pages,
+            page, pps, PAGES_PER_SPLIT, d, scale, stream)
+    if quant:
+        rc = lib.ptt_paged_decode_int8(q.data_ptr(), *pages,
+                                       k_scales.data_ptr(),
+                                       v_scales.data_ptr(), *rest)
+        _build.check(lib, rc, "paged_attention (int8 pages)")
+        int8_launches += 1
+    else:
+        rc = lib.ptt_paged_decode(q.data_ptr(), *pages, *rest)
+        _build.check(lib, rc, "paged_attention")
+        launches += 1
     return (out, m, l) if return_stats else out

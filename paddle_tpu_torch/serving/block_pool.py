@@ -2,10 +2,13 @@
 ``paddle_tpu/serving/block_pool.py`` without the prefix cache).
 
 The pool owns one preallocated pair of page tensors
-``[L, kvh, num_blocks, block, dh]`` on the device plus the per-slot block
+``[L, kvh, num_blocks, block, dh]`` on the device (int8 on a quantized
+spec, with a parallel pair of f32 scales pools ``[L, num_blocks, kvh,
+block]``, ``k_scales``/``v_scales``, else None) plus the per-slot block
 tables the paged kernel reads, and hands out and reclaims physical block
-ids on the host. Block 0 is the null block: idle decode rows write their
-garbage there and unallocated logical blocks point at it.
+ids on the host; a block id covers its scales too. Block 0 is the null
+block: idle decode rows write their garbage there and unallocated logical
+blocks point at it.
 
 Two admission modes:
 
@@ -50,6 +53,10 @@ class BlockPool:
         self.max_slots = int(max_slots)
         self.optimistic = bool(optimistic)
         self.k_pages, self.v_pages = spec.alloc_pool(num_blocks, self.device)
+        self.k_scales = self.v_scales = None
+        if spec.quantized:
+            self.k_scales, self.v_scales = spec.alloc_scales(num_blocks,
+                                                             self.device)
         self.table = np.zeros((max_slots, self.pages_per_seq), np.int32)
         self.lens = np.zeros((max_slots,), np.int32)
         self._free_blocks: List[int] = list(range(num_blocks - 1, 0, -1))

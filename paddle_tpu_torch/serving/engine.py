@@ -23,9 +23,16 @@ Three step families, all greedy:
 PyTorch runs eagerly, so there is no trace cache or bucket warmup; the
 buckets only round the prefill length. Pool writes are in place.
 
+Quantized modes, in any combination: ``quantize`` (False, True = "int8",
+"int8", "int4") stores the decoder's four weight stacks weight-only
+quantized, and every product goes through the weight-only GEMM;
+``kv_cache_dtype="int8"`` stores the pool as int8 pages with per-token
+scales, quantized at every pool write and dequantized by the paged kernel
+and by the chunked-prefill carry.
+
 Not ported yet (each raises ``NotImplementedError`` naming the ROADMAP
-entry): speculative decoding, weight-only quantization, the int8 KV pool
-and the shared-prefix cache; ``prefix_cache`` resolves to False.
+entry): speculative decoding and the shared-prefix cache;
+``prefix_cache`` resolves to False.
 """
 
 from __future__ import annotations
@@ -44,8 +51,10 @@ from ..incubate.nn.functional.fused_transformer import (
     fused_multi_transformer, fused_multi_transformer_paged_ragged,
     fused_weights_from_llama)
 from ..models.generation import lm_head_tail
-from ..models.kv_cache import KVCacheSpec, check_request_fits
+from ..models.kv_cache import (KVCacheSpec, check_request_fits,
+                               dequantize_kv, quantize_kv)
 from ..ops.cuda import flash_attention as _flash_cuda
+from ..ops.cuda import int8_matmul as _wo_cuda
 from ..ops.cuda import paged_attention as _paged_cuda
 from ..ops.fused.rope import build_rope_cache
 from .block_pool import BlockPool, BlockPoolExhausted
@@ -79,8 +88,10 @@ def _default_buckets(max_seq_len: int) -> Tuple[int, ...]:
 class ServingConfig:
     """Knobs of the continuous-batching runtime; the fields and defaults of
     the JAX ``ServingConfig``. Zero/None fields resolve to the constants
-    above. ``interpret`` and ``donate`` have no counterpart in eager
-    PyTorch (no interpreter, writes are in place) and are ignored."""
+    above. ``quantize``: False, True (= "int8"), "int8" or "int4" weight-only
+    quantization; ``kv_cache_dtype``: "" (the model dtype) or "int8".
+    ``interpret`` and ``donate`` have no counterpart in eager PyTorch (no
+    interpreter, writes are in place) and are ignored."""
 
     max_seq_len: int = 2048
     block_size: int = 0
@@ -103,19 +114,20 @@ class ServingConfig:
             raise NotImplementedError(
                 f"ServingConfig.speculative: speculative decoding is not "
                 f"ported yet ({_ROADMAP})")
-        if r.quantize:
-            raise NotImplementedError(
-                f"ServingConfig.quantize={r.quantize!r}: weight-only "
-                f"quantization is not ported yet ({_ROADMAP})")
+        if r.quantize is True:
+            r.quantize = "int8"
+        elif not r.quantize:
+            r.quantize = False
+        elif r.quantize not in ("int8", "int4"):
+            raise ValueError(f"ServingConfig.quantize {r.quantize!r} is not "
+                             f"supported — False, True, 'int8' or 'int4'")
         if r.kv_cache_dtype is None:
             r.kv_cache_dtype = SERVING_KV_CACHE_DTYPE
-        if r.kv_cache_dtype == "int8":
-            raise NotImplementedError(
-                f"ServingConfig.kv_cache_dtype='int8': the int8 KV pool is "
-                f"not ported yet ({_ROADMAP})")
-        if r.kv_cache_dtype != "":
-            raise ValueError(f"ServingConfig.kv_cache_dtype "
-                             f"{r.kv_cache_dtype!r} is not supported")
+        if r.kv_cache_dtype not in ("", "int8"):
+            raise ValueError(
+                f"ServingConfig.kv_cache_dtype {r.kv_cache_dtype!r} is not "
+                f"supported — '' (store in the model dtype) or 'int8' "
+                f"(quantized pool + scales)")
         if r.prefix_cache:
             raise NotImplementedError(
                 f"ServingConfig.prefix_cache=True: the shared-prefix cache "
@@ -160,14 +172,15 @@ class ServingEngine:
                 f"model's max_position_embeddings "
                 f"{cfg.max_position_embeddings}")
         self._cfg = cfg
-        self.spec = KVCacheSpec.from_config(cfg, page_size=c.block_size)
+        self.spec = KVCacheSpec.from_config(cfg, page_size=c.block_size,
+                                            cache_dtype=c.kv_cache_dtype)
         pps = self.spec.pages_per_seq(c.max_seq_len)
         self.pool = BlockPool(self.spec, c.max_seq_len,
                               c.num_blocks or (c.max_batch * pps + 1),
                               c.max_batch, optimistic=c.preemption,
                               device=self.device)
         self.scheduler = Scheduler(self.pool, c.prefill_token_budget)
-        self.weights = fused_weights_from_llama(model)
+        self.weights = fused_weights_from_llama(model, quantize=c.quantize)
         self._embed = model.model.embed_tokens.weight
         self._final_norm = model.model.norm.weight
         # the f32 tail multiplies by an f32 head: convert it once
@@ -203,12 +216,38 @@ class ServingEngine:
 
     def _scatter(self, k, v, pos, block_row):
         """Write k/v ``[L, n, kvh, dh]`` at absolute positions ``pos [n]``
-        into a slot's blocks, in place."""
-        page = self.config.block_size
+        into a slot's blocks, in place. A quantized pool stores
+        ``quantize_kv`` of them, value and scale at the same coordinates
+        (``_scatter_kv``, ``paddle_tpu/serving/engine.py:128-150``)."""
+        page, pool = self.config.block_size, self.pool
         phys = block_row[pos // page]
         slot = pos % page
-        self.pool.k_pages[:, :, phys, slot] = k.transpose(1, 2)
-        self.pool.v_pages[:, :, phys, slot] = v.transpose(1, 2)
+        for pages, scales, vals in ((pool.k_pages, pool.k_scales, k),
+                                    (pool.v_pages, pool.v_scales, v)):
+            vals = vals.transpose(1, 2)                  # [L, kvh, n, dh]
+            if scales is None:
+                pages[:, :, phys, slot] = vals.to(pages.dtype)
+                continue
+            qv, sc = quantize_kv(vals)                   # sc [L, kvh, n]
+            pages[:, :, phys, slot] = qv
+            # block-major scales: the indexed shape is [n, L, kvh]
+            scales[:, phys, :, slot] = sc.permute(2, 0, 1)
+
+    def _gather(self, pos, block_row):
+        """The cached k/v at absolute positions ``pos [n]`` of a slot's
+        blocks as ``[L, n, kvh, dh]`` in the compute dtype, dequantized
+        from a quantized pool (``engine.py:838-855``)."""
+        page, pool = self.config.block_size, self.pool
+        phys, slot = block_row[pos // page], pos % page
+        out = []
+        for pages, scales in ((pool.k_pages, pool.k_scales),
+                              (pool.v_pages, pool.v_scales)):
+            g = pages[:, :, phys, slot]                  # [L, kvh, n, dh]
+            if scales is not None:
+                g = dequantize_kv(g, scales[:, phys, :, slot].permute(1, 2, 0),
+                                  self.spec.torch_dtype)
+            out.append(g.transpose(1, 2))
+        return out
 
     @torch.inference_mode()
     def _prefill(self, ids: np.ndarray, chunk_len: int, offset: int,
@@ -231,12 +270,8 @@ class ServingEngine:
         # scratch dense cache of the carried prefix plus this chunk's bucket
         ck, cv = self.spec.alloc_dense(1, offset + S, dev)
         if offset:
-            prev = torch.arange(offset, device=dev)
-            page = self.config.block_size
-            phys, slot = row[prev // page], prev % page
-            pool = self.pool
-            ck[:, 0, :offset] = pool.k_pages[:, :, phys, slot].transpose(1, 2)
-            cv[:, 0, :offset] = pool.v_pages[:, :, phys, slot].transpose(1, 2)
+            ck[:, 0, :offset], cv[:, 0, :offset] = self._gather(
+                torch.arange(offset, device=dev), row)
         h, ck, cv = fused_multi_transformer(
             x, self.weights, ck, cv, offset, cos, sin, num_heads=hq,
             num_kv_heads=hk, epsilon=eps)
@@ -257,9 +292,11 @@ class ServingEngine:
         x = self._embed[tok_t][:, None]                   # [B, 1, D]
         pos = torch.clamp(lens.long(), max=self.config.max_seq_len - 1)
         cos, sin = self._cos[pos][:, None], self._sin[pos][:, None]
-        h, _, _ = fused_multi_transformer_paged_ragged(
-            x, self.weights, self.pool.k_pages, self.pool.v_pages, table,
-            lens, cos, sin, num_heads=hq, num_kv_heads=hk, epsilon=eps)
+        pool = self.pool
+        h = fused_multi_transformer_paged_ragged(
+            x, self.weights, pool.k_pages, pool.v_pages, table, lens, cos,
+            sin, num_heads=hq, num_kv_heads=hk, epsilon=eps,
+            k_scales=pool.k_scales, v_scales=pool.v_scales)[0]
         tok, _ = self._tail(h[:, -1])
         return tok.cpu().numpy()
 
@@ -498,8 +535,14 @@ class ServingEngine:
             "decode_stalls": self.decode_stalls,
             "prefill_chunks": self.prefill_chunks,
             "decode_steps": self.decode_steps,
-            "kernel_launches": {"flash_attention": _flash_cuda.launches,
-                                "paged_attention": _paged_cuda.launches},
+            "kernel_launches": {
+                "flash_attention": _flash_cuda.launches,
+                "paged_attention": _paged_cuda.launches,
+                "paged_attention_int8": _paged_cuda.int8_launches,
+                "int8_matmul": _wo_cuda.launches,
+                "int4_matmul": _wo_cuda.int4_launches},
             "mode": {"preemption": self.config.preemption,
-                     "prefix_cache": self.config.prefix_cache},
+                     "prefix_cache": self.config.prefix_cache,
+                     "quantize": self.config.quantize,
+                     "kv_cache_dtype": self.spec.storage_dtype},
         }

@@ -77,6 +77,35 @@ def test_walk_covers_the_training_modules():
             "paddle_tpu_torch.ops.fused.cross_entropy"} <= names
 
 
+def test_walk_covers_the_quantized_serving_modules():
+    names = {m.name for m in pkgutil.walk_packages(
+        paddle_tpu_torch.__path__, "paddle_tpu_torch.")}
+    assert {"paddle_tpu_torch.ops.quant_ops",
+            "paddle_tpu_torch.ops.cuda.int8_matmul",
+            "paddle_tpu_torch.models.kv_cache"} <= names
+    assert (ROOT / "paddle_tpu_torch" / "csrc" / "int8_matmul.cu").is_file()
+
+
+@pytest.mark.parametrize("quantize,kv_dtype", [
+    ("int8", ""), ("int4", ""), (False, "int8"), (True, "int8")])
+def test_quantized_modes_no_longer_raise(monkeypatch, quantize, kv_dtype):
+    """The quantized modes serve on the CPU when asked for it, and still
+    refuse a CUDA device without a card."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = LlamaConfig(**{**TINY.__dict__, "hidden_size": 128,
+                         "intermediate_size": 128})
+    model = LlamaForCausalLM(cfg, device="cpu")
+    sc = ServingConfig(max_seq_len=32, block_size=8, quantize=quantize,
+                       kv_cache_dtype=kv_dtype)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ServingEngine(model, sc, device="cuda")
+    eng = ServingEngine(model, sc)
+    assert len(eng.generate_batch([np.arange(5)], max_new_tokens=3)[0]) == 3
+    with pytest.raises(ValueError, match="kv_cache_dtype"):
+        ServingEngine(model, ServingConfig(max_seq_len=32,
+                                           kv_cache_dtype="int4"))
+
+
 def test_entry_points_raise_without_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):

@@ -2,8 +2,10 @@
 against the JAX ``ServingEngine`` (``interpret=True``, prefix cache off) on
 the same tiny f32 Llama. Greedy tokens must match exactly, including a
 prompt longer than ``prefill_token_budget`` (chunked prefill) and a pool
-small enough to force a preemption. The JAX engine's trace counts are not
-asserted here.
+small enough to force a preemption, and in the quantized modes (weight-only
+int8/int4, the int8 KV pool, and both), on a model whose products all have
+128-multiple widths. The JAX engine's trace counts and its int8-KV
+match-rate constant are not asserted here.
 """
 
 import numpy as np
@@ -25,17 +27,29 @@ TINY = dict(vocab_size=256, hidden_size=64, intermediate_size=176,
             num_hidden_layers=2, num_attention_heads=4,
             num_key_value_heads=2, max_position_embeddings=64,
             dtype="float32")
+# every product's K and N a multiple of 128: qkv 128 x 256, out 128 x 128,
+# ffn1 128 x 512, ffn2 256 x 128
+QTINY = dict(TINY, hidden_size=128, intermediate_size=256)
+
+
+def _pair(cfg, seed):
+    paddle.seed(seed)
+    jm = JaxLlama(JaxLlamaConfig(**cfg))
+    jm.eval()
+    tm = LlamaForCausalLM(LlamaConfig(**cfg), device="cpu")
+    load_paddle_tpu_state(tm, {k: np.asarray(v.numpy())
+                               for k, v in jm.state_dict().items()})
+    return jm, tm
 
 
 @pytest.fixture(scope="module")
 def models():
-    paddle.seed(21)
-    jm = JaxLlama(JaxLlamaConfig(**TINY))
-    jm.eval()
-    tm = LlamaForCausalLM(LlamaConfig(**TINY), device="cpu")
-    load_paddle_tpu_state(tm, {k: np.asarray(v.numpy())
-                               for k, v in jm.state_dict().items()})
-    return jm, tm
+    return _pair(TINY, 21)
+
+
+@pytest.fixture(scope="module")
+def quant_models():
+    return _pair(QTINY, 23)
 
 
 def _run(engine, prompts, max_new):
@@ -55,11 +69,10 @@ SCENARIOS = {
 }
 
 
-@pytest.mark.parametrize("name", sorted(SCENARIOS))
-def test_engine_tokens_match_jax(models, name):
-    jm, tm = models
+def _check_parity(jm, tm, name, **quant):
     kw, lens, max_new = SCENARIOS[name]
-    base = dict(max_seq_len=64, block_size=8, prefill_buckets=(16,), **kw)
+    base = dict(max_seq_len=64, block_size=8, prefill_buckets=(16,), **kw,
+                **quant)
     rng = np.random.RandomState(len(name))
     prompts = [rng.randint(0, 256, (n,)).astype(np.int32) for n in lens]
     ref = _run(JaxServingEngine(jm, JaxServingConfig(
@@ -77,6 +90,34 @@ def test_engine_tokens_match_jax(models, name):
         assert s["preemptions"] >= 1
     else:
         assert max(r.prefill_chunks for r in ours) == 3
+    return eng, s
+
+
+@pytest.mark.parametrize("name", sorted(SCENARIOS))
+def test_engine_tokens_match_jax(models, name):
+    _check_parity(*models, name)
+
+
+# (quantize, kv_cache_dtype) x scenario: every mode under chunked prefill;
+# preemption, whose victim recomputes its prefix through the dequantized
+# carry, with both
+QUANT_CASES = [("int8", "", "chunked"), ("int4", "", "chunked"),
+               (False, "int8", "chunked"), (True, "int8", "chunked"),
+               (True, "int8", "preemption")]
+
+
+@pytest.mark.parametrize("quantize,kv_dtype,name", QUANT_CASES)
+def test_quantized_engine_tokens_match_jax(quant_models, quantize, kv_dtype,
+                                           name):
+    eng, s = _check_parity(*quant_models, name, quantize=quantize,
+                           kv_cache_dtype=kv_dtype)
+    mode = "int8" if quantize is True else quantize
+    assert s["mode"]["quantize"] == mode
+    assert s["mode"]["kv_cache_dtype"] == (kv_dtype or "float32")
+    assert eng.weights.quantized == bool(quantize)
+    pool = eng.pool
+    assert (pool.k_scales is not None) == (kv_dtype == "int8")
+    assert pool.k_pages.dtype == (torch.int8 if kv_dtype else torch.float32)
 
 
 def test_stream_and_dense_forward_agree(models):
@@ -93,10 +134,25 @@ def test_stream_and_dense_forward_agree(models):
 
 
 @pytest.mark.parametrize("field,value", [
-    ("speculative", (None, 2)), ("quantize", "int8"),
-    ("kv_cache_dtype", "int8"), ("prefix_cache", True)])
+    ("speculative", (None, 2)), ("prefix_cache", True)])
 def test_unported_features_raise(field, value):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
+        ServingConfig(**{field: value}).resolve()
+
+
+@pytest.mark.parametrize("quantize,kv_dtype,want", [
+    (True, "int8", "int8"), ("int4", "", "int4"), (False, None, False),
+    ("int8", "", "int8")])
+def test_quantized_modes_resolve(quantize, kv_dtype, want):
+    c = ServingConfig(quantize=quantize, kv_cache_dtype=kv_dtype).resolve()
+    assert c.quantize == want and c.kv_cache_dtype == (kv_dtype or "")
+
+
+@pytest.mark.parametrize("field,value", [
+    ("kv_cache_dtype", "fp8"), ("kv_cache_dtype", "bfloat16"),
+    ("quantize", "int2")])
+def test_unknown_quantized_modes_raise(field, value):
+    with pytest.raises(ValueError, match="not supported"):
         ServingConfig(**{field: value}).resolve()
 
 
