@@ -16,12 +16,18 @@ Phases, each of which fails the run (non-zero exit, no result line):
    dv: max |diff| <= 2e-2 * max |ref|; fused AdamW p, m, v: max |diff| <=
    1e-6 * max(|ref|, 1); int8 / int4 weight-only GEMMs: max |diff| <=
    1e-2 * max |plain|, the bf16 output's rounding, at m = 8, 32, 64 and
-   256; int8 paged as the bf16 one), with its time, its bound (H100 SXM:
-   3.35 TB/s HBM, 989 TFLOP/s bf16 dense), the plain version's time and a
-   library yardstick (``scaled_dot_product_attention`` forward or
+   256; int8 paged as the bf16 one; the grouped GEMMs of the MoE layer, gmm
+   in both orientations with and without bias, tgmm and the fused gate +
+   up + swiglu with its residuals: max |diff| <= 1e-2 * max |plain| at M =
+   32768 routed rows for a router draw and a skewed set with an empty
+   group, an 8192-row group and trash rows, whose output rows and
+   empty-group dW must be exact zeros), with its time, its bound (H100
+   SXM: 3.35 TB/s HBM, 989 TFLOP/s bf16 dense), the plain version's time
+   and a library yardstick (``scaled_dot_product_attention`` forward or
    backward, ``torch.optim.AdamW(fused=True)``, a bf16 ``torch.matmul`` of
-   the same shape; timed here only, never called by the port), and the
-   host ms of one decode step's 128 weight-only wrapper calls;
+   the same shape, ``torch._grouped_mm``; timed here only, never called by
+   the port), and the host ms of one decode step's 128 weight-only wrapper
+   calls;
 4. serving: Llama-3-8B at full width and depth (random weights from a
    seeded generator, drawn on the card) behind
    ``ServingEngine(max_seq_len=2048)`` serves 8 requests of 32 new tokens;
@@ -49,7 +55,16 @@ Phases, each of which fails the run (non-zero exit, no result line):
    step; times the step at 4 and 2 layers and profiles one;
 7. eager: the same model rebuilt, 5 steps of ``loss.backward();
    FusedAdamW.step()``; checks falling losses and one fused AdamW launch
-   per step.
+   per step;
+8. MoE training: ``bench.py``'s MoE-Llama (vocab 32000, hidden 1024,
+   intermediate 2816, 12 layers, 8 heads, 8 experts top-2 every 2nd
+   layer, capacity factor 2.0, bf16, fused loss) at full width and depth,
+   batch 8 x 2048 seeded tokens, 10 ``TrainStep`` steps with AdamW (lr
+   3e-4, bf16 moments) and clip 1.0; checks finite, falling losses, a
+   fresh-batch loss above ln(vocab) / 2, and per step 6 fused swiglu, 18
+   gmm and 12 tgmm launches, 12 flash forward and 12 flash backward, no
+   fused AdamW or paged launch; prints the experts' loads, the step time,
+   tokens/s, the model-FLOP share, peak memory and a profiled step.
 
 The last lines are the kernels' JSON, the card's name and power limit, and
 ``{"ok": true, "device": {...}}``.
@@ -79,6 +94,8 @@ PROMPT_LENS = (17, 64, 200, 333, 511, 700, 1024, 1500)
 NEW_TOKENS = 32
 TRAIN_BATCH, TRAIN_SEQ = 2, 2048
 TRAIN_STEPS, EAGER_STEPS = 10, 5
+GG_RTOL = 1e-2                   # grouped GEMMs: max |diff| / max |plain|
+MOE_BATCH, MOE_SEQ, MOE_STEPS = 8, 2048, 10
 
 
 class SmokeFailure(Exception):
@@ -301,6 +318,8 @@ def phase_kernels(torch, gen, flush):
     rows["flash_attention_bwd"] = check_flash_backward(torch, gen, flush)
     torch.cuda.empty_cache()
     rows["fused_adamw"] = check_fused_adamw(torch, gen)
+    torch.cuda.empty_cache()
+    rows.update(check_grouped_gemm(torch, gen, flush))
     torch.cuda.empty_cache()
     return rows
 
@@ -632,6 +651,200 @@ def check_fused_adamw(torch, gen):
         del p, g, m, v
     row["max_abs_err"] = err_max
     return row
+
+
+def moe_config(layers=12):
+    """``bench.py``'s MoE-Llama (``bench.py:216-233``) at ``layers``."""
+    from paddle_tpu_torch.models import MoELlamaConfig
+
+    return MoELlamaConfig(vocab_size=32000, hidden_size=1024,
+                          intermediate_size=2816, num_hidden_layers=layers,
+                          num_attention_heads=8, num_key_value_heads=8,
+                          max_position_embeddings=MOE_SEQ, dtype="bfloat16",
+                          moe_num_experts=8, moe_topk=2, moe_every=2,
+                          moe_capacity_factor=2.0, aux_loss_alpha=0.01,
+                          fused_loss=True)
+
+
+def router_sizes(torch, gen):
+    """Kept rows per expert of one ``GShardGate`` draw (bf16, seeded
+    Xavier weights) over phase 8's 16384 tokens of unit-variance hidden
+    states."""
+    from paddle_tpu_torch.parallel import GShardGate
+
+    cfg = moe_config()
+    gate = GShardGate(cfg.hidden_size, cfg.moe_num_experts,
+                      capacity_factor=cfg.moe_capacity_factor, device="cuda",
+                      dtype=torch.bfloat16)
+    x = torch.randn(MOE_BATCH * MOE_SEQ, cfg.hidden_size, generator=gen,
+                    device="cuda").bfloat16()
+    with torch.no_grad():
+        idx, slot, _, _ = gate._route_sparse(x)
+    kept = (slot < gate.capacity(x.shape[0])).int()
+    return torch.zeros(cfg.moe_num_experts, dtype=torch.int32,
+                       device="cuda").scatter_add_(0, idx.long(), kept)
+
+
+def check_grouped_gemm(torch, gen, flush):
+    """The three grouped-GEMM kernels against their plain versions at one
+    MoE layer's products of phase 8 (M = 32768 routed rows, hidden 1024,
+    intermediate 2816, 8 experts): gmm (the w2 forward, and the dlhs through
+    w2 and w1 with ``transpose_rhs``, each orientation also with the other
+    bias setting), tgmm (dW2, dW1) and the fused swiglu with its residuals,
+    for a router draw's sizes (timed) and a skewed set with an empty group,
+    an 8192-row group and trash rows. The kernels line sums each kernel's
+    products of one layer: gmm 3, tgmm 2, swiglu 1."""
+    from paddle_tpu_torch.ops.cuda.grouped_gemm import (
+        gmm, gmm_reference, gmm_swiglu, gmm_swiglu_reference, tgmm,
+        tgmm_reference)
+
+    cfg = moe_config()
+    d, h, E = cfg.hidden_size, cfg.intermediate_size, cfg.moe_num_experts
+    M = 2 * MOE_BATCH * MOE_SEQ
+
+    def rnd(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=gen, device="cuda")
+                * scale).bfloat16()
+
+    w1, b1 = rnd(E, d, 2 * h, scale=d ** -0.5), rnd(E, 2 * h, scale=0.1)
+    w2, b2 = rnd(E, h, d, scale=h ** -0.5), rnd(E, d, scale=0.1)
+    bh = rnd(E, h, scale=0.1)
+    xs, hs, dy, dh = rnd(M, d), rnd(M, h), rnd(M, d), rnd(M, 2 * h)
+    sets = {"router draw": router_sizes(torch, gen),
+            "skewed": torch.tensor([8192, 0, 4000, 4096, 3000, 4096, 4096,
+                                    4000], dtype=torch.int32, device="cuda")}
+    names = ("grouped_gemm", "grouped_gemm_tgmm", "grouped_gemm_swiglu")
+    rows = {k: dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0,
+                    max_abs_err=0.0) for k in names}
+    by = {k: set() for k in names}
+    for label, sizes in sets.items():
+        kept = int(sizes.sum())           # the host reads the sizes here only
+        offs_host = [0] + torch.cumsum(sizes, 0).tolist()
+        offs = torch.cumsum(sizes, 0, dtype=torch.int32)
+        empty = [g for g in range(E) if offs_host[g + 1] == offs_host[g]]
+        print(f"  grouped GEMM sizes ({label}): {sizes.tolist()}, "
+              f"{M - kept} trash rows")
+
+        def loop(fn):
+            return lambda: [fn(g, offs_host[g], offs_host[g + 1])
+                            for g in range(E)]
+
+        # (row, label, kernel, plain, flops, bytes, library call, the
+        #  per-group torch.matmul loop); library None: not timed
+        products = [
+            ("grouped_gemm", "gmm w2 forward + b2 [M,2816]x[8,2816,1024]",
+             lambda: gmm(hs, w2, sizes, b2),
+             lambda: gmm_reference(hs, w2, sizes, b2), 2 * kept * h * d,
+             2 * (kept * h + E * h * d + E * d + M * d),
+             lambda: torch._grouped_mm(hs, w2, offs=offs),
+             loop(lambda g, a, b: hs[a:b] @ w2[g])),
+            ("grouped_gemm", "gmm w2 forward, no bias", lambda: gmm(
+                hs, w2, sizes), lambda: gmm_reference(hs, w2, sizes),
+             0, 0, None, None),
+            ("grouped_gemm", "gmm dlhs through w2 [M,1024]x[8,2816,1024]^T",
+             lambda: gmm(dy, w2, sizes, None, True),
+             lambda: gmm_reference(dy, w2, sizes, None, True),
+             2 * kept * h * d, 2 * (kept * d + E * h * d + M * h),
+             lambda: torch._grouped_mm(dy, w2.transpose(1, 2), offs=offs),
+             loop(lambda g, a, b: dy[a:b] @ w2[g].t())),
+            ("grouped_gemm", "gmm transpose_rhs + bias", lambda: gmm(
+                dy, w2, sizes, bh, True),
+             lambda: gmm_reference(dy, w2, sizes, bh, True), 0, 0, None,
+             None),
+            ("grouped_gemm", "gmm dlhs through w1 [M,5632]x[8,1024,5632]^T",
+             lambda: gmm(dh, w1, sizes, None, True),
+             lambda: gmm_reference(dh, w1, sizes, None, True),
+             4 * kept * h * d, 2 * (2 * kept * h + 2 * E * h * d + M * d),
+             lambda: torch._grouped_mm(dh, w1.transpose(1, 2), offs=offs),
+             loop(lambda g, a, b: dh[a:b] @ w1[g].t())),
+            ("grouped_gemm_tgmm", "tgmm dW2 [M,2816]^T x [M,1024]",
+             lambda: tgmm(hs, dy, sizes),
+             lambda: tgmm_reference(hs, dy, sizes), 2 * kept * h * d,
+             2 * (kept * h + kept * d + E * h * d),
+             lambda: torch._grouped_mm(hs.t(), dy, offs=offs),
+             loop(lambda g, a, b: hs[a:b].t() @ dy[a:b])),
+            ("grouped_gemm_tgmm", "tgmm dW1 [M,1024]^T x [M,5632]",
+             lambda: tgmm(xs, dh, sizes),
+             lambda: tgmm_reference(xs, dh, sizes), 4 * kept * h * d,
+             2 * (kept * d + 2 * kept * h + 2 * E * h * d),
+             lambda: torch._grouped_mm(xs.t(), dh, offs=offs),
+             loop(lambda g, a, b: xs[a:b].t() @ dh[a:b])),
+            ("grouped_gemm_swiglu", "swiglu [M,1024]x[8,1024,5632] + b1",
+             lambda: gmm_swiglu(xs, w1, sizes, b1),
+             lambda: gmm_swiglu_reference(xs, w1, sizes, b1),
+             4 * kept * h * d,
+             2 * (kept * d + 2 * E * d * h + 2 * E * h + 3 * M * h),
+             lambda: swiglu_pair(torch._grouped_mm(xs, w1, offs=offs), h),
+             loop(lambda g, a, b: swiglu_pair(xs[a:b] @ w1[g], h))),
+        ]
+        for row, what, fn, plain_fn, flops, nbytes, lib, per_group in \
+                products:
+            outs, refs = fn(), plain_fn()
+            torch.cuda.synchronize()
+            outs = outs if isinstance(outs, tuple) else (outs,)
+            refs = refs if isinstance(refs, tuple) else (refs,)
+            for i, (o, r) in enumerate(zip(outs, refs)):
+                err = (o.float() - r.float()).abs().max().item()
+                peak = r.float().abs().max().item()
+                check(o.dtype == torch.bfloat16 and math.isfinite(err)
+                      and err <= GG_RTOL * peak,
+                      f"{what} ({label}) out {i}: max |kernel - plain| = "
+                      f"{err:.3e} = {err / peak:.2e} of max |plain| <= "
+                      f"{GG_RTOL}")
+                rows[row]["max_abs_err"] = max(rows[row]["max_abs_err"],
+                                               err)
+                if row == "grouped_gemm_tgmm":
+                    check(all(bool((o[g] == 0).all()) for g in empty),
+                          f"{what} ({label}): dW of the empty groups "
+                          f"{empty} exact zeros")
+                else:
+                    check(bool((o[kept:] == 0).all()),
+                          f"{what} ({label}) out {i}: the {M - kept} trash "
+                          f"rows exact zeros")
+            if row == "grouped_gemm_swiglu":
+                y_only = gmm_swiglu(xs, w1, sizes, b1, emit_residuals=False)
+                check(bool((y_only[0] == outs[0]).all()),
+                      f"swiglu ({label}) without residuals: the same y")
+            del outs, refs
+            if label != "router draw" or not flops:
+                continue
+            ms = time_ms(torch, fn, flush=flush)
+            plain = time_ms(torch, plain_fn, reps=3, flush=flush)
+            loop_ms = time_ms(torch, per_group, flush=flush)
+            lib_ms = None
+            if lib is not None:
+                try:
+                    lib_ms = time_ms(torch, lib, flush=flush)
+                except (RuntimeError, TypeError, AttributeError) as e:
+                    print(f"    torch._grouped_mm refused it: {e}")
+            b_ms, b_by = bound(flops, nbytes)
+            by[row].add(b_by)
+            print(f"  {what}: {ms:.4f} ms (bound {b_ms:.4f} ms by {b_by}, "
+                  f"{b_ms / ms:.1%} of it), plain {plain:.3f} ms, "
+                  f"torch._grouped_mm "
+                  f"{'none' if lib_ms is None else f'{lib_ms:.4f} ms'}, "
+                  f"per-group torch.matmul loop {loop_ms:.4f} ms")
+            r = rows[row]
+            r["ms"] += ms
+            r["plain_ms"] += plain
+            r["bound_ms"] += b_ms
+            r["library_ms"] = None if lib_ms is None or r["library_ms"] \
+                is None else r["library_ms"] + lib_ms
+    for k in names:
+        rows[k]["bound_by"] = "bytes" if by[k] == {"bytes"} else "operations"
+    # the swiglu yardstick is a product plus the activation: no one call
+    rows["grouped_gemm_swiglu"]["library_ms"] = None
+    torch.cuda.synchronize()
+    del w1, b1, w2, b2, bh, xs, hs, dy, dh
+    return rows
+
+
+def swiglu_pair(h2, n):
+    """``silu(gate) * up`` of ``h2 = [gate | up]``: the swiglu yardstick's
+    activation after its product."""
+    import torch.nn.functional as F
+
+    return F.silu(h2[:, :n]) * h2[:, n:]
 
 
 def phase_slice(torch, seed):
@@ -1103,27 +1316,29 @@ def train_config(layers):
                        fused_loss=True)
 
 
-def train_tokens(torch, seed):
+def train_tokens(torch, seed, shape=(TRAIN_BATCH, TRAIN_SEQ)):
     import numpy as np
 
-    ids = np.random.RandomState(seed).randint(0, 32000,
-                                              (TRAIN_BATCH, TRAIN_SEQ))
+    ids = np.random.RandomState(seed).randint(0, 32000, shape)
     return torch.from_numpy(ids).cuda()
 
 
 def reset_counts():
     from paddle_tpu_torch.ops.cuda import fused_adamw as fw
     from paddle_tpu_torch.ops.cuda import flash_attention as fa
+    from paddle_tpu_torch.ops.cuda import grouped_gemm as gg
     from paddle_tpu_torch.ops.cuda import int8_matmul as wo
     from paddle_tpu_torch.ops.cuda import paged_attention as pa
 
     fa.launches = fa.bwd_launches = pa.launches = fw.launches = 0
     pa.int8_launches = wo.launches = wo.int4_launches = 0
+    gg.launches = gg.tgmm_launches = gg.swiglu_launches = 0
 
 
 def read_counts():
     from paddle_tpu_torch.ops.cuda import fused_adamw as fw
     from paddle_tpu_torch.ops.cuda import flash_attention as fa
+    from paddle_tpu_torch.ops.cuda import grouped_gemm as gg
     from paddle_tpu_torch.ops.cuda import int8_matmul as wo
     from paddle_tpu_torch.ops.cuda import paged_attention as pa
 
@@ -1132,7 +1347,9 @@ def read_counts():
             "paged_attention": pa.launches,
             "paged_attention_int8": pa.int8_launches,
             "int8_matmul": wo.launches, "int4_matmul": wo.int4_launches,
-            "fused_adamw": fw.launches}
+            "fused_adamw": fw.launches, "grouped_gemm": gg.launches,
+            "grouped_gemm_tgmm": gg.tgmm_launches,
+            "grouped_gemm_swiglu": gg.swiglu_launches}
 
 
 def check_losses(losses, what):
@@ -1221,9 +1438,14 @@ def phase_train(torch, seed):
     return n
 
 
-def profile_train_step(torch, step, ids, step_ms):
-    """One TrainStep under ``torch.profiler``: device ms by group and the
-    device's idle share of the unprofiled step."""
+TRAIN_GROUPS = {"flash fwd": ("flash_fwd",), "flash bwd": ("flash_bwd",),
+                "matmul": ("gemm", "gemv", "nvjet", "cutlass", "xmma")}
+
+
+def profile_train_step(torch, step, ids, step_ms, groups=None, top=8):
+    """One TrainStep under ``torch.profiler``: device ms by group (kernel
+    names containing a group's keys; the first group that matches takes
+    it) and the device's idle share of the unprofiled step."""
     from torch.profiler import ProfilerActivity, profile, record_function
 
     opt = step._opt
@@ -1252,8 +1474,7 @@ def profile_train_step(torch, step, ids, step_ms):
         print(f"  train step {step_ms:.1f} ms on the host clock; the profiler "
               f"recorded no device time (device breakdown not measured)")
         return
-    groups = {"flash fwd": ("flash_fwd",), "flash bwd": ("flash_bwd",),
-              "matmul": ("gemm", "gemv", "nvjet", "cutlass", "xmma")}
+    groups = groups or TRAIN_GROUPS
     by_group = dict.fromkeys(groups, 0.0)
     rest = 0.0
     for name, ms in kernels.items():
@@ -1275,7 +1496,7 @@ def profile_train_step(torch, step, ids, step_ms):
     print("  device ms per step by group: " + ", ".join(
         f"{g} {ms:.2f}" if isinstance(ms, float) else f"{g} {ms}"
         for g, ms in by_group.items()))
-    for name, ms in sorted(kernels.items(), key=lambda kv: -kv[1])[:8]:
+    for name, ms in sorted(kernels.items(), key=lambda kv: -kv[1])[:top]:
         print(f"    {ms:8.3f} ms  {name[:100]}")
 
 
@@ -1316,6 +1537,84 @@ def phase_eager(torch, seed):
     return n
 
 
+MOE_GROUPS = {"grouped GEMM": ("gmm_kernel",), **TRAIN_GROUPS}
+
+
+def phase_moe_train(torch, seed):
+    print("== phase 8: MoE-Llama training (8 experts, top-2) with TrainStep "
+          "+ AdamW")
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.models import MoELlamaForCausalLM
+    from paddle_tpu_torch.optimizer import AdamW
+
+    cfg = moe_config()
+    L = cfg.num_hidden_layers
+    n_moe = L // cfg.moe_every
+    total, activated = cfg.param_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = MoELlamaForCausalLM(cfg, seed=seed)
+    step = TrainStep(model, None, AdamW(
+        learning_rate=3e-4, moment_dtype="bfloat16",
+        parameters=model.parameters()), clip_norm=1.0)
+    ids = train_tokens(torch, seed, (MOE_BATCH, MOE_SEQ))
+    torch.cuda.synchronize()
+    print(f"  model: {total / 1e6:.1f} M params ({activated / 1e6:.1f} M "
+          f"activated per token), {L} layers ({n_moe} MoE), built in "
+          f"{time.perf_counter() - t0:.1f} s; batch {MOE_BATCH} x {MOE_SEQ}")
+    reset_counts()
+    losses, times = [], []
+    for _ in range(MOE_STEPS):
+        t0 = time.perf_counter()
+        losses.append(step(ids, ids).item())
+        times.append((time.perf_counter() - t0) * 1e3)
+    n = read_counts()
+    print(f"  step host ms {[round(t, 1) for t in times]}")
+    check_losses(losses, f"MoE TrainStep x {MOE_STEPS}")
+    routed = cfg.moe_topk * MOE_BATCH * MOE_SEQ
+    for i, moe in enumerate(model.moe_layers()):
+        load = moe.expert_load.tolist()
+        print(f"  MoE layer {2 * i + 1}: kept rows per expert {load}, drop "
+              f"share {1 - sum(load) / routed:.2%} (last step)")
+    steps = MOE_STEPS
+    check(n["grouped_gemm_swiglu"] == n_moe * steps
+          and n["grouped_gemm"] == 3 * n_moe * steps
+          and n["grouped_gemm_tgmm"] == 2 * n_moe * steps
+          and n["flash_attention"] == L * steps
+          and n["flash_attention_bwd"] == L * steps
+          and n["fused_adamw"] == 0 and n["paged_attention"] == 0
+          and n["paged_attention_int8"] == 0,
+          f"launches over {steps} steps: swiglu "
+          f"{n['grouped_gemm_swiglu']} ({n_moe} x steps), gmm "
+          f"{n['grouped_gemm']} (3 x {n_moe} x steps), tgmm "
+          f"{n['grouped_gemm_tgmm']} (2 x {n_moe} x steps), flash fwd "
+          f"{n['flash_attention']} and bwd {n['flash_attention_bwd']} "
+          f"({L} x steps), fused_adamw {n['fused_adamw']}, paged "
+          f"{n['paged_attention'] + n['paged_attention_int8']} (0 each)")
+    with torch.no_grad():
+        fresh = train_tokens(torch, seed + 1, (MOE_BATCH, MOE_SEQ))
+        held = model(fresh, labels=fresh)[0].item()
+    check(math.isfinite(held) and held > 0.5 * math.log(cfg.vocab_size),
+          f"MoE loss on a fresh batch {held:.3f} > ln(vocab) / 2 = "
+          f"{0.5 * math.log(cfg.vocab_size):.3f} (no causal leak)")
+    step_ms = sum(times[2:]) / len(times[2:])
+    tokens = MOE_BATCH * MOE_SEQ
+    tps = tokens / (step_ms / 1e3)
+    # bench.py:244: 6 x activated params + the causal attention term
+    flops_tok = 6 * activated + 12 * L * MOE_SEQ * cfg.hidden_size * 0.5
+    print(f"  step host ms {step_ms:.1f} (mean of steps 3-{steps}): "
+          f"{tps:.0f} tokens/s, model-FLOP share "
+          f"{flops_tok * tps / BF16_FLOP_PER_S:.1%} of 989 TFLOP/s "
+          f"({flops_tok * tokens / 1e12:.1f} TFLOP per step, bound "
+          f"{flops_tok * tokens / BF16_FLOP_PER_S * 1e3:.1f} ms); peak "
+          f"device memory {torch.cuda.max_memory_allocated() / 2**30:.1f} "
+          f"GiB on {smi()}")
+    profile_train_step(torch, step, ids, step_ms, MOE_GROUPS, top=16)
+    del model, step
+    free_cuda(torch)
+    return n
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1346,13 +1645,16 @@ def main():
         launches["flash_attention_bwd"] = \
             phase_train(torch, args.seed)["flash_attention_bwd"]
         launches["fused_adamw"] = phase_eager(torch, args.seed)["fused_adamw"]
+        moe = phase_moe_train(torch, args.seed)
+        launches.update({k: moe[k] for k in (
+            "grouped_gemm", "grouped_gemm_tgmm", "grouped_gemm_swiglu")})
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
     # launches: the serving kernels' counts on the serving run, the int8
     # paged and int8 GEMM's on quantized run A, the int4 GEMM's on run B,
     # the flash backward's on the TrainStep run, fused AdamW's on the eager
-    # run
+    # run, the grouped GEMMs' on the MoE TrainStep run
     meta = {
         "flash_attention": ("paddle_tpu_torch/csrc/flash_attention.cu",
                             "paddle_tpu/ops/pallas/flash_attention.py:266"),
@@ -1370,6 +1672,12 @@ def main():
                         "paddle_tpu/ops/pallas/int8_matmul.py:197"),
         "fused_adamw": ("paddle_tpu_torch/csrc/fused_adamw.cu",
                         "paddle_tpu/ops/pallas/fused_adamw.py:100"),
+        "grouped_gemm": ("paddle_tpu_torch/csrc/grouped_gemm.cu",
+                         "paddle_tpu/ops/pallas/grouped_gemm.py:236"),
+        "grouped_gemm_tgmm": ("paddle_tpu_torch/csrc/grouped_gemm.cu",
+                              "paddle_tpu/ops/pallas/grouped_gemm.py:290"),
+        "grouped_gemm_swiglu": ("paddle_tpu_torch/csrc/grouped_gemm.cu",
+                                "paddle_tpu/ops/pallas/grouped_gemm.py:487"),
     }
     kernels = []
     for name, (source, replaces) in meta.items():

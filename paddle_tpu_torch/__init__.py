@@ -1,11 +1,14 @@
 """paddle_tpu_torch — the PyTorch + CUDA (Hopper) port of ``paddle_tpu``.
 
 The JAX package ``paddle_tpu`` is the reference; this package serves the
-Llama continuous-batching path and trains Llama (``jit.TrainStep`` with
-``optimizer.AdamW``, or the eager loop with ``optimizer.FusedAdamW``) with
-PyTorch for the plain tensor code and hand-written CUDA C++ kernels
-(``csrc/``) for the kernels those paths run: the flash forward and
-backward, the paged decode and the fused AdamW update.
+Llama continuous-batching path (bf16, or int8/int4 weights and an int8 KV
+pool), trains Llama (``jit.TrainStep`` with ``optimizer.AdamW``, or the
+eager loop with ``optimizer.FusedAdamW``) and trains the MoE-Llama
+(``models.MoELlamaForCausalLM`` over ``parallel.MoELayer``) with PyTorch
+for the plain tensor code and hand-written CUDA C++ kernels (``csrc/``)
+for the kernels those paths run: the flash forward and backward, the
+paged decode, the weight-only GEMMs, the fused AdamW update and the
+grouped GEMMs of the experts.
 
 It imports neither ``jax`` nor anything of ``paddle_tpu``. Entry points
 (``ServingEngine``, ``LlamaForCausalLM``, ``TrainStep``, the optimizers)

@@ -2,7 +2,8 @@ from .convert import load_paddle_tpu_state
 from .generation import lm_head_tail
 from .kv_cache import KVCacheSpec, check_request_fits
 from .llama import LLAMA_PRESETS, LlamaConfig, LlamaForCausalLM
+from .moe_llm import MoELlamaConfig, MoELlamaForCausalLM
 
 __all__ = ["LLAMA_PRESETS", "LlamaConfig", "LlamaForCausalLM",
            "KVCacheSpec", "check_request_fits", "lm_head_tail",
-           "load_paddle_tpu_state"]
+           "load_paddle_tpu_state", "MoELlamaConfig", "MoELlamaForCausalLM"]

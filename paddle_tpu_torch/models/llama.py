@@ -30,7 +30,8 @@ from .generation import lm_head_tail
 
 IGNORE_INDEX = -100
 
-__all__ = ["LlamaConfig", "LLAMA_PRESETS", "LlamaForCausalLM", "LlamaModel"]
+__all__ = ["LlamaConfig", "LLAMA_PRESETS", "LlamaForCausalLM", "LlamaModel",
+           "causal_lm_loss"]
 
 
 @dataclass
@@ -88,6 +89,26 @@ LLAMA_PRESETS = {
                               num_attention_heads=8, num_key_value_heads=4,
                               max_position_embeddings=512),
 }
+
+
+def causal_lm_loss(h: torch.Tensor, lm_head: nn.Linear, labels: torch.Tensor,
+                   fused_loss: bool):
+    """The causal LM loss of normed hidden states ``h [b, s, H]`` as
+    ``paddle_tpu/models/llama.py:334-357`` computes it: position t predicts
+    label t + 1 (``-100`` is ignored), the mean f32 cross-entropy. Returns
+    ``(loss, None)`` from the chunked fused loss when ``fused_loss``, else
+    ``(loss, logits)`` with the logits in the model dtype."""
+    if fused_loss:
+        return fused_linear_cross_entropy(
+            h[:, :-1], lm_head.weight, labels[:, 1:],
+            ignore_index=IGNORE_INDEX), None
+    logits = lm_head(h)
+    shift_labels = labels[:, 1:].reshape(-1)
+    per_token = F.cross_entropy(
+        logits[:, :-1].reshape(-1, logits.shape[-1]).float(), shift_labels,
+        ignore_index=IGNORE_INDEX, reduction="none")
+    count = (shift_labels != IGNORE_INDEX).sum().clamp_min(1)
+    return per_token.sum() / count, logits
 
 
 class LlamaAttention(nn.Module):
@@ -222,16 +243,6 @@ class LlamaForCausalLM(nn.Module):
                                   self.lm_head.weight.t(),
                                   self.config.rms_norm_eps)
             return logits.view(b, s, -1)
-        h = self.model.norm(h)
-        if self.config.fused_loss:
-            return fused_linear_cross_entropy(
-                h[:, :-1], self.lm_head.weight, labels[:, 1:],
-                ignore_index=IGNORE_INDEX), None
-        logits = self.lm_head(h)
-        shift_labels = labels[:, 1:].reshape(-1)
-        per_token = F.cross_entropy(
-            logits[:, :-1].reshape(-1, self.config.vocab_size).float(),
-            shift_labels, ignore_index=IGNORE_INDEX, reduction="none")
-        count = (shift_labels != IGNORE_INDEX).sum().clamp_min(1)
-        return per_token.sum() / count, logits
+        return causal_lm_loss(self.model.norm(h), self.lm_head, labels,
+                              self.config.fused_loss)
 

@@ -15,7 +15,12 @@ import torch
 import paddle_tpu_torch
 
 from paddle_tpu_torch.jit import TrainStep
-from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+from paddle_tpu_torch.models import (LlamaConfig, LlamaForCausalLM,
+                                     MoELlamaConfig, MoELlamaForCausalLM)
+from paddle_tpu_torch.ops.fused.grouped_gemm import (grouped_matmul,
+                                                     grouped_matmul_swiglu,
+                                                     grouped_matmul_tgmm)
+from paddle_tpu_torch.parallel import GShardGate, MLPExperts, MoELayer
 from paddle_tpu_torch.optimizer import AdamW, FusedAdamW
 from paddle_tpu_torch.serving import ServingConfig, ServingEngine
 
@@ -137,3 +142,52 @@ def test_entry_points_raise_without_cuda(monkeypatch):
     model(ids, labels=ids)[0].backward()
     opt.step()
     assert opt._flat.device.type == "cpu" and opt._step_count == 1
+
+
+def test_walk_covers_the_moe_modules():
+    names = {m.name for m in pkgutil.walk_packages(
+        paddle_tpu_torch.__path__, "paddle_tpu_torch.")}
+    assert {"paddle_tpu_torch.parallel", "paddle_tpu_torch.parallel.moe",
+            "paddle_tpu_torch.models.moe_llm",
+            "paddle_tpu_torch.ops.cuda.grouped_gemm",
+            "paddle_tpu_torch.ops.fused.grouped_gemm"} <= names
+    assert (ROOT / "paddle_tpu_torch" / "csrc" / "grouped_gemm.cu").is_file()
+
+
+def test_moe_entry_points_raise_without_cuda(monkeypatch):
+    """The MoE model, its gates and experts refuse a CUDA device without a
+    card and train on the CPU when asked to."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = MoELlamaConfig(**{**TINY.__dict__, "num_hidden_layers": 2,
+                            "moe_num_experts": 4, "fused_loss": True})
+    for make in (lambda: MoELlamaForCausalLM(cfg),
+                 lambda: MoELlamaForCausalLM(cfg, device="cuda"),
+                 lambda: GShardGate(32, 4),
+                 lambda: MLPExperts(4, 32, 48, activation="swiglu")):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            make()
+    model = MoELlamaForCausalLM(cfg, device="cpu")
+    assert [type(l.mlp).__name__ for l in model.layers] == ["LlamaMLP",
+                                                           "MoELayer"]
+    ids = torch.from_numpy(np.arange(12).reshape(2, 6))
+    step = TrainStep(model, None, AdamW(parameters=model.parameters()),
+                     clip_norm=1.0)
+    assert torch.isfinite(step(ids, ids))
+    moe = model.moe_layers()[0]
+    assert isinstance(moe, MoELayer) and moe.use_grouped()
+    assert int(moe.expert_load.sum()) == 2 * 12
+
+
+def test_grouped_gemms_refuse_other_devices():
+    """The grouped GEMMs run their plain versions only for CPU tensors:
+    another device raises instead of falling back."""
+    x = torch.empty(8, 16, device="meta")
+    sizes = torch.empty(2, dtype=torch.int32, device="meta")
+    for call in (lambda: grouped_matmul(x, torch.empty(2, 16, 8,
+                                                       device="meta"), sizes),
+                 lambda: grouped_matmul_tgmm(x, x, sizes),
+                 lambda: grouped_matmul_swiglu(
+                     x, torch.empty(2, 16, 16, device="meta"), sizes,
+                     torch.empty(2, 16, device="meta"))):
+        with pytest.raises(ValueError, match="CPU or on one CUDA device"):
+            call()
