@@ -21,8 +21,15 @@ Phases, each of which fails the run (non-zero exit, no result line):
    up + swiglu with its residuals: max |diff| <= 1e-2 * max |plain| at M =
    32768 routed rows for a router draw and a skewed set with an empty
    group, an 8192-row group and trash rows, whose output rows and
-   empty-group dW must be exact zeros), with its time, its bound (H100
-   SXM: 3.35 TB/s HBM, 989 TFLOP/s bf16 dense), the plain version's time
+   empty-group dW must be exact zeros; the selective scan's forward (y and
+   the chunk states) and backward (du, ddelta, dA, dB, dC) at b16 l1024
+   d1536 n16 and a ragged b2 l150 d100 n5, and the WKV forward (y) and
+   backward (dr, dk, dv, dlogw, du) at b16 l1024 h12 d64 with the model's
+   decay ramp, a strong-decay case (logw = -1e10, w = 0) and d = 128 at a
+   ragged length: each output within 1e-4 of max |plain| in f32 I/O and
+   1e-2 in bf16 I/O, both computing in f32), with its time, its bound (H100
+   SXM: 3.35 TB/s HBM, 989 TFLOP/s bf16 dense; the scan 67 TFLOP/s f32
+   non-tensor, its decay is elementwise), the plain version's time
    and a library yardstick (``scaled_dot_product_attention`` forward or
    backward, ``torch.optim.AdamW(fused=True)``, a bf16 ``torch.matmul`` of
    the same shape, ``torch._grouped_mm``; timed here only, never called by
@@ -64,7 +71,18 @@ Phases, each of which fails the run (non-zero exit, no result line):
    fresh-batch loss above ln(vocab) / 2, and per step 6 fused swiglu, 18
    gmm and 12 tgmm launches, 12 flash forward and 12 flash backward, no
    fused AdamW or paged launch; prints the experts' loads, the step time,
-   tokens/s, the model-FLOP share, peak memory and a profiled step.
+   tokens/s, the model-FLOP share, peak memory and a profiled step;
+9. Mamba training: ``bench.py``'s Mamba-130m (vocab 32000, hidden 768, 24
+   layers, state 16, conv 4, expand 2, dt_rank 48, scan chunk 64, bf16) at
+   full width and depth, batch 16 x 1024 seeded tokens, 10 ``TrainStep``
+   steps with AdamW (lr 3e-4, bf16 moments) and clip 1.0; checks finite,
+   falling losses, a fresh-batch loss above ln(vocab) / 2 and per step 24
+   scan forward and 24 scan backward launches and no other kernel of the
+   port; prints the step time, tokens/s, the model-FLOP share (``6 N``),
+   peak memory and a profiled step;
+10. RWKV training: ``bench.py``'s RWKV-169m (vocab 32000, hidden 768, 12
+   layers, head_dim 64, intermediate 2688, bf16) at full width and depth,
+   as phase 9, with 12 WKV forward and 12 WKV backward launches per step.
 
 The last lines are the kernels' JSON, the card's name and power limit, and
 ``{"ok": true, "device": {...}}``.
@@ -82,6 +100,7 @@ import time
 
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM, NVIDIA data sheet
 BF16_FLOP_PER_S = 989e12         # dense tensor-core bf16
+F32_FLOP_PER_S = 67e12           # f32 outside the tensor cores
 OUT_ATOL = 2e-2                  # bf16 outputs vs the f32 plain version
 STATS_RTOL = 1e-3                # paged (m, l), flash lse vs the plain version
 BWD_RTOL = 2e-2                  # flash dq/dk/dv: max |diff| / max |plain| (bf16)
@@ -96,6 +115,9 @@ TRAIN_BATCH, TRAIN_SEQ = 2, 2048
 TRAIN_STEPS, EAGER_STEPS = 10, 5
 GG_RTOL = 1e-2                   # grouped GEMMs: max |diff| / max |plain|
 MOE_BATCH, MOE_SEQ, MOE_STEPS = 8, 2048, 10
+SSM_F32_RTOL = 1e-4              # scan, WKV in f32 I/O: max |diff| / max |plain|
+SSM_BF16_RTOL = 1e-2             # the same in bf16 I/O (one bf16 rounding)
+SSM_STEPS = 10
 
 
 class SmokeFailure(Exception):
@@ -141,8 +163,8 @@ def time_ms(torch, fn, reps=10, flush=None):
     return total / reps
 
 
-def bound(flops, nbytes):
-    t_ops, t_bytes = flops / BF16_FLOP_PER_S, nbytes / HBM_BYTES_PER_S
+def bound(flops, nbytes, flop_per_s=BF16_FLOP_PER_S):
+    t_ops, t_bytes = flops / flop_per_s, nbytes / HBM_BYTES_PER_S
     return (max(t_ops, t_bytes) * 1e3,
             "operations" if t_ops >= t_bytes else "bytes")
 
@@ -320,6 +342,10 @@ def phase_kernels(torch, gen, flush):
     rows["fused_adamw"] = check_fused_adamw(torch, gen)
     torch.cuda.empty_cache()
     rows.update(check_grouped_gemm(torch, gen, flush))
+    torch.cuda.empty_cache()
+    rows.update(check_selective_scan(torch, gen, flush))
+    torch.cuda.empty_cache()
+    rows.update(check_wkv(torch, gen, flush))
     torch.cuda.empty_cache()
     return rows
 
@@ -839,6 +865,209 @@ def check_grouped_gemm(torch, gen, flush):
     return rows
 
 
+SSM_B, SSM_L = 16, 1024          # phases 9 and 10: batch 16 x 1024 tokens
+
+
+def mamba_config():
+    """``bench.py``'s Mamba-130m (``bench.py:298-306``)."""
+    from paddle_tpu_torch.models import MambaConfig
+
+    return MambaConfig(vocab_size=32000, hidden_size=768,
+                       num_hidden_layers=24, state_size=16,
+                       conv_kernel=4, expand=2, scan_chunk=64,
+                       dtype="bfloat16")
+
+
+def rwkv_config():
+    """``bench.py``'s RWKV-169m (``bench.py:401-405``)."""
+    from paddle_tpu_torch.models import RwkvConfig
+
+    return RwkvConfig(vocab_size=32000, hidden_size=768,
+                      num_hidden_layers=12, head_dim=64, wkv_chunk=32,
+                      wkv_subchunk=16, dtype="bfloat16")
+
+
+def rel_err(a, ref):
+    """``(max |a - ref|, max |a - ref| / max |ref|)`` in f32."""
+    diff = (a.float() - ref.float()).abs().max().item()
+    return diff, diff / max(ref.float().abs().max().item(), 1e-30)
+
+
+def check_pair(what, outs, refs, names, tol):
+    """Each kernel output against the plain version's within ``tol`` of
+    max |plain|; returns the largest max |diff|."""
+    worst = 0.0
+    for name, a, r in zip(names, outs, refs):
+        diff, rel = rel_err(a, r)
+        check(math.isfinite(diff) and rel <= tol,
+              f"{what} {name}: max |kernel - plain| / max |plain| = "
+              f"{rel:.3e} <= {tol}")
+        worst = max(worst, diff)
+    return worst
+
+
+def plain_vjp(torch, fn, ins, dy):
+    """The plain version's forward and its autograd gradients in f32."""
+    xs = [t.detach().float().requires_grad_() for t in ins]
+    y = fn(*xs)
+    return y.detach(), torch.autograd.grad(y, xs, dy.float())
+
+
+def check_selective_scan(torch, gen, flush):
+    """The scan's forward and backward kernels against their plain version
+    at phase 9's shape (b16 l1024 d1536 n16; A from the S4D init, delta =
+    softplus of seeded normals): in f32 I/O within SSM_F32_RTOL and in the
+    path's bf16 within SSM_BF16_RTOL (also at a ragged b2 l150 d100 n5),
+    the forward's chunk states too. Timed in bf16; the bound counts the
+    JAX audit's 10 / 25 ops per (b, l, d, n) at the f32 non-tensor rate."""
+    import torch.nn.functional as F
+
+    from paddle_tpu_torch.ops.cuda import selective_scan as ss
+
+    dev = "cuda"
+    names = ("du", "ddelta", "dA", "dB", "dC")
+    rows, errs = {}, [0.0, 0.0]
+    for b, l, d, n, dt in ((2, 150, 100, 5, torch.bfloat16),
+                           (SSM_B, SSM_L, 1536, 16, torch.float32),
+                           (SSM_B, SSM_L, 1536, 16, torch.bfloat16)):
+        tol = SSM_F32_RTOL if dt == torch.float32 else SSM_BF16_RTOL
+        what = f"selective scan b{b} l{l} d{d} n{n} {str(dt)[6:]}"
+        u = torch.randn(b, l, d, generator=gen, device=dev).to(dt)
+        delta = F.softplus(torch.randn(b, l, d, generator=gen,
+                                       device=dev)).to(dt)
+        A = -torch.arange(1, n + 1, dtype=torch.float32,
+                          device=dev).expand(d, n).contiguous()
+        B = torch.randn(b, l, n, generator=gen, device=dev).to(dt)
+        C = torch.randn(b, l, n, generator=gen, device=dev).to(dt)
+        dy = torch.randn(b, l, d, generator=gen, device=dev).to(dt)
+        ins = (u, delta, A, B, C)
+        y, bounds = ss.selective_scan_fwd(*ins)
+        grads = ss.selective_scan_bwd(*ins, bounds, dy)
+        torch.cuda.synchronize()
+        with torch.no_grad():
+            y_ref, b_ref = ss.selective_scan_reference(
+                *(t.float() for t in ins), ss.KERNEL_CHUNK, True)
+        errs[0] = max(errs[0], check_pair(
+            what, (y.float(), bounds), (y_ref.to(dt), b_ref),
+            ("y", "chunk states"), tol))
+        _, g_ref = plain_vjp(torch, lambda *a: ss.selective_scan_reference(
+            *a, ss.KERNEL_CHUNK), ins, dy)
+        errs[1] = max(errs[1], check_pair(
+            what, grads, [g.to(t.dtype) for g, t in zip(g_ref, ins)],
+            names, tol))
+        del y, bounds, grads, y_ref, b_ref, g_ref
+    # timing at the path's shape and dtype (the last case)
+    torch.cuda.empty_cache()
+    ms = time_ms(torch, lambda: ss.selective_scan_fwd(*ins), flush=flush)
+    _, bounds = ss.selective_scan_fwd(*ins)
+    bwd_ms = time_ms(torch, lambda: ss.selective_scan_bwd(*ins, bounds, dy),
+                     flush=flush)
+    xs = [t.float() for t in ins]
+    with torch.no_grad():
+        plain = time_ms(torch, lambda: ss.selective_scan_reference(*xs),
+                        reps=3)
+    xg = [t.requires_grad_() for t in xs]
+    plain_both = time_ms(torch, lambda: torch.autograd.grad(
+        ss.selective_scan_reference(*xg), xg, dy.float()), reps=3)
+    nc = -(-l // ss.KERNEL_CHUNK)
+    io = 2                                   # bf16 bytes per element
+    fwd_bytes = (3 * b * l * d * io + 2 * b * l * n * io + 4 * d * n
+                 + 4 * b * nc * n * d)
+    bwd_bytes = (5 * b * l * d * io + 4 * b * l * n * io + 8 * d * n
+                 + 4 * b * nc * n * d)
+    for key, t, plain_t, ops, nbytes in (
+            ("selective_scan", ms, plain, 10, fwd_bytes),
+            ("selective_scan_bwd", bwd_ms, plain_both - plain, 25,
+             bwd_bytes)):
+        b_ms, b_by = bound(ops * b * l * d * n, nbytes, F32_FLOP_PER_S)
+        print(f"  {key} (b{b} l{l} d{d} n{n}, bf16): {t:.4f} ms (bound "
+              f"{b_ms:.4f} ms by {b_by} at 67 TFLOP/s f32 and 3.35 TB/s, "
+              f"{b_ms / t:.1%} of it), plain {plain_t:.3f} ms, library: none")
+        rows[key] = dict(ms=t, plain_ms=plain_t, bound_ms=b_ms,
+                         bound_by=b_by, library_ms=None)
+    print(f"  (plain fwd + bwd {plain_both:.3f} ms; the backward's plain ms "
+          f"is that minus the forward's)")
+    rows["selective_scan"]["max_abs_err"] = errs[0]
+    rows["selective_scan_bwd"]["max_abs_err"] = errs[1]
+    return rows
+
+
+def check_wkv(torch, gen, flush):
+    """The WKV forward and backward kernels against their plain version at
+    phase 10's shape (b16 l1024 h12 d64; logw from the model's decay ramp
+    through ``rwkv_log_decay``, the bonus 0.5 plus noise), in f32 I/O within
+    SSM_F32_RTOL and in the path's bf16 within SSM_BF16_RTOL, plus a
+    strong-decay case (some logw = -1e10, w = 0) and d = 128 at a ragged
+    length. Timed in bf16; the bound is the JAX audit's 2 b h l (c + 2d) d
+    operations (c = 64, the JAX route's kernel chunk at b >= 16; x 3 for
+    the backward) at 989 TFLOP/s against the bytes."""
+    from paddle_tpu_torch.ops.cuda import wkv as wk
+    from paddle_tpu_torch.ops.fused.rwkv import rwkv_log_decay
+
+    dev = "cuda"
+    names = ("dr", "dk", "dv", "dlogw", "du")
+    hd = 64
+    ramp = torch.tensor([-6.0 + 5.0 * (i / (hd - 1)) ** 0.7
+                         for i in range(hd)], device=dev)
+    rows, errs = {}, [0.0, 0.0]
+    for b, l, h, d, dt, strong in (
+            (2, 37, 2, 128, torch.float32, True),
+            (SSM_B, SSM_L, 12, hd, torch.float32, False),
+            (SSM_B, SSM_L, 12, hd, torch.bfloat16, True),
+            (SSM_B, SSM_L, 12, hd, torch.bfloat16, False)):
+        tol = SSM_F32_RTOL if dt == torch.float32 else SSM_BF16_RTOL
+        what = (f"wkv b{b} l{l} h{h} d{d} {str(dt)[6:]}"
+                + (" strong decay" if strong else ""))
+        r, k, v = (0.5 * torch.randn(b, l, h, d, generator=gen, device=dev)
+                   for _ in range(3))
+        if d == hd:
+            logw = rwkv_log_decay(ramp.expand(h, d).bfloat16()).float()
+        else:
+            logw = -5 * torch.rand(h, d, generator=gen, device=dev) - 0.02
+        if strong:
+            logw[0, :3] = -1e10
+            logw[-1, -2:] = -1e10
+        u = 0.5 + 0.1 * torch.randn(h, d, generator=gen, device=dev)
+        dy = torch.randn(b, l, h, d, generator=gen, device=dev).to(dt)
+        ins = (r.to(dt), k.to(dt), v.to(dt), logw.contiguous(), u)
+        y = wk.wkv_fwd(*ins)
+        grads = wk.wkv_bwd(*ins, dy)
+        torch.cuda.synchronize()
+        y_ref, g_ref = plain_vjp(torch, wk.wkv_reference, ins, dy)
+        errs[0] = max(errs[0], check_pair(what, (y,),
+                                          (y_ref.to(dt),), ("y",), tol))
+        errs[1] = max(errs[1], check_pair(
+            what, grads, [g.to(t.dtype) for g, t in zip(g_ref, ins)],
+            names, tol))
+        del y, grads, y_ref, g_ref
+    torch.cuda.empty_cache()
+    ms = time_ms(torch, lambda: wk.wkv_fwd(*ins), flush=flush)
+    bwd_ms = time_ms(torch, lambda: wk.wkv_bwd(*ins, dy), flush=flush)
+    xs = [t.float() for t in ins]
+    with torch.no_grad():
+        plain = time_ms(torch, lambda: wk.wkv_reference(*xs), reps=3)
+    xg = [t.requires_grad_() for t in xs]
+    plain_both = time_ms(torch, lambda: torch.autograd.grad(
+        wk.wkv_reference(*xg), xg, dy.float()), reps=3)
+    flops = 2 * b * h * l * (64 + 2 * d) * d
+    act = b * l * h * d * 2                  # one bf16 [b, l, h, d] tensor
+    for key, t, plain_t, ops, nbytes in (
+            ("wkv", ms, plain, flops, 4 * act + 8 * h * d),
+            ("wkv_bwd", bwd_ms, plain_both - plain, 3 * flops,
+             7 * act + 16 * h * d)):
+        b_ms, b_by = bound(ops, nbytes)
+        print(f"  {key} (b{b} l{l} h{h} d{d}, bf16): {t:.4f} ms (bound "
+              f"{b_ms:.4f} ms by {b_by}, {b_ms / t:.1%} of it), plain "
+              f"{plain_t:.3f} ms, library: none")
+        rows[key] = dict(ms=t, plain_ms=plain_t, bound_ms=b_ms,
+                         bound_by=b_by, library_ms=None)
+    print(f"  (plain fwd + bwd {plain_both:.3f} ms; the backward's plain ms "
+          f"is that minus the forward's)")
+    rows["wkv"]["max_abs_err"] = errs[0]
+    rows["wkv_bwd"]["max_abs_err"] = errs[1]
+    return rows
+
+
 def swiglu_pair(h2, n):
     """``silu(gate) * up`` of ``h2 = [gate | up]``: the swiglu yardstick's
     activation after its product."""
@@ -1329,10 +1558,13 @@ def reset_counts():
     from paddle_tpu_torch.ops.cuda import grouped_gemm as gg
     from paddle_tpu_torch.ops.cuda import int8_matmul as wo
     from paddle_tpu_torch.ops.cuda import paged_attention as pa
+    from paddle_tpu_torch.ops.cuda import selective_scan as ss
+    from paddle_tpu_torch.ops.cuda import wkv as wk
 
     fa.launches = fa.bwd_launches = pa.launches = fw.launches = 0
     pa.int8_launches = wo.launches = wo.int4_launches = 0
     gg.launches = gg.tgmm_launches = gg.swiglu_launches = 0
+    ss.launches = ss.bwd_launches = wk.launches = wk.bwd_launches = 0
 
 
 def read_counts():
@@ -1341,8 +1573,13 @@ def read_counts():
     from paddle_tpu_torch.ops.cuda import grouped_gemm as gg
     from paddle_tpu_torch.ops.cuda import int8_matmul as wo
     from paddle_tpu_torch.ops.cuda import paged_attention as pa
+    from paddle_tpu_torch.ops.cuda import selective_scan as ss
+    from paddle_tpu_torch.ops.cuda import wkv as wk
 
-    return {"flash_attention": fa.launches,
+    return {"selective_scan": ss.launches,
+            "selective_scan_bwd": ss.bwd_launches,
+            "wkv": wk.launches, "wkv_bwd": wk.bwd_launches,
+            "flash_attention": fa.launches,
             "flash_attention_bwd": fa.bwd_launches,
             "paged_attention": pa.launches,
             "paged_attention_int8": pa.int8_launches,
@@ -1615,6 +1852,87 @@ def phase_moe_train(torch, seed):
     return n
 
 
+SSM_GROUPS = {
+    "selective scan fwd": ("scan_fwd_kernel",),
+    "selective scan bwd": ("scan_bwd_kernel",),
+    "wkv fwd": ("wkv_fwd_kernel",), "wkv bwd": ("wkv_bwd_kernel",),
+    **TRAIN_GROUPS}
+
+
+def phase_ssm_train(torch, seed, family):
+    """Phase 9 (``family="mamba"``) or 10 (``"rwkv"``): the model at
+    ``bench.py``'s full width and depth, batch 16 x 1024 seeded tokens,
+    ``SSM_STEPS`` TrainStep steps with AdamW (lr 3e-4, bf16 moments) and
+    clip 1.0 as ``bench.py`` trains it. Checks finite, falling losses, a
+    fresh-batch loss above ln(vocab) / 2, and one forward and one backward
+    launch of the family's kernel per layer and step and no other kernel of
+    the port; prints the step time, tokens/s, the model-FLOP share by
+    ``bench.py``'s ``6 N`` (the recurrence's operations excluded, as
+    there), peak memory and a profiled step. Returns the launch counts."""
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.models import MambaForCausalLM, RwkvForCausalLM
+    from paddle_tpu_torch.optimizer import AdamW
+
+    if family == "mamba":
+        phase, title, cfg, cls = 9, "Mamba-130m", mamba_config(), \
+            MambaForCausalLM
+        fwd, bwd = "selective_scan", "selective_scan_bwd"
+    else:
+        phase, title, cfg, cls = 10, "RWKV-169m", rwkv_config(), \
+            RwkvForCausalLM
+        fwd, bwd = "wkv", "wkv_bwd"
+    print(f"== phase {phase}: {title} training with TrainStep + AdamW")
+    L = cfg.num_hidden_layers
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = cls(cfg, seed=seed)
+    n_params = sum(p.numel() for p in model.parameters())
+    step = TrainStep(model, None, AdamW(
+        learning_rate=3e-4, moment_dtype="bfloat16",
+        parameters=model.parameters()), clip_norm=1.0)
+    shape = (SSM_B, SSM_L)
+    ids = train_tokens(torch, seed, shape)
+    torch.cuda.synchronize()
+    print(f"  model: {n_params / 1e6:.1f} M params, {L} layers, hidden "
+          f"{cfg.hidden_size}, built in {time.perf_counter() - t0:.1f} s; "
+          f"batch {SSM_B} x {SSM_L}")
+    reset_counts()
+    losses, times = [], []
+    for _ in range(SSM_STEPS):
+        t0 = time.perf_counter()
+        losses.append(step(ids, ids).item())
+        times.append((time.perf_counter() - t0) * 1e3)
+    n = read_counts()
+    print(f"  step host ms {[round(t, 1) for t in times]}")
+    check_losses(losses, f"{title} TrainStep x {SSM_STEPS}")
+    others = {k: v for k, v in n.items() if k not in (fwd, bwd) and v}
+    check(n[fwd] == L * SSM_STEPS and n[bwd] == L * SSM_STEPS
+          and not others,
+          f"launches over {SSM_STEPS} steps: {fwd} {n[fwd]}, {bwd} "
+          f"{n[bwd]} ({L} x steps each), other kernels {others or 0}")
+    with torch.no_grad():
+        fresh = train_tokens(torch, seed + 1, shape)
+        held = model(fresh, labels=fresh)[0].item()
+    check(math.isfinite(held) and held > 0.5 * math.log(cfg.vocab_size),
+          f"{title} loss on a fresh batch {held:.3f} > ln(vocab) / 2 = "
+          f"{0.5 * math.log(cfg.vocab_size):.3f} (no causal leak)")
+    step_ms = sum(times[2:]) / len(times[2:])
+    tokens = SSM_B * SSM_L
+    tps = tokens / (step_ms / 1e3)
+    flops_tok = 6 * n_params             # bench.py:313, :416
+    print(f"  step host ms {step_ms:.1f} (mean of steps 3-{SSM_STEPS}): "
+          f"{tps:.0f} tokens/s, model-FLOP share "
+          f"{flops_tok * tps / BF16_FLOP_PER_S:.1%} of 989 TFLOP/s "
+          f"({flops_tok * tokens / 1e12:.1f} TFLOP per step, bound "
+          f"{flops_tok * tokens / BF16_FLOP_PER_S * 1e3:.1f} ms); peak "
+          f"device memory {torch.cuda.max_memory_allocated() / 2**30:.1f} "
+          f"GiB on {smi()}")
+    profile_train_step(torch, step, ids, step_ms, SSM_GROUPS, top=12)
+    del model, step
+    free_cuda(torch)
+    return n
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1648,13 +1966,19 @@ def main():
         moe = phase_moe_train(torch, args.seed)
         launches.update({k: moe[k] for k in (
             "grouped_gemm", "grouped_gemm_tgmm", "grouped_gemm_swiglu")})
+        mamba = phase_ssm_train(torch, args.seed, "mamba")
+        rwkv = phase_ssm_train(torch, args.seed, "rwkv")
+        launches.update({k: mamba[k] for k in ("selective_scan",
+                                               "selective_scan_bwd")})
+        launches.update({k: rwkv[k] for k in ("wkv", "wkv_bwd")})
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
     # launches: the serving kernels' counts on the serving run, the int8
     # paged and int8 GEMM's on quantized run A, the int4 GEMM's on run B,
     # the flash backward's on the TrainStep run, fused AdamW's on the eager
-    # run, the grouped GEMMs' on the MoE TrainStep run
+    # run, the grouped GEMMs' on the MoE TrainStep run, the scan's on the
+    # Mamba run and the WKV's on the RWKV run
     meta = {
         "flash_attention": ("paddle_tpu_torch/csrc/flash_attention.cu",
                             "paddle_tpu/ops/pallas/flash_attention.py:266"),
@@ -1678,6 +2002,14 @@ def main():
                               "paddle_tpu/ops/pallas/grouped_gemm.py:290"),
         "grouped_gemm_swiglu": ("paddle_tpu_torch/csrc/grouped_gemm.cu",
                                 "paddle_tpu/ops/pallas/grouped_gemm.py:487"),
+        "selective_scan": ("paddle_tpu_torch/csrc/selective_scan.cu",
+                           "paddle_tpu/ops/pallas/selective_scan.py:217"),
+        "selective_scan_bwd": ("paddle_tpu_torch/csrc/selective_scan.cu",
+                               "paddle_tpu/ops/pallas/selective_scan.py:284"),
+        "wkv": ("paddle_tpu_torch/csrc/wkv.cu",
+                "paddle_tpu/ops/pallas/wkv.py:301"),
+        "wkv_bwd": ("paddle_tpu_torch/csrc/wkv.cu",
+                    "paddle_tpu/ops/pallas/wkv.py:350"),
     }
     kernels = []
     for name, (source, replaces) in meta.items():

@@ -3,15 +3,18 @@
 The JAX package ``paddle_tpu`` is the reference; this package serves the
 Llama continuous-batching path (bf16, or int8/int4 weights and an int8 KV
 pool), trains Llama (``jit.TrainStep`` with ``optimizer.AdamW``, or the
-eager loop with ``optimizer.FusedAdamW``) and trains the MoE-Llama
-(``models.MoELlamaForCausalLM`` over ``parallel.MoELayer``) with PyTorch
-for the plain tensor code and hand-written CUDA C++ kernels (``csrc/``)
-for the kernels those paths run: the flash forward and backward, the
-paged decode, the weight-only GEMMs, the fused AdamW update and the
-grouped GEMMs of the experts.
+eager loop with ``optimizer.FusedAdamW``), trains the MoE-Llama
+(``models.MoELlamaForCausalLM`` over ``parallel.MoELayer``) and trains the
+state-space and linear-attention models Mamba-1
+(``models.MambaForCausalLM``) and RWKV-5 (``models.RwkvForCausalLM``),
+with PyTorch for the plain tensor code and hand-written CUDA C++ kernels
+(``csrc/``) for the kernels those paths run: the flash forward and
+backward, the paged decode, the weight-only GEMMs, the fused AdamW update,
+the grouped GEMMs of the experts, and the forward and backward of the
+selective scan and of the WKV recurrence.
 
 It imports neither ``jax`` nor anything of ``paddle_tpu``. Entry points
-(``ServingEngine``, ``LlamaForCausalLM``, ``TrainStep``, the optimizers)
+(``ServingEngine``, the models, ``TrainStep``, the optimizers)
 run on the CUDA card unless the caller passes ``device="cpu"``; without a
 card they raise instead of running on the CPU.
 """

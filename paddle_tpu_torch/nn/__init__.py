@@ -1,4 +1,4 @@
 from . import functional
-from .functional import RMSNorm
+from .functional import GroupNorm, LayerNorm, RMSNorm
 
-__all__ = ["functional", "RMSNorm"]
+__all__ = ["functional", "GroupNorm", "LayerNorm", "RMSNorm"]

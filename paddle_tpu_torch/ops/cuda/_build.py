@@ -9,7 +9,8 @@ every pointer and the stream cross as ``c_void_p``, and every entry returns
 ``cudaGetLastError()`` so a refused launch surfaces at once.
 
 Builds run at first use (``load``); ``build_all`` starts one ``nvcc`` per
-source, all at once, and waits for all of them.
+source, all at once, and waits for all of them. ``entry``, ``device_of``,
+``stream`` and ``float_io`` are what the wrappers share around a launch.
 """
 
 from __future__ import annotations
@@ -24,7 +25,8 @@ from pathlib import Path
 from typing import Dict, Optional
 
 __all__ = ["SRC_DIR", "BUILD_DIR", "NVCC_FLAGS", "build_all", "load",
-           "check", "nvcc_path", "ptxas_report"]
+           "check", "nvcc_path", "ptxas_report", "entry", "device_of",
+           "stream", "float_io"]
 
 SRC_DIR = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "paddle_tpu_torch"
@@ -32,6 +34,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
+_ENTRIES: Dict[tuple, object] = {}
 
 
 def nvcc_path() -> str:
@@ -119,3 +122,51 @@ def check(lib: ctypes.CDLL, rc: int, what: str) -> None:
     if rc != 0:
         msg = lib.ptt_error_string(rc).decode()
         raise RuntimeError(f"{what}: CUDA error {rc} ({msg})")
+
+
+def entry(name: str, fn: str, nptr: int, nint: int):
+    """The C entry ``fn`` of ``csrc/<name>.cu`` taking ``nptr`` pointers,
+    ``nint`` ints and the stream, returning an int; looked up once."""
+    key = (name, fn)
+    c_fn = _ENTRIES.get(key)
+    if c_fn is None:
+        c_fn = getattr(load(name), fn)
+        c_fn.argtypes = [ctypes.c_void_p] * nptr + [ctypes.c_int] * nint \
+            + [ctypes.c_void_p]
+        c_fn.restype = ctypes.c_int
+        _ENTRIES[key] = c_fn
+    return c_fn
+
+
+def device_of(what: str, *tensors) -> str:
+    """``"cpu"`` or ``"cuda"`` when every tensor (None skipped) lies there;
+    raise on a mix or another device."""
+    types = {t.device.type for t in tensors if t is not None}
+    if types == {"cpu"} or types == {"cuda"}:
+        return types.pop()
+    raise ValueError(f"{what}: tensors on {sorted(types)}; all must lie on "
+                     f"the CPU or on one CUDA device")
+
+
+def stream(t) -> int:
+    """The raw handle of the current stream of ``t``'s device."""
+    import torch
+
+    return torch._C._cuda_getCurrentRawStream(t.get_device())
+
+
+def float_io(what: str, *tensors):
+    """The I/O dtype of kernels that compute in f32 from f32 or bf16 inputs
+    (bf16 when every tensor is bf16, else f32) and the tensors in it,
+    contiguous; raise unless all are float tensors on one device."""
+    import torch
+
+    dev = tensors[0].device
+    for t in tensors:
+        if t.device != dev or t.dtype not in (torch.float32, torch.bfloat16,
+                                              torch.float16):
+            raise ValueError(f"{what}: tensors must be float tensors on one "
+                             f"device, got {t.dtype} on {t.device}")
+    dt = torch.bfloat16 if all(t.dtype == torch.bfloat16 for t in tensors) \
+        else torch.float32
+    return dt, [t.to(dt).contiguous() for t in tensors]

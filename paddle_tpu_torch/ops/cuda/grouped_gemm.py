@@ -18,7 +18,6 @@ groups.
 
 from __future__ import annotations
 
-import ctypes
 from typing import List
 
 import torch
@@ -37,8 +36,6 @@ tgmm_launches = 0
 swiglu_launches = 0
 
 MAX_GROUPS = 255          # the kernels' table holds G + 1 <= 256 groups
-_ptr, _c_int = ctypes.c_void_p, ctypes.c_int
-_ENTRIES = {}
 
 
 # ------------------------------------------------------------ plain versions
@@ -111,18 +108,6 @@ def gmm_swiglu_reference(lhs, w1, group_sizes, b1, emit_residuals=True):
 
 
 # ------------------------------------------------------------------ wrappers
-def _entry(name: str, nptr: int, nint: int):
-    """The C entry ``name`` of ``grouped_gemm``, its argument types set,
-    looked up once."""
-    fn = _ENTRIES.get(name)
-    if fn is None:
-        fn = getattr(_build.load("grouped_gemm"), name)
-        fn.argtypes = [_ptr] * nptr + [_c_int] * nint + [_ptr]
-        fn.restype = _c_int
-        _ENTRIES[name] = fn
-    return fn
-
-
 def _check(what, group_sizes, named, k, n):
     """Raise unless every tensor of ``named`` is a contiguous, 16-byte
     aligned bf16 tensor on ``group_sizes``'s CUDA device, the sizes an int32
@@ -143,20 +128,6 @@ def _check(what, group_sizes, named, k, n):
     if k % 8 or n % 8 or k <= 0 or n <= 0:
         raise ValueError(f"{what}: K = {k} and N = {n} must be positive "
                          f"multiples of 8")
-
-
-def _device_of(what, *tensors):
-    """``"cpu"`` or ``"cuda"`` when all tensors lie there; raise on a mix or
-    another device."""
-    types = {t.device.type for t in tensors if t is not None}
-    if types == {"cpu"} or types == {"cuda"}:
-        return types.pop()
-    raise ValueError(f"{what}: tensors on {sorted(types)}; all must lie on "
-                     f"the CPU or on one CUDA device")
-
-
-def _stream(t):
-    return torch._C._cuda_getCurrentRawStream(t.get_device())
 
 
 def gmm(lhs, rhs, group_sizes, bias=None, transpose_rhs=False):
@@ -181,17 +152,18 @@ def gmm(lhs, rhs, group_sizes, bias=None, transpose_rhs=False):
                          f"{tuple(group_sizes.shape)} and bias "
                          f"{None if bias is None else tuple(bias.shape)} "
                          f"disagree")
-    if _device_of(what, lhs, rhs, group_sizes, bias) == "cpu":
+    if _build.device_of(what, lhs, rhs, group_sizes, bias) == "cpu":
         return gmm_reference(lhs, rhs, group_sizes, bias, transpose_rhs)
     named = [("lhs", lhs), ("rhs", rhs)] \
         + ([("bias", bias)] if bias is not None else [])
     _check(what, group_sizes, named, k, n)
     m = lhs.shape[0]
     out = torch.empty((m, n), dtype=lhs.dtype, device=lhs.device)
-    rc = _entry("ptt_gmm", 5, 5)(
+    rc = _build.entry("grouped_gemm", "ptt_gmm", 5, 5)(
         lhs.data_ptr(), rhs.data_ptr(),
         None if bias is None else bias.data_ptr(), group_sizes.data_ptr(),
-        out.data_ptr(), m, k, n, G, int(bool(transpose_rhs)), _stream(lhs))
+        out.data_ptr(), m, k, n, G, int(bool(transpose_rhs)),
+        _build.stream(lhs))
     _build.check(_build.load("grouped_gemm"), rc, what)
     launches += 1
     return out
@@ -208,14 +180,14 @@ def tgmm(lhs, dout, group_sizes):
         raise ValueError(f"{what}: lhs {tuple(lhs.shape)}, dout "
                          f"{tuple(dout.shape)} and group_sizes "
                          f"{tuple(group_sizes.shape)} disagree")
-    if _device_of(what, lhs, dout, group_sizes) == "cpu":
+    if _build.device_of(what, lhs, dout, group_sizes) == "cpu":
         return tgmm_reference(lhs, dout, group_sizes)
     (m, k), n, G = lhs.shape, dout.shape[1], group_sizes.shape[0]
     _check(what, group_sizes, [("lhs", lhs), ("dout", dout)], k, n)
     out = torch.empty((G, k, n), dtype=lhs.dtype, device=lhs.device)
-    rc = _entry("ptt_tgmm", 4, 4)(
+    rc = _build.entry("grouped_gemm", "ptt_tgmm", 4, 4)(
         lhs.data_ptr(), dout.data_ptr(), group_sizes.data_ptr(),
-        out.data_ptr(), m, k, n, G, _stream(lhs))
+        out.data_ptr(), m, k, n, G, _build.stream(lhs))
     _build.check(_build.load("grouped_gemm"), rc, what)
     tgmm_launches += 1
     return out
@@ -239,16 +211,16 @@ def gmm_swiglu(lhs, w1, group_sizes, b1, emit_residuals=True):
         raise ValueError(f"{what}: lhs {tuple(lhs.shape)}, w1 "
                          f"{tuple(w1.shape)}, b1 {tuple(b1.shape)} and "
                          f"group_sizes {tuple(group_sizes.shape)} disagree")
-    if _device_of(what, lhs, w1, group_sizes, b1) == "cpu":
+    if _build.device_of(what, lhs, w1, group_sizes, b1) == "cpu":
         return gmm_swiglu_reference(lhs, w1, group_sizes, b1, emit_residuals)
     m, n = lhs.shape[0], n2 // 2
     _check(what, group_sizes, [("lhs", lhs), ("w1", w1), ("b1", b1)], k, n)
     outs = [torch.empty((m, n), dtype=lhs.dtype, device=lhs.device)
             for _ in range(3 if emit_residuals else 1)]
     res = [o.data_ptr() for o in outs[1:]] or [None, None]
-    rc = _entry("ptt_gmm_swiglu", 7, 4)(
+    rc = _build.entry("grouped_gemm", "ptt_gmm_swiglu", 7, 4)(
         lhs.data_ptr(), w1.data_ptr(), b1.data_ptr(), group_sizes.data_ptr(),
-        outs[0].data_ptr(), *res, m, k, n, G, _stream(lhs))
+        outs[0].data_ptr(), *res, m, k, n, G, _build.stream(lhs))
     _build.check(_build.load("grouped_gemm"), rc, what)
     swiglu_launches += 1
     return (outs[0], outs[1], outs[2]) if emit_residuals \

@@ -16,7 +16,9 @@ import paddle_tpu_torch
 
 from paddle_tpu_torch.jit import TrainStep
 from paddle_tpu_torch.models import (LlamaConfig, LlamaForCausalLM,
-                                     MoELlamaConfig, MoELlamaForCausalLM)
+                                     MambaConfig, MambaForCausalLM,
+                                     MoELlamaConfig, MoELlamaForCausalLM,
+                                     RwkvConfig, RwkvForCausalLM)
 from paddle_tpu_torch.ops.fused.grouped_gemm import (grouped_matmul,
                                                      grouped_matmul_swiglu,
                                                      grouped_matmul_tgmm)
@@ -191,3 +193,35 @@ def test_grouped_gemms_refuse_other_devices():
                      torch.empty(2, 16, device="meta"))):
         with pytest.raises(ValueError, match="CPU or on one CUDA device"):
             call()
+
+
+def test_walk_covers_the_ssm_modules():
+    names = {m.name for m in pkgutil.walk_packages(
+        paddle_tpu_torch.__path__, "paddle_tpu_torch.")}
+    assert {"paddle_tpu_torch.models.mamba", "paddle_tpu_torch.models.rwkv",
+            "paddle_tpu_torch.ops.cuda.selective_scan",
+            "paddle_tpu_torch.ops.cuda.wkv",
+            "paddle_tpu_torch.ops.fused.rwkv"} <= names
+    for src in ("selective_scan.cu", "wkv.cu"):
+        assert (ROOT / "paddle_tpu_torch" / "csrc" / src).is_file()
+
+
+def test_ssm_entry_points_raise_without_cuda(monkeypatch):
+    """Mamba and RWKV refuse a CUDA device without a card (also when no
+    device is named) and train on the CPU when asked to."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    mamba = MambaConfig(vocab_size=64, hidden_size=32, num_hidden_layers=1)
+    rwkv = RwkvConfig(vocab_size=64, hidden_size=64, num_hidden_layers=1,
+                      head_dim=64)
+    for make in (lambda: MambaForCausalLM(mamba),
+                 lambda: MambaForCausalLM(mamba, device="cuda"),
+                 lambda: RwkvForCausalLM(rwkv),
+                 lambda: RwkvForCausalLM(rwkv, device="cuda")):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            make()
+    ids = torch.from_numpy(np.arange(12).reshape(2, 6))
+    for model in (MambaForCausalLM(mamba, device="cpu"),
+                  RwkvForCausalLM(rwkv, device="cpu")):
+        step = TrainStep(model, None, AdamW(parameters=model.parameters()),
+                         clip_norm=1.0)
+        assert step.device.type == "cpu" and torch.isfinite(step(ids, ids))

@@ -178,3 +178,63 @@ def test_bf16_decoder_layer_rounds_as_jax():
     diff = np.abs(ours - ref)
     assert diff.max() <= ulp
     assert (diff > 0).mean() <= 0.002, (diff > 0).mean()
+
+
+def _loading_pairs():
+    """(name, JAX model, port model) of each family the port trains."""
+    from paddle_tpu.models import MambaConfig as JaxMambaConfig
+    from paddle_tpu.models import MambaForCausalLM as JaxMamba
+    from paddle_tpu.models import MoELlamaConfig as JaxMoEConfig
+    from paddle_tpu.models import MoELlamaForCausalLM as JaxMoE
+    from paddle_tpu.models import RwkvConfig as JaxRwkvConfig
+    from paddle_tpu.models import RwkvForCausalLM as JaxRwkv
+    from paddle_tpu_torch.models import (MambaConfig, MambaForCausalLM,
+                                         MoELlamaConfig, MoELlamaForCausalLM,
+                                         RwkvConfig, RwkvForCausalLM)
+
+    moe = dict(TINY, num_hidden_layers=2, moe_num_experts=4)
+    mamba = dict(vocab_size=64, hidden_size=32, num_hidden_layers=1,
+                 dtype="float32")
+    rwkv = dict(vocab_size=64, hidden_size=128, num_hidden_layers=1,
+                head_dim=64, dtype="float32")
+    paddle.seed(11)
+    return [
+        ("llama", JaxLlama(JaxLlamaConfig(**TINY)),
+         LlamaForCausalLM(LlamaConfig(**TINY), device="cpu")),
+        ("moe", JaxMoE(JaxMoEConfig(**moe)),
+         MoELlamaForCausalLM(MoELlamaConfig(**moe), device="cpu")),
+        ("mamba", JaxMamba(JaxMambaConfig(**mamba)),
+         MambaForCausalLM(MambaConfig(**mamba), device="cpu")),
+        ("rwkv", JaxRwkv(JaxRwkvConfig(**rwkv)),
+         RwkvForCausalLM(RwkvConfig(**rwkv), device="cpu")),
+    ]
+
+
+def test_load_state_transposes_linear_modules_of_every_family():
+    """Every family's JAX state dict loads: exactly the weights of the
+    port's ``nn.Linear`` modules are transposed (RWKV's ``head.weight`` and
+    Mamba's ``x_proj``/``dt_proj`` too, the MoE gate and expert stacks and
+    Mamba's conv ``[d, 1, k]`` not), and a missing, unexpected or
+    mis-shaped name raises."""
+    for name, jm, tm in _loading_pairs():
+        state = state_numpy(jm)
+        load_paddle_tpu_state(tm, state)
+        linear = {f"{n}.weight" for n, m in tm.named_modules()
+                  if isinstance(m, torch.nn.Linear)}
+        assert linear, name
+        for pname, p in tm.named_parameters():
+            ref = state[pname].T if pname in linear else state[pname]
+            np.testing.assert_array_equal(p.detach().numpy(), ref,
+                                          err_msg=f"{name} {pname}")
+        some = sorted(linear)[0]
+        bad = dict(state)
+        bad.pop(some)
+        with pytest.raises(KeyError, match="missing"):
+            load_paddle_tpu_state(tm, bad)
+        with pytest.raises(KeyError, match="unexpected"):
+            load_paddle_tpu_state(tm, {**state, "extra.weight": state[some]})
+        bad = dict(state)
+        bad[some] = bad[some].T          # the PyTorch layout is refused
+        if bad[some].shape != state[some].shape:
+            with pytest.raises(ValueError, match=some):
+                load_paddle_tpu_state(tm, bad)
