@@ -26,8 +26,12 @@ Phases, each of which fails the run (non-zero exit, no result line):
    d1536 n16 and a ragged b2 l150 d100 n5, and the WKV forward (y) and
    backward (dr, dk, dv, dlogw, du) at b16 l1024 h12 d64 with the model's
    decay ramp, a strong-decay case (logw = -1e10, w = 0) and d = 128 at a
-   ragged length: each output within 1e-4 of max |plain| in f32 I/O and
-   1e-2 in bf16 I/O, both computing in f32), with its time, its bound (H100
+   ragged length, and the SSD forward (y, the chunk states) and backward
+   (dx, ddt, dA, dB, dC, dD) at b8 l1024 h24 dh64 ds64 with x, B and C
+   strided as the model's, a ragged b2 l150 h3 ds128 and a strong decay
+   (a_t = 0, every output finite): each output within 1e-4 of max |plain|
+   in f32 I/O and 1e-2 in bf16 I/O (and in the strong-decay case), all
+   computing in f32), with its time, its bound (H100
    SXM: 3.35 TB/s HBM, 989 TFLOP/s bf16 dense; the scan 67 TFLOP/s f32
    non-tensor, its decay is elementwise), the plain version's time
    and a library yardstick (``scaled_dot_product_attention`` forward or
@@ -82,7 +86,13 @@ Phases, each of which fails the run (non-zero exit, no result line):
    peak memory and a profiled step;
 10. RWKV training: ``bench.py``'s RWKV-169m (vocab 32000, hidden 768, 12
    layers, head_dim 64, intermediate 2688, bf16) at full width and depth,
-   as phase 9, with 12 WKV forward and 12 WKV backward launches per step.
+   as phase 9, with 12 WKV forward and 12 WKV backward launches per step;
+11. Mamba-2 training: ``bench.py``'s Mamba-2 (vocab 32000, hidden 768, 24
+   layers, state 64, head_dim 64, 24 heads, SSD chunk 128, bf16, untied
+   head) at full width and depth, batch 8 x 1024 seeded tokens, as phase
+   9, with 24 SSD forward and 24 SSD backward launches per step; its
+   profiled step is grouped into SSD forward, SSD backward, conv, cuBLAS,
+   copies, the AdamW span and the rest.
 
 The last lines are the kernels' JSON, the card's name and power limit, and
 ``{"ok": true, "device": {...}}``.
@@ -347,6 +357,8 @@ def phase_kernels(torch, gen, flush):
     torch.cuda.empty_cache()
     rows.update(check_wkv(torch, gen, flush))
     torch.cuda.empty_cache()
+    rows.update(check_ssd(torch, gen, flush))
+    torch.cuda.empty_cache()
     return rows
 
 
@@ -606,10 +618,16 @@ def check_flash_backward(torch, gen, flush):
         del grads, refs
         if timed:
             fwd_ms = time_ms(torch, fwd, flush=flush)
+            fwd_plain = time_ms(torch, lambda: flash_attn_reference(
+                q, k, v, causal, scale, kv_len, off, return_lse=True),
+                reps=3, flush=flush)
             ms = time_ms(torch, bwd, flush=flush)
             plain = time_ms(torch, plain_bwd, reps=3, flush=flush)
             qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
                           for t in (q, k, v))
+            with torch.no_grad():
+                fwd_lib = time_ms(torch, lambda: F.scaled_dot_product_attention(
+                    qt, kt, vt, is_causal=causal), flush=flush)
             sdpa_out = F.scaled_dot_product_attention(qt, kt, vt,
                                                       is_causal=causal)
             dot = do.transpose(1, 2)
@@ -622,10 +640,16 @@ def check_flash_backward(torch, gen, flush):
                       + 4 * b * hq * sq                            # lse
                       + 2 * b * (sq * hq * d + 2 * sk * hk * d))   # dq,dk,dv
             b_ms, b_by = bound(flops, nbytes)
+            # the forward with lse: q, k, v in, out and lse back
+            f_ms, f_by = bound(
+                4 * d * hq * pairs,
+                2 * b * (2 * sq * hq * d + 2 * sk * hk * d) + 4 * b * hq * sq)
             print(f"  flash bwd {label}: {ms:.4f} ms (bound {b_ms:.4f} ms by "
                   f"{b_by}, {b_ms / ms:.1%} of it), plain {plain:.3f} ms, "
                   f"sdpa backward {lib:.4f} ms; the forward with lse "
-                  f"{fwd_ms:.4f} ms")
+                  f"{fwd_ms:.4f} ms (bound {f_ms:.4f} ms by {f_by}, "
+                  f"{f_ms / fwd_ms:.1%} of it), plain {fwd_plain:.3f} ms, "
+                  f"sdpa forward {fwd_lib:.4f} ms")
             row = dict(ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
                        library_ms=lib)
         del q, k, v, do, out, lse
@@ -1065,6 +1089,126 @@ def check_wkv(torch, gen, flush):
           f"is that minus the forward's)")
     rows["wkv"]["max_abs_err"] = errs[0]
     rows["wkv_bwd"]["max_abs_err"] = errs[1]
+    return rows
+
+
+MAMBA2_B, MAMBA2_L = 8, 1024     # phase 11: batch 8 x 1024 tokens
+
+
+def mamba2_config():
+    """``bench.py``'s Mamba-2 (``bench.py:370-372``)."""
+    from paddle_tpu_torch.models import Mamba2Config
+
+    return Mamba2Config(vocab_size=32000, hidden_size=768,
+                        num_hidden_layers=24, state_size=64, head_dim=64,
+                        ssd_chunk=128, dtype="bfloat16")
+
+
+def ssd_inputs(torch, gen, b, l, h, dh, ds, dt_io, strong):
+    """x, B and C as the model hands them over (strided views of one conv
+    output ``[b, l, h dh + 2 ds]``), dt = softplus of normals, A from the
+    model's init ``-linspace(1, 16, h)``, D and a cotangent dy. ``strong``:
+    A = -16 on head 0 and dt = 10 on a quarter of the sequence, so that
+    a_t = exp(A dt) is exactly 0 in f32."""
+    import torch.nn.functional as F
+
+    dev = "cuda"
+    xc = torch.randn(b, l, h * dh + 2 * ds, generator=gen,
+                     device=dev).to(dt_io)
+    x = xc[..., :h * dh].unflatten(-1, (h, dh))
+    B, C = xc[..., h * dh:h * dh + ds], xc[..., h * dh + ds:]
+    dt = F.softplus(torch.randn(b, l, h, generator=gen, device=dev))
+    A = -torch.linspace(1.0, 16.0, h, device=dev)
+    if strong:
+        A[0] = -16.0
+        dt[:, l // 4:l // 2] = 10.0
+    D = torch.randn(h, generator=gen, device=dev)
+    dy = torch.randn(b, l, h, dh, generator=gen, device=dev).to(dt_io)
+    return (x, dt.to(dt_io), A.to(dt_io), B, C, D.to(dt_io)), dy
+
+
+def check_ssd(torch, gen, flush):
+    """The SSD forward (y, the chunk states) and backward (dx, ddt, dA, dB,
+    dC, dD) kernels against their plain version ``ssd_chunked_reference``
+    at phase 11's shape (b8 l1024 h24 dh64 ds64, x, B and C strided as the
+    model's), in f32 I/O within SSM_F32_RTOL and in the path's bf16 within
+    SSM_BF16_RTOL; at a ragged b2 l150 h3 dh64 ds128 (f32); and with a
+    strong decay (a_t = 0 exactly, bf16), every output finite. Every case
+    checks all outputs for finite values. Timed in bf16; the bound counts
+    the bytes each input and output moves once, with the f32 chunk states
+    at the reference route's chunk c = 128 whatever the kernel's own,
+    against the JAX audit's 2 b h l (c + 2 ds) dh operations (x 3 for the
+    backward) at 989 TFLOP/s."""
+    from paddle_tpu_torch.ops.cuda import ssd
+
+    names = ("dx", "ddt", "dA", "dB", "dC", "dD")
+    rows, errs = {}, [0.0, 0.0]
+    b, l, h, dh, ds = MAMBA2_B, MAMBA2_L, 24, 64, 64
+    for cb, cl, ch, cdh, cds, dt_io, strong in (
+            (2, 150, 3, 64, 128, torch.float32, False),
+            (2, 300, 4, 64, 64, torch.bfloat16, True),
+            (b, l, h, dh, ds, torch.float32, False),
+            (b, l, h, dh, ds, torch.bfloat16, False)):
+        tol = SSM_F32_RTOL if dt_io == torch.float32 else SSM_BF16_RTOL
+        what = (f"ssd b{cb} l{cl} h{ch} dh{cdh} ds{cds} {str(dt_io)[6:]}"
+                + (" strong decay" if strong else ""))
+        ins, dy = ssd_inputs(torch, gen, cb, cl, ch, cdh, cds, dt_io, strong)
+        y, states = ssd.ssd_fwd(*ins)
+        grads = ssd.ssd_bwd(*ins, states, dy)
+        torch.cuda.synchronize()
+        check(all(bool(torch.isfinite(t.float()).all())
+                  for t in (y, states, *grads)),
+              f"{what}: y, the states and every gradient finite")
+        chunk = ssd.kernel_chunk(cdh, cds)
+        with torch.no_grad():
+            y_ref, s_ref = ssd.ssd_chunked_reference(
+                *(t.float() for t in ins), chunk, True)
+        errs[0] = max(errs[0], check_pair(
+            what, (y.float(), states), (y_ref.to(dt_io), s_ref),
+            ("y", "chunk states"), tol))
+        _, g_ref = plain_vjp(torch, lambda *a: ssd.ssd_chunked_reference(
+            *a, chunk), ins, dy)
+        errs[1] = max(errs[1], check_pair(
+            what, grads, [g.to(t.dtype) for g, t in zip(g_ref, ins)],
+            names, tol))
+        del y, states, grads, y_ref, s_ref, g_ref
+    # timing at the path's shape and dtype (the last case)
+    torch.cuda.empty_cache()
+    ms = time_ms(torch, lambda: ssd.ssd_fwd(*ins), flush=flush)
+    _, states = ssd.ssd_fwd(*ins)
+    bwd_ms = time_ms(torch, lambda: ssd.ssd_bwd(*ins, states, dy),
+                     flush=flush)
+    xs = [t.float() for t in ins]
+    with torch.no_grad():
+        plain = time_ms(torch, lambda: ssd.ssd_chunked_reference(*xs),
+                        reps=3)
+    xg = [t.requires_grad_() for t in xs]
+    plain_both = time_ms(torch, lambda: torch.autograd.grad(
+        ssd.ssd_chunked_reference(*xg), xg, dy.float()), reps=3)
+    # the function's work, whatever the kernel's own chunk: the residual
+    # and the products at the reference route's chunk (the model's
+    # ssd_chunk, 128)
+    chunk = mamba2_config().ssd_chunk
+    nc = -(-l // chunk)
+    io = 2                                   # bf16 bytes per element
+    act = b * l * h * dh * io                # x, y, dy or dx
+    seq = b * l * h * io + 2 * b * l * ds * io + 8 * h   # dt, B, C, A, D
+    st = b * nc * h * dh * ds * 4            # the f32 chunk states
+    flops = 2 * b * h * l * (chunk + 2 * ds) * dh
+    for key, t, plain_t, ops, nbytes in (
+            ("ssd", ms, plain, flops, 2 * act + seq + st),
+            ("ssd_bwd", bwd_ms, plain_both - plain, 3 * flops,
+             3 * act + 2 * seq + st)):
+        b_ms, b_by = bound(ops, nbytes)
+        print(f"  {key} (b{b} l{l} h{h} dh{dh} ds{ds}, bound at chunk "
+              f"{chunk}, bf16): {t:.4f} ms (bound {b_ms:.4f} ms by {b_by}, "
+              f"{b_ms / t:.1%} of it), plain {plain_t:.3f} ms, library: none")
+        rows[key] = dict(ms=t, plain_ms=plain_t, bound_ms=b_ms,
+                         bound_by=b_by, library_ms=None)
+    print(f"  (plain fwd + bwd {plain_both:.3f} ms; the backward's plain ms "
+          f"is that minus the forward's)")
+    rows["ssd"]["max_abs_err"] = errs[0]
+    rows["ssd_bwd"]["max_abs_err"] = errs[1]
     return rows
 
 
@@ -1559,12 +1703,14 @@ def reset_counts():
     from paddle_tpu_torch.ops.cuda import int8_matmul as wo
     from paddle_tpu_torch.ops.cuda import paged_attention as pa
     from paddle_tpu_torch.ops.cuda import selective_scan as ss
+    from paddle_tpu_torch.ops.cuda import ssd
     from paddle_tpu_torch.ops.cuda import wkv as wk
 
     fa.launches = fa.bwd_launches = pa.launches = fw.launches = 0
     pa.int8_launches = wo.launches = wo.int4_launches = 0
     gg.launches = gg.tgmm_launches = gg.swiglu_launches = 0
     ss.launches = ss.bwd_launches = wk.launches = wk.bwd_launches = 0
+    ssd.launches = ssd.bwd_launches = 0
 
 
 def read_counts():
@@ -1574,10 +1720,12 @@ def read_counts():
     from paddle_tpu_torch.ops.cuda import int8_matmul as wo
     from paddle_tpu_torch.ops.cuda import paged_attention as pa
     from paddle_tpu_torch.ops.cuda import selective_scan as ss
+    from paddle_tpu_torch.ops.cuda import ssd
     from paddle_tpu_torch.ops.cuda import wkv as wk
 
     return {"selective_scan": ss.launches,
             "selective_scan_bwd": ss.bwd_launches,
+            "ssd": ssd.launches, "ssd_bwd": ssd.bwd_launches,
             "wkv": wk.launches, "wkv_bwd": wk.bwd_launches,
             "flash_attention": fa.launches,
             "flash_attention_bwd": fa.bwd_launches,
@@ -1725,6 +1873,11 @@ def profile_train_step(torch, step, ids, step_ms, groups=None, top=8):
     if 0 < adamw <= rest:
         by_group["AdamW elementwise (its device span)"] = adamw
         by_group["other"] = rest - adamw
+    elif adamw > 0:
+        # the span outlasts the ungrouped kernels: it holds gaps, and is not
+        # taken out of them
+        by_group["AdamW span (gaps included)"] = adamw
+        by_group["other (AdamW's kernels included)"] = rest
     else:
         by_group["AdamW elementwise"] = "not measured"
         by_group["other"] = rest
@@ -1857,30 +2010,44 @@ SSM_GROUPS = {
     "selective scan bwd": ("scan_bwd_kernel",),
     "wkv fwd": ("wkv_fwd_kernel",), "wkv bwd": ("wkv_bwd_kernel",),
     **TRAIN_GROUPS}
+# the conv group first: cuDNN's implicit-GEMM convolutions are xmma kernels;
+# "copies": PyTorch's same-dtype copies (layout changes and .contiguous())
+MAMBA2_GROUPS = {
+    "SSD fwd": ("ssd_fwd_kernel",), "SSD bwd": ("ssd_bwd_kernel",),
+    "conv": ("conv", "fprop", "dgrad", "wgrad"),
+    "cuBLAS": TRAIN_GROUPS["matmul"], "copies": ("direct_copy",)}
 
 
 def phase_ssm_train(torch, seed, family):
-    """Phase 9 (``family="mamba"``) or 10 (``"rwkv"``): the model at
-    ``bench.py``'s full width and depth, batch 16 x 1024 seeded tokens,
-    ``SSM_STEPS`` TrainStep steps with AdamW (lr 3e-4, bf16 moments) and
-    clip 1.0 as ``bench.py`` trains it. Checks finite, falling losses, a
-    fresh-batch loss above ln(vocab) / 2, and one forward and one backward
-    launch of the family's kernel per layer and step and no other kernel of
-    the port; prints the step time, tokens/s, the model-FLOP share by
-    ``bench.py``'s ``6 N`` (the recurrence's operations excluded, as
-    there), peak memory and a profiled step. Returns the launch counts."""
+    """Phase 9 (``family="mamba"``), 10 (``"rwkv"``) or 11 (``"mamba2"``):
+    the model at ``bench.py``'s full width and depth and batch (16 x 1024
+    seeded tokens; Mamba-2 8 x 1024), ``SSM_STEPS`` TrainStep steps with
+    AdamW (lr 3e-4, bf16 moments) and clip 1.0 as ``bench.py`` trains it.
+    Checks finite, falling losses, a fresh-batch loss above ln(vocab) / 2,
+    and one forward and one backward launch of the family's kernel per
+    layer and step and no other kernel of the port; prints the step time,
+    tokens/s, the model-FLOP share by ``bench.py``'s ``6 N`` (the
+    recurrence's operations excluded, as there), peak memory and a profiled
+    step. Returns the launch counts."""
     from paddle_tpu_torch.jit import TrainStep
-    from paddle_tpu_torch.models import MambaForCausalLM, RwkvForCausalLM
+    from paddle_tpu_torch.models import (Mamba2ForCausalLM,
+                                         MambaForCausalLM, RwkvForCausalLM)
     from paddle_tpu_torch.optimizer import AdamW
 
+    shape, groups = (SSM_B, SSM_L), SSM_GROUPS
     if family == "mamba":
         phase, title, cfg, cls = 9, "Mamba-130m", mamba_config(), \
             MambaForCausalLM
         fwd, bwd = "selective_scan", "selective_scan_bwd"
-    else:
+    elif family == "rwkv":
         phase, title, cfg, cls = 10, "RWKV-169m", rwkv_config(), \
             RwkvForCausalLM
         fwd, bwd = "wkv", "wkv_bwd"
+    else:
+        phase, title, cfg, cls = 11, "Mamba-2", mamba2_config(), \
+            Mamba2ForCausalLM
+        fwd, bwd = "ssd", "ssd_bwd"
+        shape, groups = (MAMBA2_B, MAMBA2_L), MAMBA2_GROUPS
     print(f"== phase {phase}: {title} training with TrainStep + AdamW")
     L = cfg.num_hidden_layers
     torch.cuda.reset_peak_memory_stats()
@@ -1890,12 +2057,11 @@ def phase_ssm_train(torch, seed, family):
     step = TrainStep(model, None, AdamW(
         learning_rate=3e-4, moment_dtype="bfloat16",
         parameters=model.parameters()), clip_norm=1.0)
-    shape = (SSM_B, SSM_L)
     ids = train_tokens(torch, seed, shape)
     torch.cuda.synchronize()
     print(f"  model: {n_params / 1e6:.1f} M params, {L} layers, hidden "
           f"{cfg.hidden_size}, built in {time.perf_counter() - t0:.1f} s; "
-          f"batch {SSM_B} x {SSM_L}")
+          f"batch {shape[0]} x {shape[1]}")
     reset_counts()
     losses, times = [], []
     for _ in range(SSM_STEPS):
@@ -1917,9 +2083,9 @@ def phase_ssm_train(torch, seed, family):
           f"{title} loss on a fresh batch {held:.3f} > ln(vocab) / 2 = "
           f"{0.5 * math.log(cfg.vocab_size):.3f} (no causal leak)")
     step_ms = sum(times[2:]) / len(times[2:])
-    tokens = SSM_B * SSM_L
+    tokens = shape[0] * shape[1]
     tps = tokens / (step_ms / 1e3)
-    flops_tok = 6 * n_params             # bench.py:313, :416
+    flops_tok = 6 * n_params             # bench.py:313, :384, :415
     print(f"  step host ms {step_ms:.1f} (mean of steps 3-{SSM_STEPS}): "
           f"{tps:.0f} tokens/s, model-FLOP share "
           f"{flops_tok * tps / BF16_FLOP_PER_S:.1%} of 989 TFLOP/s "
@@ -1927,7 +2093,7 @@ def phase_ssm_train(torch, seed, family):
           f"{flops_tok * tokens / BF16_FLOP_PER_S * 1e3:.1f} ms); peak "
           f"device memory {torch.cuda.max_memory_allocated() / 2**30:.1f} "
           f"GiB on {smi()}")
-    profile_train_step(torch, step, ids, step_ms, SSM_GROUPS, top=12)
+    profile_train_step(torch, step, ids, step_ms, groups, top=12)
     del model, step
     free_cuda(torch)
     return n
@@ -1968,9 +2134,11 @@ def main():
             "grouped_gemm", "grouped_gemm_tgmm", "grouped_gemm_swiglu")})
         mamba = phase_ssm_train(torch, args.seed, "mamba")
         rwkv = phase_ssm_train(torch, args.seed, "rwkv")
+        mamba2 = phase_ssm_train(torch, args.seed, "mamba2")
         launches.update({k: mamba[k] for k in ("selective_scan",
                                                "selective_scan_bwd")})
         launches.update({k: rwkv[k] for k in ("wkv", "wkv_bwd")})
+        launches.update({k: mamba2[k] for k in ("ssd", "ssd_bwd")})
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -1978,7 +2146,7 @@ def main():
     # paged and int8 GEMM's on quantized run A, the int4 GEMM's on run B,
     # the flash backward's on the TrainStep run, fused AdamW's on the eager
     # run, the grouped GEMMs' on the MoE TrainStep run, the scan's on the
-    # Mamba run and the WKV's on the RWKV run
+    # Mamba run, the WKV's on the RWKV run and the SSD's on the Mamba-2 run
     meta = {
         "flash_attention": ("paddle_tpu_torch/csrc/flash_attention.cu",
                             "paddle_tpu/ops/pallas/flash_attention.py:266"),
@@ -2010,6 +2178,10 @@ def main():
                 "paddle_tpu/ops/pallas/wkv.py:301"),
         "wkv_bwd": ("paddle_tpu_torch/csrc/wkv.cu",
                     "paddle_tpu/ops/pallas/wkv.py:350"),
+        "ssd": ("paddle_tpu_torch/csrc/ssd.cu",
+                "paddle_tpu/ops/pallas/ssd.py:198"),
+        "ssd_bwd": ("paddle_tpu_torch/csrc/ssd.cu",
+                    "paddle_tpu/ops/pallas/ssd.py:243"),
     }
     kernels = []
     for name, (source, replaces) in meta.items():

@@ -6,12 +6,13 @@ pool), trains Llama (``jit.TrainStep`` with ``optimizer.AdamW``, or the
 eager loop with ``optimizer.FusedAdamW``), trains the MoE-Llama
 (``models.MoELlamaForCausalLM`` over ``parallel.MoELayer``) and trains the
 state-space and linear-attention models Mamba-1
-(``models.MambaForCausalLM``) and RWKV-5 (``models.RwkvForCausalLM``),
-with PyTorch for the plain tensor code and hand-written CUDA C++ kernels
-(``csrc/``) for the kernels those paths run: the flash forward and
-backward, the paged decode, the weight-only GEMMs, the fused AdamW update,
-the grouped GEMMs of the experts, and the forward and backward of the
-selective scan and of the WKV recurrence.
+(``models.MambaForCausalLM``), Mamba-2 (``models.Mamba2ForCausalLM``) and
+RWKV-5 (``models.RwkvForCausalLM``), with PyTorch for the plain tensor code
+and hand-written CUDA C++ kernels (``csrc/``) for the kernels those paths
+run: the flash forward and backward, the paged decode, the weight-only
+GEMMs, the fused AdamW update, the grouped GEMMs of the experts, and the
+forward and backward of the selective scan, of the SSD recurrence and of
+the WKV recurrence.
 
 It imports neither ``jax`` nor anything of ``paddle_tpu``. Entry points
 (``ServingEngine``, the models, ``TrainStep``, the optimizers)

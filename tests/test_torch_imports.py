@@ -16,6 +16,7 @@ import paddle_tpu_torch
 
 from paddle_tpu_torch.jit import TrainStep
 from paddle_tpu_torch.models import (LlamaConfig, LlamaForCausalLM,
+                                     Mamba2Config, Mamba2ForCausalLM,
                                      MambaConfig, MambaForCausalLM,
                                      MoELlamaConfig, MoELlamaForCausalLM,
                                      RwkvConfig, RwkvForCausalLM)
@@ -225,3 +226,29 @@ def test_ssm_entry_points_raise_without_cuda(monkeypatch):
         step = TrainStep(model, None, AdamW(parameters=model.parameters()),
                          clip_norm=1.0)
         assert step.device.type == "cpu" and torch.isfinite(step(ids, ids))
+
+
+def test_walk_covers_the_mamba2_modules():
+    names = {m.name for m in pkgutil.walk_packages(
+        paddle_tpu_torch.__path__, "paddle_tpu_torch.")}
+    assert {"paddle_tpu_torch.models.mamba2",
+            "paddle_tpu_torch.ops.cuda.ssd",
+            "paddle_tpu_torch.ops.fused.ssd"} <= names
+    assert (ROOT / "paddle_tpu_torch" / "csrc" / "ssd.cu").is_file()
+
+
+def test_mamba2_entry_points_raise_without_cuda(monkeypatch):
+    """Mamba-2 refuses a CUDA device without a card (also when no device is
+    named) and trains on the CPU when asked to."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = Mamba2Config(vocab_size=64, hidden_size=64, num_hidden_layers=1,
+                       ssd_chunk=4)
+    for make in (lambda: Mamba2ForCausalLM(cfg),
+                 lambda: Mamba2ForCausalLM(cfg, device="cuda")):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            make()
+    model = Mamba2ForCausalLM(cfg, device="cpu")
+    ids = torch.from_numpy(np.arange(12).reshape(2, 6))
+    step = TrainStep(model, None, AdamW(parameters=model.parameters()),
+                     clip_norm=1.0)
+    assert step.device.type == "cpu" and torch.isfinite(step(ids, ids))
