@@ -21,7 +21,11 @@ Phases, each of which fails the run (non-zero exit, no result line):
    up + swiglu with its residuals: max |diff| <= 1e-2 * max |plain| at M =
    32768 routed rows for a router draw and a skewed set with an empty
    group, an 8192-row group and trash rows, whose output rows and
-   empty-group dW must be exact zeros; the selective scan's forward (y and
+   empty-group dW must be exact zeros, and gmm and tgmm at their tiles'
+   edges (M = 8200 in groups of 1, 127, 129, 0, 4095, 63, 65 and 1000
+   rows, at the layer's widths and at K = 1000, N = 520; NaN and inf in
+   the trash rows of lhs and dout; tgmm twice, bitwise equal), with the
+   ptxas line of each wgmma kernel; the selective scan's forward (y and
    the chunk states) and backward (du, ddelta, dA, dB, dC) at b16 l1024
    d1536 n16 and a ragged b2 l150 d100 n5, and the WKV forward (y) and
    backward (dr, dk, dv, dlogw, du) at b16 l1024 h12 d64 with the model's
@@ -124,6 +128,10 @@ NEW_TOKENS = 32
 TRAIN_BATCH, TRAIN_SEQ = 2, 2048
 TRAIN_STEPS, EAGER_STEPS = 10, 5
 GG_RTOL = 1e-2                   # grouped GEMMs: max |diff| / max |plain|
+# group starts off every 64- and 128-row boundary, a one-row group, an
+# empty group and 2720 trash rows at M = 8200
+GG_RAGGED = (1, 127, 129, 0, 4095, 63, 65, 1000)
+GG_RAGGED_M = 8200
 MOE_BATCH, MOE_SEQ, MOE_STEPS = 8, 2048, 10
 SSM_F32_RTOL = 1e-4              # scan, WKV in f32 I/O: max |diff| / max |plain|
 SSM_BF16_RTOL = 1e-2             # the same in bf16 I/O (one bf16 rounding)
@@ -748,6 +756,7 @@ def check_grouped_gemm(torch, gen, flush):
         gmm, gmm_reference, gmm_swiglu, gmm_swiglu_reference, tgmm,
         tgmm_reference)
 
+    print_wgmma_ptxas()
     cfg = moe_config()
     d, h, E = cfg.hidden_size, cfg.intermediate_size, cfg.moe_num_experts
     M = 2 * MOE_BATCH * MOE_SEQ
@@ -855,6 +864,9 @@ def check_grouped_gemm(torch, gen, flush):
                 y_only = gmm_swiglu(xs, w1, sizes, b1, emit_residuals=False)
                 check(bool((y_only[0] == outs[0]).all()),
                       f"swiglu ({label}) without residuals: the same y")
+            if row == "grouped_gemm_tgmm":
+                check(torch.equal(fn(), outs[0]),
+                      f"{what} ({label}) run twice: bitwise equal")
             del outs, refs
             if label != "router draw" or not flops:
                 continue
@@ -869,11 +881,12 @@ def check_grouped_gemm(torch, gen, flush):
                     print(f"    torch._grouped_mm refused it: {e}")
             b_ms, b_by = bound(flops, nbytes)
             by[row].add(b_by)
+            ratio = "" if lib_ms is None else f" ({ms / lib_ms:.2f}x)"
             print(f"  {what}: {ms:.4f} ms (bound {b_ms:.4f} ms by {b_by}, "
                   f"{b_ms / ms:.1%} of it), plain {plain:.3f} ms, "
                   f"torch._grouped_mm "
-                  f"{'none' if lib_ms is None else f'{lib_ms:.4f} ms'}, "
-                  f"per-group torch.matmul loop {loop_ms:.4f} ms")
+                  f"{'none' if lib_ms is None else f'{lib_ms:.4f} ms'}"
+                  f"{ratio}, per-group torch.matmul loop {loop_ms:.4f} ms")
             r = rows[row]
             r["ms"] += ms
             r["plain_ms"] += plain
@@ -884,9 +897,120 @@ def check_grouped_gemm(torch, gen, flush):
         rows[k]["bound_by"] = "bytes" if by[k] == {"bytes"} else "operations"
     # the swiglu yardstick is a product plus the activation: no one call
     rows["grouped_gemm_swiglu"]["library_ms"] = None
+    for k in ("grouped_gemm", "grouped_gemm_tgmm"):
+        r, lib = rows[k], rows[k]["library_ms"]
+        if lib:
+            print(f"  {k} sum: {r['ms']:.4f} ms, {r['bound_ms'] / r['ms']:.1%} "
+                  f"of its bound, {r['ms'] / lib:.2f}x torch._grouped_mm "
+                  f"({lib:.4f} ms)")
     torch.cuda.synchronize()
     del w1, b1, w2, b2, bh, xs, hs, dy, dh
+    for k, err in check_grouped_gemm_edges(torch, gen).items():
+        rows[k]["max_abs_err"] = max(rows[k]["max_abs_err"], err)
     return rows
+
+
+def print_wgmma_ptxas():
+    """What ptxas reported for each wgmma kernel of ``csrc/grouped_gemm.cu``
+    (registers at entry, spills) and the dynamic shared memory they launch
+    with."""
+    import re
+
+    from paddle_tpu_torch.ops.cuda import _build
+
+    smem = _build.load("grouped_gemm").ptt_wgmma_smem_bytes()
+    name = None
+    for line in (_build.ptxas_report("grouped_gemm") or "").splitlines():
+        if "Compiling entry function" in line:
+            m = re.search(r"(t?gmm_wgmma_kernel)(?:ILb([01])E)?", line)
+            name = None if m is None else m.group(1) + (
+                "" if m.group(2) is None else f"<transpose_rhs {m.group(2)}>")
+        elif name is not None and ("spill" in line or "registers" in line):
+            print(f"  ptxas {name}: "
+                  f"{line.replace('ptxas info    :', '').strip()}")
+    print(f"  wgmma kernels: {smem} bytes of dynamic shared memory; the "
+          f"producer warpgroup drops to 40 registers and the consumers rise "
+          f"to 232 (setmaxnreg)")
+
+
+def check_grouped_gemm_edges(torch, gen):
+    """gmm and tgmm at the wgmma kernels' edges against their plain
+    versions: M = 8200 rows in the ``GG_RAGGED`` groups (starts off every
+    64- and 128-row boundary, a one-row group, an empty group, 2720 trash
+    rows), at the MoE layer's widths (K = 2816, N = 1024) and at an odd
+    width (K = 1000, N = 520: multiples of 8, not of 64); gmm in both
+    orientations with and without bias, tgmm. Then NaN and inf in the
+    trash rows (of lhs for gmm, of lhs and dout for tgmm): the kept rows
+    and every dW equal the plain version's and, bit for bit, the NaN-free
+    run's. Every output within ``GG_RTOL`` of max |plain|, trash rows and
+    the empty group's dW exact zeros, tgmm twice bitwise equal. Returns the
+    largest |kernel - plain| per kernel row."""
+    from paddle_tpu_torch.ops.cuda.grouped_gemm import (
+        gmm, gmm_reference, tgmm, tgmm_reference)
+
+    M, E = GG_RAGGED_M, len(GG_RAGGED)
+    sizes = torch.tensor(GG_RAGGED, dtype=torch.int32, device="cuda")
+    kept = sum(GG_RAGGED)
+    empty = [g for g, s in enumerate(GG_RAGGED) if s == 0]
+    errs = {"grouped_gemm": 0.0, "grouped_gemm_tgmm": 0.0}
+
+    def rnd(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=gen, device="cuda")
+                * scale).bfloat16()
+
+    def held(row, what, out, ref, same=None):
+        torch.cuda.synchronize()
+        err = (out.float() - ref.float()).abs().max().item()
+        peak = ref.float().abs().max().item()
+        zeros = [out[g] for g in empty] if row == "grouped_gemm_tgmm" \
+            else [out[kept:]]
+        check(math.isfinite(err) and err <= GG_RTOL * peak
+              and all(bool((z == 0).all()) for z in zeros)
+              and (same is None or torch.equal(out, same)),
+              f"{what}: max |kernel - plain| = {err:.3e} = "
+              f"{err / peak:.2e} of max |plain| <= {GG_RTOL}, "
+              + ("empty-group dW" if row == "grouped_gemm_tgmm"
+                 else f"the {M - kept} trash rows") + " exact zeros"
+              + ("" if same is None else ", bitwise equal to the NaN-free "
+                 "run"))
+        errs[row] = max(errs[row], err)
+
+    def poisoned(t):
+        t = t.clone()
+        t[kept::2] = float("nan")
+        t[kept + 1::2] = float("inf")
+        return t
+
+    print(f"  grouped GEMM edges: M = {M}, sizes {list(GG_RAGGED)}")
+    for label, K, N in (("layer widths", 2816, 1024), ("odd width", 1000,
+                                                        520)):
+        x, xt, dout = rnd(M, K), rnd(M, N), rnd(M, N)
+        w = rnd(E, K, N, scale=K ** -0.5)
+        bn, bk = rnd(E, N, scale=0.1), rnd(E, K, scale=0.1)
+        for tr, lhs, bias in ((False, x, None), (False, x, bn),
+                              (True, xt, None), (True, xt, bk)):
+            held("grouped_gemm", f"gmm K={K} N={N} transpose_rhs={tr} "
+                 f"bias={bias is not None} ({label})",
+                 gmm(lhs, w, sizes, bias, tr),
+                 gmm_reference(lhs, w, sizes, bias, tr))
+        dw = tgmm(x, dout, sizes)
+        held("grouped_gemm_tgmm", f"tgmm [{M},{K}]^T x [{M},{N}] ({label})",
+             dw, tgmm_reference(x, dout, sizes))
+        check(torch.equal(tgmm(x, dout, sizes), dw),
+              f"tgmm ({label}) run twice: bitwise equal")
+        xn, doutn = poisoned(x), poisoned(dout)
+        for tr, lhs, lhs_n, bias in ((False, x, xn, bn),
+                                     (True, xt, poisoned(xt), None)):
+            held("grouped_gemm", f"gmm with NaN/inf trash rows, "
+                 f"transpose_rhs={tr} ({label})",
+                 gmm(lhs_n, w, sizes, bias, tr),
+                 gmm_reference(lhs_n, w, sizes, bias, tr),
+                 same=gmm(lhs, w, sizes, bias, tr))
+        held("grouped_gemm_tgmm", f"tgmm with NaN/inf trash rows in lhs "
+             f"and dout ({label})", tgmm(xn, doutn, sizes),
+             tgmm_reference(xn, doutn, sizes), same=dw)
+        del x, xt, dout, w, xn, doutn, dw
+    return errs
 
 
 SSM_B, SSM_L = 16, 1024          # phases 9 and 10: batch 16 x 1024 tokens
@@ -1927,7 +2051,8 @@ def phase_eager(torch, seed):
     return n
 
 
-MOE_GROUPS = {"grouped GEMM": ("gmm_kernel",), **TRAIN_GROUPS}
+# gmm_kernel: the fused swiglu; gmm_wgmma_kernel: gmm and tgmm_wgmma_kernel
+MOE_GROUPS = {"grouped GEMM": ("gmm_kernel", "gmm_wgmma_kernel"), **TRAIN_GROUPS}
 
 
 def phase_moe_train(torch, seed):

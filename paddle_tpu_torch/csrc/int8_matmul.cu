@@ -42,6 +42,7 @@
 #include <atomic>
 
 #include "flash_common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
@@ -232,18 +233,9 @@ cudaError_t launch(const bf16* x, const int8_t* w, const float* scale, OutT* out
   constexpr int ROWS = MT * 16;
   const int smem = int(sizeof(Smem<MT, INT4>));
   auto kern = wo_gemm_kernel<MT, INT4, OutT>;
-  // the shared-memory limit is raised once per instantiation and device
-  // (bit d of smem_set: done on device d), not on every launch
   static std::atomic<uint64_t> smem_set{0};
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
+  cudaError_t err = ptt::allow_smem(kern, smem, smem_set);
   if (err != cudaSuccess) return err;
-  const uint64_t bit = dev < 64 ? (uint64_t(1) << dev) : 0;
-  if (bit == 0 || !(smem_set.load(std::memory_order_relaxed) & bit)) {
-    err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return err;
-    smem_set.fetch_or(bit, std::memory_order_relaxed);
-  }
   const dim3 grid(N / BN, (M + ROWS - 1) / ROWS, splits);
   kern<<<grid, THREADS, smem, stream>>>(x, w, scale, out, splits > 1 ? part : nullptr, M, K, N,
                                         steps_per_split);

@@ -42,6 +42,8 @@
 
 #include <atomic>
 
+#include "hopper.cuh"
+
 namespace {
 
 using bf16 = __nv_bfloat16;
@@ -291,22 +293,6 @@ scan_bwd_kernel(const T* __restrict__ u, const T* __restrict__ delta, const floa
   }
 }
 
-// the dynamic shared-memory limit is raised once per instantiation and
-// device (bit d of `done`: done on device d), not on every launch
-template <typename Kern>
-cudaError_t allow_smem(Kern kern, int bytes, std::atomic<uint64_t>& done) {
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  const uint64_t bit = dev < 64 ? (uint64_t(1) << dev) : 0;
-  if (bit == 0 || !(done.load(std::memory_order_relaxed) & bit)) {
-    err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-    if (err != cudaSuccess) return err;
-    done.fetch_or(bit, std::memory_order_relaxed);
-  }
-  return cudaSuccess;
-}
-
 template <typename T>
 int launch_fwd(const void* u, const void* delta, const void* A, const void* B, const void* C,
                void* y, void* bounds, int batch, int L, int D, int n, cudaStream_t st) {
@@ -324,7 +310,7 @@ int launch_bwd(const void* u, const void* delta, const void* A, const void* B, c
                void* dB_part, void* dC_part, int batch, int L, int D, int n, cudaStream_t st) {
   static std::atomic<uint64_t> done{0};
   const int smem = int(sizeof(BwdSmem));
-  cudaError_t err = allow_smem(scan_bwd_kernel<T>, smem, done);
+  cudaError_t err = ptt::allow_smem(scan_bwd_kernel<T>, smem, done);
   if (err != cudaSuccess) return int(err);
   const dim3 grid((D + THREADS - 1) / THREADS, batch);
   scan_bwd_kernel<T><<<grid, THREADS, smem, st>>>(

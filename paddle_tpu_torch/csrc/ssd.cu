@@ -51,6 +51,8 @@
 
 #include <atomic>
 
+#include "hopper.cuh"
+
 namespace {
 
 using bf16 = __nv_bfloat16;
@@ -504,22 +506,6 @@ ssd_bwd_kernel(const T* __restrict__ x, const T* __restrict__ dt, const float* _
   }
 }
 
-// the dynamic shared-memory limit is raised once per instantiation and
-// device (bit d of `done`: done on device d), not on every launch
-template <typename Kern>
-cudaError_t allow_smem(Kern kern, int bytes, std::atomic<uint64_t>& done) {
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  const uint64_t bit = dev < 64 ? (uint64_t(1) << dev) : 0;
-  if (bit == 0 || !(done.load(std::memory_order_relaxed) & bit)) {
-    err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-    if (err != cudaSuccess) return err;
-    done.fetch_or(bit, std::memory_order_relaxed);
-  }
-  return cudaSuccess;
-}
-
 struct Args {
   const void *x, *dt, *A, *B, *C, *D, *states, *dy;
   void *y, *out_states, *dx, *ddt, *dA, *dD, *dB, *dC;
@@ -532,7 +518,7 @@ template <typename T, int P, int N>
 int launch_fwd(const Args& g) {
   static std::atomic<uint64_t> done{0};
   const int smem = int(sizeof(FwdSmem<P, N>));
-  cudaError_t err = allow_smem(ssd_fwd_kernel<T, P, N>, smem, done);
+  cudaError_t err = ptt::allow_smem(ssd_fwd_kernel<T, P, N>, smem, done);
   if (err != cudaSuccess) return int(err);
   ssd_fwd_kernel<T, P, N><<<dim3(g.H, g.batch), THREADS, smem, g.st>>>(
       static_cast<const T*>(g.x), static_cast<const T*>(g.dt), static_cast<const float*>(g.A),
@@ -545,7 +531,7 @@ template <typename T, int P, int N>
 int launch_bwd(const Args& g) {
   static std::atomic<uint64_t> done{0};
   const int smem = int(sizeof(BwdSmem<P, N>));
-  cudaError_t err = allow_smem(ssd_bwd_kernel<T, P, N>, smem, done);
+  cudaError_t err = ptt::allow_smem(ssd_bwd_kernel<T, P, N>, smem, done);
   if (err != cudaSuccess) return int(err);
   ssd_bwd_kernel<T, P, N><<<dim3(g.H, g.batch), THREADS, smem, g.st>>>(
       static_cast<const T*>(g.x), static_cast<const T*>(g.dt), static_cast<const float*>(g.A),
