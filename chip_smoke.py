@@ -25,12 +25,18 @@ Phases, each of which fails the run (non-zero exit, no result line):
    edges (M = 8200 in groups of 1, 127, 129, 0, 4095, 63, 65 and 1000
    rows, at the layer's widths and at K = 1000, N = 520; NaN and inf in
    the trash rows of lhs and dout; tgmm twice, bitwise equal), with the
-   ptxas line of each wgmma kernel; the selective scan's forward (y and
-   the chunk states) and backward (du, ddelta, dA, dB, dC) at b16 l1024
-   d1536 n16 and a ragged b2 l150 d100 n5, and the WKV forward (y) and
-   backward (dr, dk, dv, dlogw, du) at b16 l1024 h12 d64 with the model's
-   decay ramp, a strong-decay case (logw = -1e10, w = 0) and d = 128 at a
-   ragged length, and the SSD forward (y, the chunk states) and backward
+   ptxas line of each wgmma kernel (the grouped GEMMs' and the flash
+   forward, dK/dV and dQ kernels', with their local-memory accesses in the
+   built code); the flash forward and backward also at their wgmma tiles'
+   edges (b = 2, sq = 200, sk = 333; q_offset = 37 with kv_len = 300; GQA
+   32/8 and 16/4 at d = 64, causal and non-causal), the backward twice at
+   the training shape (bitwise equal), and each timed flash shape's ratio
+   to SDPA and its wrapper's host µs per call; the selective scan's
+   forward (y and the chunk states) and backward (du, ddelta, dA, dB, dC)
+   at b16 l1024 d1536 n16 and a ragged b2 l150 d100 n5, and the WKV
+   forward (y) and backward (dr, dk, dv, dlogw, du) at b16 l1024 h12 d64
+   with the model's decay ramp, a strong-decay case (logw = -1e10, w = 0)
+   and d = 128 at a ragged length, and the SSD forward (y, the chunk states) and backward
    (dx, ddt, dA, dB, dC, dD) at b8 l1024 h24 dh64 ds64 with x, B and C
    strided as the model's, a ragged b2 l150 h3 ds128 and a strong decay
    (a_t = 0, every output finite): each output within 1e-4 of max |plain|
@@ -300,9 +306,12 @@ def phase_kernels(torch, gen, flush):
         flops = 4 * d * hq * pairs
         nbytes = 2 * (2 * sq * hq * d + 2 * sk * hk * d)
         b_ms, b_by = bound(flops, nbytes)
+        host = host_us_per_call(torch, lambda: flash_attention(
+            q, k, v, causal=True, q_offset=off))
         print(f"  flash {label}: {ms:.4f} ms (bound {b_ms:.4f} ms by {b_by}, "
               f"{b_ms / ms:.1%} of it), plain {plain:.3f} ms, "
-              f"sdpa {lib_ms:.4f} ms")
+              f"sdpa {lib_ms:.4f} ms ({ms / lib_ms:.2f}x sdpa); wrapper "
+              f"{host:.1f} us a call on the host")
         if sq == 512 and off == 0:
             flash_row = dict(ms=ms, plain_ms=plain, bound_ms=b_ms,
                              bound_by=b_by, library_ms=lib_ms)
@@ -563,11 +572,29 @@ def fmt_ms(ts):
     return "[" + ", ".join(f"{t:.3f}" for t in ts) + "] ms"
 
 
+def host_us_per_call(torch, fn, calls=32, reps=5):
+    """Host µs to enqueue one call of ``fn`` (the median of ``reps`` rounds
+    of ``calls`` calls back to back, the device drained before each
+    round): what a wrapper costs the host, tensor-map encoding included."""
+    fn()
+    out = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        out.append((time.perf_counter() - t0) * 1e6 / calls)
+    torch.cuda.synchronize()
+    return statistics.median(out)
+
+
 def check_flash_backward(torch, gen, flush):
     """The forward's lse and the backward against their plain versions: the
-    slice's shape (timed), Llama-3-8B's GQA heads, a ragged tile with
-    ``q_offset`` and ``kv_len``, head_dim 64 (non-causal and causal GQA),
-    and rows that see no column."""
+    slice's shape (timed; the backward run twice, bitwise equal),
+    Llama-3-8B's GQA heads, a ragged tile with ``q_offset`` and ``kv_len``,
+    head_dim 64 (non-causal and causal GQA), rows that see no column, and
+    the wgmma tiles' edges (b = 2, sq = 200, sk = 333; q_offset = 37 and
+    kv_len = 300; GQA 32/8 and 16/4 at d = 64, causal and non-causal)."""
     import torch.nn.functional as F
 
     from paddle_tpu_torch.ops.cuda.flash_attention import (
@@ -588,7 +615,20 @@ def check_flash_backward(torch, gen, flush):
              ("d=64 causal S=512 heads 16/4", 2, 512, 512, 16, 4, 64, True,
               0, 512, False),
              ("rows 0-15 see nothing (q_offset=-16)", 1, 80, 64, 8, 8, 128,
-              True, -16, 64, False)]
+              True, -16, 64, False),
+             # the wgmma tiles' edges: sq, sk off every multiple of 64 and
+             # 128 (a load or store spilling into the next batch's rows),
+             # a diagonal and a kv_len edge inside a tile
+             ("b=2 sq=200 sk=333 (bottom-right)", 2, 200, 333, 32, 8, 128,
+              True, 133, 333, False),
+             ("b=2 sq=200 sk=333 q_offset=37 kv_len=300", 2, 200, 333, 32, 8,
+              128, True, 37, 300, False),
+             ("d=64 GQA 32/8 causal q_offset=37 kv_len=300", 2, 200, 333, 32,
+              8, 64, True, 37, 300, False),
+             ("d=64 GQA 32/8 non-causal kv_len=300", 2, 200, 333, 32, 8, 64,
+              False, 0, 300, False),
+             ("d=64 GQA 16/4 non-causal S=256", 2, 256, 256, 16, 4, 64, False,
+              0, 256, False)]
     for label, b, sq, sk, hq, hk, d, causal, off, kv_len, timed in cases:
         scale = d ** -0.5
         q = torch.randn(b, sq, hq, d, generator=gen, device=dev).bfloat16()
@@ -623,6 +663,12 @@ def check_flash_backward(torch, gen, flush):
                   f"{diff:.3e} = {diff / peak:.3e} of max |plain| <= "
                   f"{BWD_RTOL}")
             err_max = max(err_max, diff)
+        if timed:
+            again = bwd()
+            torch.cuda.synchronize()
+            check(all(torch.equal(a, g) for a, g in zip(again, grads)),
+                  f"flash bwd {label}: a second run is bitwise equal")
+            del again
         del grads, refs
         if timed:
             fwd_ms = time_ms(torch, fwd, flush=flush)
@@ -654,10 +700,14 @@ def check_flash_backward(torch, gen, flush):
                 2 * b * (2 * sq * hq * d + 2 * sk * hk * d) + 4 * b * hq * sq)
             print(f"  flash bwd {label}: {ms:.4f} ms (bound {b_ms:.4f} ms by "
                   f"{b_by}, {b_ms / ms:.1%} of it), plain {plain:.3f} ms, "
-                  f"sdpa backward {lib:.4f} ms; the forward with lse "
-                  f"{fwd_ms:.4f} ms (bound {f_ms:.4f} ms by {f_by}, "
-                  f"{f_ms / fwd_ms:.1%} of it), plain {fwd_plain:.3f} ms, "
-                  f"sdpa forward {fwd_lib:.4f} ms")
+                  f"sdpa backward {lib:.4f} ms ({ms / lib:.2f}x sdpa), "
+                  f"wrapper {host_us_per_call(torch, bwd):.1f} us a call on "
+                  f"the host; the forward with lse {fwd_ms:.4f} ms (bound "
+                  f"{f_ms:.4f} ms by {f_by}, {f_ms / fwd_ms:.1%} of it), "
+                  f"plain "
+                  f"{fwd_plain:.3f} ms, sdpa forward {fwd_lib:.4f} ms "
+                  f"({fwd_ms / fwd_lib:.2f}x sdpa), wrapper "
+                  f"{host_us_per_call(torch, fwd):.1f} us a call on the host")
             row = dict(ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
                        library_ms=lib)
         del q, k, v, do, out, lse
@@ -911,26 +961,54 @@ def check_grouped_gemm(torch, gen, flush):
 
 
 def print_wgmma_ptxas():
-    """What ptxas reported for each wgmma kernel of ``csrc/grouped_gemm.cu``
-    (registers at entry, spills) and the dynamic shared memory they launch
-    with."""
+    """What ptxas reported for each wgmma kernel (the gmm and tgmm of
+    ``csrc/grouped_gemm.cu``, the flash forward, dK/dV and dQ kernels):
+    registers at entry and spills, with the local-memory loads and stores
+    in the built code (``cuobjdump -sass``: ptxas counts spills before the
+    consumers' ``setmaxnreg`` budget applies), and the dynamic shared
+    memory they launch with."""
     import re
 
     from paddle_tpu_torch.ops.cuda import _build
 
+    pattern = re.compile(r"(t?gmm_wgmma_kernel|flash_fwd_kernel|"
+                         r"flash_bwd_dkdv_kernel|flash_bwd_dq_kernel)"
+                         r"(?:ILb([01])E|ILi(\d+)E)?")
+
+    def label(m):
+        if m.group(2) is not None:
+            return f"{m.group(1)}<transpose_rhs {m.group(2)}>"
+        return m.group(1) + ("" if m.group(3) is None else f"<{m.group(3)}>")
+
+    for src in ("grouped_gemm", "flash_attention", "flash_attention_bwd"):
+        name = None
+        for line in (_build.ptxas_report(src) or "").splitlines():
+            if "Compiling entry function" in line:
+                m = pattern.search(line)
+                name = None if m is None else label(m)
+            elif name is not None and ("spill" in line or "registers" in line):
+                print(f"  ptxas {name}: "
+                      f"{line.replace('ptxas info    :', '').strip()}")
+            if "Performance Loss" in line and pattern.search(line):
+                # wgmma serialised; the message names its kernel
+                what = re.split(r" (?:for|in) the function", line)[0]
+                print(f"  ptxas {label(pattern.search(line))}: "
+                      f"{what.split(':', 1)[1].strip()}")
+        sass = _build.sass_local_accesses(_build.library_path(src))
+        for symbol, (st, ld) in sass.items():
+            m = pattern.search(symbol)
+            if m is not None:
+                print(f"  sass {label(m)}: {st} local stores, {ld} local "
+                      f"loads")
     smem = _build.load("grouped_gemm").ptt_wgmma_smem_bytes()
-    name = None
-    for line in (_build.ptxas_report("grouped_gemm") or "").splitlines():
-        if "Compiling entry function" in line:
-            m = re.search(r"(t?gmm_wgmma_kernel)(?:ILb([01])E)?", line)
-            name = None if m is None else m.group(1) + (
-                "" if m.group(2) is None else f"<transpose_rhs {m.group(2)}>")
-        elif name is not None and ("spill" in line or "registers" in line):
-            print(f"  ptxas {name}: "
-                  f"{line.replace('ptxas info    :', '').strip()}")
-    print(f"  wgmma kernels: {smem} bytes of dynamic shared memory; the "
-          f"producer warpgroup drops to 40 registers and the consumers rise "
-          f"to 232 (setmaxnreg)")
+    fwd = _build.load("flash_attention").ptt_flash_fwd_smem_bytes
+    bwd = _build.load("flash_attention_bwd").ptt_flash_bwd_smem_bytes
+    print(f"  wgmma kernels' dynamic shared memory: gmm and tgmm {smem} "
+          f"bytes; flash forward {fwd(64)} / {fwd(128)} (d = 64 / 128), dK/dV "
+          f"{bwd(64, 0)} / {bwd(128, 0)}, dQ {bwd(64, 1)} / {bwd(128, 1)}. "
+          f"The producer warpgroups drop to 40 (grouped GEMMs) or 24 "
+          f"(flash) registers and the consumers rise to 232 or 240 "
+          f"(setmaxnreg)")
 
 
 def check_grouped_gemm_edges(torch, gen):

@@ -1,14 +1,15 @@
 // Hopper (sm_90a) building blocks in inline PTX, shared by the kernels that
-// feed the tensor cores through TMA and wgmma (grouped_gemm.cu), and the
-// per-device opt-in to more than 48 KB of dynamic shared memory that every
-// source with a large tile uses.
+// feed the tensor cores through TMA and wgmma (grouped_gemm.cu,
+// flash_attention.cu, flash_attention_bwd.cu), and the per-device opt-in to
+// more than 48 KB of dynamic shared memory that every source with a large
+// tile uses.
 //
 // - mbarrier: init, arrive, arrive.expect_tx and try_wait.parity. A barrier
 //   completes a phase when its arrival count and its expected transaction
 //   bytes are both met; a wait names the parity of the phase it waits for,
 //   and a wait on the parity before the first phase passes at once (how a
 //   producer finds every stage of a fresh ring empty).
-// - TMA: 2-D and 3-D tile loads (cp.async.bulk.tensor) into shared memory,
+// - TMA: 2-D, 3-D and 4-D tile loads (cp.async.bulk.tensor) into shared memory,
 //   completing on an mbarrier with the box's full byte count (elements
 //   outside the tensor are zero-filled and still counted), and tile stores
 //   from shared memory in bulk groups (clipped at the tensor's edges). The
@@ -16,8 +17,12 @@
 //   `const __grid_constant__ CUtensorMap` kernel parameters.
 // - wgmma: the shared-memory matrix descriptor for the 128-byte swizzle
 //   (what CU_TENSOR_MAP_SWIZZLE_128B writes), K-major and MN-major, and
-//   wgmma.mma_async m64n128k16 / m64n256k16 with f32 accumulators and bf16
-//   operands, both from shared memory, with the transpose bits.
+//   wgmma.mma_async m64nNk16 (N = 32, 64, 128, 192, 256; 32 and 192 are
+//   the narrower and wider tiles that tools/flash_variants.py times) with
+//   f32 accumulators and bf16 operands, both from shared memory, with the
+//   transpose bits, and the RS form (N = 64, 128: A from registers, packed
+//   from an f32 accumulator by `pack_a_rs`); descriptors advanced in place
+//   (`desc_advance`) from an opaque base (`desc_opaque`).
 //   * A swizzle atom is 8 rows of 128 bytes (1024 bytes, which every tile
 //     must be aligned to): the 16-byte chunk c of row r sits at chunk
 //     c ^ (r % 8).
@@ -36,7 +41,10 @@
 //   stores before later async-proxy (wgmma, TMA) accesses.
 // - setmaxnreg: moves registers from the producer warpgroup to the
 //   consumer warpgroups of a warp-specialised kernel.
-// - named barriers (bar.sync id, count) over a subset of the block.
+// - named barriers (bar.sync / bar.arrive id, count) over a subset of the
+//   block, and `PingPong`, two consumer warpgroups taking turns at issuing
+//   wgmma through them.
+// - ex2.approx: 2^x on the special-function unit.
 //
 // `encode_tma_bf16` gets cuTensorMapEncodeTiled through the runtime's
 // driver entry point: <cuda.h> and <cudaTypedefs.h> are included for the
@@ -46,6 +54,7 @@
 
 #include <cuda.h>
 #include <cudaTypedefs.h>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -132,8 +141,17 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, u
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2)
       : "memory");
 }
+__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(c3)
+      : "memory");
+}
 
-// shared -> global: the box at (c0, c1[, c2]) from `src` (one bulk group per
+// shared -> global: the box at (c0, c1[, c2[, c3]]) from `src` (one bulk group per
 // commit; the box is clipped at the tensor's edges)
 __device__ __forceinline__ void tma_store_2d(const CUtensorMap* map, const void* src, int c0,
                                              int c1) {
@@ -149,6 +167,14 @@ __device__ __forceinline__ void tma_store_3d(const CUtensorMap* map, const void*
       "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group [%0, {%2, %3, %4}], [%1];\n" ::"l"(
           reinterpret_cast<uint64_t>(map)),
       "r"(smem_u32(src)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+__device__ __forceinline__ void tma_store_4d(const CUtensorMap* map, const void* src, int c0,
+                                             int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group [%0, {%2, %3, %4, %5}], [%1];\n" ::"l"(
+          reinterpret_cast<uint64_t>(map)),
+      "r"(smem_u32(src)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
       : "memory");
 }
 __device__ __forceinline__ void tma_store_commit() {
@@ -172,6 +198,30 @@ __device__ __forceinline__ void fence_proxy_async() {
 __device__ __forceinline__ void named_barrier(int id, int threads) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
 }
+// arrives at named barrier `id` without waiting (the matching bar.sync of
+// other threads completes once `threads` have arrived or synced)
+__device__ __forceinline__ void named_barrier_arrive(int id, int threads) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+// Turns of two consumer warpgroups (wg 0 and 1, 256 threads) at issuing
+// wgmma, through named barriers `bar` (wg 0 waits) and `bar + 1` (wg 1):
+// `begin` waits for this warpgroup's turn, `end` hands the turn over, so
+// one warpgroup's non-tensor work runs while the other's products hold the
+// tensor cores. Both take the same number of turns between `start` (wg 1
+// hands wg 0 its first turn) and `finish` (wg 0 takes the turn that wg 1
+// handed over last), so every arrival is matched.
+struct PingPong {
+  int wg, bar;
+  __device__ void start() const {
+    if (wg == 1) named_barrier_arrive(bar, 256);
+  }
+  __device__ void begin() const { named_barrier(bar + wg, 256); }
+  __device__ void end() const { named_barrier_arrive(bar + 1 - wg, 256); }
+  __device__ void finish() const {
+    if (wg == 0) named_barrier(bar, 256);
+  }
+};
+
 template <int REGS>
 __device__ __forceinline__ void setmaxnreg_inc() {
   asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(REGS));
@@ -193,6 +243,20 @@ __device__ __forceinline__ uint64_t desc_k_major(const void* p) { return desc_sw
 // `panel`: bytes from one 64-wide panel of M (or N) to the next
 __device__ __forceinline__ uint64_t desc_mn_major(const void* p, uint32_t panel) {
   return desc_sw128(p, panel, 1024);
+}
+
+// the descriptor of the operand `bytes` further on (the start address is
+// in 16-byte units in bits 0-13; shared memory stays below 256 KB, so the
+// sum never carries out of them)
+__device__ __forceinline__ uint64_t desc_advance(uint64_t desc, uint32_t bytes) {
+  return desc + (bytes >> 4);
+}
+// `desc` as a value the compiler cannot see through: built inside a loop,
+// the descriptors advanced from it are formed where the wgmmas issue and
+// not all held in registers across the loop
+__device__ __forceinline__ uint64_t desc_opaque(uint64_t desc) {
+  asm volatile("" : "+l"(desc));
+  return desc;
 }
 
 __device__ __forceinline__ void wgmma_fence() {
@@ -292,6 +356,186 @@ __device__ __forceinline__ void wgmma_m64n256(float (&d)[128], uint64_t desc_a, 
         "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]),
         "+f"(d[126]), "+f"(d[127])
       : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(TA), "n"(TB));
+}
+
+// The same products at other widths (m64n32 / n64 / n192, both operands
+// from shared memory), and the RS form: A (64 x 16 bf16) from registers,
+// four 32-bit registers a thread holding rows 16 (t / 32) + (t % 32) / 4 +
+// {0, 8} in the m16n8k16 A order (a[0]: row g, columns 2 (t % 4) + {0, 1};
+// a[1]: row g + 8; a[2], a[3]: the same rows at columns + 8). That is the
+// f32 accumulator layout above: columns 16 kk .. 16 kk + 15 of a 64 x N
+// accumulator d, packed to bf16 pairs (d[8 kk + 2 i], d[8 kk + 2 i + 1])
+// for i = 0..3, are the A operand of k16 step kk of the next product
+// (`pack_a_rs`). The registers are read asynchronously: they stay as they
+// are until the wgmma's group has been waited for.
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_m64n32(float (&d)[16], uint64_t desc_a, uint64_t desc_b,
+                                            int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15"
+      "}, %16, %17, p, 1, 1, %19, %20;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(TA), "n"(TB));
+}
+
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_m64n64(float (&d)[32], uint64_t desc_a, uint64_t desc_b,
+                                            int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, %35, %36;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(TA), "n"(TB));
+}
+
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_m64n192(float (&d)[96], uint64_t desc_a, uint64_t desc_b,
+                                            int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %98, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, "
+      "%88, %89, %90, %91, %92, %93, %94, %95"
+      "}, %96, %97, p, 1, 1, %99, %100;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]),
+        "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]),
+        "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
+        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(TA), "n"(TB));
+}
+
+template <int TB>
+__device__ __forceinline__ void wgmma_m64n64_rs(float (&d)[32], const uint32_t (&a)[4],
+                                               uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d), "n"(TB));
+}
+
+template <int TB>
+__device__ __forceinline__ void wgmma_m64n128_rs(float (&d)[64], const uint32_t (&a)[4],
+                                               uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, %70;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d), "n"(TB));
+}
+
+// one wgmma of width N (the accumulator holds N / 2 floats a thread)
+template <int N, int TA, int TB>
+__device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t desc_a, uint64_t desc_b,
+                                         int scale_d) {
+  static_assert(N == 32 || N == 64 || N == 128 || N == 192 || N == 256, "wgmma width");
+  if constexpr (N == 32) wgmma_m64n32<TA, TB>(d, desc_a, desc_b, scale_d);
+  if constexpr (N == 64) wgmma_m64n64<TA, TB>(d, desc_a, desc_b, scale_d);
+  if constexpr (N == 128) wgmma_m64n128<TA, TB>(d, desc_a, desc_b, scale_d);
+  if constexpr (N == 192) wgmma_m64n192<TA, TB>(d, desc_a, desc_b, scale_d);
+  if constexpr (N == 256) wgmma_m64n256<TA, TB>(d, desc_a, desc_b, scale_d);
+}
+template <int N, int TB>
+__device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[4],
+                                         uint64_t desc_b, int scale_d) {
+  static_assert(N == 64 || N == 128, "wgmma width");
+  if constexpr (N == 64) wgmma_m64n64_rs<TB>(d, a, desc_b, scale_d);
+  if constexpr (N == 128) wgmma_m64n128_rs<TB>(d, a, desc_b, scale_d);
+}
+
+// two floats as the bf16 pair of one A register (lo: the even column)
+__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+// columns 16 kk .. 16 kk + 15 of an f32 accumulator as the A operand of
+// k16 step kk of an RS wgmma
+template <int N>
+__device__ __forceinline__ void pack_a_rs(uint32_t (&a)[4], const float (&d)[N], int kk) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) a[i] = pack_bf16x2(d[8 * kk + 2 * i], d[8 * kk + 2 * i + 1]);
+}
+// keeps A registers of RS wgmmas live up to this point (after their wait)
+template <int N>
+__device__ __forceinline__ void fence_operand(uint32_t (&a)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(a[i][j])::"memory");
+}
+
+// 2^x by the special-function unit (ex2.approx.ftz: -inf gives +0, no
+// range fix-up for denormal results, which flush to 0)
+__device__ __forceinline__ float ex2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
 }
 
 // ---------------------------------------------------------------------- host

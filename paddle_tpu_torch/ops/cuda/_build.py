@@ -25,8 +25,8 @@ from pathlib import Path
 from typing import Dict, Optional
 
 __all__ = ["SRC_DIR", "BUILD_DIR", "NVCC_FLAGS", "build_all", "load",
-           "check", "nvcc_path", "ptxas_report", "entry", "device_of",
-           "stream", "float_io"]
+           "check", "nvcc_path", "ptxas_report", "library_path",
+           "sass_local_accesses", "entry", "device_of", "stream", "float_io"]
 
 SRC_DIR = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "paddle_tpu_torch"
@@ -49,8 +49,9 @@ def nvcc_path() -> str:
     return found
 
 
-def _target(name: str) -> Path:
-    # every shared header is hashed too, so an edited header rebuilds
+def library_path(name: str) -> Path:
+    """Where the library of ``csrc/<name>.cu`` is built (it may not exist
+    yet): every shared header is hashed too, so an edited header rebuilds."""
     key = (SRC_DIR / f"{name}.cu").read_bytes() \
         + b"".join(p.read_bytes() for p in sorted(SRC_DIR.glob("*.cuh"))) \
         + " ".join(NVCC_FLAGS).encode()
@@ -71,7 +72,7 @@ def build_all(names=None) -> Dict[str, float]:
     nvcc = nvcc_path()
     procs, out = {}, {}
     for name in names:
-        target = _target(name)
+        target = library_path(name)
         if target.exists():
             out[name] = 0.0
             continue
@@ -99,15 +100,34 @@ def build_all(names=None) -> Dict[str, float]:
 def ptxas_report(name: str) -> Optional[str]:
     """What ``nvcc -Xptxas -v`` printed when ``name`` was last built here
     (registers, shared memory and spills per kernel), or None."""
-    log = _target(name).with_suffix(".log")
+    log = library_path(name).with_suffix(".log")
     return log.read_text() if log.exists() else None
+
+
+def sass_local_accesses(path) -> Dict[str, tuple]:
+    """``{kernel symbol: (local stores, local loads)}`` of the machine code
+    in the library or cubin at ``path`` (``cuobjdump -sass``): the spills
+    that are really there (ptxas counts them before a warpgroup's
+    ``setmaxnreg`` budget applies)."""
+    cuobjdump = os.path.join(os.path.dirname(nvcc_path()), "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", str(path)], capture_output=True,
+                          text=True, timeout=300).stdout
+    out, name = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            name = line.split("Function :", 1)[1].strip()
+            out[name] = (0, 0)
+        elif name is not None:
+            st, ld = out[name]
+            out[name] = (st + (" STL" in line), ld + (" LDL" in line))
+    return out
 
 
 def load(name: str) -> ctypes.CDLL:
     """The loaded library of ``csrc/<name>.cu``, built first if needed."""
     lib = _LIBS.get(name)
     if lib is None:
-        target = _target(name)
+        target = library_path(name)
         if not target.exists():
             build_all([name])
         lib = ctypes.CDLL(str(target))

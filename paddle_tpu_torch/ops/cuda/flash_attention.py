@@ -3,8 +3,9 @@
 
 They replace the TPU kernels ``paddle_tpu/ops/pallas/flash_attention.py``
 ``_fwd`` (``pl.pallas_call`` at :266) and ``_bwd`` (at :453). Both are
-bounded on the H100 by tensor-core operations; see each source's header for
-the design. The plain PyTorch versions and the dispatch between the two
+bounded on the H100 by tensor-core operations; both are warp-specialised
+wgmma kernels fed by TMA, so every tensor must start on a 16-byte boundary
+(see each source's header for the design). The plain PyTorch versions and the dispatch between the two
 live in ``paddle_tpu_torch/ops/fused/flash_attention.py``.
 """
 
@@ -18,7 +19,7 @@ import torch
 from . import _build
 
 __all__ = ["flash_attention_cuda", "flash_attention_bwd_cuda", "launches",
-           "bwd_launches"]
+           "bwd_launches", "misaligned"]
 
 #: forward wrapper calls (one kernel each) since the count was last set to 0
 launches = 0
@@ -59,6 +60,13 @@ def _check_qkv(what, q, k, v):
                          f"got hq={hq} hk={hk} d={d}")
 
 
+def misaligned(named) -> list:
+    """The names of the ``(name, tensor)`` pairs whose data does not start
+    on a 16-byte boundary: the TMA maps of the kernels need that (a view
+    such as a layer of the serving cache ``cache_k[i]`` keeps it)."""
+    return [name for name, t in named if t.data_ptr() % 16]
+
+
 def _check_tensors(what, device, named, dtype=torch.bfloat16):
     for name, t in named:
         if t.dtype != dtype or not t.is_cuda or not t.is_contiguous() \
@@ -66,6 +74,10 @@ def _check_tensors(what, device, named, dtype=torch.bfloat16):
             raise ValueError(f"{what}: {name} must be a contiguous {dtype} "
                              f"tensor on {device}, got {t.dtype} on "
                              f"{t.device}")
+    bad = misaligned(named)
+    if bad:
+        raise ValueError(f"{what}: {', '.join(bad)} must start on a 16-byte "
+                         f"boundary (TMA)")
 
 
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -88,7 +100,7 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         if return_lse else None
     if sq > 0:
         lib = _fwd_lib()
-        stream = torch.cuda.current_stream(q.device).cuda_stream
+        stream = _build.stream(q)
         rc = lib.ptt_flash_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                                out.data_ptr(),
                                lse.data_ptr() if return_lse else None,
@@ -127,7 +139,7 @@ def flash_attention_bwd_cuda(q, k, v, out, lse, dout, causal: bool,
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     delta = torch.empty((b, hq, sq), device=q.device, dtype=torch.float32)
     lib = _bwd_lib()
-    stream = torch.cuda.current_stream(q.device).cuda_stream
+    stream = _build.stream(q)
     rc = lib.ptt_flash_bwd(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                            out.data_ptr(), dout.data_ptr(), lse.data_ptr(),
                            delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),

@@ -5,81 +5,62 @@ against the source as it is, on one CUDA card:
 
 Each variant is the source with a few lines replaced (``VARIANTS``),
 built by nvcc into ``build/grouped_gemm_variants/`` and loaded beside the
-others. The five products of one MoE layer of ``chip_smoke.py`` phase 8
-(M = 32768 routed rows over 8 experts, hidden 1024, intermediate 2816)
-run on every build: gmm (w2 forward + bias, the dlhs through w2 and w1)
-and tgmm (dW2, dW1). Prints per product the mean device ms of each build
-(CUDA events, the 50 MB L2 flushed before every launch; the source as it
-is timed first and last) and of ``torch._grouped_mm``, and checks every
-variant but ``nostore`` bit for bit against the source as it is. Ends
-with the card's name, power limit and clocks.
+others (``tools/_variants.py``). The five products of one MoE layer of
+``chip_smoke.py`` phase 8 (M = 32768 routed rows over 8 experts, hidden
+1024, intermediate 2816) run on every build: gmm (w2 forward + bias, the
+dlhs through w2 and w1) and tgmm (dW2, dW1). Prints per product the mean
+device ms of each build (CUDA events, the 50 MB L2 flushed before every
+launch; the source as it is timed first and last) and of
+``torch._grouped_mm``, and checks every variant but ``nostore`` bit for bit
+against the source as it is. Ends with the card's name, power limit and
+clocks.
 """
 
 from __future__ import annotations
 
 import ctypes
-import subprocess
 import sys
 
 import torch
 
 from ..ops.cuda import _build
+from . import _variants
 
-#: name: (what it changes, [(text, replacement), ...])
+GG = "grouped_gemm"
+
+#: name: (what it changes, [(source, text, replacement), ...])
 VARIANTS = {
     "regstore": ("gmm stores every tile from registers (no TMA store)",
-                 [("if (r1 - r0 == WG_BM) {", "if (M < 0) {")]),
+                 [(GG, "if (r1 - r0 == WG_BM) {", "if (M < 0) {")]),
     "nostore": ("no output store at all: mainloop and staging only",
-                [("store_bf16x2(out", "if (M < 0) store_bf16x2(out"),
-                 ("hw::tma_store_2d(", "if (M < 0) hw::tma_store_2d("),
-                 ("hw::tma_store_3d(", "if (M < 0) hw::tma_store_3d(")]),
+                [(GG, "store_bf16x2(out", "if (M < 0) store_bf16x2(out"),
+                 (GG, "hw::tma_store_2d(", "if (M < 0) hw::tma_store_2d("),
+                 (GG, "hw::tma_store_3d(", "if (M < 0) hw::tma_store_3d(")]),
     "wait0": ("each slice's wgmma group waited for before the next",
-              [("hw::wgmma_wait<1>();", "hw::wgmma_wait<0>();")]),
+              [(GG, "hw::wgmma_wait<1>();", "hw::wgmma_wait<0>();")]),
     "r240": ("producer 24 registers, consumers 240",
-             [("PRODUCER_REGS = 40", "PRODUCER_REGS = 24"),
-              ("CONSUMER_REGS = 232", "CONSUMER_REGS = 240")]),
+             [(GG, "PRODUCER_REGS = 40", "PRODUCER_REGS = 24"),
+              (GG, "CONSUMER_REGS = 232", "CONSUMER_REGS = 240")]),
     "r224": ("producer 56 registers, consumers 224",
-             [("PRODUCER_REGS = 40", "PRODUCER_REGS = 56"),
-              ("CONSUMER_REGS = 232", "CONSUMER_REGS = 224")]),
+             [(GG, "PRODUCER_REGS = 40", "PRODUCER_REGS = 56"),
+              (GG, "CONSUMER_REGS = 232", "CONSUMER_REGS = 224")]),
     "tgmm_n_inner": ("tgmm walks a group's n tiles innermost, whatever the "
-                     "shape", [("const bool k_inner = ntk <= ntn;",
+                     "shape", [(GG, "const bool k_inner = ntk <= ntn;",
                                 "const bool k_inner = false;")]),
     "n128": ("128 x 128 output tiles (wgmma m64n128), 5 stages",
-             [("WG_BN = 256", "WG_BN = 128"), ("STAGES_WG = 3", "STAGES_WG = 5"),
-              ("hw::wgmma_m64n256<TA, TB>(acc", "hw::wgmma_m64n128<TA, TB>(acc")]),
+             [(GG, "WG_BN = 256", "WG_BN = 128"),
+              (GG, "STAGES_WG = 3", "STAGES_WG = 5"),
+              (GG, "hw::wgmma_m64n256<TA, TB>(acc",
+               "hw::wgmma_m64n128<TA, TB>(acc")]),
 }
 
 
 def build(names):
     """{name: (ptt_gmm, ptt_tgmm)} of the source ("base") and each
-    variant, compiled in parallel; prints each build's spill lines."""
-    src = (_build.SRC_DIR / "grouped_gemm.cu").read_text()
-    out_dir = _build.BUILD_DIR.parent / "grouped_gemm_variants"
-    out_dir.mkdir(parents=True, exist_ok=True)
-    procs = {}
-    for name in ["base", *names]:
-        text = src
-        for old, new in VARIANTS[name][1] if name != "base" else []:
-            if old not in text:
-                raise SystemExit(f"variant {name}: {old!r} not in the source")
-            text = text.replace(old, new)
-        cu = out_dir / f"{name}.cu"
-        cu.write_text(text)
-        so = cu.with_suffix(".so")
-        cmd = [_build.nvcc_path(), *_build.NVCC_FLAGS, "-I", str(_build.SRC_DIR),
-               "-o", str(so), str(cu)]
-        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                        stderr=subprocess.STDOUT, text=True),
-                       so)
+    variant, compiled in parallel."""
     fns = {}
-    for name, (proc, so) in procs.items():
-        log, _ = proc.communicate()
-        if proc.returncode:
-            raise SystemExit(f"{name}: nvcc failed\n{log[-4000:]}")
-        for line in log.splitlines():
-            if "spill" in line and "0 bytes spill stores" not in line:
-                print(f"  {name} ptxas: {line.strip()}")
-        lib = ctypes.CDLL(str(so))
+    libs = _variants.build(names, VARIANTS, [GG], "grouped_gemm_variants")
+    for (name, _), lib in libs.items():
         lib.ptt_gmm.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 \
             + [ctypes.c_void_p]
         lib.ptt_tgmm.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 \
@@ -89,12 +70,7 @@ def build(names):
 
 
 def main(argv):
-    unknown = [v for v in argv if v not in VARIANTS]
-    if unknown or not torch.cuda.is_available():
-        raise SystemExit(f"usage: VARIANT ... from {sorted(VARIANTS)}, on a "
-                         f"CUDA card (unknown: {unknown})")
-    for v in argv:
-        print(f"{v}: {VARIANTS[v][0]}")
+    argv = _variants.names_of(argv, VARIANTS)
     fns = build(argv)
     gen = torch.Generator(device="cuda").manual_seed(0)
 
@@ -129,25 +105,6 @@ def main(argv):
     hs, dy, xs, dh = rnd(M, h), rnd(M, d), rnd(M, d), rnd(M, 2 * h)
     w2, w1 = rnd(E, h, d, scale=h ** -0.5), rnd(E, d, 2 * h, scale=d ** -0.5)
     b2 = rnd(E, d, scale=0.1)
-    flush = torch.empty(64 * 2**20, dtype=torch.uint8, device="cuda")
-
-    def time_ms(fn, reps=10):
-        for _ in range(2):
-            fn()
-        torch.cuda.synchronize()
-        total = 0.0
-        for _ in range(reps):
-            flush.zero_()
-            torch.cuda._sleep(4_000_000)
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            fn()
-            end.record()
-            torch.cuda.synchronize()
-            total += start.elapsed_time(end)
-        return total / reps
-
     products = {
         "gmm w2 forward + b2": (
             lambda v: gmm(v, hs, w2, sizes, b2, False),
@@ -171,13 +128,10 @@ def main(argv):
                 out = fn(v)
                 torch.cuda.synchronize()
                 assert torch.equal(out, ref), (what, v)
-            times.append(f"{v} {time_ms(lambda: fn(v)):.4f}")
+            times.append(f"{v} {_variants.cold_ms(lambda: fn(v)):.4f}")
         print(f"{what} (ms): {', '.join(times)}, torch._grouped_mm "
-              f"{time_ms(lib):.4f}")
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit,clocks.sm,clocks.max.sm",
-         "--format=csv,noheader"], capture_output=True, text=True)
-    print(smi.stdout.strip())
+              f"{_variants.cold_ms(lib):.4f}")
+    print(_variants.card())
 
 
 if __name__ == "__main__":
