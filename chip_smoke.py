@@ -33,15 +33,21 @@ Phases, each of which fails the run (non-zero exit, no result line):
    the training shape (bitwise equal), and each timed flash shape's ratio
    to SDPA and its wrapper's host µs per call; the selective scan's
    forward (y and the chunk states) and backward (du, ddelta, dA, dB, dC)
-   at b16 l1024 d1536 n16 and a ragged b2 l150 d100 n5, and the WKV
+   at b16 l1024 d1536 n16 and at the chunk-parallel backward's edges
+   (lengths 1, 63, 64, 65, 150 and 1001, d = 100 and 200, n = 5, a strong
+   decay, each in f32 and bf16), and the WKV
    forward (y) and backward (dr, dk, dv, dlogw, du) at b16 l1024 h12 d64
    with the model's decay ramp, a strong-decay case (logw = -1e10, w = 0)
    and d = 128 at a ragged length, and the SSD forward (y, the chunk states) and backward
    (dx, ddt, dA, dB, dC, dD) at b8 l1024 h24 dh64 ds64 with x, B and C
-   strided as the model's, a ragged b2 l150 h3 ds128 and a strong decay
-   (a_t = 0, every output finite): each output within 1e-4 of max |plain|
-   in f32 I/O and 1e-2 in bf16 I/O (and in the strong-decay case), all
-   computing in f32), with its time, its bound (H100
+   strided as the model's and at its edges (lengths 1, 63, 64, 65, 150
+   and 1001, 3, 4, 7 and 13 heads, every dh, ds in {64, 128}, a strong
+   decay, a_t = 0, in bf16; every output finite): each output within 1e-4
+   of max |plain| in f32 I/O and 1e-2 in bf16 I/O, all computing in f32,
+   both backwards twice at the path's shape (bitwise equal), their ptxas
+   lines and local-memory accesses, their ms split by kernel
+   (``torch.profiler``) and, for the scan, the special-function unit's
+   floor for its exponentials beside the bound), with its time, its bound (H100
    SXM: 3.35 TB/s HBM, 989 TFLOP/s bf16 dense; the scan 67 TFLOP/s f32
    non-tensor, its decay is elementwise), the plain version's time
    and a library yardstick (``scaled_dot_product_attention`` forward or
@@ -142,6 +148,7 @@ MOE_BATCH, MOE_SEQ, MOE_STEPS = 8, 2048, 10
 SSM_F32_RTOL = 1e-4              # scan, WKV in f32 I/O: max |diff| / max |plain|
 SSM_BF16_RTOL = 1e-2             # the same in bf16 I/O (one bf16 rounding)
 SSM_STEPS = 10
+H100_SMS, SFU_EX2_PER_CLOCK = 132, 16   # H100 SXM: SMs, ex2 per clock per SM
 
 
 class SmokeFailure(Exception):
@@ -370,6 +377,7 @@ def phase_kernels(torch, gen, flush):
     torch.cuda.empty_cache()
     rows.update(check_grouped_gemm(torch, gen, flush))
     torch.cuda.empty_cache()
+    print_ssm_bwd_ptxas()
     rows.update(check_selective_scan(torch, gen, flush))
     torch.cuda.empty_cache()
     rows.update(check_wkv(torch, gen, flush))
@@ -960,27 +968,17 @@ def check_grouped_gemm(torch, gen, flush):
     return rows
 
 
-def print_wgmma_ptxas():
-    """What ptxas reported for each wgmma kernel (the gmm and tgmm of
-    ``csrc/grouped_gemm.cu``, the flash forward, dK/dV and dQ kernels):
-    registers at entry and spills, with the local-memory loads and stores
-    in the built code (``cuobjdump -sass``: ptxas counts spills before the
-    consumers' ``setmaxnreg`` budget applies), and the dynamic shared
-    memory they launch with."""
+def print_ptxas(sources, pattern, label):
+    """Each kernel of ``sources`` whose mangled name matches ``pattern``:
+    what ptxas reported (registers at entry, spills, any wgmma
+    serialisation message) and the local-memory loads and stores in the
+    built code (``cuobjdump -sass``: ptxas counts spills before a
+    ``setmaxnreg`` budget applies); ``label`` names a match."""
     import re
 
     from paddle_tpu_torch.ops.cuda import _build
 
-    pattern = re.compile(r"(t?gmm_wgmma_kernel|flash_fwd_kernel|"
-                         r"flash_bwd_dkdv_kernel|flash_bwd_dq_kernel)"
-                         r"(?:ILb([01])E|ILi(\d+)E)?")
-
-    def label(m):
-        if m.group(2) is not None:
-            return f"{m.group(1)}<transpose_rhs {m.group(2)}>"
-        return m.group(1) + ("" if m.group(3) is None else f"<{m.group(3)}>")
-
-    for src in ("grouped_gemm", "flash_attention", "flash_attention_bwd"):
+    for src in sources:
         name = None
         for line in (_build.ptxas_report(src) or "").splitlines():
             if "Compiling entry function" in line:
@@ -1000,6 +998,28 @@ def print_wgmma_ptxas():
             if m is not None:
                 print(f"  sass {label(m)}: {st} local stores, {ld} local "
                       f"loads")
+
+
+def print_wgmma_ptxas():
+    """What ptxas reported for each wgmma kernel (the gmm and tgmm of
+    ``csrc/grouped_gemm.cu``, the flash forward, dK/dV and dQ kernels), with
+    the local-memory accesses in the built code, and the dynamic shared
+    memory they launch with."""
+    import re
+
+    from paddle_tpu_torch.ops.cuda import _build
+
+    pattern = re.compile(r"(t?gmm_wgmma_kernel|flash_fwd_kernel|"
+                         r"flash_bwd_dkdv_kernel|flash_bwd_dq_kernel)"
+                         r"(?:ILb([01])E|ILi(\d+)E)?")
+
+    def label(m):
+        if m.group(2) is not None:
+            return f"{m.group(1)}<transpose_rhs {m.group(2)}>"
+        return m.group(1) + ("" if m.group(3) is None else f"<{m.group(3)}>")
+
+    print_ptxas(("grouped_gemm", "flash_attention", "flash_attention_bwd"),
+                pattern, label)
     smem = _build.load("grouped_gemm").ptt_wgmma_smem_bytes()
     fwd = _build.load("flash_attention").ptt_flash_fwd_smem_bytes
     bwd = _build.load("flash_attention_bwd").ptt_flash_bwd_smem_bytes
@@ -1009,6 +1029,69 @@ def print_wgmma_ptxas():
           f"The producer warpgroups drop to 40 (grouped GEMMs) or 24 "
           f"(flash) registers and the consumers rise to 232 or 240 "
           f"(setmaxnreg)")
+
+
+def print_ssm_bwd_ptxas():
+    """ptxas's line and the SASS's local accesses of each kernel of the
+    scan and SSD backwards (per I/O type; the SSD's per head and state
+    width)."""
+    import re
+
+    pattern = re.compile(r"(scan_bwd_local_kernel|scan_bwd_pass_kernel|"
+                         r"scan_bwd_kernel|ssd_bwd_carry_kernel|"
+                         r"ssd_bwd_kernel)(I(f|13__nv_bfloat16)"
+                         r"(?:Li(\d+)ELi(\d+)E)?E)?")
+
+    def label(m):
+        if m.group(2) is None:
+            return m.group(1)
+        dt = "f32" if m.group(3) == "f" else "bf16"
+        dims = "" if m.group(4) is None else f", {m.group(4)}, {m.group(5)}"
+        return f"{m.group(1)}<{dt}{dims}>"
+
+    print_ptxas(("selective_scan", "ssd"), pattern, label)
+
+
+def kernel_split(torch, fn, keys, reps=5):
+    """Device ms per call of each kernel ``fn`` launches (``torch.profiler``,
+    warm): those whose names hold one of ``keys`` by name, the others (the
+    wrapper's sums of partials and casts) together."""
+    import re
+
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out, rest = {}, 0.0
+    for e in prof.key_averages():
+        t = getattr(e, "self_device_time_total", 0.0) / 1e3 / reps
+        if t <= 0:
+            continue
+        m = re.search(r"\w*(?:%s)\w*" % "|".join(keys), e.key)
+        if m is None:
+            rest += t
+        else:
+            name = re.search(r"(\w+_kernel)", m.group(0))
+            name = name.group(1) if name else m.group(0)
+            out[name] = out.get(name, 0.0) + t
+    if not out and rest == 0:
+        return "not measured (the profiler recorded no device time)"
+    return ", ".join(f"{k} {v:.4f}" for k, v in out.items()) \
+        + f", the wrapper's sums and casts {rest:.4f} ms"
+
+
+def sfu_floor_ms(exps):
+    """The least ms for ``exps`` ex2 on the special-function units: 16 a
+    clock on each of the 132 SMs at the card's top SM clock."""
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                          "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, timeout=60)
+    mhz = float(out.stdout.strip().splitlines()[0])
+    return exps / (H100_SMS * SFU_EX2_PER_CLOCK * mhz * 1e6) * 1e3, mhz
 
 
 def check_grouped_gemm_edges(torch, gen):
@@ -1139,34 +1222,58 @@ def plain_vjp(torch, fn, ins, dy):
     return y.detach(), torch.autograd.grad(y, xs, dy.float())
 
 
+SCAN_CASES = (                   # b, l, d, n, strong decay
+    (1, 1, 100, 5, False), (2, 63, 100, 5, False), (2, 64, 100, 16, False),
+    (2, 65, 100, 5, True), (2, 150, 100, 5, False), (2, 1001, 200, 16, True))
+
+
+def scan_inputs(torch, gen, b, l, d, n, dt, strong):
+    """u, delta = softplus of seeded normals, A from the S4D init (-1 .. -n
+    per channel), B, C and a cotangent dy. ``strong``: A = -1e4 on three
+    channels and delta = 20 on a stretch of the sequence, so that
+    exp(delta A) is exactly 0 in f32 there."""
+    import torch.nn.functional as F
+
+    dev = "cuda"
+    u = torch.randn(b, l, d, generator=gen, device=dev).to(dt)
+    delta = F.softplus(torch.randn(b, l, d, generator=gen, device=dev))
+    A = -torch.arange(1, n + 1, dtype=torch.float32,
+                      device=dev).expand(d, n).contiguous()
+    if strong:
+        A[:3] = -1e4
+        delta[:, l // 3:l // 2 + 1] = 20.0
+    B = torch.randn(b, l, n, generator=gen, device=dev).to(dt)
+    C = torch.randn(b, l, n, generator=gen, device=dev).to(dt)
+    dy = torch.randn(b, l, d, generator=gen, device=dev).to(dt)
+    return (u, delta.to(dt), A, B, C), dy
+
+
 def check_selective_scan(torch, gen, flush):
     """The scan's forward and backward kernels against their plain version
     at phase 9's shape (b16 l1024 d1536 n16; A from the S4D init, delta =
-    softplus of seeded normals): in f32 I/O within SSM_F32_RTOL and in the
-    path's bf16 within SSM_BF16_RTOL (also at a ragged b2 l150 d100 n5),
-    the forward's chunk states too. Timed in bf16; the bound counts the
-    JAX audit's 10 / 25 ops per (b, l, d, n) at the f32 non-tensor rate."""
-    import torch.nn.functional as F
-
+    softplus of seeded normals) in f32 I/O within SSM_F32_RTOL and in the
+    path's bf16 within SSM_BF16_RTOL, the forward's chunk states too; and at
+    the backward's edges (``SCAN_CASES``, each in f32 and bf16): one step, a
+    chunk less one, one, one more, lengths off every tile, d = 100 and 200
+    (off the 64-channel tile and the 128 channels of a partial), n = 5, and
+    a strong decay (exp(delta A) = 0). The backward twice at the path's
+    shape, bitwise equal. Timed in bf16; the bound counts the JAX audit's
+    10 / 25 ops per (b, l, d, n) at the f32 non-tensor rate; beside it the
+    special-function unit's floor for the exponentials (one per (b, l, d, n)
+    forward, three backward)."""
     from paddle_tpu_torch.ops.cuda import selective_scan as ss
 
-    dev = "cuda"
     names = ("du", "ddelta", "dA", "dB", "dC")
     rows, errs = {}, [0.0, 0.0]
-    for b, l, d, n, dt in ((2, 150, 100, 5, torch.bfloat16),
-                           (SSM_B, SSM_L, 1536, 16, torch.float32),
-                           (SSM_B, SSM_L, 1536, 16, torch.bfloat16)):
+    cases = [(*c, dt) for c in SCAN_CASES
+             for dt in (torch.float32, torch.bfloat16)]
+    cases += [(SSM_B, SSM_L, 1536, 16, False, torch.float32),
+              (SSM_B, SSM_L, 1536, 16, False, torch.bfloat16)]
+    for b, l, d, n, strong, dt in cases:
         tol = SSM_F32_RTOL if dt == torch.float32 else SSM_BF16_RTOL
-        what = f"selective scan b{b} l{l} d{d} n{n} {str(dt)[6:]}"
-        u = torch.randn(b, l, d, generator=gen, device=dev).to(dt)
-        delta = F.softplus(torch.randn(b, l, d, generator=gen,
-                                       device=dev)).to(dt)
-        A = -torch.arange(1, n + 1, dtype=torch.float32,
-                          device=dev).expand(d, n).contiguous()
-        B = torch.randn(b, l, n, generator=gen, device=dev).to(dt)
-        C = torch.randn(b, l, n, generator=gen, device=dev).to(dt)
-        dy = torch.randn(b, l, d, generator=gen, device=dev).to(dt)
-        ins = (u, delta, A, B, C)
+        what = (f"selective scan b{b} l{l} d{d} n{n} {str(dt)[6:]}"
+                + (" strong decay" if strong else ""))
+        ins, dy = scan_inputs(torch, gen, b, l, d, n, dt, strong)
         y, bounds = ss.selective_scan_fwd(*ins)
         grads = ss.selective_scan_bwd(*ins, bounds, dy)
         torch.cuda.synchronize()
@@ -1181,13 +1288,22 @@ def check_selective_scan(torch, gen, flush):
         errs[1] = max(errs[1], check_pair(
             what, grads, [g.to(t.dtype) for g, t in zip(g_ref, ins)],
             names, tol))
-        del y, bounds, grads, y_ref, b_ref, g_ref
+        del y, grads, y_ref, b_ref, g_ref
     # timing at the path's shape and dtype (the last case)
     torch.cuda.empty_cache()
     ms = time_ms(torch, lambda: ss.selective_scan_fwd(*ins), flush=flush)
     _, bounds = ss.selective_scan_fwd(*ins)
+    grads = ss.selective_scan_bwd(*ins, bounds, dy)
+    again = ss.selective_scan_bwd(*ins, bounds, dy)
+    torch.cuda.synchronize()
+    check(all(torch.equal(a, r) for a, r in zip(again, grads)),
+          f"selective scan backward b{b} l{l} d{d} n{n} run twice: bitwise "
+          f"equal")
+    del grads, again
     bwd_ms = time_ms(torch, lambda: ss.selective_scan_bwd(*ins, bounds, dy),
                      flush=flush)
+    split = kernel_split(torch, lambda: ss.selective_scan_bwd(
+        *ins, bounds, dy), ("scan_bwd_",))
     xs = [t.float() for t in ins]
     with torch.no_grad():
         plain = time_ms(torch, lambda: ss.selective_scan_reference(*xs),
@@ -1201,16 +1317,20 @@ def check_selective_scan(torch, gen, flush):
                  + 4 * b * nc * n * d)
     bwd_bytes = (5 * b * l * d * io + 4 * b * l * n * io + 8 * d * n
                  + 4 * b * nc * n * d)
-    for key, t, plain_t, ops, nbytes in (
-            ("selective_scan", ms, plain, 10, fwd_bytes),
+    for key, t, plain_t, ops, nbytes, exps in (
+            ("selective_scan", ms, plain, 10, fwd_bytes, 1),
             ("selective_scan_bwd", bwd_ms, plain_both - plain, 25,
-             bwd_bytes)):
+             bwd_bytes, 3)):
         b_ms, b_by = bound(ops * b * l * d * n, nbytes, F32_FLOP_PER_S)
+        sfu, mhz = sfu_floor_ms(exps * b * l * d * n)
         print(f"  {key} (b{b} l{l} d{d} n{n}, bf16): {t:.4f} ms (bound "
               f"{b_ms:.4f} ms by {b_by} at 67 TFLOP/s f32 and 3.35 TB/s, "
-              f"{b_ms / t:.1%} of it), plain {plain_t:.3f} ms, library: none")
+              f"{b_ms / t:.1%} of it; special-function floor {sfu:.4f} ms "
+              f"for {exps} ex2 per (b, l, d, n) at 16 a clock on 132 SMs, "
+              f"{mhz:.0f} MHz), plain {plain_t:.3f} ms, library: none")
         rows[key] = dict(ms=t, plain_ms=plain_t, bound_ms=b_ms,
                          bound_by=b_by, library_ms=None)
+    print(f"  selective_scan_bwd by kernel (ms a call): {split}")
     print(f"  (plain fwd + bwd {plain_both:.3f} ms; the backward's plain ms "
           f"is that minus the forward's)")
     rows["selective_scan"]["max_abs_err"] = errs[0]
@@ -1329,28 +1449,44 @@ def ssd_inputs(torch, gen, b, l, h, dh, ds, dt_io, strong):
     return (x, dt.to(dt_io), A.to(dt_io), B, C, D.to(dt_io)), dy
 
 
+SSD_CASES = (                    # b, l, h, dh, ds, I/O type, strong decay
+    (2, 1, 3, 64, 64, "f32", False), (2, 63, 3, 64, 64, "f32", False),
+    (1, 64, 7, 64, 64, "bf16", False), (2, 65, 4, 64, 64, "f32", False),
+    (2, 65, 4, 64, 64, "bf16", True), (2, 150, 3, 64, 128, "f32", False),
+    (2, 150, 3, 64, 128, "bf16", True), (1, 100, 2, 128, 64, "f32", False),
+    (1, 77, 2, 128, 128, "f32", False), (1, 77, 2, 128, 128, "bf16", True),
+    (2, 300, 4, 64, 64, "bf16", True), (1, 1001, 13, 64, 64, "f32", False),
+    (1, 1001, 13, 64, 64, "bf16", True))
+# A strong decay is held in bf16 only: there (log a = -160 a step) the f32
+# plain version's own chunk cumsums lose ~1e-4 in exp(cum_j - cum_i), and
+# its dA lies 2.6e-4 of max |dA| from a float64 evaluation.
+
+
 def check_ssd(torch, gen, flush):
     """The SSD forward (y, the chunk states) and backward (dx, ddt, dA, dB,
     dC, dD) kernels against their plain version ``ssd_chunked_reference``
     at phase 11's shape (b8 l1024 h24 dh64 ds64, x, B and C strided as the
     model's), in f32 I/O within SSM_F32_RTOL and in the path's bf16 within
-    SSM_BF16_RTOL; at a ragged b2 l150 h3 dh64 ds128 (f32); and with a
-    strong decay (a_t = 0 exactly, bf16), every output finite. Every case
-    checks all outputs for finite values. Timed in bf16; the bound counts
-    the bytes each input and output moves once, with the f32 chunk states
-    at the reference route's chunk c = 128 whatever the kernel's own,
-    against the JAX audit's 2 b h l (c + 2 ds) dh operations (x 3 for the
-    backward) at 989 TFLOP/s."""
+    SSM_BF16_RTOL; and at the backward's edges (``SSD_CASES``): one step, a
+    chunk less one, one, one more, lengths off every chunk (150, 1001), head
+    counts off the backward's groups of 12, every (dh, ds) in {64, 128}^2
+    (chunk 32 but at 64 x 64), a strong decay (a_t = 0 exactly, bf16).
+    Every case checks all outputs for finite values. The backward twice at
+    the path's shape, bitwise equal. Timed in bf16; the bound counts the
+    bytes each input and output moves once, with the f32 chunk states at
+    the reference route's chunk c = 128 whatever the kernel's own, against
+    the JAX audit's 2 b h l (c + 2 ds) dh operations (x 3 for the backward)
+    at 989 TFLOP/s."""
     from paddle_tpu_torch.ops.cuda import ssd
 
     names = ("dx", "ddt", "dA", "dB", "dC", "dD")
     rows, errs = {}, [0.0, 0.0]
     b, l, h, dh, ds = MAMBA2_B, MAMBA2_L, 24, 64, 64
-    for cb, cl, ch, cdh, cds, dt_io, strong in (
-            (2, 150, 3, 64, 128, torch.float32, False),
-            (2, 300, 4, 64, 64, torch.bfloat16, True),
-            (b, l, h, dh, ds, torch.float32, False),
-            (b, l, h, dh, ds, torch.bfloat16, False)):
+    types = {"f32": torch.float32, "bf16": torch.bfloat16}
+    cases = [(*c[:5], types[c[5]], c[6]) for c in SSD_CASES]
+    cases += [(b, l, h, dh, ds, torch.float32, False),
+              (b, l, h, dh, ds, torch.bfloat16, False)]
+    for cb, cl, ch, cdh, cds, dt_io, strong in cases:
         tol = SSM_F32_RTOL if dt_io == torch.float32 else SSM_BF16_RTOL
         what = (f"ssd b{cb} l{cl} h{ch} dh{cdh} ds{cds} {str(dt_io)[6:]}"
                 + (" strong decay" if strong else ""))
@@ -1378,8 +1514,16 @@ def check_ssd(torch, gen, flush):
     torch.cuda.empty_cache()
     ms = time_ms(torch, lambda: ssd.ssd_fwd(*ins), flush=flush)
     _, states = ssd.ssd_fwd(*ins)
+    grads = ssd.ssd_bwd(*ins, states, dy)
+    again = ssd.ssd_bwd(*ins, states, dy)
+    torch.cuda.synchronize()
+    check(all(torch.equal(a, r) for a, r in zip(again, grads)),
+          f"ssd backward b{b} l{l} h{h} run twice: bitwise equal")
+    del grads, again
     bwd_ms = time_ms(torch, lambda: ssd.ssd_bwd(*ins, states, dy),
                      flush=flush)
+    split = kernel_split(torch, lambda: ssd.ssd_bwd(*ins, states, dy),
+                         ("ssd_bwd_",))
     xs = [t.float() for t in ins]
     with torch.no_grad():
         plain = time_ms(torch, lambda: ssd.ssd_chunked_reference(*xs),
@@ -1407,6 +1551,7 @@ def check_ssd(torch, gen, flush):
               f"{b_ms / t:.1%} of it), plain {plain_t:.3f} ms, library: none")
         rows[key] = dict(ms=t, plain_ms=plain_t, bound_ms=b_ms,
                          bound_by=b_by, library_ms=None)
+    print(f"  ssd_bwd by kernel (ms a call): {split}")
     print(f"  (plain fwd + bwd {plain_both:.3f} ms; the backward's plain ms "
           f"is that minus the forward's)")
     rows["ssd"]["max_abs_err"] = errs[0]
@@ -2210,13 +2355,13 @@ def phase_moe_train(torch, seed):
 
 SSM_GROUPS = {
     "selective scan fwd": ("scan_fwd_kernel",),
-    "selective scan bwd": ("scan_bwd_kernel",),
+    "selective scan bwd": ("scan_bwd_",),
     "wkv fwd": ("wkv_fwd_kernel",), "wkv bwd": ("wkv_bwd_kernel",),
     **TRAIN_GROUPS}
 # the conv group first: cuDNN's implicit-GEMM convolutions are xmma kernels;
 # "copies": PyTorch's same-dtype copies (layout changes and .contiguous())
 MAMBA2_GROUPS = {
-    "SSD fwd": ("ssd_fwd_kernel",), "SSD bwd": ("ssd_bwd_kernel",),
+    "SSD fwd": ("ssd_fwd_kernel",), "SSD bwd": ("ssd_bwd_",),
     "conv": ("conv", "fprop", "dgrad", "wgrad"),
     "cuBLAS": TRAIN_GROUPS["matmul"], "copies": ("direct_copy",)}
 

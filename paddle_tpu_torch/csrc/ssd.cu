@@ -21,29 +21,25 @@
 // 64, bf16) the forward moves ~103 MB (x, y, the 50 MB of chunk states, dt,
 // B, C) and does ~4.8 GFLOP of products, the backward ~131 MB and ~14.5
 // GFLOP: by the card's peaks (3.35 TB/s, 989 TFLOP/s bf16) both are bound
-// by bytes. These kernels do their products as f32 FMAs on the CUDA cores
-// (67 TFLOP/s), so the operations bound them here; tensor cores (mma.sync /
-// wgmma on bf16 or TF32 tiles) are the next step.
+// by bytes. The forward does its products as f32 FMAs on the CUDA cores
+// (67 TFLOP/s), so the operations bound it here; the backward runs them on
+// the tensor cores (mma.sync), and what it moves and waits for bounds it.
 //
-// Design (simple first): one block of 256 threads per (b, h) walks its
-// chunks in order (the backward in reverse), so no state crosses blocks.
-// A chunk's x, B, C (and dy) are staged in shared memory as f32, rows
-// padded to an odd length so that every product below reads without bank
-// conflicts; the block runs each product as a 16 x 16 grid of threads,
-// each owning a (rows / 16) x (cols / 16) register tile, rows ty + 16 r and
-// columns tx + 16 q. The chunk is 64 steps at P = N = 64 (83 KB of shared
-// memory forward, 135 KB backward) and 32 at the wider states (up to 207 KB
-// backward: the tiles, S_in and dS at 128 x 128).
-// The forward writes the state entering each chunk, [b, nc, h, P, N] f32
-// (the Pallas residual), keeps its own tile of S in registers and the
-// whole S in shared memory for the read-out C S^T.
-// The backward replays each chunk from that state, carries dS in f32
-// (registers and shared memory) and follows `_bwd_kernel`'s chain
-// (:138-185): every decay gradient goes through the transpose of the
-// cumsum, a reverse suffix sum over the chunk. dB and dC (B and C have no
-// head axis) are written as per-head f32 partials [h, b, l, N], dA and dD
-// as [b, h] partials; the caller sums them in a fixed order: no atomics,
-// the result is the same on every run.
+// Forward (simple first): one block of 256 threads per (b, h) walks its
+// chunks in order, so no state crosses blocks. A chunk's x, B and C are
+// staged in shared memory as f32, rows padded to an odd length so that
+// every product below reads without bank conflicts; the block runs each
+// product as a 16 x 16 grid of threads, each owning a (rows / 16) x (cols /
+// 16) register tile, rows ty + 16 r and columns tx + 16 q. The chunk is 64
+// steps at P = N = 64 (83 KB of shared memory) and 32 at the wider states.
+// It writes the state entering each chunk, [b, nc, h, P, N] f32 (the Pallas
+// residual), keeps its own tile of S in registers and the whole S in
+// shared memory for the read-out C S^T.
+// The backward (described above its kernels) follows `_bwd_kernel`'s chain
+// (:138-185), every decay gradient through the transpose of the cumsum, a
+// reverse suffix sum over the chunk; it carries dS across the chunks in
+// one short sequential kernel, then runs every (chunk, head group) in
+// parallel.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -51,6 +47,7 @@
 
 #include <atomic>
 
+#include "flash_common.cuh"
 #include "hopper.cuh"
 
 namespace {
@@ -108,13 +105,6 @@ __device__ __forceinline__ void zero(float (&acc)[RM][RN]) {
   for (int r = 0; r < RM; ++r)
 #pragma unroll
     for (int q = 0; q < RN; ++q) acc[r][q] = 0.f;
-}
-
-// the sum over the 16 threads of one row group (tx = 0..15, one half-warp)
-__device__ __forceinline__ float row_sum(float v) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1) v += __shfl_xor_sync(FULL, v, o);
-  return v;
 }
 
 __device__ __forceinline__ float warp_sum(float v) {
@@ -270,55 +260,329 @@ ssd_fwd_kernel(const T* __restrict__ x, const T* __restrict__ dt, const float* _
   }
 }
 
-template <int P, int N>
-struct BwdSmem {
-  static constexpr int CH = Chunk<P, N>::CH;
-  static constexpr int SQ = P * (N + 1) > CH * (CH + 1) ? P * (N + 1) : CH * (CH + 1);
-  float x[CH][P + 1], dy[CH][P + 1], B[CH][N + 1], C[CH][N + 1];
-  float sq[SQ];                        // S_in [P][N + 1], then dLL [CH][CH + 1]
-  float dS[P][N + 1];                  // dL/dS at the chunk's end
-  float W[CH][CH + 1], dCB[CH][CH + 1];
-  float dt[CH], cum[CH], decay[CH], tail[CH], dDecay[CH], dtail[CH], rowx[CH], dcum[CH];
-  float dloga[CH];
-  float red[WARPS];
+// ------------------------------------------------------------------ backward
+// The gradient dS of the state crosses a chunk as an affine map, dS_in =
+// exp(cum_last) dS_out + (decay o dy)^T C, and the forward saved the state
+// entering every chunk, so the backward is two launches:
+//   1. ssd_bwd_carry_kernel, one block per (h, b): the chunks in reverse,
+//      each writing the dS_out it starts from ([b, nc, h, P, N] f32 scratch)
+//      and taking one [P x CH] x [CH x N] product into it;
+//   2. ssd_bwd_kernel, one block per (chunk, group of HEADS heads, b), all
+//      in parallel: each head's chunk backward from its saved state and its
+//      dS_out, with dB and dC (B and C have no head axis) summed over the
+//      group's heads in registers and written as [ceil(h / HEADS), b, l, N]
+//      f32 partials; dA and dD as [b nc, h] partials. The caller sums them
+//      in a fixed order: no atomics, the same result on every run.
+// Every chunk product runs on the tensor cores (mma.sync) from tiles in
+// shared memory that hold the I/O type: bf16 tiles through ldmatrix, one
+// m16n8k16 product per step; f32 tiles as split TF32, hi hi + hi lo + lo
+// hi in m16n8k8 products (~2^-21 of each product, where one TF32 product
+// keeps ~2^-11). x, dy, B and C are exact in either; the f32 intermediates
+// that feed a product (the state, dS, W = C B^T o L, dCB, decay o dy) round
+// to bf16 in the bf16 instantiation, each output once more to bf16.
+// What holds it back is memory, not the products: per head and chunk it
+// loads x, dy (8 KB each in bf16) and the f32 state and dS (16 KB each), and
+// the carries pass through 50 MB of scratch at the Mamba-2 path. Both
+// kernels hold at most 128 registers so that two blocks share an SM.
+
+using ptt::ldmatrix_x2;
+using ptt::ldmatrix_x2_trans;
+using ptt::ldmatrix_x4;
+using ptt::ldmatrix_x4_trans;
+using ptt::mma16816;
+using ptt::mma1688_tf32;
+using ptt::to_tf32;
+
+constexpr int HEADS = 12;              // heads per block of the chunk backward
+
+template <typename T>
+struct Pad {
+  static constexpr int V = 16 / int(sizeof(T));   // 16 bytes per row
+};
+
+// The warps of the chunk backward over a [CH x X] output: WM x WN warps,
+// each 16 rows and X / WN columns (CH = 64: 4 x 2; CH = 32: 2 x 4).
+template <int CH>
+struct Warps {
+  static constexpr int WM = CH / 16, WN = WARPS / WM;
+};
+
+// acc[nt] += A[m0 .. m0 + 16, k] B[k, n0 + 8 nt ..] over k < K. A is stored
+// [m][k] (AT false) or [k][m] (AT true) with row stride lda, B [n][k] (BT
+// false) or [k][n] (BT true) with ldb.
+template <int K, int NT, bool AT, bool BT>
+__device__ __forceinline__ void mma_tile(float (&acc)[NT][4], const bf16* A, int lda,
+                                         const bf16* B, int ldb, int m0, int n0, int lane) {
+  const int r = lane % 8, mi = lane / 8, l2 = lane % 16;
+#pragma unroll
+  for (int k0 = 0; k0 < K; k0 += 16) {
+    uint32_t a[4];
+    if (AT) ldmatrix_x4_trans(a, A + (k0 + r + 8 * (mi / 2)) * lda + m0 + 8 * (mi % 2));
+    else ldmatrix_x4(a, A + (m0 + lane % 16) * lda + k0 + 8 * (lane / 16));
+#pragma unroll
+    for (int nt = 0; nt < NT; nt += 2) {
+      if (nt + 1 < NT) {
+        uint32_t b[4];
+        if (BT) ldmatrix_x4_trans(b, B + (k0 + r + 8 * (mi % 2)) * ldb + n0 + 8 * (nt + mi / 2));
+        else ldmatrix_x4(b, B + (n0 + 8 * (nt + mi / 2) + r) * ldb + k0 + 8 * (mi % 2));
+        mma16816(acc[nt], a, b[0], b[1]);
+        mma16816(acc[nt + 1], a, b[2], b[3]);
+      } else {
+        uint32_t b[2];
+        if (BT) ldmatrix_x2_trans(b, B + (k0 + l2) * ldb + n0 + 8 * nt);
+        else ldmatrix_x2(b, B + (n0 + 8 * nt + l2 % 8) * ldb + k0 + 8 * (l2 / 8));
+        mma16816(acc[nt], a, b[0], b[1]);
+      }
+    }
+  }
+}
+
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
+  hi = to_tf32(x);
+  lo = to_tf32(x - __uint_as_float(hi));
+}
+
+// the f32 version: k slots c and c + 4 of an m16n8k8 product hold the k
+// positions 2c and 2c + 1 (of A and B alike, so the sum is the same)
+template <int K, int NT, bool AT, bool BT>
+__device__ __forceinline__ void mma_tile(float (&acc)[NT][4], const float* A, int lda,
+                                         const float* B, int ldb, int m0, int n0, int lane) {
+  const int g = lane / 4, c2 = 2 * (lane % 4);
+  auto at = [&](int m, int k) { return AT ? A[k * lda + m] : A[m * lda + k]; };
+  auto bt = [&](int k, int n) { return BT ? B[k * ldb + n] : B[n * ldb + k]; };
+#pragma unroll 2
+  for (int k = c2; k < K; k += 8) {
+    uint32_t ah[4], al[4];
+    split_tf32(at(m0 + g, k), ah[0], al[0]);
+    split_tf32(at(m0 + g + 8, k), ah[1], al[1]);
+    split_tf32(at(m0 + g, k + 1), ah[2], al[2]);
+    split_tf32(at(m0 + g + 8, k + 1), ah[3], al[3]);
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+      uint32_t bh0, bl0, bh1, bl1;
+      split_tf32(bt(k, n0 + 8 * nt + g), bh0, bl0);
+      split_tf32(bt(k + 1, n0 + 8 * nt + g), bh1, bl1);
+      mma1688_tf32(acc[nt], al, bh0, bh1);
+      mma1688_tf32(acc[nt], ah, bl0, bl1);
+      mma1688_tf32(acc[nt], ah, bh0, bh1);
+    }
+  }
+}
+
+// Rows [t0, t0 + CH) of one head's W values (token stride `stride`, the
+// head's first column `col0`) as 16-byte vectors, zero past `len`: vector
+// `it` of a thread is vector (it THREADS + tid) of the [CH][W] block. Rows
+// and columns must be 16-byte aligned (the wrapper copies any that are
+// not).
+template <int CH, int W, typename T>
+struct RowVecs {
+  static constexpr int E = 16 / int(sizeof(T)), VPR = W / E, IT = CH * VPR / THREADS;
+};
+
+template <int CH, int W, typename T>
+__device__ __forceinline__ void load_rows(uint4 (&v)[RowVecs<CH, W, T>::IT],
+                                          const T* __restrict__ src, size_t row0, long stride,
+                                          long col0, int len) {
+  using R = RowVecs<CH, W, T>;
+#pragma unroll
+  for (int it = 0; it < R::IT; ++it) {
+    const int i = it * THREADS + threadIdx.x, t = i / R::VPR;
+    v[it] = t < len ? *reinterpret_cast<const uint4*>(src + (row0 + t) * stride + col0
+                                                      + (i % R::VPR) * R::E)
+                    : make_uint4(0u, 0u, 0u, 0u);
+  }
+}
+
+// the vectors of load_rows into dst[CH][ld]
+template <int CH, int W, typename T>
+__device__ __forceinline__ void store_rows(T* dst, int ld,
+                                           const uint4 (&v)[RowVecs<CH, W, T>::IT]) {
+  using R = RowVecs<CH, W, T>;
+#pragma unroll
+  for (int it = 0; it < R::IT; ++it) {
+    const int i = it * THREADS + threadIdx.x;
+    *reinterpret_cast<uint4*>(dst + (i / R::VPR) * ld + (i % R::VPR) * R::E) = v[it];
+  }
+}
+
+// sum of a o b over the elements of two vectors
+template <typename T>
+__device__ __forceinline__ float dot16(const uint4& a, const uint4& b) {
+  const T* x = reinterpret_cast<const T*>(&a);
+  const T* y = reinterpret_cast<const T*>(&b);
+  float s = 0.f;
+#pragma unroll
+  for (int e = 0; e < 16 / int(sizeof(T)); ++e) s += to_f(x[e]) * to_f(y[e]);
+  return s;
+}
+
+template <typename T, int P, int N>
+struct CarrySmem {
+  static constexpr int CH = Chunk<P, N>::CH, PD = Pad<T>::V;
+  T dy[CH][P + PD];                    // decay o dy
+  T C[CH][N + PD];
+  float dt[CH], cum[CH], decay[CH];
 };
 
 template <typename T, int P, int N>
-__global__ void __launch_bounds__(THREADS)
-ssd_bwd_kernel(const T* __restrict__ x, const T* __restrict__ dt, const float* __restrict__ A,
-               const T* __restrict__ Bm, const T* __restrict__ Cm, const float* __restrict__ Dv,
-               const float* __restrict__ states, const T* __restrict__ dy, T* __restrict__ dx,
-               T* __restrict__ ddt, float* __restrict__ dA_part, float* __restrict__ dD_part,
-               float* __restrict__ dB_part, float* __restrict__ dC_part, int batch, int L, int H,
-               long sx, long sdt, long sb, long sc, long sdy) {
-  constexpr int CH = Chunk<P, N>::CH;
-  constexpr int RC = CH / TG, RP = P / TG, RN = N / TG;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  BwdSmem<P, N>& s = *reinterpret_cast<BwdSmem<P, N>*>(smem_raw);
-  float (*Sin)[N + 1] = reinterpret_cast<float (*)[N + 1]>(s.sq);
-  float (*dLL)[CH + 1] = reinterpret_cast<float (*)[CH + 1]>(s.sq);
+__global__ void __launch_bounds__(THREADS, 2)
+ssd_bwd_carry_kernel(const T* __restrict__ dt, const float* __restrict__ A,
+                     const T* __restrict__ Cm, const T* __restrict__ dy,
+                     float* __restrict__ carry, int L, int H, long sdt, long sc, long sdy) {
+  using S = CarrySmem<T, P, N>;
+  constexpr int CH = S::CH, PD = S::PD;
+  constexpr int MT = P / 64, NT = N / 16;   // a warp: P / 4 rows, N / 2 columns of dS
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  S& s = *reinterpret_cast<S*>(smem_raw);
   const int hi = blockIdx.x, bi = blockIdx.y, tid = threadIdx.x;
-  const int tx = tid % TG, ty = tid / TG, lane = tid % 32, warp = tid / 32;
+  const int lane = tid % 32, warp = tid / 32, g = lane / 4, c2 = 2 * (lane % 4);
+  const int m0 = (warp % 4) * (P / 4), n0 = (warp / 4) * (N / 2);
   const int nc = (L + CH - 1) / CH;
-  const float a = A[hi], dskip = Dv[hi];
-  float dsr[RP][RN];                   // this thread's tile of dS
-  zero(dsr);
-  for (int i = tid; i < P * (N + 1); i += THREADS) (&s.dS[0][0])[i] = 0.f;
-  float dA_acc = 0.f, dD_acc = 0.f;
-  for (int c = nc - 1; c >= 0; --c) {
+  const float a = A[hi];
+  float acc[MT][NT][4];
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt) zero(acc[mt]);
+  // the next chunk's dt, dy and C, loaded while this one is computed
+  uint4 vy[RowVecs<CH, P, T>::IT], vc[RowVecs<CH, N, T>::IT];
+  float vdt;
+  auto fetch = [&](int c) {
     const int t0 = c * CH, len = min(CH, L - t0);
     const size_t row0 = size_t(bi) * L + t0;
+    vdt = tid < len ? to_f(dt[(row0 + tid) * sdt + hi]) : 0.f;
+    load_rows<CH, P>(vy, dy, row0, sdy, long(hi) * P, len);
+    load_rows<CH, N>(vc, Cm, row0, sc, 0, len);
+  };
+  fetch(nc - 1);
+  for (int c = nc - 1; c >= 0; --c) {
+    // the carry this chunk starts from
+    float* out = carry + ((size_t(bi) * nc + c) * H + hi) * P * N;
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; e += 2) {
+          const int p = m0 + 16 * mt + g + 4 * e, n = n0 + 8 * nt + c2;
+          *reinterpret_cast<float2*>(out + p * N + n) =
+              make_float2(acc[mt][nt][e], acc[mt][nt][e + 1]);
+        }
     __syncthreads();                   // the previous chunk is done with the tiles
-    stage<CH, P>(&s.x[0][0], x, row0, sx, hi * P, len);
-    stage<CH, P>(&s.dy[0][0], dy, row0, sdy, hi * P, len);
-    stage<CH, N>(&s.B[0][0], Bm, row0, sb, 0, len);
-    stage<CH, N>(&s.C[0][0], Cm, row0, sc, 0, len);
-    {
-      const float* st = states + ((size_t(bi) * nc + c) * H + hi) * P * N;
-#pragma unroll 16
-      for (int i = tid; i < P * N; i += THREADS) Sin[i / N][i % N] = st[i];
+    if (tid < CH) s.dt[tid] = vdt;
+    store_rows<CH, P>(&s.dy[0][0], P + PD, vy);
+    store_rows<CH, N>(&s.C[0][0], N + PD, vc);
+    if (c > 0) fetch(c - 1);
+    __syncthreads();
+    if (warp == 0) {
+      warp_scan<CH, false>(s.dt, a, s.cum, lane);
+      __syncwarp();
+      for (int i = lane; i < CH; i += 32) s.decay[i] = expf(s.cum[i]);
     }
-    if (tid < CH) s.dt[tid] = tid < len ? to_f(dt[(row0 + tid) * sdt + hi]) : 0.f;
+    __syncthreads();
+    for (int i = tid; i < CH * P; i += THREADS) {   // dy -> decay o dy
+      const int t = i / P;
+      s.dy[t][i % P] = from_f<T>(s.decay[t] * to_f(s.dy[t][i % P]));
+    }
+    __syncthreads();
+    const float wce = s.decay[CH - 1];
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) {
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[mt][nt][e] *= wce;
+      mma_tile<CH, NT, true, true>(acc[mt], &s.dy[0][0], P + PD, &s.C[0][0], N + PD,
+                                   m0 + 16 * mt, n0, lane);
+    }
+  }
+}
+
+template <typename T, int P, int N>
+struct BwdSmem {
+  static constexpr int CH = Chunk<P, N>::CH, PD = Pad<T>::V;
+  T x[CH][P + PD], dy[CH][P + PD], B[CH][N + PD], C[CH][N + PD];
+  T S[P][N + PD], dS[P][N + PD];       // the state entering the chunk, dL/dS at its end
+  T W[CH][CH + PD], dCB[CH][CH + PD];
+  float dt[CH], cum[CH], decay[CH], tail[CH], dcum[CH], dloga[CH], dtail[CH], rowx[CH];
+  float part[5][4][CH];                // per-warp-column (or -row) partial sums
+  float red[2][WARPS];                 // per-warp sums of S o dS and x o dy
+};
+
+template <typename T, int P, int N>
+__global__ void __launch_bounds__(THREADS, 2)
+ssd_bwd_kernel(const T* __restrict__ x, const T* __restrict__ dt, const float* __restrict__ A,
+               const T* __restrict__ Bm, const T* __restrict__ Cm, const float* __restrict__ Dv,
+               const float* __restrict__ states, const float* __restrict__ carry,
+               const T* __restrict__ dy, T* __restrict__ dx, T* __restrict__ ddt,
+               float* __restrict__ dA_part, float* __restrict__ dD_part,
+               float* __restrict__ dB_part, float* __restrict__ dC_part, int batch, int L, int H,
+               long sx, long sdt, long sb, long sc, long sdy) {
+  using S = BwdSmem<T, P, N>;
+  constexpr int CH = S::CH, PD = S::PD;
+  constexpr int WM = Warps<CH>::WM, WN = Warps<CH>::WN;
+  constexpr int NTP = P / (8 * WN), NTN = N / (8 * WN), NTC = CH / (8 * WN);
+  constexpr int LP = P + PD, LN = N + PD, LC = CH + PD;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  S& s = *reinterpret_cast<S*>(smem_raw);
+  const int c = blockIdx.x, grp = blockIdx.y, bi = blockIdx.z, tid = threadIdx.x;
+  const int lane = tid % 32, warp = tid / 32, g = lane / 4, c2 = 2 * (lane % 4);
+  const int wm = warp % WM, wn = warp / WM, m0 = 16 * wm;
+  const int nc = (L + CH - 1) / CH, t0 = c * CH, len = min(CH, L - t0);
+  const size_t row0 = size_t(bi) * L + t0;
+  {
+    uint4 vb[RowVecs<CH, N, T>::IT], vc[RowVecs<CH, N, T>::IT];
+    load_rows<CH, N>(vb, Bm, row0, sb, 0, len);
+    load_rows<CH, N>(vc, Cm, row0, sc, 0, len);
+    store_rows<CH, N>(&s.B[0][0], LN, vb);
+    store_rows<CH, N>(&s.C[0][0], LN, vc);
+  }
+  float dBacc[NTN][4], dCacc[NTN][4];  // dB and dC summed over the group's heads
+  zero(dBacc);
+  zero(dCacc);
+  const int h_end = min(H, (grp + 1) * HEADS);
+  for (int hi = grp * HEADS; hi < h_end; ++hi) {
+    const float a = A[hi], dskip = Dv[hi];
+    const size_t sidx = ((size_t(bi) * nc + c) * H + hi) * P * N;
+    // this head's loads, all in flight at once (the state and its gradient
+    // in rounds of 4 float4 a thread)
+    constexpr int IS = P * N / 4 / THREADS, RS = 4;
+    uint4 vx[RowVecs<CH, P, T>::IT], vdy[RowVecs<CH, P, T>::IT];
+    load_rows<CH, P>(vx, x, row0, sx, long(hi) * P, len);
+    load_rows<CH, P>(vdy, dy, row0, sdy, long(hi) * P, len);
+    const float vdt = tid < len ? to_f(dt[(row0 + tid) * sdt + hi]) : 0.f;
+    __syncthreads();                   // the previous head is done with the tiles
+    float dwce = 0.f, xdy = 0.f;       // sums of S o dS and of x o dy
+#pragma unroll
+    for (int r0 = 0; r0 < IS; r0 += RS) {
+      float4 vs[RS], vd[RS];
+#pragma unroll
+      for (int j = 0; j < RS; ++j) {
+        const int idx = (r0 + j) * THREADS + tid;
+        vs[j] = reinterpret_cast<const float4*>(states + sidx)[idx];
+        vd[j] = reinterpret_cast<const float4*>(carry + sidx)[idx];
+      }
+#pragma unroll
+      for (int j = 0; j < RS; ++j) {
+        const int i = 4 * ((r0 + j) * THREADS + tid), r = i / N, col = i % N;
+        dwce += vs[j].x * vd[j].x + vs[j].y * vd[j].y + vs[j].z * vd[j].z + vs[j].w * vd[j].w;
+        T* ds = &s.S[r][col];
+        T* dd = &s.dS[r][col];
+        ds[0] = from_f<T>(vs[j].x); ds[1] = from_f<T>(vs[j].y);
+        ds[2] = from_f<T>(vs[j].z); ds[3] = from_f<T>(vs[j].w);
+        dd[0] = from_f<T>(vd[j].x); dd[1] = from_f<T>(vd[j].y);
+        dd[2] = from_f<T>(vd[j].z); dd[3] = from_f<T>(vd[j].w);
+      }
+    }
+#pragma unroll
+    for (int it = 0; it < RowVecs<CH, P, T>::IT; ++it) xdy += dot16<T>(vx[it], vdy[it]);
+    store_rows<CH, P>(&s.x[0][0], LP, vx);
+    store_rows<CH, P>(&s.dy[0][0], LP, vdy);
+    if (tid < CH) s.dt[tid] = vdt;
+    xdy = warp_sum(xdy);
+    dwce = warp_sum(dwce);
+    if (lane == 0) {
+      s.red[0][warp] = dwce;
+      s.red[1][warp] = xdy;
+    }
     __syncthreads();
     if (warp == 0) warp_scan<CH, false>(s.dt, a, s.cum, lane);
     __syncthreads();
@@ -327,131 +591,172 @@ ssd_bwd_kernel(const T* __restrict__ x, const T* __restrict__ dt, const float* _
       s.decay[tid] = expf(s.cum[tid]);
       s.tail[tid] = expf(last - s.cum[tid]);
     }
-    __syncthreads();
-
-    // --- y = W (dt x) + decay o (C S_in^T): dDecay, dC (first part), dwce
+    // --- W = (C B^T) o L and dCB = (dy x^T o dt_i) o L, with dL o L summed
+    // over rows (part 0) and columns (part 1)
     {
-      float cs[RC][RP];                // C S_in^T
-      zero(cs);
-      tile_mm<RC, RP, N, false, true>(cs, &s.C[0][0], N + 1, &Sin[0][0], N + 1, ty, tx);
-#pragma unroll
-      for (int r = 0; r < RC; ++r) {
-        const int j = ty + TG * r;
-        float part = 0.f;
-#pragma unroll
-        for (int q = 0; q < RP; ++q) part += cs[r][q] * s.dy[j][tx + TG * q];
-        part = row_sum(part);
-        if (tx == 0) s.dDecay[j] = part;
-      }
-    }
-    float dCa[RC][RN];                 // dC of this chunk and head
-    zero(dCa);
-    tile_mm<RC, RN, P, false, false>(dCa, &s.dy[0][0], P + 1, &Sin[0][0], N + 1, ty, tx);
-#pragma unroll
-    for (int r = 0; r < RC; ++r) {
-      const float d = s.decay[ty + TG * r];
-#pragma unroll
-      for (int q = 0; q < RN; ++q) dCa[r][q] *= d;
-    }
-    {
-      float part = 0.f;                // dwce = sum S_in o dS
-#pragma unroll
-      for (int r = 0; r < RP; ++r)
-#pragma unroll
-        for (int q = 0; q < RN; ++q) part += dsr[r][q] * Sin[ty + TG * r][tx + TG * q];
-      part = warp_sum(part);
-      if (lane == 0) s.red[warp] = part;
-    }
-
-    // --- S_out = wce S_in + (tail o dt x)^T B: ddx (tail part), dtail, dB
-    float ddx[RC][RP];                 // dL/d(dt x)
-    zero(ddx);
-    tile_mm<RC, RP, N, false, true>(ddx, &s.B[0][0], N + 1, &s.dS[0][0], N + 1, ty, tx);
-#pragma unroll
-    for (int r = 0; r < RC; ++r) {
-      const int i = ty + TG * r;
-      float part = 0.f;
-#pragma unroll
-      for (int q = 0; q < RP; ++q) part += ddx[r][q] * s.x[i][tx + TG * q];
-      part = row_sum(part) * s.dt[i];
-      if (tx == 0) s.dtail[i] = part;
-      const float tl = s.tail[i];
-#pragma unroll
-      for (int q = 0; q < RP; ++q) ddx[r][q] *= tl;
-    }
-    float dBa[RC][RN];                 // dB of this chunk and head
-    zero(dBa);
-    tile_mm<RC, RN, P, false, false>(dBa, &s.x[0][0], P + 1, &s.dS[0][0], N + 1, ty, tx);
-#pragma unroll
-    for (int r = 0; r < RC; ++r) {
-      const int i = ty + TG * r;
-      const float gi = s.tail[i] * s.dt[i];
-#pragma unroll
-      for (int q = 0; q < RN; ++q) dBa[r][q] *= gi;
-    }
-    // dS_in = wce dS + (decay o dy)^T C, kept in registers until the tiles'
-    // readers are done
-#pragma unroll
-    for (int r = 0; r < RP; ++r)
-#pragma unroll
-      for (int q = 0; q < RN; ++q) dsr[r][q] *= wce;
-    tile_mm<RP, RN, CH, true, false>(dsr, &s.dy[0][0], P + 1, &s.C[0][0], N + 1, ty, tx,
-                                     s.decay);
-    __syncthreads();                   // S_in and the old dS are read
-#pragma unroll
-    for (int r = 0; r < RP; ++r)
-#pragma unroll
-      for (int q = 0; q < RN; ++q) s.dS[ty + TG * r][tx + TG * q] = dsr[r][q];
-
-    // --- W = (C B^T) o L: dW, dCB, dL o L
-    {
-      float cb[RC][RC], dw[RC][RC];
+      float cb[NTC][4], dw[NTC][4];
       zero(cb);
       zero(dw);
-      tile_mm<RC, RC, N, false, true>(cb, &s.C[0][0], N + 1, &s.B[0][0], N + 1, ty, tx);
-      tile_mm<RC, RC, P, false, true>(dw, &s.dy[0][0], P + 1, &s.x[0][0], P + 1, ty, tx);
+      const int n0 = wn * (CH / WN);
+      mma_tile<N, NTC, false, false>(cb, &s.C[0][0], LN, &s.B[0][0], LN, m0, n0, lane);
+      mma_tile<P, NTC, false, false>(dw, &s.dy[0][0], LP, &s.x[0][0], LP, m0, n0, lane);
+      float rsum[2] = {0.f, 0.f}, csum[NTC][2];
 #pragma unroll
-      for (int r = 0; r < RC; ++r)
+      for (int nt = 0; nt < NTC; ++nt) {
+        csum[nt][0] = csum[nt][1] = 0.f;
 #pragma unroll
-        for (int q = 0; q < RC; ++q) {
-          const int j = ty + TG * r, i = tx + TG * q;
+        for (int e = 0; e < 4; ++e) {
+          const int j = m0 + g + 8 * (e / 2), i = n0 + 8 * nt + c2 + e % 2;
           float w = 0.f, dcb = 0.f, dll = 0.f;
           if (i <= j) {
             const float Lv = expf(s.cum[j] - s.cum[i]);
-            const float dW = dw[r][q] * s.dt[i];
-            w = cb[r][q] * Lv;
-            dcb = dW * Lv;
-            dll = dcb * cb[r][q];
+            w = cb[nt][e] * Lv;
+            dcb = dw[nt][e] * s.dt[i] * Lv;
+            dll = dcb * cb[nt][e];
           }
-          s.W[j][i] = w;
-          s.dCB[j][i] = dcb;
-          dLL[j][i] = dll;
+          s.W[j][i] = from_f<T>(w);
+          s.dCB[j][i] = from_f<T>(dcb);
+          rsum[e / 2] += dll;
+          csum[nt][e % 2] += dll;
+        }
+      }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        rsum[r] += __shfl_xor_sync(FULL, rsum[r], 1);
+        rsum[r] += __shfl_xor_sync(FULL, rsum[r], 2);
+      }
+      if (lane % 4 == 0) {
+        s.part[0][wn][m0 + g] = rsum[0];
+        s.part[0][wn][m0 + g + 8] = rsum[1];
+      }
+#pragma unroll
+      for (int nt = 0; nt < NTC; ++nt)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          float v = csum[nt][e];
+          v += __shfl_xor_sync(FULL, v, 4);
+          v += __shfl_xor_sync(FULL, v, 8);
+          v += __shfl_xor_sync(FULL, v, 16);
+          if (g == 0) s.part[1][wm][n0 + 8 * nt + c2 + e] = v;
         }
     }
-    __syncthreads();
-    tile_mm<RC, RP, CH, true, false>(ddx, &s.W[0][0], CH + 1, &s.dy[0][0], P + 1, ty, tx);
-    tile_mm<RC, RN, CH, false, false>(dCa, &s.dCB[0][0], CH + 1, &s.B[0][0], N + 1, ty, tx);
-    tile_mm<RC, RN, CH, true, false>(dBa, &s.dCB[0][0], CH + 1, &s.C[0][0], N + 1, ty, tx);
-    if (tid < CH) {                    // dcum from L's rows and columns
-      float rows = 0.f, cols = 0.f;
-      for (int i = 0; i < CH; ++i) {
-        rows += dLL[tid][i];
-        cols += dLL[i][tid];
+    __syncthreads();                   // W, dCB, decay, tail are in place
+    const int np = wn * (P / WN), nn = wn * (N / WN);
+    // --- y = ... + decay o (C S^T): dDecay summed over columns (part 2)
+    {
+      float cs[NTP][4];
+      zero(cs);
+      mma_tile<N, NTP, false, false>(cs, &s.C[0][0], LN, &s.S[0][0], LN, m0, np, lane);
+      float rsum[2] = {0.f, 0.f};
+#pragma unroll
+      for (int nt = 0; nt < NTP; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          rsum[e / 2] += cs[nt][e] * to_f(s.dy[m0 + g + 8 * (e / 2)][np + 8 * nt + c2 + e % 2]);
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        rsum[r] += __shfl_xor_sync(FULL, rsum[r], 1);
+        rsum[r] += __shfl_xor_sync(FULL, rsum[r], 2);
       }
-      s.dcum[tid] = rows - cols + s.dDecay[tid] * s.decay[tid] - s.dtail[tid] * s.tail[tid];
+      if (lane % 4 == 0) {
+        s.part[2][wn][m0 + g] = rsum[0];
+        s.part[2][wn][m0 + g + 8] = rsum[1];
+      }
     }
+    // --- dC += decay o (dy S) + dCB B
+    {
+      float t[NTN][4];
+      zero(t);
+      mma_tile<P, NTN, false, true>(t, &s.dy[0][0], LP, &s.S[0][0], LN, m0, nn, lane);
 #pragma unroll
-    for (int r = 0; r < RC; ++r) {     // sum_p ddx x, for ddt
-      const int i = ty + TG * r;
-      float part = 0.f;
+      for (int nt = 0; nt < NTN; ++nt)
 #pragma unroll
-      for (int q = 0; q < RP; ++q) {
-        const int p = tx + TG * q;
-        part += ddx[r][q] * s.x[i][p];
-        dD_acc += s.dy[i][p] * s.x[i][p];
+        for (int e = 0; e < 4; ++e) dCacc[nt][e] += s.decay[m0 + g + 8 * (e / 2)] * t[nt][e];
+      mma_tile<CH, NTN, false, true>(dCacc, &s.dCB[0][0], LC, &s.B[0][0], LN, m0, nn, lane);
+    }
+    // --- dB += (tail dt) o (x dS) + dCB^T C
+    {
+      float t[NTN][4];
+      zero(t);
+      mma_tile<P, NTN, false, true>(t, &s.x[0][0], LP, &s.dS[0][0], LN, m0, nn, lane);
+#pragma unroll
+      for (int nt = 0; nt < NTN; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int i = m0 + g + 8 * (e / 2);
+          dBacc[nt][e] += s.tail[i] * s.dt[i] * t[nt][e];
+        }
+      mma_tile<CH, NTN, true, true>(dBacc, &s.dCB[0][0], LC, &s.C[0][0], LN, m0, nn, lane);
+    }
+    // --- ddx = tail o (B dS^T) + W^T dy: dtail (part 3), sum_p ddx x (part
+    // 4), dx = dt ddx + D dy
+    {
+      float ddx[NTP][4];
+      zero(ddx);
+      mma_tile<N, NTP, false, false>(ddx, &s.B[0][0], LN, &s.dS[0][0], LN, m0, np, lane);
+      float rsum[2] = {0.f, 0.f};
+#pragma unroll
+      for (int nt = 0; nt < NTP; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int i = m0 + g + 8 * (e / 2);
+          rsum[e / 2] += ddx[nt][e] * to_f(s.x[i][np + 8 * nt + c2 + e % 2]);
+          ddx[nt][e] *= s.tail[i];
+        }
+      mma_tile<CH, NTP, true, true>(ddx, &s.W[0][0], LC, &s.dy[0][0], LP, m0, np, lane);
+      float xsum[2] = {0.f, 0.f};
+#pragma unroll
+      for (int nt = 0; nt < NTP; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int i = m0 + g + 8 * (e / 2);
+          xsum[e / 2] += ddx[nt][e] * to_f(s.x[i][np + 8 * nt + c2 + e % 2]);
+        }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+#pragma unroll
+        for (int o = 1; o < 4; o <<= 1) {
+          rsum[r] += __shfl_xor_sync(FULL, rsum[r], o);
+          xsum[r] += __shfl_xor_sync(FULL, xsum[r], o);
+        }
       }
-      part = row_sum(part);
-      if (tx == 0) s.rowx[i] = part;
+      if (lane % 4 == 0) {
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const int i = m0 + g + 8 * r;
+          s.part[3][wn][i] = rsum[r] * s.dt[i];
+          s.part[4][wn][i] = xsum[r];
+        }
+      }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int i = m0 + g + 8 * r;
+        if (i >= len) continue;
+        const float dti = s.dt[i];
+        T* out = dx + ((row0 + i) * H + hi) * P + np + c2;
+#pragma unroll
+        for (int nt = 0; nt < NTP; ++nt) {
+          const int p = np + 8 * nt + c2;
+          out[8 * nt] = from_f<T>(dti * ddx[nt][2 * r] + dskip * to_f(s.dy[i][p]));
+          out[8 * nt + 1] = from_f<T>(dti * ddx[nt][2 * r + 1] + dskip * to_f(s.dy[i][p + 1]));
+        }
+      }
+    }
+    __syncthreads();
+    if (tid < CH) {                    // dcum from L's rows and columns
+      float rows = 0.f, cols = 0.f, dDecay = 0.f, dtail = 0.f, rowx = 0.f;
+#pragma unroll
+      for (int w = 0; w < WN; ++w) {
+        rows += s.part[0][w][tid];
+        dDecay += s.part[2][w][tid];
+        dtail += s.part[3][w][tid];
+        rowx += s.part[4][w][tid];
+      }
+#pragma unroll
+      for (int w = 0; w < WM; ++w) cols += s.part[1][w][tid];
+      s.dcum[tid] = rows - cols + dDecay * s.decay[tid] - dtail * s.tail[tid];
+      s.dtail[tid] = dtail;
+      s.rowx[tid] = rowx;
     }
     __syncthreads();
     if (warp == 0) {
@@ -459,56 +764,47 @@ ssd_bwd_kernel(const T* __restrict__ x, const T* __restrict__ dt, const float* _
       float part = 0.f;
       for (int i = lane; i < CH; i += 32) part += s.dtail[i] * s.tail[i];
       part = warp_sum(part);
-      float dwce = 0.f;
+      float dwce = 0.f, dD = 0.f;
 #pragma unroll
-      for (int w = 0; w < WARPS; ++w) dwce += s.red[w];
+      for (int w = 0; w < WARPS; ++w) {
+        dwce += s.red[0][w];
+        dD += s.red[1][w];
+      }
       if (lane == 0) s.dcum[CH - 1] += part + dwce * wce;
       __syncwarp();
       warp_scan<CH, true>(s.dcum, 1.f, s.dloga, lane);
       __syncwarp();
+      float dA = 0.f;
       for (int i = lane; i < CH; i += 32) {
-        dA_acc += s.dloga[i] * s.dt[i];
+        dA += s.dloga[i] * s.dt[i];
         if (i < len) ddt[(row0 + i) * H + hi] = from_f<T>(a * s.dloga[i] + s.rowx[i]);
       }
-    }
-#pragma unroll
-    for (int r = 0; r < RC; ++r) {
-      const int i = ty + TG * r;
-      if (i >= len) continue;
-      const float dti = s.dt[i];
-      T* out = dx + ((row0 + i) * H + hi) * P;
-#pragma unroll
-      for (int q = 0; q < RP; ++q) {
-        const int p = tx + TG * q;
-        out[p] = from_f<T>(dti * ddx[r][q] + dskip * s.dy[i][p]);
-      }
-      const size_t off = ((size_t(hi) * batch + bi) * L + t0 + i) * N;
-#pragma unroll
-      for (int q = 0; q < RN; ++q) {
-        dB_part[off + tx + TG * q] = dBa[r][q];
-        dC_part[off + tx + TG * q] = dCa[r][q];
+      dA = warp_sum(dA);
+      if (lane == 0) {
+        dA_part[(size_t(bi) * nc + c) * H + hi] = dA;
+        dD_part[(size_t(bi) * nc + c) * H + hi] = dD;
       }
     }
   }
-  __syncthreads();
-  dD_acc = warp_sum(dD_acc);
-  if (lane == 0) s.red[warp] = dD_acc;
-  __syncthreads();
-  if (tid == 0) {
-    float sum = 0.f;
+  const int nn = wn * (N / WN);
 #pragma unroll
-    for (int w = 0; w < WARPS; ++w) sum += s.red[w];
-    dD_part[size_t(bi) * H + hi] = sum;
-  }
-  if (warp == 0) {
-    dA_acc = warp_sum(dA_acc);
-    if (lane == 0) dA_part[size_t(bi) * H + hi] = dA_acc;
+  for (int r = 0; r < 2; ++r) {
+    const int i = m0 + g + 8 * r;
+    if (i >= len) continue;
+    const size_t off = ((size_t(grp) * batch + bi) * L + t0 + i) * N + nn + c2;
+#pragma unroll
+    for (int nt = 0; nt < NTN; ++nt) {
+      *reinterpret_cast<float2*>(dB_part + off + 8 * nt) =
+          make_float2(dBacc[nt][2 * r], dBacc[nt][2 * r + 1]);
+      *reinterpret_cast<float2*>(dC_part + off + 8 * nt) =
+          make_float2(dCacc[nt][2 * r], dCacc[nt][2 * r + 1]);
+    }
   }
 }
 
 struct Args {
   const void *x, *dt, *A, *B, *C, *D, *states, *dy;
-  void *y, *out_states, *dx, *ddt, *dA, *dD, *dB, *dC;
+  void *y, *out_states, *dx, *ddt, *dA, *dD, *dB, *dC, *carry;
   int batch, L, H;
   long sx, sdt, sb, sc, sdy;
   cudaStream_t st;
@@ -529,17 +825,23 @@ int launch_fwd(const Args& g) {
 
 template <typename T, int P, int N>
 int launch_bwd(const Args& g) {
-  static std::atomic<uint64_t> done{0};
-  const int smem = int(sizeof(BwdSmem<P, N>));
-  cudaError_t err = ptt::allow_smem(ssd_bwd_kernel<T, P, N>, smem, done);
+  static std::atomic<uint64_t> done_carry{0}, done{0};
+  const int smem_carry = int(sizeof(CarrySmem<T, P, N>)), smem = int(sizeof(BwdSmem<T, P, N>));
+  cudaError_t err = ptt::allow_smem(ssd_bwd_carry_kernel<T, P, N>, smem_carry, done_carry);
+  if (err == cudaSuccess) err = ptt::allow_smem(ssd_bwd_kernel<T, P, N>, smem, done);
   if (err != cudaSuccess) return int(err);
-  ssd_bwd_kernel<T, P, N><<<dim3(g.H, g.batch), THREADS, smem, g.st>>>(
+  const int nc = (g.L + Chunk<P, N>::CH - 1) / Chunk<P, N>::CH;
+  ssd_bwd_carry_kernel<T, P, N><<<dim3(g.H, g.batch), THREADS, smem_carry, g.st>>>(
+      static_cast<const T*>(g.dt), static_cast<const float*>(g.A), static_cast<const T*>(g.C),
+      static_cast<const T*>(g.dy), static_cast<float*>(g.carry), g.L, g.H, g.sdt, g.sc, g.sdy);
+  if ((err = cudaGetLastError()) != cudaSuccess) return int(err);
+  ssd_bwd_kernel<T, P, N><<<dim3(nc, (g.H + HEADS - 1) / HEADS, g.batch), THREADS, smem, g.st>>>(
       static_cast<const T*>(g.x), static_cast<const T*>(g.dt), static_cast<const float*>(g.A),
       static_cast<const T*>(g.B), static_cast<const T*>(g.C), static_cast<const float*>(g.D),
-      static_cast<const float*>(g.states), static_cast<const T*>(g.dy), static_cast<T*>(g.dx),
-      static_cast<T*>(g.ddt), static_cast<float*>(g.dA), static_cast<float*>(g.dD),
-      static_cast<float*>(g.dB), static_cast<float*>(g.dC), g.batch, g.L, g.H, g.sx, g.sdt, g.sb,
-      g.sc, g.sdy);
+      static_cast<const float*>(g.states), static_cast<const float*>(g.carry),
+      static_cast<const T*>(g.dy), static_cast<T*>(g.dx), static_cast<T*>(g.ddt),
+      static_cast<float*>(g.dA), static_cast<float*>(g.dD), static_cast<float*>(g.dB),
+      static_cast<float*>(g.dC), g.batch, g.L, g.H, g.sx, g.sdt, g.sb, g.sc, g.sdy);
   return int(cudaGetLastError());
 }
 
@@ -594,19 +896,25 @@ int ptt_ssd_fwd(const void* x, const void* dt, const void* A, const void* B, con
   return dispatch<false>(g, P, N, bf16_io);
 }
 
+// The heads summed into one slice of the backward's dB and dC partials.
+int ptt_ssd_bwd_heads_per_block() { return HEADS; }
+
 // The backward of ptt_ssd_fwd from its states and dy [batch, L, H, P] (token
-// stride sdy). Writes dx [batch, L, H, P] and ddt [batch, L, H] contiguous
-// (the I/O type), and f32 partials: dA and dD [batch, H], dB and dC [H,
-// batch, L, N], which the caller sums over their first axis.
+// stride sdy); two launches (the carries of dS, the chunks' backward).
+// Writes dx [batch, L, H, P] and ddt [batch, L, H] contiguous (the I/O type)
+// and f32 partials that the caller sums over their first axis: dA and dD
+// [batch nc, H], dB and dC [ceil(H / ptt_ssd_bwd_heads_per_block()), batch,
+// L, N]. Scratch: carry, f32 and shaped as the states.
 int ptt_ssd_bwd(const void* x, const void* dt, const void* A, const void* B, const void* C,
                 const void* D, const void* states, const void* dy, void* dx, void* ddt,
-                void* dA_part, void* dD_part, void* dB_part, void* dC_part, int batch, int L,
-                int H, int P, int N, int sx, int sdt, int sb, int sc, int sdy, int bf16_io,
-                void* stream) {
+                void* dA_part, void* dD_part, void* dB_part, void* dC_part, void* carry,
+                int batch, int L, int H, int P, int N, int sx, int sdt, int sb, int sc, int sdy,
+                int bf16_io, void* stream) {
   if (bad_shape(batch, L, H)) return int(cudaErrorInvalidValue);
   Args g{};
   g.x = x; g.dt = dt; g.A = A; g.B = B; g.C = C; g.D = D; g.states = states; g.dy = dy;
   g.dx = dx; g.ddt = ddt; g.dA = dA_part; g.dD = dD_part; g.dB = dB_part; g.dC = dC_part;
+  g.carry = carry;
   g.batch = batch; g.L = L; g.H = H;
   g.sx = sx; g.sdt = sdt; g.sb = sb; g.sc = sc; g.sdy = sdy;
   g.st = static_cast<cudaStream_t>(stream);

@@ -31,12 +31,12 @@ __all__ = ["selective_scan_fwd", "selective_scan_bwd",
 
 #: forward kernel launches since the count was last set to 0
 launches = 0
-#: backward kernel launches since the count was last set to 0
+#: backward calls (three kernel launches each) since the count was last
+#: set to 0
 bwd_launches = 0
 
 KERNEL_CHUNK = 64        # steps between the states the forward keeps
 MAX_STATE = 16           # states a kernel thread holds
-_CHANNELS = 64           # channels per block: the partials' first axis
 
 
 # ------------------------------------------------------------ plain version
@@ -122,8 +122,9 @@ def selective_scan_fwd(u, delta, A, B, C):
     b, l, d, n = _shapes(what, u, delta, A, B, C)
     if _build.device_of(what, u, delta, A, B, C) == "cpu":
         with torch.no_grad():
-            return selective_scan_reference(u, delta, A, B, C, KERNEL_CHUNK,
-                                            True)
+            y, bounds = selective_scan_reference(u, delta, A, B, C,
+                                                 KERNEL_CHUNK, True)
+        return y, bounds.contiguous()
     _check_states(what, n)
     dt, (uk, dk, Bk, Ck) = _build.float_io(what, u, delta, B, C)
     Ak = A.float().contiguous()
@@ -141,43 +142,53 @@ def selective_scan_fwd(u, delta, A, B, C):
 
 def selective_scan_bwd(u, delta, A, B, C, bounds, dy):
     """``(du, ddelta, dA, dB, dC)`` of :func:`selective_scan_fwd` for the
-    cotangent ``dy`` of y, each in its input's dtype. One kernel launch on
-    CUDA tensors (plus the sums of its partials); on CPU tensors the
-    gradient of the plain version (``bounds`` unused)."""
+    cotangent ``dy`` of y, each in its input's dtype. On CUDA tensors one
+    call launches three kernels (each chunk's local gradient carry, the
+    carry pass over the chunks, the chunks' backward), then sums their
+    partials; on CPU tensors the gradient of the plain version (``bounds``
+    checked, unused)."""
     global bwd_launches
     what = "selective_scan backward"
     b, l, d, n = _shapes(what, u, delta, A, B, C)
     if dy.shape != u.shape:
         raise ValueError(f"{what}: dy {tuple(dy.shape)} is not "
                          f"{tuple(u.shape)}")
+    nc = -(-l // KERNEL_CHUNK)
+    if bounds.shape != (b, nc, n, d) or bounds.dtype != torch.float32 \
+            or bounds.device != u.device or not bounds.is_contiguous():
+        raise ValueError(f"{what}: bounds must be the forward's contiguous "
+                         f"f32 [{b}, {nc}, {n}, {d}] on {u.device}")
     if _build.device_of(what, u, delta, A, B, C, dy) == "cpu":
         ins = [t.detach().requires_grad_() for t in (u, delta, A, B, C)]
         with torch.enable_grad():
             y = selective_scan_reference(*ins, KERNEL_CHUNK)
             return torch.autograd.grad(y, ins, dy)
     _check_states(what, n)
-    nc = -(-l // KERNEL_CHUNK)
-    if bounds.shape != (b, nc, n, d) or bounds.dtype != torch.float32 \
-            or bounds.device != u.device or not bounds.is_contiguous():
-        raise ValueError(f"{what}: bounds must be the forward's contiguous "
-                         f"f32 [{b}, {nc}, {n}, {d}] on {u.device}")
     dt, (uk, dk, Bk, Ck, dyk) = _build.float_io(what, u, delta, B, C, dy)
     Ak = A.float().contiguous()
     dev = u.device
+    f32 = dict(dtype=torch.float32, device=dev)
     du = torch.empty((b, l, d), dtype=dt, device=dev)
     ddelta = torch.empty((b, l, d), dtype=dt, device=dev)
-    dA_part = torch.empty((b, d, n), dtype=torch.float32, device=dev)
-    tiles = -(-d // _CHANNELS)
-    dB_part = torch.empty((tiles, b, l, n), dtype=torch.float32, device=dev)
-    dC_part = torch.empty((tiles, b, l, n), dtype=torch.float32, device=dev)
-    rc = _build.entry("selective_scan", "ptt_selective_scan_bwd", 12, 5)(
+    lib = _build.load("selective_scan")
+    tiles = -(-d // lib.ptt_selective_scan_bwd_channels())
+    dA_part = torch.empty((b * nc, d, n), **f32)
+    # dB and dC side by side: one sum (and one cast) for both
+    dBC_part = torch.empty((2, tiles, b, l, n), **f32)
+    dB_part, dC_part = dBC_part
+    carry = torch.empty((b, nc, n, d), **f32)
+    dsum = torch.empty((b, nc, d), **f32)
+    rc = _build.entry("selective_scan", "ptt_selective_scan_bwd", 14, 5)(
         uk.data_ptr(), dk.data_ptr(), Ak.data_ptr(), Bk.data_ptr(),
         Ck.data_ptr(), bounds.data_ptr(), dyk.data_ptr(), du.data_ptr(),
         ddelta.data_ptr(), dA_part.data_ptr(), dB_part.data_ptr(),
-        dC_part.data_ptr(), b, l, d, n, int(dt == torch.bfloat16),
-        _build.stream(u))
-    _build.check(_build.load("selective_scan"), rc, what)
+        dC_part.data_ptr(), carry.data_ptr(), dsum.data_ptr(), b, l, d, n,
+        int(dt == torch.bfloat16), _build.stream(u))
+    _build.check(lib, rc, what)
     bwd_launches += 1
+    dBC = dBC_part.sum(1)
+    if B.dtype == C.dtype:
+        dBC = dBC.to(B.dtype)
     return (du.to(u.dtype), ddelta.to(delta.dtype),
-            dA_part.sum(0).to(A.dtype), dB_part.sum(0).to(B.dtype),
-            dC_part.sum(0).to(C.dtype))
+            dA_part.sum(0).to(A.dtype), dBC[0].to(B.dtype),
+            dBC[1].to(C.dtype))

@@ -38,7 +38,8 @@ __all__ = ["ssd_fwd", "ssd_bwd", "ssd_reference", "ssd_chunked_reference",
 
 #: forward kernel launches since the count was last set to 0
 launches = 0
-#: backward kernel launches since the count was last set to 0
+#: backward calls (two kernel launches each) since the count was last set
+#: to 0
 bwd_launches = 0
 
 KERNEL_DIMS = (64, 128)     # the head and state widths the kernels take
@@ -162,11 +163,14 @@ def _io_dtype(what, *tensors):
                                  for t in tensors) else torch.float32
 
 
-def _rows(t, dtype):
+def _rows(t, dtype, align=1):
     """``(t', stride)``: t in ``dtype`` with its dims after ``[b, l]``
     packed and a single stride between tokens, so that token ``(bi, ti)``
     starts at ``(bi * l + ti) * stride``; a strided slice of a ``[b, l,
-    width]`` tensor passes as it is, anything else is copied."""
+    width]`` tensor passes as it is, anything else is copied. With
+    ``align``, also a slice whose start or token stride is not a multiple
+    of ``align`` bytes is copied (the backward loads rows as 16-byte
+    vectors)."""
     t = t.to(dtype)
     b, l = t.shape[:2]
     inner = t.shape[2:]
@@ -176,7 +180,8 @@ def _rows(t, dtype):
         step *= n
     s = t.stride(1)
     if list(t.stride()[2:]) != packed or s < step \
-            or (b > 1 and t.stride(0) != l * s):
+            or (b > 1 and t.stride(0) != l * s) \
+            or (t.data_ptr() % align or s * t.element_size() % align):
         t = t.contiguous()
         s = step
     return t, s
@@ -215,9 +220,11 @@ def ssd_fwd(x, dt, A, B, C, D):
 
 def ssd_bwd(x, dt, A, B, C, D, states, dy):
     """``(dx, ddt, dA, dB, dC, dD)`` of :func:`ssd_fwd` for the cotangent
-    ``dy`` of y, each in its input's dtype. One kernel launch on CUDA
-    tensors (plus the sums of its per-head and per-row partials); on CPU
-    tensors the gradient of the plain version (``states`` unused)."""
+    ``dy`` of y, each in its input's dtype. On CUDA tensors one call
+    launches two kernels (the carries of the state's gradient over the
+    chunks, then every chunk's backward in parallel), then sums their
+    per-head-group and per-chunk partials; on CPU tensors the gradient of
+    the plain version (``states`` checked, unused)."""
     global bwd_launches
     what = "ssd backward"
     b, l, h, dh, ds = _shapes(what, x, dt, A, B, C, D)
@@ -225,37 +232,52 @@ def ssd_bwd(x, dt, A, B, C, D, states, dy):
         raise ValueError(f"{what}: dy {tuple(dy.shape)} is not "
                          f"{tuple(x.shape)}")
     chunk = kernel_chunk(dh, ds)
+    nc = -(-l // chunk)
+    if states.shape != (b, nc, h, dh, ds) or states.dtype != torch.float32 \
+            or states.device != x.device or not states.is_contiguous():
+        raise ValueError(f"{what}: states must be the forward's contiguous "
+                         f"f32 [{b}, {nc}, {h}, {dh}, {ds}] on {x.device}")
     if _build.device_of(what, x, dt, A, B, C, D, dy) == "cpu":
         ins = [t.detach().requires_grad_() for t in (x, dt, A, B, C, D)]
         with torch.enable_grad():
             y = ssd_chunked_reference(*ins, chunk)
             return torch.autograd.grad(y, ins, dy)
     _check_dims(what, dh, ds)
-    nc = -(-l // chunk)
-    if states.shape != (b, nc, h, dh, ds) or states.dtype != torch.float32 \
-            or states.device != x.device or not states.is_contiguous():
-        raise ValueError(f"{what}: states must be the forward's contiguous "
-                         f"f32 [{b}, {nc}, {h}, {dh}, {ds}] on {x.device}")
     io = _io_dtype(what, x, dt, B, C, dy)
-    (xk, sx), (dtk, sdt), (Bk, sb), (Ck, sc), (dyk, sdy) = (
-        _rows(t, io) for t in (x, dt, B, C, dy))
+    dtk, sdt = _rows(dt, io)
+    (xk, sx), (Bk, sb), (Ck, sc), (dyk, sdy) = (
+        _rows(t, io, align=16) for t in (x, B, C, dy))
     Ak, Dk = (t.float().contiguous() for t in (A, D))
     dev = x.device
+    f32 = dict(dtype=torch.float32, device=dev)
+    lib = _build.load("ssd")
+    groups = -(-h // lib.ptt_ssd_bwd_heads_per_block())
     dx = torch.empty((b, l, h, dh), dtype=io, device=dev)
     ddt = torch.empty((b, l, h), dtype=io, device=dev)
-    dA_part = torch.empty((b, h), dtype=torch.float32, device=dev)
-    dD_part = torch.empty((b, h), dtype=torch.float32, device=dev)
-    dB_part = torch.empty((h, b, l, ds), dtype=torch.float32, device=dev)
-    dC_part = torch.empty((h, b, l, ds), dtype=torch.float32, device=dev)
-    rc = _build.entry("ssd", "ptt_ssd_bwd", 14, 11)(
+    # dA and dD, dB and dC side by side: one sum (and one cast) per pair
+    dAD_part = torch.empty((2, b * nc, h), **f32)
+    dBC_part = torch.empty((2, groups, b, l, ds), **f32)
+    dA_part, dD_part = dAD_part
+    dB_part, dC_part = dBC_part
+    carry = torch.empty_like(states)
+    rc = _build.entry("ssd", "ptt_ssd_bwd", 15, 11)(
         xk.data_ptr(), dtk.data_ptr(), Ak.data_ptr(), Bk.data_ptr(),
         Ck.data_ptr(), Dk.data_ptr(), states.data_ptr(), dyk.data_ptr(),
         dx.data_ptr(), ddt.data_ptr(), dA_part.data_ptr(),
-        dD_part.data_ptr(), dB_part.data_ptr(), dC_part.data_ptr(), b, l, h,
-        dh, ds, sx, sdt, sb, sc, sdy, int(io == torch.bfloat16),
-        _build.stream(x))
-    _build.check(_build.load("ssd"), rc, what)
+        dD_part.data_ptr(), dB_part.data_ptr(), dC_part.data_ptr(),
+        carry.data_ptr(), b, l, h, dh, ds, sx, sdt, sb, sc, sdy,
+        int(io == torch.bfloat16), _build.stream(x))
+    _build.check(lib, rc, what)
     bwd_launches += 1
-    return (dx.to(x.dtype), ddt.to(dt.dtype), dA_part.sum(0).to(A.dtype),
-            dB_part.sum(0).to(B.dtype), dC_part.sum(0).to(C.dtype),
-            dD_part.sum(0).to(D.dtype))
+    dA, dD = _sum_pair(dAD_part, A.dtype, D.dtype)
+    dB, dC = _sum_pair(dBC_part, B.dtype, C.dtype)
+    return dx.to(x.dtype), ddt.to(dt.dtype), dA, dB, dC, dD
+
+
+def _sum_pair(parts, dt0, dt1):
+    """Two stacked partials ``[2, k, ...]`` summed over k in one reduction,
+    each in its dtype (one cast when the two agree)."""
+    both = parts.sum(1)
+    if dt0 == dt1:
+        both = both.to(dt0)
+    return both[0].to(dt0), both[1].to(dt1)

@@ -103,6 +103,42 @@ def cold_ms(fn, reps=10):
     return total / reps
 
 
+def warm_ms(fn, reps=10):
+    """Mean device ms of ``fn`` over ``reps`` launches back to back (CUDA
+    events; the card kept busy while the host queues them)."""
+    fn()
+    torch.cuda.synchronize()
+    torch.cuda._sleep(4_000_000)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def kernel_ms(fn, pattern, reps=5):
+    """``{kernel: device ms per call}`` of the kernels ``fn`` launches whose
+    names match the regular expression ``pattern`` (``torch.profiler``,
+    warm)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        m = re.search(pattern, e.key)
+        if m and e.device_time_total > 0:
+            out[m.group(0)] = e.device_time_total / 1e3 / reps
+    return out
+
+
 def card():
     """The card's name, power limit and clocks, as nvidia-smi gives them."""
     return subprocess.run(

@@ -28,7 +28,6 @@ power limit and clocks.
 from __future__ import annotations
 
 import ctypes
-import re
 import sys
 
 import torch
@@ -135,38 +134,7 @@ def main(argv):
     argv = _variants.names_of(argv, VARIANTS)
     fns = build(argv)
     gen = torch.Generator(device="cuda").manual_seed(0)
-    cold_ms = _variants.cold_ms
-
-    def warm_ms(fn, reps=10):
-        fn()
-        torch.cuda.synchronize()
-        torch.cuda._sleep(4_000_000)
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(reps):
-            fn()
-        end.record()
-        torch.cuda.synchronize()
-        return start.elapsed_time(end) / reps
-
-    def kernel_ms(fn, reps=5):
-        """Device ms per call of each kernel that ``fn`` launches
-        (``torch.profiler``, warm)."""
-        from torch.profiler import ProfilerActivity, profile
-
-        fn()
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
-        out = {}
-        for e in prof.key_averages():
-            m = re.search(r"flash_\w+?_kernel", e.key)
-            if m and e.device_time_total > 0:
-                out[m.group(0)] = e.device_time_total / 1e3 / reps
-        return out
+    cold_ms, warm_ms = _variants.cold_ms, _variants.warm_ms
 
     def shape(b, s, hq, hk, d):
         q = torch.randn(b, s, hq, d, generator=gen, device="cuda").bfloat16()
@@ -226,7 +194,8 @@ def main(argv):
             times.append(f"{name} {cold_ms(lambda: run(name)):.4f} / "
                          f"{warm_ms(lambda: run(name)):.4f}")
             if kind == "bwd":
-                split[name] = kernel_ms(lambda: run(name))
+                split[name] = _variants.kernel_ms(lambda: run(name),
+                                                  r"flash_\w+?_kernel")
         qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
                       for t in (q, k, v))
         gqa = dict(enable_gqa=True) if k.shape[2] != q.shape[2] else {}
