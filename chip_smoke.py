@@ -15,8 +15,13 @@ Phases, each of which fails the run (non-zero exit, no result line):
    and flash lse: |diff| <= 1e-3 * max(|ref|, 1); flash backward dq, dk,
    dv: max |diff| <= 2e-2 * max |ref|; fused AdamW p, m, v: max |diff| <=
    1e-6 * max(|ref|, 1); int8 / int4 weight-only GEMMs: max |diff| <=
-   1e-2 * max |plain|, the bf16 output's rounding, at m = 8, 32, 64 and
-   256; int8 paged as the bf16 one; the grouped GEMMs of the MoE layer, gmm
+   1e-2 * max |plain|, the bf16 output's rounding, at Llama-3-8B's four
+   products for m = 8, 32, 64 and 256 (each timed) and at the kernels'
+   edges (m from 1 to 256 around every 8-row tile and the decode / wgmma
+   boundary at K = 14336, N = 384, where the decode grid takes stream-K
+   shares that do not divide a tile's steps; one column tile at the
+   smallest K; f32 out), ffn2 twice bitwise equal, with each kernel's
+   ptxas line and local-memory accesses; int8 paged as the bf16 one; the grouped GEMMs of the MoE layer, gmm
    in both orientations with and without bias, tgmm and the fused gate +
    up + swiglu with its residuals: max |diff| <= 1e-2 * max |plain| at M =
    32768 routed rows for a router draw and a skewed set with an empty
@@ -71,7 +76,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
    logits and teacher-forced agreement against the dense forward over the
    run's dequantized weights, ties within the bf16 noise (run A: or within
    the int8 pool's own first-token logit change against a bf16 pool, which
-   must stay <= 1.0); profiles a decode step of each;
+   must stay <= 1.0); profiles a decode step of each (one weight-only
+   kernel a product at most, none of a second pass);
 5c. decode steps of bf16, int8 and int4 engines (bf16 pools) over one
    model, alternated round by round: host ms per step, paired;
 6. training: the Llama-2-7B widths (``bench.py``'s 7B proxy: vocab 32000,
@@ -368,6 +374,7 @@ def phase_kernels(torch, gen, flush):
                                    max_abs_err=err)
     del kp, vp, q, out, m, l, rout, rm, rl
     rows["paged_attention_int8"] = check_paged_int8(torch, gen, flush)
+    print_weight_only_ptxas()
     rows["int8_matmul"] = check_weight_only(torch, gen, flush, int4=False)
     rows["int4_matmul"] = check_weight_only(torch, gen, flush, int4=True)
     torch.cuda.empty_cache()
@@ -474,74 +481,114 @@ def library_int8pack(torch, x, w, scale, int4):
     return lambda: torch._weight_int4pack_mm(x, packed, 128, sz)
 
 
+# the weight-only kernels' edges: rows around each 8-row tile and the
+# decode / wgmma boundary (64 | 65), one column tile (N = 128), N = 384 at K
+# = 14336 (at m = 8 the decode grid takes stream-K shares that do not divide
+# a tile's steps; checked on the plan the wrapper launches), the smallest K
+# of the rule
+WO_EDGE_M = (1, 7, 8, 9, 16, 17, 33, 63, 64, 65, 128, 255, 256)
+
+
 def check_weight_only(torch, gen, flush, int4):
-    """The int8 (int4) weight-only GEMM against its plain version at the
-    four products of Llama-3-8B at every row count the serving path gives
-    the kernel: m = 8 (decode) and the prefill buckets m = 32, 64 and 256
-    (16- and 64-row tiles, split K, masked rows). Timed: the four decode
-    products and ffn1 at m = 256; the kernels line's numbers sum one
-    layer's four decode products. Then the host cost of one decode step's
-    128 wrapper calls."""
-    from paddle_tpu_torch.ops.cuda.int8_matmul import (
-        int4_weight_matmul, int4_weight_matmul_reference, int8_weight_matmul,
-        int8_weight_matmul_reference, unpack_int4_packed)
+    """The int8 (int4) weight-only GEMM against its plain version: the four
+    products of Llama-3-8B at every row count the serving path gives the
+    kernels (m = 8 decode; the prefill buckets m = 32, 64 and 256), each
+    timed beside its bound, the plain version, a bf16 ``torch.matmul``,
+    ``torch._weight_{int8,int4}pack_mm`` and the wrapper's host µs a call;
+    the kernels' edges (``WO_EDGE_M`` at K = 14336, N = 384; m in {1, 8, 64,
+    65, 256} at N = 128 and the smallest K the rule admits, bf16 and f32
+    out; f32 out at ``out`` for m = 8 and 256); ffn2 at m = 8 twice, bitwise
+    equal. The kernels line's numbers sum one layer's four m = 8 products.
+    Then the host cost of one decode step's 128 wrapper calls."""
+    from paddle_tpu_torch.ops.cuda import int8_matmul as wo
 
     kind = "int4" if int4 else "int8"
-    fn = int4_weight_matmul if int4 else int8_weight_matmul
-    plain_fn = int4_weight_matmul_reference if int4 \
-        else int8_weight_matmul_reference
+    fn = wo.int4_weight_matmul if int4 else wo.int8_weight_matmul
+    plain_fn = wo.int4_weight_matmul_reference if int4 \
+        else wo.int8_weight_matmul_reference
+    dev = torch.cuda.current_device()
     row = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0,
                max_abs_err=0.0)
     by = set()
-    timed = [(name, 8, K, N) for name, K, N in WO_SHAPES] \
-        + [("ffn1", 256, 4096, 28672)]
-    cases = timed + [(name, m, K, N) for m in (32, 64, 256)
-                     for name, K, N in WO_SHAPES
-                     if (name, m, K, N) not in timed]
-    decode = []     # the four m = 8 products, kept for the host timing
-    for name, m, K, N in cases:
-        rows_w = K // 2 if int4 else K
-        w = torch.randint(-128, 128, (rows_w, N), dtype=torch.int8,
-                          device="cuda", generator=gen)
+
+    def operands(m, K, N):
+        w = torch.randint(-128, 128, (K // 2 if int4 else K, N),
+                          dtype=torch.int8, device="cuda", generator=gen)
         if not int4:
             w.clamp_(-127, 127)
         scale = torch.rand(N, generator=gen, device="cuda") * 2e-3 + 1e-4
         x = torch.randn(m, K, generator=gen, device="cuda").bfloat16()
-        out = fn(x, w, scale)
-        ref = plain_fn(x, w, scale)
+        return x, w, scale
+
+    def held(label, x, w, scale, out_dtype=torch.bfloat16):
+        m, K = x.shape
+        N = w.shape[1]
+        out = fn(x, w, scale, out_dtype)
+        ref = plain_fn(x, w, scale, out_dtype)
         torch.cuda.synchronize()
         err = (out.float() - ref.float()).abs().max().item()
         peak = ref.float().abs().max().item()
-        check(out.dtype == torch.bfloat16 and math.isfinite(err)
+        p = wo._plan(m, K, N, int4, dev)   # the grid the wrapper launched
+        grid = (f"{'wgmma' if p.kind else 'decode'} kernel, {p.ctas} CTAs "
+                f"x {p.units / p.ctas:.2f} of {p.units} units")
+        check(out.dtype == out_dtype and math.isfinite(err)
               and err <= WO_RTOL * peak,
-              f"{kind} GEMM {name} m={m} K={K} N={N}: max |kernel - plain| "
-              f"= {err:.3e} = {err / peak:.2e} of max |plain| <= {WO_RTOL}")
+              f"{kind} GEMM {label} m={m} K={K} N={N} "
+              f"{str(out_dtype).split('.')[1]} ({grid}): max |kernel - "
+              f"plain| = {err:.3e} = {err / peak:.2e} of max |plain| <= "
+              f"{WO_RTOL}")
         row["max_abs_err"] = max(row["max_abs_err"], err)
-        if (name, m, K, N) not in timed:
-            del w, x, out, ref
-            continue
-        ms = time_ms(torch, lambda: fn(x, w, scale), reps=20, flush=flush)
-        plain = time_ms(torch, lambda: plain_fn(x, w, scale), reps=5,
-                        flush=flush)
-        wb = (unpack_int4_packed(w) if int4 else w).bfloat16()
-        lib = time_ms(torch, lambda: torch.matmul(x, wb), reps=20,
-                      flush=flush)
-        nbytes = rows_w * N + 2 * m * K + 2 * m * N + 4 * N
-        b_ms, b_by = bound(2 * m * K * N, nbytes)
-        pack = time_ms(torch, library_int8pack(torch, x, w, scale, int4),
-                       reps=20, flush=flush)
-        print(f"  {kind} GEMM {name} m={m} K={K} N={N}: {ms:.4f} ms (bound "
-              f"{b_ms:.4f} ms by {b_by}, {b_ms / ms:.1%} of it), plain "
-              f"{plain:.3f} ms, bf16 torch.matmul {lib:.4f} ms, "
-              f"torch._weight_{kind}pack_mm {pack:.4f} ms")
-        if m == 8:
-            row["ms"] += ms
-            row["plain_ms"] += plain
-            row["bound_ms"] += b_ms
-            row["library_ms"] += lib
-            by.add(b_by)
-            decode.append((x, w, scale, wb))
-        del w, x, wb, out, ref
+
+    decode = []     # the four m = 8 products, kept for the host timing
+    for m in (8, 32, 64, 256):
+        for name, K, N in WO_SHAPES:
+            x, w, scale = operands(m, K, N)
+            held(name, x, w, scale)
+            ms = time_ms(torch, lambda: fn(x, w, scale), reps=20, flush=flush)
+            plain = time_ms(torch, lambda: plain_fn(x, w, scale), reps=5,
+                            flush=flush)
+            wb = (wo.unpack_int4_packed(w) if int4 else w).bfloat16()
+            lib = time_ms(torch, lambda: torch.matmul(x, wb), reps=20,
+                          flush=flush)
+            nbytes = w.numel() + 2 * m * K + 2 * m * N + 4 * N
+            b_ms, b_by = bound(2 * m * K * N, nbytes)
+            pack = time_ms(torch, library_int8pack(torch, x, w, scale, int4),
+                           reps=20 if m == 8 else 3, flush=flush)
+            host = host_us_per_call(torch, lambda: fn(x, w, scale))
+            print(f"  {kind} GEMM {name} m={m} K={K} N={N}: {ms:.4f} ms "
+                  f"(bound {b_ms:.4f} ms by {b_by}, {b_ms / ms:.1%} of it), "
+                  f"plain {plain:.3f} ms, bf16 torch.matmul {lib:.4f} ms, "
+                  f"torch._weight_{kind}pack_mm {pack:.4f} ms; wrapper "
+                  f"{host:.1f} us a call on the host")
+            if m == 8:
+                row["ms"] += ms
+                row["plain_ms"] += plain
+                row["bound_ms"] += b_ms
+                row["library_ms"] += lib
+                by.add(b_by)
+                decode.append((x, w, scale, wb))
+            del w, x, wb
+    kmin = 256 if int4 else 128
+    stream_k = wo._plan(8, 14336, 384, int4, dev)
+    check(stream_k.units % stream_k.ctas != 0,
+          f"{kind} edge K=14336 N=384 at m=8 takes stream-K shares that do "
+          f"not divide a tile's {stream_k.steps} steps ({stream_k.units} "
+          f"units over {stream_k.ctas} CTAs)")
+    for m in WO_EDGE_M:
+        held("edge", *operands(m, 14336, 384))
+    for m in (1, 8, 64, 65, 256):
+        x, w, scale = operands(m, kmin, 128)
+        for out_dtype in (torch.bfloat16, torch.float32):
+            held("edge, one column tile", x, w, scale, out_dtype)
+    for m in (8, 256):
+        held("out", *operands(m, 4096, 4096), torch.float32)
+    x, w, scale = operands(8, 14336, 4096)
+    first, second = fn(x, w, scale), fn(x, w, scale)
+    torch.cuda.synchronize()
+    check(torch.equal(first, second),
+          f"{kind} GEMM ffn2 m=8 twice (split tiles summed in a fixed "
+          f"order): bitwise equal")
+    del x, w, scale, first, second
     row["bound_by"] = "bytes" if by == {"bytes"} else "operations"
     print(f"  {kind} GEMMs of one decode layer (4 products, m = 8): "
           f"{row['ms']:.4f} ms, bound {row['bound_ms']:.4f} ms, plain "
@@ -556,6 +603,25 @@ def check_weight_only(torch, gen, flush, int4):
           f"{1e3 * min(wrapper) / 128:.1f} us per wrapper call at best; "
           f"bf16 torch.matmul at the same shapes {fmt_ms(bf16)}")
     return row
+
+
+def print_weight_only_ptxas():
+    """ptxas's line and the SASS's local accesses of each weight-only
+    kernel: the decode kernel per 8-row tiles of x (MT), kind and output
+    type, the wgmma kernel per 64-row blocks a warpgroup (MB) and column
+    tile."""
+    import re
+
+    pattern = re.compile(r"(wo_gemm_kernel|wo_gemm_wgmma_kernel)I((?:Li\d+E)+)"
+                         r"Lb([01])E(13__nv_bfloat16|f)E")
+
+    def label(m):
+        dims = ", ".join(re.findall(r"Li(\d+)E", m.group(2)))
+        kind = "int4" if m.group(3) == "1" else "int8"
+        out = "bf16" if m.group(4) != "f" else "f32"
+        return f"{m.group(1)}<{dims}, {kind}, {out} out>"
+
+    print_ptxas(("int8_matmul",), pattern, label)
 
 
 def host_ms_per_step(torch, calls, layers=32, reps=7):
@@ -1686,11 +1752,14 @@ def phase_slice(torch, seed):
 
 
 def profile_decode(torch, engine, vocab, seed, steps=8,
-                   title="phase 5: where a decode step's time goes"):
+                   title="phase 5: where a decode step's time goes",
+                   launches=None, absent=()):
     """Where a full decode step's time goes: ``steps`` decode iterations
     over ``max_batch`` rows timed on the host clock, then ``steps`` more
     under ``torch.profiler`` for the device time by kernel and the
-    device's idle share."""
+    device's idle share. ``launches`` ({name part: kernels a step, at
+    most}) and ``absent`` (name parts) are checked against the profiled
+    kernels."""
     print(f"== {title}")
     import numpy as np
     from torch.profiler import ProfilerActivity, profile
@@ -1716,17 +1785,33 @@ def profile_decode(torch, engine, vocab, seed, steps=8,
     engine.run_until_complete()
     check(all(len(r.tokens) == 2 * steps + 4 for r in reqs),
           f"profiled batch of {len(reqs)} finished")
-    kernels = {}
+    kernels, calls = {}, {}
     for e in prof.key_averages():
         t = getattr(e, "self_device_time_total", 0.0)
         if t > 0 and e.device_type.name == "CUDA":
             kernels[e.key] = kernels.get(e.key, 0.0) + t / 1e3 / steps
+            calls[e.key] = calls.get(e.key, 0) + e.count
     busy = sum(kernels.values())
     if busy == 0:
         print(f"  decode step, batch {len(reqs)}: {step_ms:.2f} ms on the "
               f"host clock; the profiler recorded no device time (device "
-              f"breakdown not measured)")
+              f"breakdown and kernel counts not measured)")
         return
+
+    def launched(part):
+        return sum(c for k, c in calls.items() if part in k.lower())
+
+    # the profiler may drop activity records, never add any: the exact
+    # launches are the wrappers' counts; the profile shows no more kernels
+    # than products, and most of them
+    for part, per_step in (launches or {}).items():
+        check(0.9 * per_step * steps <= launched(part) <= per_step * steps,
+              f"profiled decode steps: {launched(part)} {part} kernels "
+              f"recorded, at most one a product ({per_step} a step x "
+              f"{steps} steps) and at least 90% of them")
+    for part in absent:
+        check(launched(part) == 0,
+              f"profiled decode steps: no {part} kernel ({launched(part)})")
     groups = {"paged_attention": ("paged_partial", "paged_merge"),
               "weight_only_gemm": ("wo_gemm", "wo_reduce"),
               "matmul": ("gemm", "gemv", "nvjet", "cutlass", "xmma")}
@@ -1913,8 +1998,10 @@ def serve_quantized(torch, model, prompts, quant, kv_dtype, chunked, seed):
           f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB on {smi()}")
     firsts = {i: chunked_first_logits(engine, prompts[i])
               for i in sorted({0, len(prompts) - 1, *chunked})}
+    # one weight-only kernel a product: 4 a layer, no second pass
     profile_decode(torch, engine, cfg.vocab_size, seed,
-                   title=f"phase 5b: where a decode step of {what} goes")
+                   title=f"phase 5b: where a decode step of {what} goes",
+                   launches={"wo_gemm": 4 * L}, absent=("wo_reduce",))
     dequantize_into(torch, model, engine.weights, quant == "int4")
     return reqs, firsts, n
 

@@ -1,6 +1,6 @@
 // Hopper (sm_90a) building blocks in inline PTX, shared by the kernels that
 // feed the tensor cores through TMA and wgmma (grouped_gemm.cu,
-// flash_attention.cu, flash_attention_bwd.cu), and the per-device opt-in to
+// flash_attention.cu, flash_attention_bwd.cu, int8_matmul.cu), and the per-device opt-in to
 // more than 48 KB of dynamic shared memory that every source with a large
 // tile uses.
 //
@@ -13,8 +13,20 @@
 //   completing on an mbarrier with the box's full byte count (elements
 //   outside the tensor are zero-filled and still counted), and tile stores
 //   from shared memory in bulk groups (clipped at the tensor's edges). The
-//   maps are encoded on the host (`encode_tma_bf16`) and passed as
+//   maps are encoded on the host (`encode_tma`, `encode_tma_bf16`) and passed as
 //   `const __grid_constant__ CUtensorMap` kernel parameters.
+// - clusters: a CTA's rank and its cluster's size, the cluster-wide
+//   barrier, loads from another CTA's shared memory (`ld_dsmem`).
+// - a map pointed at another tensor on the device (`tensormap_retarget`):
+//   a copy of a parameter map with its global address replaced
+//   (tensormap.replace), written to device memory with a release of the
+//   tensor-map proxy and acquired before use; how a kernel loads by TMA
+//   from a tensor whose address changes every call without a map encoded
+//   on the host per call.
+// - cp.async into an mbarrier's phase (`cp_async_mbar_arrive`): one
+//   arrival, counted among the barrier's expected ones, once this thread's
+//   earlier cp.async copies have landed; how a producer warp feeds a stage
+//   from a tensor that has no tensor map.
 // - wgmma: the shared-memory matrix descriptor for the 128-byte swizzle
 //   (what CU_TENSOR_MAP_SWIZZLE_128B writes), K-major and MN-major, and
 //   wgmma.mma_async m64nNk16 (N = 32, 64, 128, 192, 256; 32 and 192 are
@@ -22,7 +34,10 @@
 //   f32 accumulators and bf16 operands, both from shared memory, with the
 //   transpose bits, and the RS form (N = 64, 128: A from registers, packed
 //   from an f32 accumulator by `pack_a_rs`); descriptors advanced in place
-//   (`desc_advance`) from an opaque base (`desc_opaque`).
+//   (`desc_advance`) from an opaque base (`desc_opaque`). A K-major operand
+//   may also come in the 64-byte swizzle (`desc_k_major_sw64`: rows of 32
+//   bf16, 8-row atoms of 512 bytes, the chunk c of row r at c ^ (r / 2 %
+//   4), SBO = 512; the k16 step s starts 32 s bytes into the row).
 //   * A swizzle atom is 8 rows of 128 bytes (1024 bytes, which every tile
 //     must be aligned to): the 16-byte chunk c of row r sits at chunk
 //     c ^ (r % 8).
@@ -45,8 +60,11 @@
 //   block, and `PingPong`, two consumer warpgroups taking turns at issuing
 //   wgmma through them.
 // - ex2.approx: 2^x on the special-function unit.
+// - fma.rn.bf16x2 (`fma_bf16x2`): two bf16 products and sums in one
+//   instruction (the weight-only GEMMs' nibble conversion).
 //
-// `encode_tma_bf16` gets cuTensorMapEncodeTiled through the runtime's
+// `encode_tma` (any type, swizzle and L2 promotion; `encode_tma_bf16`: bf16,
+// the 128-byte swizzle) gets cuTensorMapEncodeTiled through the runtime's
 // driver entry point: <cuda.h> and <cudaTypedefs.h> are included for the
 // types only, so nothing links against libcuda.
 
@@ -114,15 +132,76 @@ __device__ __forceinline__ bool mbar_try_wait(uint64_t* bar, uint32_t parity) {
       : "memory");
   return ok != 0;
 }
+// one arrival on `bar` (among its expected count) once every cp.async this
+// thread issued before has completed
+__device__ __forceinline__ void cp_async_mbar_arrive(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(smem_u32(bar))
+               : "memory");
+}
 // until the phase of parity `parity` has completed
 __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
   while (!mbar_try_wait(bar, parity)) {
   }
 }
 
+// ------------------------------------------------------------------ clusters
+// this CTA's rank in its cluster and the cluster's size (0 and 1 for a
+// launch without clusters)
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+__device__ __forceinline__ uint32_t cluster_size() {
+  uint32_t n;
+  asm volatile("mov.u32 %0, %%cluster_nctarank;\n" : "=r"(n));
+  return n;
+}
+// every thread of every CTA of the cluster: what each wrote to its shared
+// memory before is visible to the others after (release / acquire)
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile(
+      "barrier.cluster.arrive.release.aligned;\n"
+      "barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+// the f32 at the same shared-memory offset as `p`, in the CTA of rank
+// `rank` of this cluster (distributed shared memory)
+__device__ __forceinline__ float ld_dsmem(const float* p, uint32_t rank) {
+  uint32_t remote;
+  float v;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(remote)
+               : "r"(smem_u32(p)), "r"(rank));
+  asm volatile("ld.shared::cluster.f32 %0, [%1];\n" : "=f"(v) : "r"(remote) : "memory");
+  return v;
+}
+
 // ----------------------------------------------------------------------- TMA
 __device__ __forceinline__ void tma_prefetch(const CUtensorMap* map) {
   asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(map)) : "memory");
+}
+// Leaves at `dst` (device memory, 64-byte aligned) the map `tmpl` (a kernel
+// parameter) with its global address replaced by `base`, ready for this
+// warp's TMA loads. Every lane of one warp calls it; `tmp` is 128 bytes of
+// shared memory, 128-byte aligned.
+__device__ __forceinline__ void tensormap_retarget(CUtensorMap* dst, CUtensorMap* tmp,
+                                                   const CUtensorMap* tmpl, const void* base,
+                                                   int lane) {
+  reinterpret_cast<uint32_t*>(tmp)[lane] = reinterpret_cast<const uint32_t*>(tmpl)[lane];
+  __syncwarp();
+  if (lane == 0)
+    asm volatile("tensormap.replace.tile.global_address.shared::cta.b1024.b64 [%0], %1;\n" ::"r"(
+                     smem_u32(tmp)),
+                 "l"(reinterpret_cast<uint64_t>(base))
+                 : "memory");
+  __syncwarp();
+  asm volatile(
+      "tensormap.cp_fenceproxy.global.shared::cta.tensormap::generic.release.gpu.sync.aligned"
+      " [%0], [%1], 128;\n" ::"l"(reinterpret_cast<uint64_t>(dst)),
+      "r"(smem_u32(tmp))
+      : "memory");
+  asm volatile("fence.proxy.tensormap::generic.acquire.gpu [%0], 128;\n" ::"l"(
+                   reinterpret_cast<uint64_t>(dst))
+               : "memory");
 }
 // the box at element coordinates (c0 innermost, c1) into `dst`
 __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, uint64_t* bar,
@@ -240,6 +319,12 @@ __device__ __forceinline__ uint64_t desc_sw128(const void* p, uint32_t lbo, uint
          (uint64_t(sbo >> 4) << 32) | (uint64_t(1) << 62);
 }
 __device__ __forceinline__ uint64_t desc_k_major(const void* p) { return desc_sw128(p, 16, 1024); }
+// a K-major operand in the 64-byte swizzle (512-byte aligned tile; `p` 32 s
+// bytes into it for the k16 step s): SBO 512, layout 2 (B64)
+__device__ __forceinline__ uint64_t desc_k_major_sw64(const void* p) {
+  return uint64_t((smem_u32(p) & 0x3FFFF) >> 4) | (uint64_t(1) << 16) | (uint64_t(512 >> 4) << 32) |
+         (uint64_t(2) << 62);
+}
 // `panel`: bytes from one 64-wide panel of M (or N) to the next
 __device__ __forceinline__ uint64_t desc_mn_major(const void* p, uint32_t panel) {
   return desc_sw128(p, panel, 1024);
@@ -538,12 +623,22 @@ __device__ __forceinline__ float ex2_approx(float x) {
   return y;
 }
 
+// a * b + c on two bf16 pairs, rounded to nearest (exact where the result
+// is a bf16, as the nibble conversion's integers are)
+__device__ __forceinline__ uint32_t fma_bf16x2(uint32_t a, uint32_t b, uint32_t c) {
+  uint32_t d;
+  asm("fma.rn.bf16x2 %0, %1, %2, %3;\n" : "=r"(d) : "r"(a), "r"(b), "r"(c));
+  return d;
+}
+
 // ---------------------------------------------------------------------- host
-// A tiled, 128-byte-swizzled map of a bf16 tensor of `rank` dimensions
-// (innermost first: dims, the byte strides of dims 1.., and the box).
-inline cudaError_t encode_tma_bf16(CUtensorMap* map, const void* base, int rank,
-                                   const uint64_t* dims, const uint64_t* strides,
-                                   const uint32_t* box) {
+// A tiled map of a tensor of `rank` dimensions and element type `type`
+// (innermost first: dims, the byte strides of dims 1.., and the box), with
+// L2 promotion `l2` and shared-memory swizzle `swizzle`.
+inline cudaError_t encode_tma(CUtensorMap* map, CUtensorMapDataType type, const void* base,
+                              int rank, const uint64_t* dims, const uint64_t* strides,
+                              const uint32_t* box, CUtensorMapL2promotion l2,
+                              CUtensorMapSwizzle swizzle) {
   static const PFN_cuTensorMapEncodeTiled_v12000 encode = []() {
     void* fn = nullptr;
     cudaDriverEntryPointQueryResult found = cudaDriverEntryPointSymbolNotFound;
@@ -567,11 +662,16 @@ inline cudaError_t encode_tma_bf16(CUtensorMap* map, const void* base, int rank,
     b[i] = box[i];
     if (i + 1 < rank) s[i] = strides[i];
   }
-  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, cuuint32_t(rank),
-                            const_cast<void*>(base), d, s, b, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+  const CUresult r = encode(map, type, cuuint32_t(rank), const_cast<void*>(base), d, s, b, unit,
+                            CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, l2,
                             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+inline cudaError_t encode_tma_bf16(CUtensorMap* map, const void* base, int rank,
+                                   const uint64_t* dims, const uint64_t* strides,
+                                   const uint32_t* box) {
+  return encode_tma(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, base, rank, dims, strides, box,
+                    CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_SWIZZLE_128B);
 }
 
 }  // namespace sm90
