@@ -40,19 +40,24 @@ Phases, each of which fails the run (non-zero exit, no result line):
    forward (y and the chunk states) and backward (du, ddelta, dA, dB, dC)
    at b16 l1024 d1536 n16 and at the chunk-parallel backward's edges
    (lengths 1, 63, 64, 65, 150 and 1001, d = 100 and 200, n = 5, a strong
-   decay, each in f32 and bf16), and the WKV
+   decay, each in f32 and bf16), the WKV
    forward (y) and backward (dr, dk, dv, dlogw, du) at b16 l1024 h12 d64
-   with the model's decay ramp, a strong-decay case (logw = -1e10, w = 0)
-   and d = 128 at a ragged length, and the SSD forward (y, the chunk states) and backward
+   with the model's decay ramp and at the chunk-parallel backward's edges
+   (lengths 1, 15, 16, 17, 63, 64, 65, 150 and 1001, d = 64 and 128, 1, 3
+   and 13 heads, a strong decay, logw = -1e10 (w = 0), and logw >= 0 on
+   three channels, whose dlogw must be exactly 0, each in f32 and bf16),
+   and the SSD forward (y, the chunk states) and backward
    (dx, ddt, dA, dB, dC, dD) at b8 l1024 h24 dh64 ds64 with x, B and C
    strided as the model's and at its edges (lengths 1, 63, 64, 65, 150
    and 1001, 3, 4, 7 and 13 heads, every dh, ds in {64, 128}, a strong
-   decay, a_t = 0, in bf16; every output finite): each output within 1e-4
-   of max |plain| in f32 I/O and 1e-2 in bf16 I/O, all computing in f32,
-   both backwards twice at the path's shape (bitwise equal), their ptxas
-   lines and local-memory accesses, their ms split by kernel
-   (``torch.profiler``) and, for the scan, the special-function unit's
-   floor for its exponentials beside the bound), with its time, its bound (H100
+   decay, a_t = 0, in bf16); every output finite, each within 1e-4 of max
+   |plain| in f32 I/O and 1e-2 in bf16 I/O, all computing in f32, the
+   three backwards and the SSD forward twice at the path's shape (bitwise
+   equal), the chunk-parallel kernels' ptxas lines and local-memory
+   accesses, their ms split by kernel (``torch.profiler``), the host µs a
+   call of the WKV backward and SSD forward wrappers, and, for the scan,
+   the special-function unit's floor for its exponentials beside the
+   bound), with its time, its bound (H100
    SXM: 3.35 TB/s HBM, 989 TFLOP/s bf16 dense; the scan 67 TFLOP/s f32
    non-tensor, its decay is elementwise), the plain version's time
    and a library yardstick (``scaled_dot_product_attention`` forward or
@@ -384,7 +389,7 @@ def phase_kernels(torch, gen, flush):
     torch.cuda.empty_cache()
     rows.update(check_grouped_gemm(torch, gen, flush))
     torch.cuda.empty_cache()
-    print_ssm_bwd_ptxas()
+    print_ssm_ptxas()
     rows.update(check_selective_scan(torch, gen, flush))
     torch.cuda.empty_cache()
     rows.update(check_wkv(torch, gen, flush))
@@ -1097,25 +1102,28 @@ def print_wgmma_ptxas():
           f"(setmaxnreg)")
 
 
-def print_ssm_bwd_ptxas():
-    """ptxas's line and the SASS's local accesses of each kernel of the
-    scan and SSD backwards (per I/O type; the SSD's per head and state
-    width)."""
+def print_ssm_ptxas():
+    """ptxas's line and the SASS's local accesses of each chunk-parallel
+    SSM kernel: the scan backward's three, the SSD forward's and backward's
+    two each and the WKV backward's two (per I/O type; the SSD's per head
+    and state width, the WKV's per head width)."""
     import re
 
     pattern = re.compile(r"(scan_bwd_local_kernel|scan_bwd_pass_kernel|"
-                         r"scan_bwd_kernel|ssd_bwd_carry_kernel|"
-                         r"ssd_bwd_kernel)(I(f|13__nv_bfloat16)"
-                         r"(?:Li(\d+)ELi(\d+)E)?E)?")
+                         r"scan_bwd_kernel|ssd_fwd_carry_kernel|"
+                         r"ssd_fwd_chunk_kernel|ssd_bwd_carry_kernel|"
+                         r"ssd_bwd_kernel|wkv_bwd_carry_kernel|"
+                         r"wkv_bwd_chunk_kernel)(I(f|13__nv_bfloat16)"
+                         r"(?:Li(\d+)E(?:Li(\d+)E)?)?E)?")
 
     def label(m):
         if m.group(2) is None:
             return m.group(1)
         dt = "f32" if m.group(3) == "f" else "bf16"
-        dims = "" if m.group(4) is None else f", {m.group(4)}, {m.group(5)}"
+        dims = "".join(f", {d}" for d in m.group(4, 5) if d is not None)
         return f"{m.group(1)}<{dt}{dims}>"
 
-    print_ptxas(("selective_scan", "ssd"), pattern, label)
+    print_ptxas(("selective_scan", "ssd", "wkv"), pattern, label)
 
 
 def kernel_split(torch, fn, keys, reps=5):
@@ -1404,17 +1412,56 @@ def check_selective_scan(torch, gen, flush):
     return rows
 
 
+WKV_CASES = (                    # b, l, h, d, strong decay, logw >= 0
+    (2, 1, 3, 64, False, False), (2, 15, 1, 64, False, True),
+    (2, 16, 3, 64, True, False), (1, 17, 13, 64, True, True),
+    (2, 63, 3, 64, False, True), (2, 64, 1, 64, True, False),
+    (2, 65, 3, 64, True, True), (2, 150, 13, 64, False, False),
+    (1, 1001, 3, 64, True, True), (2, 1, 1, 128, False, True),
+    (2, 17, 3, 128, True, True), (2, 33, 13, 128, False, False),
+    (1, 150, 3, 128, True, False), (1, 1001, 1, 128, False, True))
+
+
+def wkv_inputs(torch, gen, b, l, h, d, dt, strong, clamp, ramp=None):
+    """r, k, v (0.5 x seeded normals), logw (``ramp``: the model's decay
+    ramp through ``rwkv_log_decay``; else uniform in -5.02 .. -0.02), the
+    bonus 0.5 plus noise and a cotangent dy. ``strong``: logw = -1e10 (w =
+    0) on five channels; ``clamp``: logw = 0, 0.5 and 2 on three channels,
+    whose dlogw must be exactly 0."""
+    from paddle_tpu_torch.ops.fused.rwkv import rwkv_log_decay
+
+    dev = "cuda"
+    r, k, v = (0.5 * torch.randn(b, l, h, d, generator=gen, device=dev)
+               for _ in range(3))
+    if ramp is not None:
+        logw = rwkv_log_decay(ramp.expand(h, d).bfloat16()).float()
+    else:
+        logw = -5 * torch.rand(h, d, generator=gen, device=dev) - 0.02
+    if strong:
+        logw[0, :3] = -1e10
+        logw[-1, -2:] = -1e10
+    if clamp:
+        logw[0, 3:6] = torch.tensor([0.0, 0.5, 2.0], device=dev)
+    u = 0.5 + 0.1 * torch.randn(h, d, generator=gen, device=dev)
+    dy = torch.randn(b, l, h, d, generator=gen, device=dev).to(dt)
+    return (r.to(dt), k.to(dt), v.to(dt), logw.contiguous(), u), dy
+
+
 def check_wkv(torch, gen, flush):
     """The WKV forward and backward kernels against their plain version at
     phase 10's shape (b16 l1024 h12 d64; logw from the model's decay ramp
     through ``rwkv_log_decay``, the bonus 0.5 plus noise), in f32 I/O within
-    SSM_F32_RTOL and in the path's bf16 within SSM_BF16_RTOL, plus a
-    strong-decay case (some logw = -1e10, w = 0) and d = 128 at a ragged
-    length. Timed in bf16; the bound is the JAX audit's 2 b h l (c + 2d) d
-    operations (c = 64, the JAX route's kernel chunk at b >= 16; x 3 for
-    the backward) at 989 TFLOP/s against the bytes."""
+    SSM_F32_RTOL and in the path's bf16 within SSM_BF16_RTOL; and at the
+    chunk-parallel backward's edges (``WKV_CASES``, each in f32 and bf16):
+    one step, a sub-chunk less one, one, one more, a chunk less one, one,
+    one more, lengths off every chunk (150, 1001), d = 64 and 128 (chunks
+    of 64 and 32), 1, 3 and 13 heads, a strong decay (logw = -1e10, w = 0)
+    and logw >= 0 on three channels (dlogw exactly 0 there). Every case
+    checks all outputs for finite values. The backward twice at the path's
+    shape, bitwise equal. Timed in bf16; the bound is the JAX audit's 2 b h
+    l (c + 2d) d operations (c = 64, the JAX route's kernel chunk at b >=
+    16; x 3 for the backward) at 989 TFLOP/s against the bytes."""
     from paddle_tpu_torch.ops.cuda import wkv as wk
-    from paddle_tpu_torch.ops.fused.rwkv import rwkv_log_decay
 
     dev = "cuda"
     names = ("dr", "dk", "dv", "dlogw", "du")
@@ -1422,29 +1469,25 @@ def check_wkv(torch, gen, flush):
     ramp = torch.tensor([-6.0 + 5.0 * (i / (hd - 1)) ** 0.7
                          for i in range(hd)], device=dev)
     rows, errs = {}, [0.0, 0.0]
-    for b, l, h, d, dt, strong in (
-            (2, 37, 2, 128, torch.float32, True),
-            (SSM_B, SSM_L, 12, hd, torch.float32, False),
-            (SSM_B, SSM_L, 12, hd, torch.bfloat16, True),
-            (SSM_B, SSM_L, 12, hd, torch.bfloat16, False)):
+    types = (torch.float32, torch.bfloat16)
+    cases = [(*c, dt, False) for c in WKV_CASES for dt in types]
+    cases += [(SSM_B, SSM_L, 12, hd, False, False, dt, True) for dt in types]
+    for b, l, h, d, strong, clamp, dt, path in cases:
         tol = SSM_F32_RTOL if dt == torch.float32 else SSM_BF16_RTOL
         what = (f"wkv b{b} l{l} h{h} d{d} {str(dt)[6:]}"
-                + (" strong decay" if strong else ""))
-        r, k, v = (0.5 * torch.randn(b, l, h, d, generator=gen, device=dev)
-                   for _ in range(3))
-        if d == hd:
-            logw = rwkv_log_decay(ramp.expand(h, d).bfloat16()).float()
-        else:
-            logw = -5 * torch.rand(h, d, generator=gen, device=dev) - 0.02
-        if strong:
-            logw[0, :3] = -1e10
-            logw[-1, -2:] = -1e10
-        u = 0.5 + 0.1 * torch.randn(h, d, generator=gen, device=dev)
-        dy = torch.randn(b, l, h, d, generator=gen, device=dev).to(dt)
-        ins = (r.to(dt), k.to(dt), v.to(dt), logw.contiguous(), u)
+                + (" strong decay" if strong else "")
+                + (" logw >= 0" if clamp else ""))
+        ins, dy = wkv_inputs(torch, gen, b, l, h, d, dt, strong, clamp,
+                             ramp if path else None)
         y = wk.wkv_fwd(*ins)
         grads = wk.wkv_bwd(*ins, dy)
         torch.cuda.synchronize()
+        check(all(bool(torch.isfinite(t.float()).all())
+                  for t in (y, *grads)),
+              f"{what}: y and every gradient finite")
+        if clamp:
+            check(bool((grads[3][0, 3:6] == 0).all()),
+                  f"{what}: dlogw exactly 0 where logw >= 0")
         y_ref, g_ref = plain_vjp(torch, wk.wkv_reference, ins, dy)
         errs[0] = max(errs[0], check_pair(what, (y,),
                                           (y_ref.to(dt),), ("y",), tol))
@@ -1452,9 +1495,18 @@ def check_wkv(torch, gen, flush):
             what, grads, [g.to(t.dtype) for g, t in zip(g_ref, ins)],
             names, tol))
         del y, grads, y_ref, g_ref
+    # timing at the path's shape and dtype (the last case)
     torch.cuda.empty_cache()
+    grads = wk.wkv_bwd(*ins, dy)
+    again = wk.wkv_bwd(*ins, dy)
+    torch.cuda.synchronize()
+    check(all(torch.equal(a, r) for a, r in zip(again, grads)),
+          f"wkv backward b{b} l{l} h{h} d{d} run twice: bitwise equal")
+    del grads, again
     ms = time_ms(torch, lambda: wk.wkv_fwd(*ins), flush=flush)
     bwd_ms = time_ms(torch, lambda: wk.wkv_bwd(*ins, dy), flush=flush)
+    split = kernel_split(torch, lambda: wk.wkv_bwd(*ins, dy), ("wkv_bwd_",))
+    host = host_us_per_call(torch, lambda: wk.wkv_bwd(*ins, dy))
     xs = [t.float() for t in ins]
     with torch.no_grad():
         plain = time_ms(torch, lambda: wk.wkv_reference(*xs), reps=3)
@@ -1473,6 +1525,8 @@ def check_wkv(torch, gen, flush):
               f"{plain_t:.3f} ms, library: none")
         rows[key] = dict(ms=t, plain_ms=plain_t, bound_ms=b_ms,
                          bound_by=b_by, library_ms=None)
+    print(f"  wkv_bwd by kernel (ms a call): {split}; wrapper {host:.1f} us "
+          f"a call on the host")
     print(f"  (plain fwd + bwd {plain_both:.3f} ms; the backward's plain ms "
           f"is that minus the forward's)")
     rows["wkv"]["max_abs_err"] = errs[0]
@@ -1533,16 +1587,17 @@ def check_ssd(torch, gen, flush):
     dC, dD) kernels against their plain version ``ssd_chunked_reference``
     at phase 11's shape (b8 l1024 h24 dh64 ds64, x, B and C strided as the
     model's), in f32 I/O within SSM_F32_RTOL and in the path's bf16 within
-    SSM_BF16_RTOL; and at the backward's edges (``SSD_CASES``): one step, a
-    chunk less one, one, one more, lengths off every chunk (150, 1001), head
-    counts off the backward's groups of 12, every (dh, ds) in {64, 128}^2
+    SSM_BF16_RTOL; and at the chunk-parallel kernels' edges (``SSD_CASES``):
+    one step, a chunk less one, one, one more, lengths off every chunk (150,
+    1001), head counts off the groups of 12, every (dh, ds) in {64, 128}^2
     (chunk 32 but at 64 x 64), a strong decay (a_t = 0 exactly, bf16).
-    Every case checks all outputs for finite values. The backward twice at
-    the path's shape, bitwise equal. Timed in bf16; the bound counts the
-    bytes each input and output moves once, with the f32 chunk states at
-    the reference route's chunk c = 128 whatever the kernel's own, against
-    the JAX audit's 2 b h l (c + 2 ds) dh operations (x 3 for the backward)
-    at 989 TFLOP/s."""
+    Every case checks all outputs for finite values. The forward and the
+    backward twice at the path's shape, bitwise equal. Timed in bf16, each
+    split by kernel, with the wrapper's host µs of the forward; the bound
+    counts the bytes each input and output moves once, with the f32 chunk
+    states at the reference route's chunk c = 128 whatever the kernel's own,
+    against the JAX audit's 2 b h l (c + 2 ds) dh operations (x 3 for the
+    backward) at 989 TFLOP/s."""
     from paddle_tpu_torch.ops.cuda import ssd
 
     names = ("dx", "ddt", "dA", "dB", "dC", "dD")
@@ -1578,8 +1633,15 @@ def check_ssd(torch, gen, flush):
         del y, states, grads, y_ref, s_ref, g_ref
     # timing at the path's shape and dtype (the last case)
     torch.cuda.empty_cache()
+    y, states = ssd.ssd_fwd(*ins)
+    y2, states2 = ssd.ssd_fwd(*ins)
+    torch.cuda.synchronize()
+    check(torch.equal(y, y2) and torch.equal(states, states2),
+          f"ssd forward b{b} l{l} h{h} run twice: y and states bitwise equal")
+    del y, y2, states2
     ms = time_ms(torch, lambda: ssd.ssd_fwd(*ins), flush=flush)
-    _, states = ssd.ssd_fwd(*ins)
+    fwd_split = kernel_split(torch, lambda: ssd.ssd_fwd(*ins), ("ssd_fwd_",))
+    host = host_us_per_call(torch, lambda: ssd.ssd_fwd(*ins))
     grads = ssd.ssd_bwd(*ins, states, dy)
     again = ssd.ssd_bwd(*ins, states, dy)
     torch.cuda.synchronize()
@@ -1617,6 +1679,8 @@ def check_ssd(torch, gen, flush):
               f"{b_ms / t:.1%} of it), plain {plain_t:.3f} ms, library: none")
         rows[key] = dict(ms=t, plain_ms=plain_t, bound_ms=b_ms,
                          bound_by=b_by, library_ms=None)
+    print(f"  ssd by kernel (ms a call): {fwd_split}; wrapper {host:.1f} us "
+          f"a call on the host")
     print(f"  ssd_bwd by kernel (ms a call): {split}")
     print(f"  (plain fwd + bwd {plain_both:.3f} ms; the backward's plain ms "
           f"is that minus the forward's)")
@@ -2443,12 +2507,12 @@ def phase_moe_train(torch, seed):
 SSM_GROUPS = {
     "selective scan fwd": ("scan_fwd_kernel",),
     "selective scan bwd": ("scan_bwd_",),
-    "wkv fwd": ("wkv_fwd_kernel",), "wkv bwd": ("wkv_bwd_kernel",),
+    "wkv fwd": ("wkv_fwd_kernel",), "wkv bwd": ("wkv_bwd_",),
     **TRAIN_GROUPS}
 # the conv group first: cuDNN's implicit-GEMM convolutions are xmma kernels;
 # "copies": PyTorch's same-dtype copies (layout changes and .contiguous())
 MAMBA2_GROUPS = {
-    "SSD fwd": ("ssd_fwd_kernel",), "SSD bwd": ("ssd_bwd_",),
+    "SSD fwd": ("ssd_fwd_",), "SSD bwd": ("ssd_bwd_",),
     "conv": ("conv", "fprop", "dgrad", "wgrad"),
     "cuBLAS": TRAIN_GROUPS["matmul"], "copies": ("direct_copy",)}
 

@@ -1,10 +1,11 @@
 // mma.sync building blocks shared by the kernels that feed the tensor cores
 // from ldmatrix fragments (the int8 / int4 weight-only GEMMs in
 // int8_matmul.cu, the fused gate + up + swiglu in grouped_gemm.cu and the
-// SSD backward in ssd.cu): cp.async copies, ldmatrix loads (x4 and x2, plain
-// and transposed), the bf16 mma.sync m16n8k16 product with f32
-// accumulation, and the TF32 m16n8k8 product with its rounding (the SSD's
-// f32 instantiation splits each f32 operand into two TF32 values). Tiles in shared memory are row-major with padded
+// chunk-parallel SSM kernels through ssm_common.cuh): cp.async copies,
+// ldmatrix loads (x4 and x2, plain and transposed), the bf16 mma.sync
+// m16n8k16 product with f32 accumulation, and the TF32 m16n8k8 product with
+// its rounding (the SSM kernels' f32 instantiations split each f32 operand
+// into two TF32 values). Tiles in shared memory are row-major with padded
 // rows (16 bytes of padding keep the eight 16-byte rows an ldmatrix reads
 // on distinct banks).
 //

@@ -21,25 +21,26 @@
 // 64, bf16) the forward moves ~103 MB (x, y, the 50 MB of chunk states, dt,
 // B, C) and does ~4.8 GFLOP of products, the backward ~131 MB and ~14.5
 // GFLOP: by the card's peaks (3.35 TB/s, 989 TFLOP/s bf16) both are bound
-// by bytes. The forward does its products as f32 FMAs on the CUDA cores
-// (67 TFLOP/s), so the operations bound it here; the backward runs them on
-// the tensor cores (mma.sync), and what it moves and waits for bounds it.
+// by bytes. Both directions run every chunk product on the tensor cores
+// (mma.sync, ssm_common.cuh) and are chunk-parallel: the state (forward) or
+// its gradient (backward) crosses a chunk as an affine map, so one short
+// sequential kernel carries it over the chunks of each (h, b), one [P x
+// CH] x [CH x N] product a chunk, and a second kernel runs every (chunk,
+// group of heads, b) in parallel from the carried values. The carries pass
+// through 50 MB of f32 at the Mamba-2 path: the forward's own residual,
+// the backward's scratch. What holds them back is the carry's chain and
+// memory, not the products.
 //
-// Forward (simple first): one block of 256 threads per (b, h) walks its
-// chunks in order, so no state crosses blocks. A chunk's x, B and C are
-// staged in shared memory as f32, rows padded to an odd length so that
-// every product below reads without bank conflicts; the block runs each
-// product as a 16 x 16 grid of threads, each owning a (rows / 16) x (cols /
-// 16) register tile, rows ty + 16 r and columns tx + 16 q. The chunk is 64
-// steps at P = N = 64 (83 KB of shared memory) and 32 at the wider states.
-// It writes the state entering each chunk, [b, nc, h, P, N] f32 (the Pallas
-// residual), keeps its own tile of S in registers and the whole S in
-// shared memory for the read-out C S^T.
+// Forward: ssd_fwd_carry_kernel writes the state entering every chunk,
+// [b, nc, h, P, N] f32 (the Pallas residual), and prefetches the next
+// chunk's x, B and dt while the product runs. ssd_fwd_chunk_kernel takes
+// C B^T once per chunk (B and C have no head axis) and keeps it in
+// registers for the group's FWD_HEADS heads; per head it builds W =
+// (C B^T) o L o dt_i, then y = decay o (C S^T) + W x + D x from the saved
+// state. The chunk is 64 steps at P = N = 64, 32 at the wider states.
 // The backward (described above its kernels) follows `_bwd_kernel`'s chain
 // (:138-185), every decay gradient through the transpose of the cumsum, a
-// reverse suffix sum over the chunk; it carries dS across the chunks in
-// one short sequential kernel, then runs every (chunk, head group) in
-// parallel.
+// reverse suffix sum over the chunk.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -49,69 +50,22 @@
 
 #include "flash_common.cuh"
 #include "hopper.cuh"
+#include "ssm_common.cuh"
 
 namespace {
 
 using bf16 = __nv_bfloat16;
+using namespace ptt::ssm;
 
 constexpr int THREADS = 256;
 constexpr int WARPS = THREADS / 32;
-constexpr int TG = 16;                 // a product's threads: a TG x TG grid
-constexpr unsigned FULL = 0xffffffffu;
-
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(bf16 x) { return __bfloat162float(x); }
-template <typename T> __device__ __forceinline__ T from_f(float x);
-template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <> __device__ __forceinline__ bf16 from_f<bf16>(float x) { return __float2bfloat16(x); }
+constexpr int HEADS = 12;              // heads per block of the chunk backward
+constexpr int FWD_HEADS = 12;          // heads per block of the chunk forward
 
 template <int P, int N>
 struct Chunk {
   static constexpr int CH = (P == 64 && N == 64) ? 64 : 32;
 };
-
-// acc[r][q] += sum_k X(m, k) Y(k, n) (times ks[k] when given), m = ty + TG r,
-// n = tx + TG q. X is stored [m][k] (XT: [k][m]) with row length ldx, Y
-// [k][n] (YT: [n][k]) with row length ldy. With odd row lengths, the X reads
-// of a warp (two m) and the Y reads (16 consecutive n) hit distinct banks.
-template <int RM, int RN, int K, bool XT, bool YT>
-__device__ __forceinline__ void tile_mm(float (&acc)[RM][RN], const float* __restrict__ X, int ldx,
-                                        const float* __restrict__ Y, int ldy, int ty, int tx,
-                                        const float* __restrict__ ks = nullptr) {
-#pragma unroll 4
-  for (int k = 0; k < K; ++k) {
-    float xv[RM], yv[RN];
-    const float s = ks ? ks[k] : 1.f;
-#pragma unroll
-    for (int r = 0; r < RM; ++r) {
-      const int m = ty + TG * r;
-      xv[r] = (XT ? X[k * ldx + m] : X[m * ldx + k]) * s;
-    }
-#pragma unroll
-    for (int q = 0; q < RN; ++q) {
-      const int n = tx + TG * q;
-      yv[q] = YT ? Y[n * ldy + k] : Y[k * ldy + n];
-    }
-#pragma unroll
-    for (int r = 0; r < RM; ++r)
-#pragma unroll
-      for (int q = 0; q < RN; ++q) acc[r][q] = fmaf(xv[r], yv[q], acc[r][q]);
-  }
-}
-
-template <int RM, int RN>
-__device__ __forceinline__ void zero(float (&acc)[RM][RN]) {
-#pragma unroll
-  for (int r = 0; r < RM; ++r)
-#pragma unroll
-    for (int q = 0; q < RN; ++q) acc[r][q] = 0.f;
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(FULL, v, o);
-  return v;
-}
 
 // Inclusive scan over CH values by one warp (lane l holds CH / 32
 // consecutive ones): out[i] = sum_{k <= i} scale * in[k]; REV scans from the
@@ -141,122 +95,209 @@ __device__ __forceinline__ void warp_scan(const float* in, float scale, float* o
   }
 }
 
-// rows [t0, t0 + CH) of one head's [W] values (token stride `stride`, the
-// head's first column `col0`) into dst[CH][W + 1] as f32, zero past `len`
-// (the loads of a thread are all in flight together)
-template <int CH, int W, typename T>
-__device__ __forceinline__ void stage(float* dst, const T* __restrict__ src, size_t row0,
-                                      long stride, int col0, int len) {
-  constexpr int IT = CH * W / THREADS;
-  float v[IT];
+// ------------------------------------------------------------------- carries
+// The carry over the chunks of one (h, b), one [P x CH] x [CH x N] product a
+// chunk. FWD walks the chunks forward: S <- exp(cum_last) S + (tail o dt o
+// x)^T B, tail = exp(cum_last - cum), writing the state entering each chunk.
+// The backward walks them in reverse: dS <- exp(cum_last) dS + (decay o
+// dy)^T C, decay = exp(cum), writing the dS_out each chunk starts from.
+// `src` is x or dy (P columns of head h), `mat` B or C.
+template <typename T, int P, int N>
+struct CarrySmem {
+  static constexpr int CH = Chunk<P, N>::CH, PD = Pad<T>::V;
+  T src[CH][P + PD];                   // scale o src
+  T mat[CH][N + PD];
+  float dt[CH], cum[CH], scale[CH];
+};
+
+template <bool FWD, typename T, int P, int N>
+__device__ __forceinline__ void carry_chain(const T* __restrict__ dt,
+                                            const float* __restrict__ A,
+                                            const T* __restrict__ mat, const T* __restrict__ src,
+                                            float* __restrict__ out, int L, int H, long sdt,
+                                            long smat, long ssrc) {
+  using S = CarrySmem<T, P, N>;
+  constexpr int CH = S::CH, PD = S::PD;
+  constexpr int MT = P / 64, NT = N / 16;   // a warp: P / 4 rows, N / 2 columns
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  S& s = *reinterpret_cast<S*>(smem_raw);
+  const int hi = blockIdx.x, bi = blockIdx.y, tid = threadIdx.x;
+  const int lane = tid % 32, warp = tid / 32, g = lane / 4, c2 = 2 * (lane % 4);
+  const int m0 = (warp % 4) * (P / 4), n0 = (warp / 4) * (N / 2);
+  const int nc = (L + CH - 1) / CH;
+  const float a = A[hi];
+  float acc[MT][NT][4];
 #pragma unroll
-  for (int it = 0; it < IT; ++it) {
-    const int i = it * THREADS + threadIdx.x, t = i / W, p = i % W;
-    v[it] = t < len ? to_f(src[(row0 + t) * stride + col0 + p]) : 0.f;
-  }
+  for (int mt = 0; mt < MT; ++mt) zero(acc[mt]);
+  // the next chunk's dt, src and mat, loaded while this one is computed
+  uint4 vs[RowVecs<CH, P, T>::IT], vm[RowVecs<CH, N, T>::IT];
+  float vdt;
+  auto fetch = [&](int c) {
+    const int t0 = c * CH, len = min(CH, L - t0);
+    const size_t row0 = size_t(bi) * L + t0;
+    vdt = tid < len ? to_f(dt[(row0 + tid) * sdt + hi]) : 0.f;
+    load_rows<CH, P>(vs, src, row0, ssrc, long(hi) * P, len);
+    load_rows<CH, N>(vm, mat, row0, smat, 0, len);
+  };
+  fetch(FWD ? 0 : nc - 1);
+  for (int step = 0; step < nc; ++step) {
+    const int c = FWD ? step : nc - 1 - step;
+    // the carry this chunk starts from
+    float* dst = out + ((size_t(bi) * nc + c) * H + hi) * P * N;
 #pragma unroll
-  for (int it = 0; it < IT; ++it) {
-    const int i = it * THREADS + threadIdx.x;
-    dst[(i / W) * (W + 1) + i % W] = v[it];
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; e += 2) {
+          const int p = m0 + 16 * mt + g + 4 * e, n = n0 + 8 * nt + c2;
+          *reinterpret_cast<float2*>(dst + p * N + n) =
+              make_float2(acc[mt][nt][e], acc[mt][nt][e + 1]);
+        }
+    __syncthreads();                   // the previous chunk is done with the tiles
+    if (tid < CH) s.dt[tid] = vdt;
+    store_rows<CH, P>(&s.src[0][0], P + PD, vs);
+    store_rows<CH, N>(&s.mat[0][0], N + PD, vm);
+    if (step + 1 < nc) fetch(FWD ? c + 1 : c - 1);
+    __syncthreads();
+    if (warp == 0) {
+      warp_scan<CH, false>(s.dt, a, s.cum, lane);
+      __syncwarp();
+      const float last = s.cum[CH - 1];
+      for (int i = lane; i < CH; i += 32)
+        s.scale[i] = FWD ? expf(last - s.cum[i]) * s.dt[i] : expf(s.cum[i]);
+    }
+    __syncthreads();
+    for (int i = tid; i < CH * P; i += THREADS) {
+      const int t = i / P;
+      s.src[t][i % P] = from_f<T>(s.scale[t] * to_f(s.src[t][i % P]));
+    }
+    __syncthreads();
+    const float wce = expf(s.cum[CH - 1]);
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) {
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[mt][nt][e] *= wce;
+      mma_tile<CH, NT, true, true>(acc[mt], &s.src[0][0], P + PD, &s.mat[0][0], N + PD,
+                                   m0 + 16 * mt, n0, lane);
+    }
   }
 }
 
-template <int P, int N>
+// the states entering every chunk, [b, nc, h, P, N] f32
+template <typename T, int P, int N>
+__global__ void __launch_bounds__(THREADS, 2)
+ssd_fwd_carry_kernel(const T* __restrict__ x, const T* __restrict__ dt,
+                     const float* __restrict__ A, const T* __restrict__ Bm,
+                     float* __restrict__ states, int L, int H, long sx, long sdt, long sb) {
+  carry_chain<true, T, P, N>(dt, A, Bm, x, states, L, H, sdt, sb, sx);
+}
+
+// ------------------------------------------------------------------ forward
+// One block per (chunk, group of FWD_HEADS heads, b). C B^T is taken once
+// and kept in registers in the warps' layout; per head the block stages x,
+// dt and the saved state, scans dt into cum, writes W = (C B^T) o L o dt_i
+// to shared memory and runs y = decay o (C S^T) + W x on mma.sync, then adds
+// D x in f32 and rounds once.
+template <typename T, int P, int N>
 struct FwdSmem {
-  static constexpr int CH = Chunk<P, N>::CH;
-  float x[CH][P + 1], B[CH][N + 1], C[CH][N + 1];
-  float W[CH][CH + 1];                 // (C B^T) o L o dt_i
-  float S[P][N + 1];                   // the state entering the chunk
-  float dt[CH], cum[CH], decay[CH], g[CH];
+  static constexpr int CH = Chunk<P, N>::CH, PD = Pad<T>::V;
+  T x[CH][P + PD], B[CH][N + PD], C[CH][N + PD];
+  T S[P][N + PD];                      // the state entering the chunk
+  T W[CH][CH + PD];
+  float dt[CH], cum[CH], decay[CH];
 };
 
 template <typename T, int P, int N>
-__global__ void __launch_bounds__(THREADS)
-ssd_fwd_kernel(const T* __restrict__ x, const T* __restrict__ dt, const float* __restrict__ A,
-               const T* __restrict__ Bm, const T* __restrict__ Cm, const float* __restrict__ Dv,
-               T* __restrict__ y, float* __restrict__ states, int L, int H, long sx, long sdt,
-               long sb, long sc) {
-  constexpr int CH = Chunk<P, N>::CH;
-  constexpr int RC = CH / TG, RP = P / TG, RN = N / TG;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  FwdSmem<P, N>& s = *reinterpret_cast<FwdSmem<P, N>*>(smem_raw);
-  const int hi = blockIdx.x, bi = blockIdx.y, tid = threadIdx.x;
-  const int tx = tid % TG, ty = tid / TG, lane = tid % 32, warp = tid / 32;
-  const int nc = (L + CH - 1) / CH;
-  const float a = A[hi], dskip = Dv[hi];
-  float sr[RP][RN];                    // this thread's tile of S
-  zero(sr);
-  for (int i = tid; i < P * (N + 1); i += THREADS) (&s.S[0][0])[i] = 0.f;
-  for (int c = 0; c < nc; ++c) {
-    const int t0 = c * CH, len = min(CH, L - t0);
-    const size_t row0 = size_t(bi) * L + t0;
-    float* st = states + ((size_t(bi) * nc + c) * H + hi) * P * N;
+__global__ void __launch_bounds__(THREADS, 2)
+ssd_fwd_chunk_kernel(const T* __restrict__ x, const T* __restrict__ dt,
+                     const float* __restrict__ A, const T* __restrict__ Bm,
+                     const T* __restrict__ Cm, const float* __restrict__ Dv,
+                     const float* __restrict__ states, T* __restrict__ y, int L, int H, long sx,
+                     long sdt, long sb, long sc) {
+  using S = FwdSmem<T, P, N>;
+  constexpr int CH = S::CH, PD = S::PD;
+  constexpr int WM = Warps<CH>::WM, WN = Warps<CH>::WN;
+  constexpr int NTP = P / (8 * WN), NTC = CH / (8 * WN);
+  constexpr int LP = P + PD, LN = N + PD, LC = CH + PD;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  S& s = *reinterpret_cast<S*>(smem_raw);
+  const int c = blockIdx.x, grp = blockIdx.y, bi = blockIdx.z, tid = threadIdx.x;
+  const int lane = tid % 32, warp = tid / 32, g = lane / 4, c2 = 2 * (lane % 4);
+  const int wm = warp % WM, wn = warp / WM, m0 = 16 * wm;
+  const int nc = (L + CH - 1) / CH, t0 = c * CH, len = min(CH, L - t0);
+  const size_t row0 = size_t(bi) * L + t0;
+  {
+    uint4 vb[RowVecs<CH, N, T>::IT], vc[RowVecs<CH, N, T>::IT];
+    load_rows<CH, N>(vb, Bm, row0, sb, 0, len);
+    load_rows<CH, N>(vc, Cm, row0, sc, 0, len);
+    store_rows<CH, N>(&s.B[0][0], LN, vb);
+    store_rows<CH, N>(&s.C[0][0], LN, vc);
+  }
+  __syncthreads();
+  const int nw = wn * (CH / WN), np = wn * (P / WN);
+  float cb[NTC][4];                    // C B^T, shared by the group's heads
+  zero(cb);
+  mma_tile<N, NTC, false, false>(cb, &s.C[0][0], LN, &s.B[0][0], LN, m0, nw, lane);
+  const int h_end = min(H, (grp + 1) * FWD_HEADS);
+  for (int hi = grp * FWD_HEADS; hi < h_end; ++hi) {
+    const float a = A[hi], dskip = Dv[hi];
+    const float* st = states + ((size_t(bi) * nc + c) * H + hi) * P * N;
+    constexpr int IS = P * N / 4 / THREADS, RS = 4;
+    uint4 vx[RowVecs<CH, P, T>::IT];
+    load_rows<CH, P>(vx, x, row0, sx, long(hi) * P, len);
+    const float vdt = tid < len ? to_f(dt[(row0 + tid) * sdt + hi]) : 0.f;
+    __syncthreads();                   // the previous head is done with the tiles
 #pragma unroll
-    for (int r = 0; r < RP; ++r)
+    for (int r0 = 0; r0 < IS; r0 += RS) {
+      float4 v4[RS];
 #pragma unroll
-      for (int q = 0; q < RN; ++q) st[(ty + TG * r) * N + tx + TG * q] = sr[r][q];
-    __syncthreads();                   // the previous chunk is done with the tiles
-    stage<CH, P>(&s.x[0][0], x, row0, sx, hi * P, len);
-    stage<CH, N>(&s.B[0][0], Bm, row0, sb, 0, len);
-    stage<CH, N>(&s.C[0][0], Cm, row0, sc, 0, len);
-    if (tid < CH) s.dt[tid] = tid < len ? to_f(dt[(row0 + tid) * sdt + hi]) : 0.f;
-    __syncthreads();
-    if (warp == 0) warp_scan<CH, false>(s.dt, a, s.cum, lane);
-    __syncthreads();
-    const float last = s.cum[CH - 1];
-    if (tid < CH) {
-      s.decay[tid] = expf(s.cum[tid]);
-      s.g[tid] = expf(last - s.cum[tid]) * s.dt[tid];
-    }
-    {
-      float cb[RC][RC];
-      zero(cb);
-      tile_mm<RC, RC, N, false, true>(cb, &s.C[0][0], N + 1, &s.B[0][0], N + 1, ty, tx);
+      for (int j = 0; j < RS; ++j) v4[j] = reinterpret_cast<const float4*>(st)[(r0 + j) * THREADS + tid];
 #pragma unroll
-      for (int r = 0; r < RC; ++r)
-#pragma unroll
-        for (int q = 0; q < RC; ++q) {
-          const int j = ty + TG * r, i = tx + TG * q;
-          s.W[j][i] = i <= j ? cb[r][q] * expf(s.cum[j] - s.cum[i]) * s.dt[i] : 0.f;
-        }
-    }
-    __syncthreads();
-    {
-      float acc[RC][RP];
-      zero(acc);
-      tile_mm<RC, RP, N, false, true>(acc, &s.C[0][0], N + 1, &s.S[0][0], N + 1, ty, tx);
-#pragma unroll
-      for (int r = 0; r < RC; ++r) {
-        const float d = s.decay[ty + TG * r];
-#pragma unroll
-        for (int q = 0; q < RP; ++q) acc[r][q] *= d;
-      }
-      tile_mm<RC, RP, CH, false, false>(acc, &s.W[0][0], CH + 1, &s.x[0][0], P + 1, ty, tx);
-#pragma unroll
-      for (int r = 0; r < RC; ++r) {
-        const int j = ty + TG * r;
-        if (j >= len) continue;
-        T* out = y + ((row0 + j) * H + hi) * P;
-#pragma unroll
-        for (int q = 0; q < RP; ++q) {
-          const int p = tx + TG * q;
-          out[p] = from_f<T>(acc[r][q] + dskip * s.x[j][p]);
-        }
+      for (int j = 0; j < RS; ++j) {
+        const int i = 4 * ((r0 + j) * THREADS + tid);
+        store4(&s.S[i / N][i % N], v4[j]);
       }
     }
-    {
-      const float wce = expf(last);
-#pragma unroll
-      for (int r = 0; r < RP; ++r)
-#pragma unroll
-        for (int q = 0; q < RN; ++q) sr[r][q] *= wce;
-      tile_mm<RP, RN, CH, true, false>(sr, &s.x[0][0], P + 1, &s.B[0][0], N + 1, ty, tx, s.g);
+    store_rows<CH, P>(&s.x[0][0], LP, vx);
+    if (tid < CH) s.dt[tid] = vdt;
+    __syncthreads();
+    if (warp == 0) {
+      warp_scan<CH, false>(s.dt, a, s.cum, lane);
+      __syncwarp();
+      for (int i = lane; i < CH; i += 32) s.decay[i] = expf(s.cum[i]);
     }
-    __syncthreads();                   // every read of the old S is done
+    __syncthreads();
 #pragma unroll
-    for (int r = 0; r < RP; ++r)
+    for (int nt = 0; nt < NTC; ++nt)
 #pragma unroll
-      for (int q = 0; q < RN; ++q) s.S[ty + TG * r][tx + TG * q] = sr[r][q];
+      for (int e = 0; e < 4; ++e) {
+        const int j = m0 + g + 8 * (e / 2), i = nw + 8 * nt + c2 + e % 2;
+        s.W[j][i] = from_f<T>(i <= j ? cb[nt][e] * expf(s.cum[j] - s.cum[i]) * s.dt[i] : 0.f);
+      }
+    __syncthreads();
+    float acc[NTP][4];
+    zero(acc);
+    mma_tile<N, NTP, false, false>(acc, &s.C[0][0], LN, &s.S[0][0], LN, m0, np, lane);
+#pragma unroll
+    for (int nt = 0; nt < NTP; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[nt][e] *= s.decay[m0 + g + 8 * (e / 2)];
+    mma_tile<CH, NTP, false, true>(acc, &s.W[0][0], LC, &s.x[0][0], LP, m0, np, lane);
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int j = m0 + g + 8 * r;
+      if (j >= len) continue;
+      T* out = y + ((row0 + j) * H + hi) * P + np + c2;
+#pragma unroll
+      for (int nt = 0; nt < NTP; ++nt) {
+        const int p = np + 8 * nt + c2;
+        store_pair(out + 8 * nt, acc[nt][2 * r] + dskip * to_f(s.x[j][p]),
+                   acc[nt][2 * r + 1] + dskip * to_f(s.x[j][p + 1]));
+      }
+    }
   }
 }
 
@@ -273,227 +314,20 @@ ssd_fwd_kernel(const T* __restrict__ x, const T* __restrict__ dt, const float* _
 //      group's heads in registers and written as [ceil(h / HEADS), b, l, N]
 //      f32 partials; dA and dD as [b nc, h] partials. The caller sums them
 //      in a fixed order: no atomics, the same result on every run.
-// Every chunk product runs on the tensor cores (mma.sync) from tiles in
-// shared memory that hold the I/O type: bf16 tiles through ldmatrix, one
-// m16n8k16 product per step; f32 tiles as split TF32, hi hi + hi lo + lo
-// hi in m16n8k8 products (~2^-21 of each product, where one TF32 product
-// keeps ~2^-11). x, dy, B and C are exact in either; the f32 intermediates
-// that feed a product (the state, dS, W = C B^T o L, dCB, decay o dy) round
-// to bf16 in the bf16 instantiation, each output once more to bf16.
+// x, dy, B and C are exact in either I/O type; the f32 intermediates that
+// feed a product (the state, dS, W = C B^T o L, dCB, decay o dy) round to
+// bf16 in the bf16 instantiation, each output once more to bf16.
 // What holds it back is memory, not the products: per head and chunk it
 // loads x, dy (8 KB each in bf16) and the f32 state and dS (16 KB each), and
 // the carries pass through 50 MB of scratch at the Mamba-2 path. Both
 // kernels hold at most 128 registers so that two blocks share an SM.
 
-using ptt::ldmatrix_x2;
-using ptt::ldmatrix_x2_trans;
-using ptt::ldmatrix_x4;
-using ptt::ldmatrix_x4_trans;
-using ptt::mma16816;
-using ptt::mma1688_tf32;
-using ptt::to_tf32;
-
-constexpr int HEADS = 12;              // heads per block of the chunk backward
-
-template <typename T>
-struct Pad {
-  static constexpr int V = 16 / int(sizeof(T));   // 16 bytes per row
-};
-
-// The warps of the chunk backward over a [CH x X] output: WM x WN warps,
-// each 16 rows and X / WN columns (CH = 64: 4 x 2; CH = 32: 2 x 4).
-template <int CH>
-struct Warps {
-  static constexpr int WM = CH / 16, WN = WARPS / WM;
-};
-
-// acc[nt] += A[m0 .. m0 + 16, k] B[k, n0 + 8 nt ..] over k < K. A is stored
-// [m][k] (AT false) or [k][m] (AT true) with row stride lda, B [n][k] (BT
-// false) or [k][n] (BT true) with ldb.
-template <int K, int NT, bool AT, bool BT>
-__device__ __forceinline__ void mma_tile(float (&acc)[NT][4], const bf16* A, int lda,
-                                         const bf16* B, int ldb, int m0, int n0, int lane) {
-  const int r = lane % 8, mi = lane / 8, l2 = lane % 16;
-#pragma unroll
-  for (int k0 = 0; k0 < K; k0 += 16) {
-    uint32_t a[4];
-    if (AT) ldmatrix_x4_trans(a, A + (k0 + r + 8 * (mi / 2)) * lda + m0 + 8 * (mi % 2));
-    else ldmatrix_x4(a, A + (m0 + lane % 16) * lda + k0 + 8 * (lane / 16));
-#pragma unroll
-    for (int nt = 0; nt < NT; nt += 2) {
-      if (nt + 1 < NT) {
-        uint32_t b[4];
-        if (BT) ldmatrix_x4_trans(b, B + (k0 + r + 8 * (mi % 2)) * ldb + n0 + 8 * (nt + mi / 2));
-        else ldmatrix_x4(b, B + (n0 + 8 * (nt + mi / 2) + r) * ldb + k0 + 8 * (mi % 2));
-        mma16816(acc[nt], a, b[0], b[1]);
-        mma16816(acc[nt + 1], a, b[2], b[3]);
-      } else {
-        uint32_t b[2];
-        if (BT) ldmatrix_x2_trans(b, B + (k0 + l2) * ldb + n0 + 8 * nt);
-        else ldmatrix_x2(b, B + (n0 + 8 * nt + l2 % 8) * ldb + k0 + 8 * (l2 / 8));
-        mma16816(acc[nt], a, b[0], b[1]);
-      }
-    }
-  }
-}
-
-__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
-  hi = to_tf32(x);
-  lo = to_tf32(x - __uint_as_float(hi));
-}
-
-// the f32 version: k slots c and c + 4 of an m16n8k8 product hold the k
-// positions 2c and 2c + 1 (of A and B alike, so the sum is the same)
-template <int K, int NT, bool AT, bool BT>
-__device__ __forceinline__ void mma_tile(float (&acc)[NT][4], const float* A, int lda,
-                                         const float* B, int ldb, int m0, int n0, int lane) {
-  const int g = lane / 4, c2 = 2 * (lane % 4);
-  auto at = [&](int m, int k) { return AT ? A[k * lda + m] : A[m * lda + k]; };
-  auto bt = [&](int k, int n) { return BT ? B[k * ldb + n] : B[n * ldb + k]; };
-#pragma unroll 2
-  for (int k = c2; k < K; k += 8) {
-    uint32_t ah[4], al[4];
-    split_tf32(at(m0 + g, k), ah[0], al[0]);
-    split_tf32(at(m0 + g + 8, k), ah[1], al[1]);
-    split_tf32(at(m0 + g, k + 1), ah[2], al[2]);
-    split_tf32(at(m0 + g + 8, k + 1), ah[3], al[3]);
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt) {
-      uint32_t bh0, bl0, bh1, bl1;
-      split_tf32(bt(k, n0 + 8 * nt + g), bh0, bl0);
-      split_tf32(bt(k + 1, n0 + 8 * nt + g), bh1, bl1);
-      mma1688_tf32(acc[nt], al, bh0, bh1);
-      mma1688_tf32(acc[nt], ah, bl0, bl1);
-      mma1688_tf32(acc[nt], ah, bh0, bh1);
-    }
-  }
-}
-
-// Rows [t0, t0 + CH) of one head's W values (token stride `stride`, the
-// head's first column `col0`) as 16-byte vectors, zero past `len`: vector
-// `it` of a thread is vector (it THREADS + tid) of the [CH][W] block. Rows
-// and columns must be 16-byte aligned (the wrapper copies any that are
-// not).
-template <int CH, int W, typename T>
-struct RowVecs {
-  static constexpr int E = 16 / int(sizeof(T)), VPR = W / E, IT = CH * VPR / THREADS;
-};
-
-template <int CH, int W, typename T>
-__device__ __forceinline__ void load_rows(uint4 (&v)[RowVecs<CH, W, T>::IT],
-                                          const T* __restrict__ src, size_t row0, long stride,
-                                          long col0, int len) {
-  using R = RowVecs<CH, W, T>;
-#pragma unroll
-  for (int it = 0; it < R::IT; ++it) {
-    const int i = it * THREADS + threadIdx.x, t = i / R::VPR;
-    v[it] = t < len ? *reinterpret_cast<const uint4*>(src + (row0 + t) * stride + col0
-                                                      + (i % R::VPR) * R::E)
-                    : make_uint4(0u, 0u, 0u, 0u);
-  }
-}
-
-// the vectors of load_rows into dst[CH][ld]
-template <int CH, int W, typename T>
-__device__ __forceinline__ void store_rows(T* dst, int ld,
-                                           const uint4 (&v)[RowVecs<CH, W, T>::IT]) {
-  using R = RowVecs<CH, W, T>;
-#pragma unroll
-  for (int it = 0; it < R::IT; ++it) {
-    const int i = it * THREADS + threadIdx.x;
-    *reinterpret_cast<uint4*>(dst + (i / R::VPR) * ld + (i % R::VPR) * R::E) = v[it];
-  }
-}
-
-// sum of a o b over the elements of two vectors
-template <typename T>
-__device__ __forceinline__ float dot16(const uint4& a, const uint4& b) {
-  const T* x = reinterpret_cast<const T*>(&a);
-  const T* y = reinterpret_cast<const T*>(&b);
-  float s = 0.f;
-#pragma unroll
-  for (int e = 0; e < 16 / int(sizeof(T)); ++e) s += to_f(x[e]) * to_f(y[e]);
-  return s;
-}
-
-template <typename T, int P, int N>
-struct CarrySmem {
-  static constexpr int CH = Chunk<P, N>::CH, PD = Pad<T>::V;
-  T dy[CH][P + PD];                    // decay o dy
-  T C[CH][N + PD];
-  float dt[CH], cum[CH], decay[CH];
-};
-
 template <typename T, int P, int N>
 __global__ void __launch_bounds__(THREADS, 2)
 ssd_bwd_carry_kernel(const T* __restrict__ dt, const float* __restrict__ A,
                      const T* __restrict__ Cm, const T* __restrict__ dy,
-                     float* __restrict__ carry, int L, int H, long sdt, long sc, long sdy) {
-  using S = CarrySmem<T, P, N>;
-  constexpr int CH = S::CH, PD = S::PD;
-  constexpr int MT = P / 64, NT = N / 16;   // a warp: P / 4 rows, N / 2 columns of dS
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  S& s = *reinterpret_cast<S*>(smem_raw);
-  const int hi = blockIdx.x, bi = blockIdx.y, tid = threadIdx.x;
-  const int lane = tid % 32, warp = tid / 32, g = lane / 4, c2 = 2 * (lane % 4);
-  const int m0 = (warp % 4) * (P / 4), n0 = (warp / 4) * (N / 2);
-  const int nc = (L + CH - 1) / CH;
-  const float a = A[hi];
-  float acc[MT][NT][4];
-#pragma unroll
-  for (int mt = 0; mt < MT; ++mt) zero(acc[mt]);
-  // the next chunk's dt, dy and C, loaded while this one is computed
-  uint4 vy[RowVecs<CH, P, T>::IT], vc[RowVecs<CH, N, T>::IT];
-  float vdt;
-  auto fetch = [&](int c) {
-    const int t0 = c * CH, len = min(CH, L - t0);
-    const size_t row0 = size_t(bi) * L + t0;
-    vdt = tid < len ? to_f(dt[(row0 + tid) * sdt + hi]) : 0.f;
-    load_rows<CH, P>(vy, dy, row0, sdy, long(hi) * P, len);
-    load_rows<CH, N>(vc, Cm, row0, sc, 0, len);
-  };
-  fetch(nc - 1);
-  for (int c = nc - 1; c >= 0; --c) {
-    // the carry this chunk starts from
-    float* out = carry + ((size_t(bi) * nc + c) * H + hi) * P * N;
-#pragma unroll
-    for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-      for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-        for (int e = 0; e < 4; e += 2) {
-          const int p = m0 + 16 * mt + g + 4 * e, n = n0 + 8 * nt + c2;
-          *reinterpret_cast<float2*>(out + p * N + n) =
-              make_float2(acc[mt][nt][e], acc[mt][nt][e + 1]);
-        }
-    __syncthreads();                   // the previous chunk is done with the tiles
-    if (tid < CH) s.dt[tid] = vdt;
-    store_rows<CH, P>(&s.dy[0][0], P + PD, vy);
-    store_rows<CH, N>(&s.C[0][0], N + PD, vc);
-    if (c > 0) fetch(c - 1);
-    __syncthreads();
-    if (warp == 0) {
-      warp_scan<CH, false>(s.dt, a, s.cum, lane);
-      __syncwarp();
-      for (int i = lane; i < CH; i += 32) s.decay[i] = expf(s.cum[i]);
-    }
-    __syncthreads();
-    for (int i = tid; i < CH * P; i += THREADS) {   // dy -> decay o dy
-      const int t = i / P;
-      s.dy[t][i % P] = from_f<T>(s.decay[t] * to_f(s.dy[t][i % P]));
-    }
-    __syncthreads();
-    const float wce = s.decay[CH - 1];
-#pragma unroll
-    for (int mt = 0; mt < MT; ++mt) {
-#pragma unroll
-      for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[mt][nt][e] *= wce;
-      mma_tile<CH, NT, true, true>(acc[mt], &s.dy[0][0], P + PD, &s.C[0][0], N + PD,
-                                   m0 + 16 * mt, n0, lane);
-    }
-  }
+                     float* __restrict__ carry_out, int L, int H, long sdt, long sc, long sdy) {
+  carry_chain<false, T, P, N>(dt, A, Cm, dy, carry_out, L, H, sdt, sc, sdy);
 }
 
 template <typename T, int P, int N>
@@ -812,14 +646,22 @@ struct Args {
 
 template <typename T, int P, int N>
 int launch_fwd(const Args& g) {
-  static std::atomic<uint64_t> done{0};
-  const int smem = int(sizeof(FwdSmem<P, N>));
-  cudaError_t err = ptt::allow_smem(ssd_fwd_kernel<T, P, N>, smem, done);
+  static std::atomic<uint64_t> done_carry{0}, done{0};
+  const int smem_carry = int(sizeof(CarrySmem<T, P, N>)), smem = int(sizeof(FwdSmem<T, P, N>));
+  cudaError_t err = ptt::allow_smem(ssd_fwd_carry_kernel<T, P, N>, smem_carry, done_carry);
+  if (err == cudaSuccess) err = ptt::allow_smem(ssd_fwd_chunk_kernel<T, P, N>, smem, done);
   if (err != cudaSuccess) return int(err);
-  ssd_fwd_kernel<T, P, N><<<dim3(g.H, g.batch), THREADS, smem, g.st>>>(
+  const int nc = (g.L + Chunk<P, N>::CH - 1) / Chunk<P, N>::CH;
+  ssd_fwd_carry_kernel<T, P, N><<<dim3(g.H, g.batch), THREADS, smem_carry, g.st>>>(
       static_cast<const T*>(g.x), static_cast<const T*>(g.dt), static_cast<const float*>(g.A),
-      static_cast<const T*>(g.B), static_cast<const T*>(g.C), static_cast<const float*>(g.D),
-      static_cast<T*>(g.y), static_cast<float*>(g.out_states), g.L, g.H, g.sx, g.sdt, g.sb, g.sc);
+      static_cast<const T*>(g.B), static_cast<float*>(g.out_states), g.L, g.H, g.sx, g.sdt, g.sb);
+  if ((err = cudaGetLastError()) != cudaSuccess) return int(err);
+  ssd_fwd_chunk_kernel<T, P, N>
+      <<<dim3(nc, (g.H + FWD_HEADS - 1) / FWD_HEADS, g.batch), THREADS, smem, g.st>>>(
+          static_cast<const T*>(g.x), static_cast<const T*>(g.dt), static_cast<const float*>(g.A),
+          static_cast<const T*>(g.B), static_cast<const T*>(g.C), static_cast<const float*>(g.D),
+          static_cast<const float*>(g.out_states), static_cast<T*>(g.y), g.L, g.H, g.sx, g.sdt,
+          g.sb, g.sc);
   return int(cudaGetLastError());
 }
 
@@ -878,11 +720,13 @@ const char* ptt_error_string(int code) {
 }
 
 // x [batch, L, H, P] (token stride sx, elements), dt [batch, L, H] (sdt), B,
-// C [batch, L, N] (sb, sc): the token (b, t) starts at (b L + t) * stride.
-// All in f32 (bf16_io = 0) or bf16 (1); A, D [H] f32. Writes y [batch, L,
-// H, P] contiguous (the I/O type) and the f32 state entering each chunk,
-// states [batch, ceil(L / CH), H, P, N] (CH = 64 at P = N = 64, else 32).
-// Needs P, N in {64, 128}. Returns cudaGetLastError() after the launch.
+// C [batch, L, N] (sb, sc): the token (b, t) starts at (b L + t) * stride;
+// x, B and C rows 16-byte aligned. All in f32 (bf16_io = 0) or bf16 (1); A,
+// D [H] f32. Two launches (the states over the chunks, then the chunks).
+// Writes y [batch, L, H, P] contiguous (the I/O type) and the f32 state
+// entering each chunk, states [batch, ceil(L / CH), H, P, N] (CH = 64 at P =
+// N = 64, else 32). Needs P, N in {64, 128}. Returns cudaGetLastError()
+// after the launches.
 int ptt_ssd_fwd(const void* x, const void* dt, const void* A, const void* B, const void* C,
                 const void* D, void* y, void* states, int batch, int L, int H, int P, int N,
                 int sx, int sdt, int sb, int sc, int bf16_io, void* stream) {

@@ -36,7 +36,8 @@ from . import _build
 __all__ = ["ssd_fwd", "ssd_bwd", "ssd_reference", "ssd_chunked_reference",
            "kernel_chunk", "launches", "bwd_launches"]
 
-#: forward kernel launches since the count was last set to 0
+#: forward calls (two kernel launches each) since the count was last set
+#: to 0
 launches = 0
 #: backward calls (two kernel launches each) since the count was last set
 #: to 0
@@ -169,8 +170,8 @@ def _rows(t, dtype, align=1):
     starts at ``(bi * l + ti) * stride``; a strided slice of a ``[b, l,
     width]`` tensor passes as it is, anything else is copied. With
     ``align``, also a slice whose start or token stride is not a multiple
-    of ``align`` bytes is copied (the backward loads rows as 16-byte
-    vectors)."""
+    of ``align`` bytes is copied (the kernels load x, B, C and dy rows as
+    16-byte vectors)."""
     t = t.to(dtype)
     b, l = t.shape[:2]
     inner = t.shape[2:]
@@ -190,8 +191,9 @@ def _rows(t, dtype, align=1):
 def ssd_fwd(x, dt, A, B, C, D):
     """``(y, states)``: y ``[b, l, h, dh]`` in x's dtype (with the D skip)
     and the f32 state entering each chunk of ``kernel_chunk(dh, ds)`` steps,
-    ``[b, nc, h, dh, ds]``. One kernel launch on CUDA tensors, the plain
-    version on CPU tensors."""
+    ``[b, nc, h, dh, ds]``. On CUDA tensors one call launches two kernels
+    (the states over the chunks, then every chunk in parallel); on CPU
+    tensors the plain version."""
     global launches
     what = "ssd"
     b, l, h, dh, ds = _shapes(what, x, dt, A, B, C, D)
@@ -201,8 +203,9 @@ def ssd_fwd(x, dt, A, B, C, D):
             return ssd_chunked_reference(x, dt, A, B, C, D, chunk, True)
     _check_dims(what, dh, ds)
     io = _io_dtype(what, x, dt, B, C)
-    (xk, sx), (dtk, sdt), (Bk, sb), (Ck, sc) = (
-        _rows(t, io) for t in (x, dt, B, C))
+    dtk, sdt = _rows(dt, io)
+    (xk, sx), (Bk, sb), (Ck, sc) = (
+        _rows(t, io, align=16) for t in (x, B, C))
     Ak, Dk = (t.float().contiguous() for t in (A, D))
     dev = x.device
     y = torch.empty((b, l, h, dh), dtype=io, device=dev)

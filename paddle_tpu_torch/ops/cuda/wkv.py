@@ -26,12 +26,13 @@ import torch
 
 from . import _build
 
-__all__ = ["wkv_fwd", "wkv_bwd", "wkv_reference", "launches",
+__all__ = ["wkv_fwd", "wkv_bwd", "wkv_reference", "bwd_chunk", "launches",
            "bwd_launches"]
 
 #: forward kernel launches since the count was last set to 0
 launches = 0
-#: backward kernel launches since the count was last set to 0
+#: backward calls (two kernel launches each) since the count was last set
+#: to 0
 bwd_launches = 0
 
 
@@ -150,11 +151,24 @@ def wkv_fwd(r, k, v, logw, u):
     return y.to(r.dtype)
 
 
+_CHUNK = {}
+
+
+def bwd_chunk(d: int) -> int:
+    """The backward kernels' chunk at head width d (64 at d = 64, 32 at d =
+    128), as the library reports it."""
+    c = _CHUNK.get(d)
+    if c is None:
+        c = _CHUNK[d] = int(_build.load("wkv").ptt_wkv_bwd_chunk(d))
+    return c
+
+
 def wkv_bwd(r, k, v, logw, u, dy):
     """``(dr, dk, dv, dlogw, du)`` of :func:`wkv_fwd` for the cotangent
-    ``dy``, each in its input's dtype. One kernel launch on CUDA tensors
-    (plus the batch sums of dlogw and du); on CPU tensors the gradient of
-    the plain version."""
+    ``dy``, each in its input's dtype. On CUDA tensors one call launches two
+    kernels (the state and its gradient at every chunk's edges, then every
+    chunk in parallel) and sums their per-chunk dlogw and du partials; on
+    CPU tensors the gradient of the plain version."""
     global bwd_launches
     what = "wkv backward"
     b, l, h, d = _shapes(what, r, k, v, logw, u)
@@ -170,16 +184,21 @@ def wkv_bwd(r, k, v, logw, u, dy):
     dt, (rk, kk, vk, dyk) = _build.float_io(what, r, k, v, dy)
     lw, uf = (t.float().contiguous() for t in (logw, u))
     dev = r.device
+    nc = -(-l // bwd_chunk(d))
     dr, dk, dv = (torch.empty((b, l, h, d), dtype=dt, device=dev)
                   for _ in range(3))
-    dlw_part = torch.empty((b, h, d), dtype=torch.float32, device=dev)
-    du_part = torch.empty((b, h, d), dtype=torch.float32, device=dev)
-    rc = _build.entry("wkv", "ptt_wkv_bwd", 11, 5)(
+    # dlogw and du partials side by side (one sum); S_in and dS_out scratch
+    # in the I/O type, the type the chunk kernel's products take them in
+    parts = torch.empty((2, b * nc, h, d), dtype=torch.float32, device=dev)
+    scratch = torch.empty((2, b, nc, h, d, d), dtype=dt, device=dev)
+    rc = _build.entry("wkv", "ptt_wkv_bwd", 13, 5)(
         rk.data_ptr(), kk.data_ptr(), vk.data_ptr(), lw.data_ptr(),
         uf.data_ptr(), dyk.data_ptr(), dr.data_ptr(), dk.data_ptr(),
-        dv.data_ptr(), dlw_part.data_ptr(), du_part.data_ptr(), b, l, h, d,
+        dv.data_ptr(), parts[0].data_ptr(), parts[1].data_ptr(),
+        scratch[0].data_ptr(), scratch[1].data_ptr(), b, l, h, d,
         int(dt == torch.bfloat16), _build.stream(r))
     _build.check(_build.load("wkv"), rc, what)
     bwd_launches += 1
+    dlw, du = parts.sum(1)
     return (dr.to(r.dtype), dk.to(k.dtype), dv.to(v.dtype),
-            dlw_part.sum(0).to(logw.dtype), du_part.sum(0).to(u.dtype))
+            dlw.to(logw.dtype), du.to(u.dtype))

@@ -1,24 +1,26 @@
-"""Time variants of the selective-scan and SSD backward kernels
-(``csrc/selective_scan.cu``, ``csrc/ssd.cu``) against the sources as they
-are, on one CUDA card:
+"""Time variants of the chunk-parallel SSM kernels (``csrc/selective_scan.cu``,
+``csrc/ssd.cu``, ``csrc/wkv.cu``) against the sources as they are, on one
+CUDA card:
 
     python3 -m paddle_tpu_torch.tools.ssm_variants [VARIANT ...]
 
 Each variant is the sources with a few lines replaced (``VARIANTS``; "a+b"
 applies the edits of both), built by nvcc into ``build/ssm_variants/`` and
-loaded beside the others (``tools/_variants.py``). Every build runs the
-backward at the shapes of ``chip_smoke.py`` phase 3 in bf16: the scan at
-phase 9's b16 l1024 d1536 n16, the SSD at phase 11's b8 l1024 h24 dh64 ds64
-with x, B and C strided as the model's; the forward (the residual) from the
-sources as they are. Prints per shape the mean device ms of each build, the
-source as it is first and last: each call alone after the 50 MB L2 was
+loaded beside the others (``tools/_variants.py``). Every build runs, in
+bf16 at the shapes of ``chip_smoke.py`` phase 3, each call whose source a
+named variant edits (every call when none is named): the scan backward at
+phase 9's b16 l1024 d1536 n16, the SSD backward and forward at phase 11's
+b8 l1024 h24 dh64 ds64 with x, B and C strided as the model's, the WKV
+backward at phase 10's b16 l1024 h12 d64; a backward's residual comes from
+the sources as they are. Prints per call the mean device ms of each build,
+the source as it is first and last: each call alone after the 50 MB L2 was
 flushed ("cold", as ``chip_smoke.py`` times) and ten calls back to back
 ("warm"), then each build's ms per kernel of a call (``torch.profiler``).
 A call is what the wrapper does: the kernels and the sums of their
-partials. Every variant's gradients but the diagnostic ones'
-(``DIAGNOSTIC``: each takes work out, to show what holds a kernel back)
-are held against the source's (max |diff| <= 1e-2 of max |source|, the
-bf16 gate of ``chip_smoke.py``). Ends with the card's name, power limit and
+partials. Every variant's outputs but the diagnostic ones'
+(``DIAGNOSTIC``: each takes work out, to show what holds a kernel back) are
+held against the source's (max |diff| <= 1e-2 of max |source|, the bf16
+gate of ``chip_smoke.py``). Ends with the card's name, power limit and
 clocks.
 """
 
@@ -33,12 +35,22 @@ import torch.nn.functional as F
 from ..ops.cuda import _build
 from . import _variants
 
-SCAN, SSD = "selective_scan", "ssd"
+SCAN, SSD, WKV = "selective_scan", "ssd", "wkv"
 
 
 def _const(src, name, old, new):
     return (src, f"constexpr int {name} = {old};",
             f"constexpr int {name} = {new};")
+
+
+def _no_products(src):
+    """Every mma_tile of ``src`` made a no-op (a diagnostic)."""
+    return [(src, "using namespace ptt::ssm;",
+             "using namespace ptt::ssm;\n"
+             "template <int K, int NT, bool AT, bool BT, typename T>\n"
+             "__device__ __forceinline__ void skip_tile(float (&)[NT][4], "
+             "const T*, int, const T*, int, int, int, int) {}"),
+            (src, "mma_tile<", "skip_tile<")]
 
 
 #: name: (what it changes, [(source, text, replacement), ...])
@@ -82,21 +94,85 @@ VARIANTS = {
     "heads8": ("ssd: 8 heads a block", [_const(SSD, "HEADS", 12, 8)]),
     "heads24": ("ssd: 24 heads a block (one block per batch row and chunk)",
                 [_const(SSD, "HEADS", 12, 24)]),
-    "ssd_1block": ("ssd: both kernels without the 2-blocks-an-SM register "
+    "ssd_1block": ("ssd: every kernel without the 2-blocks-an-SM register "
                    "cap", [(SSD, "__launch_bounds__(THREADS, 2)",
                             "__launch_bounds__(THREADS)")]),
+    "fwd_heads4": ("ssd: 4 heads a block of the chunk forward",
+                   [_const(SSD, "FWD_HEADS", 12, 4)]),
+    "fwd_heads6": ("ssd: 6 heads a block of the chunk forward",
+                   [_const(SSD, "FWD_HEADS", 12, 6)]),
+    "fwd_heads24": ("ssd: 24 heads a block of the chunk forward",
+                    [_const(SSD, "FWD_HEADS", 12, 24)]),
+    "ssd_no_mma": ("ssd: no chunk products in any kernel (diagnostic)",
+                   _no_products(SSD)),
+    "ssd_fwd_no_load": ("ssd: the chunk forward loads neither x nor the "
+                        "states (diagnostic)",
+                        [(SSD, "load_rows<CH, P>(vx, x, row0, sx, long(hi) "
+                          "* P, len);", "load_rows<CH, P>(vx, x, row0, sx, "
+                          "long(hi) * P, 0);"),
+                         (SSD, "v4[j] = reinterpret_cast<const float4*>(st)"
+                          "[(r0 + j) * THREADS + tid];",
+                          "v4[j] = make_float4(0.f, 0.f, 0.f, 0.f);")]),
+    "wkv_chunk32": ("wkv: chunks of 32 at d = 64 (twice the carries and "
+                    "scratch, a quarter of the shared memory)",
+                    [(WKV, "static constexpr int CH = D == 64 ? 64 : 32;",
+                      "static constexpr int CH = 32;")]),
+    "wkv_slice16": ("wkv: 16 state columns a carry block",
+                    [_const(WKV, "SLICE", 64, 16)]),
+    "wkv_slice32": ("wkv: 32 state columns a carry block",
+                    [_const(WKV, "SLICE", 64, 32)]),
+    "wkv_1block": ("wkv: the chunk kernel without the 2-blocks-an-SM "
+                   "register cap", [(WKV, "__launch_bounds__(THREADS, 2)",
+                                     "__launch_bounds__(THREADS)")]),
+    "wkv_no_mma": ("wkv: no chunk products in either backward kernel "
+                   "(diagnostic)", _no_products(WKV)),
+    "wkv_no_cube": ("wkv: no decay cube on the diagonal sub-blocks "
+                    "(diagnostic)",
+                    [(WKV, "for (int p = tid; p < NB * PAIRS; p += THREADS)",
+                      "for (int p = tid; p < 0; p += THREADS)"),
+                     (WKV, "if ((h2 == 0 && t >= SUB / 2 - 1) || sj >= j) "
+                      "continue;", "continue;"),
+                     (WKV, "if ((h2 == 1 && t <= SUB / 2) || jj <= sj) "
+                      "continue;", "continue;")]),
+    "wkv_no_acube": ("wkv: no decay cube for A on the diagonal sub-blocks "
+                     "(diagnostic)",
+                     [(WKV, "for (int p = tid; p < NB * PAIRS; p += THREADS)",
+                       "for (int p = tid; p < 0; p += THREADS)")]),
+    "wkv_no_gcube": ("wkv: no decay cube for the gradients on the diagonal "
+                     "sub-blocks (diagnostic)",
+                     [(WKV, "if ((h2 == 0 && t >= SUB / 2 - 1) || sj >= j) "
+                       "continue;", "continue;"),
+                      (WKV, "if ((h2 == 1 && t <= SUB / 2) || jj <= sj) "
+                       "continue;", "continue;")]),
+    "wkv_no_scale": ("wkv: the factored operands r~, k~ and k o w^(CH-1-s) "
+                     "left unscaled (diagnostic)",
+                     [(WKV, "  scale_rows<D, LD, LD, THREADS, LO>(",
+                       "  if (false) scale_rows<D, LD, LD, THREADS, LO>("),
+                      (WKV, "  scale_rows<D, LD, LD, THREADS, false>(",
+                       "  if (false) scale_rows<D, LD, LD, THREADS, false>("),
+                      (WKV, "  scale_rows<D, LX, LD, THREADS, false>(",
+                       "  if (false) scale_rows<D, LX, LD, THREADS, false>(")]),
+    "wkv_no_load": ("wkv: the chunk kernel loads neither r, k, v, dy nor "
+                    "the carried states (diagnostic)",
+                    [(WKV, "row0, st, col, len);", "row0, st, col, 0);"),
+                     (WKV, "s_in + sidx, 0, D, 0, D);",
+                      "s_in + sidx, 0, D, 0, 0);"),
+                     (WKV, "ds_out + sidx, 0, D, 0, D);",
+                      "ds_out + sidx, 0, D, 0, 0);")]),
 }
-#: variants that take work out on purpose: their gradients are not checked
-DIAGNOSTIC = {"no_scatter"}
+#: variants that take work out on purpose: their outputs are not checked
+DIAGNOSTIC = {"no_scatter", "ssd_no_mma", "ssd_fwd_no_load", "wkv_no_mma",
+              "wkv_no_cube", "wkv_no_acube", "wkv_no_gcube", "wkv_no_scale",
+              "wkv_no_load"}
 
 
 def build(names):
     """{name: ctypes.CDLL per source} of the sources ("base") and each
     variant, compiled in parallel."""
-    libs = _variants.build(names, VARIANTS, (SCAN, SSD), "ssm_variants")
+    libs = _variants.build(names, VARIANTS, (SCAN, SSD, WKV), "ssm_variants")
     out = {}
     for name in ["base", *names]:
-        scan, ssd = libs[(name, SCAN)], libs[(name, SSD)]
+        scan, ssd, wkv = (libs[(name, src)] for src in (SCAN, SSD, WKV))
         scan.ptt_selective_scan_fwd.argtypes = [ctypes.c_void_p] * 7 \
             + [ctypes.c_int] * 5 + [ctypes.c_void_p]
         scan.ptt_selective_scan_bwd.argtypes = [ctypes.c_void_p] * 14 \
@@ -105,7 +181,9 @@ def build(names):
             + [ctypes.c_int] * 10 + [ctypes.c_void_p]
         ssd.ptt_ssd_bwd.argtypes = [ctypes.c_void_p] * 15 \
             + [ctypes.c_int] * 11 + [ctypes.c_void_p]
-        out[name] = (scan, ssd)
+        wkv.ptt_wkv_bwd.argtypes = [ctypes.c_void_p] * 13 \
+            + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+        out[name] = (scan, ssd, wkv)
     return out
 
 
@@ -193,11 +271,80 @@ def ssd_case(libs, gen):
     return f"ssd bwd b{b} l{l} h{h} dh{p} ds{n}", run, r"ssd_bwd_\w*kernel"
 
 
+def ssd_fwd_case(libs, gen):
+    """``run(name)``: the SSD forward of build ``name`` at phase 11's shape,
+    x, B and C strided views of one conv output as the model's."""
+    b, l, h, p, n = 8, 1024, 24, 64, 64
+    dev, bf = "cuda", torch.bfloat16
+    width = h * p + 2 * n
+    xc = torch.randn(b, l, width, generator=gen, device=dev).to(bf)
+    x, B, C = xc[..., :h * p], xc[..., h * p:h * p + n], xc[..., h * p + n:]
+    dt = F.softplus(torch.randn(b, l, h, generator=gen, device=dev)).to(bf)
+    A = -torch.linspace(1.0, 16.0, h, device=dev)
+    D = torch.randn(h, generator=gen, device=dev)
+    ins = (x, dt, A, B, C, D)
+    st = _build.stream(dt)
+
+    def run(name):
+        lib = libs[name][1]
+        ptrs = [t.data_ptr() for t in ins]
+        nc = -(-l // 64)
+        y = torch.empty((b, l, h, p), dtype=bf, device=dev)
+        states = torch.empty((b, nc, h, p, n), dtype=torch.float32,
+                             device=dev)
+        rc = lib.ptt_ssd_fwd(*ptrs, y.data_ptr(), states.data_ptr(), b, l, h,
+                             p, n, width, h, width, width, 1, st)
+        assert rc == 0, (name, rc)
+        return y, states
+
+    return f"ssd fwd b{b} l{l} h{h} dh{p} ds{n}", run, r"ssd_fwd_\w*kernel"
+
+
+def wkv_case(libs, gen):
+    """``run(name)``: the WKV backward of build ``name`` at phase 10's
+    shape, its gradients as the wrapper returns them."""
+    b, l, h, d = 16, 1024, 12, 64
+    dev, bf = "cuda", torch.bfloat16
+    r, k, v = (0.5 * torch.randn(b, l, h, d, generator=gen, device=dev)
+               .to(bf) for _ in range(3))
+    logw = -5 * torch.rand(h, d, generator=gen, device=dev) - 0.02
+    u = 0.5 + 0.1 * torch.randn(h, d, generator=gen, device=dev)
+    dy = torch.randn(b, l, h, d, generator=gen, device=dev).to(bf)
+    ins = (r, k, v, logw, u, dy)
+    st = _build.stream(dy)
+    f32 = dict(dtype=torch.float32, device=dev)
+
+    def run(name):
+        lib = libs[name][2]
+        ptrs = [t.data_ptr() for t in ins]
+        nc = -(-l // lib.ptt_wkv_bwd_chunk(d))
+        dr, dk, dv = (torch.empty_like(dy) for _ in range(3))
+        parts = torch.empty((2, b * nc, h, d), **f32)
+        scratch = torch.empty((2, b, nc, h, d, d), dtype=bf, device=dev)
+        rc = lib.ptt_wkv_bwd(*ptrs, dr.data_ptr(), dk.data_ptr(),
+                             dv.data_ptr(), parts[0].data_ptr(),
+                             parts[1].data_ptr(), scratch[0].data_ptr(),
+                             scratch[1].data_ptr(), b, l, h, d, 1, st)
+        assert rc == 0, (name, rc)
+        return (dr, dk, dv, *parts.sum(1))
+
+    return f"wkv bwd b{b} l{l} h{h} d{d}", run, r"wkv_bwd_\w*kernel"
+
+
+#: (the call's runner, the source whose variants it times)
+CASES = ((scan_case, SCAN), (ssd_case, SSD), (ssd_fwd_case, SSD),
+         (wkv_case, WKV))
+
+
 def main(argv):
     argv = _variants.names_of(argv, VARIANTS)
     libs = build(argv)
     gen = torch.Generator(device="cuda").manual_seed(0)
-    for make in (scan_case, ssd_case):
+    edited = {e[0] for v in argv for part in v.split("+")
+              for e in VARIANTS[part][1]}
+    for make, src in CASES:
+        if argv and src not in edited:
+            continue
         what, run, pattern = make(libs, gen)
         ref = run("base")
         times, split = [], {}

@@ -1,15 +1,19 @@
-"""The edges of the chunk-parallel selective-scan and SSD backwards on the
-CPU: the plain versions' gradients (what the CUDA kernels are held to on the
-card) against the TPU backward kernels, ``selective_scan.py``'s and
-``ssd.py``'s ``_bwd_kernel``, in interpret mode, at one step, a chunk less
-one, one, one more and two chunks and a bit, at widths off the kernels'
-tiles (d = 100, n = 5, three heads), with a decay strong enough that
-exp(delta A) is exactly 0; and the wrappers' refusals of a residual of the
-wrong shape, dtype or layout.
+"""The edges of the chunk-parallel SSM kernels on the CPU: the plain
+versions (what the CUDA kernels are held to on the card) against the TPU
+kernels in interpret mode. The selective-scan and SSD gradients against
+``selective_scan.py``'s and ``ssd.py``'s ``_bwd_kernel``, the WKV gradients
+against ``wkv.py``'s ``_bwd_kernel`` and the SSD forward's y and chunk
+states against ``ssd.py``'s ``_fwd_kernel``: at one step, a sub-chunk or a
+chunk less one, one, one more and two chunks and a bit, at widths off the
+kernels' tiles (d = 100, n = 5, three heads; the WKV at d = 64 and 128),
+with a decay strong enough that the decay is exactly 0 (and the WKV's
+clamp of logw >= 0); and the wrappers' refusals of a residual of the wrong
+shape, dtype or layout.
 
 Tolerances, as max |diff| / max |ref| per tensor, f32: 2e-5 for the scan
-(the same recurrence summed in other orders, as ``test_torch_mamba.py``
-holds it); 2e-4 for the SSD (the Pallas kernel takes its chunk cumsum as a
+and the WKV (the same recurrence summed in other orders, as
+``test_torch_mamba.py`` and ``test_torch_rwkv.py`` hold them); 2e-4 for
+the SSD (the Pallas kernel takes its chunk cumsum as a
 triangular matmul and differences of it, the plain version a running sum:
 the two round cum differently, ~1e-5 of the decays' exponents, as
 ``test_torch_mamba2.py`` holds the pair). The strong decay is a short
@@ -27,12 +31,14 @@ import torch
 
 from paddle_tpu.ops.pallas import selective_scan as jss
 from paddle_tpu.ops.pallas import ssd as jpssd
+from paddle_tpu.ops.pallas.wkv import wkv_pallas
 from paddle_tpu_torch.ops.cuda import selective_scan as tss
 from paddle_tpu_torch.ops.cuda import ssd as tssd
+from paddle_tpu_torch.ops.cuda import wkv as twkv
 
 torch.set_num_threads(2)
 
-SCAN_TOL, SSD_TOL = 2e-5, 2e-4
+SCAN_TOL, SSD_TOL, WKV_TOL = 2e-5, 2e-4, 2e-5
 LENGTHS = (1, 63, 64, 65, 130)
 
 
@@ -125,6 +131,67 @@ def test_ssd_gradients_match_pallas_bwd_kernel(l, ds, strong):
         assert _rel(a, b) <= SSD_TOL, name
 
 
+def _wkv_inputs(b, l, h, d, seed):
+    """r, k, v (0.5 x normals), logw from -0.02 to -20, three channels at
+    the -1e10 floor (w = 0) and three at 0, 0.5 and 2 (clamped to w = 1,
+    no dlogw), the bonus u and a cotangent."""
+    rs = np.random.RandomState(seed)
+    r, k, v = (0.5 * rs.randn(b, l, h, d).astype(np.float32)
+               for _ in range(3))
+    logw = -rs.uniform(0.02, 20.0, (h, d)).astype(np.float32)
+    logw[0, :3] = -1e10
+    logw[-1, 3:6] = [0.0, 0.5, 2.0]
+    u = (0.3 * rs.randn(h, d)).astype(np.float32)
+    return [r, k, v, logw, u], rs.randn(b, l, h, d).astype(np.float32)
+
+
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("l", [1, 17, 63, 64, 65, 130])
+def test_wkv_gradients_match_pallas_bwd_kernel(l, d):
+    """dr, dk, dv, dlogw, du of the plain WKV (the chunk-parallel
+    backward's oracle) against ``wkv_pallas`` in interpret mode (chunk 32,
+    sub-chunk 16: its ``_bwd_kernel``): b2, three heads, lengths 1, 17, 63,
+    64, 65 and 130 (the sub-chunk's and both kernel chunks' edges), d = 64
+    and 128, w = 0 on three channels and logw >= 0 on three, whose dlogw is
+    exactly 0 in both."""
+    args, dy = _wkv_inputs(2, l, 3, d, seed=l + d)
+    jg, tg = _vjps(lambda *a: wkv_pallas(*a, chunk=32, subchunk=16,
+                                         interpret=True),
+                   twkv.wkv_reference, args, dy)
+    for name, a, b in zip(("dr", "dk", "dv", "dlogw", "du"), tg, jg):
+        assert np.isfinite(a).all(), name
+        assert _rel(a, b) <= WKV_TOL, name
+    assert (tg[3][-1, 3:6] == 0).all() and (jg[3][-1, 3:6] == 0).all()
+
+
+@pytest.mark.parametrize("l,ds,strong", [(1, 64, True), (63, 64, True),
+                                         (65, 64, True), (150, 64, True),
+                                         (150, 128, False)])
+def test_ssd_forward_matches_pallas_fwd_kernel(l, ds, strong):
+    """y and the state entering every chunk of the plain chunked SSD at the
+    kernels' chunk (64 at ds 64, 32 at ds 128) against ``ssd.py``'s
+    ``_fwd_kernel`` in interpret mode at the same chunk (its y plus D x):
+    b2, three heads, lengths 1, 63, 65 and 150, a strong decay (a_t = 0
+    exactly on three steps)."""
+    args, _ = _ssd_inputs(2, l, 3, 64, ds, seed=l + ds, strong=strong)
+    x, dt, A, B, C, D = args
+    chunk = tssd.kernel_chunk(64, ds)
+    pad = (-l) % chunk
+    zp = lambda t: np.pad(t, [(0, 0), (0, pad)] + [(0, 0)] * (t.ndim - 2))
+    jy, jstates = jpssd._run_fwd(
+        jnp.asarray(zp(x).transpose(0, 2, 1, 3)),
+        jnp.asarray(zp(dt).transpose(0, 2, 1)), jnp.asarray(zp(B)),
+        jnp.asarray(zp(C)), jnp.asarray(A.reshape(-1, 1)), chunk, True)
+    jy = np.asarray(jy).transpose(0, 2, 1, 3)[:, :l] + D[:, None] * x
+    ty, tstates = tssd.ssd_chunked_reference(
+        *(torch.tensor(a) for a in args), chunk, return_states=True)
+    assert tuple(tstates.shape) == jstates.shape == (2, -(-l // chunk), 3,
+                                                     64, ds)
+    assert np.isfinite(ty.numpy()).all()
+    assert _rel(ty.numpy(), jy) <= SSD_TOL
+    assert _rel(tstates.numpy(), np.asarray(jstates)) <= SSD_TOL
+
+
 def _scan_case():
     args, dy = _scan_inputs(2, 70, 12, 5, seed=0, strong=False)
     ins = [torch.tensor(a) for a in args]
@@ -160,8 +227,8 @@ def test_backward_refuses_a_foreign_residual(kind, fault):
 
 
 def test_rows_copies_what_vector_loads_cannot_read():
-    """``_rows(align=16)``, which the SSD backward applies to x, B, C and
-    dy: a strided view of the model's conv output (16-byte token stride
+    """``_rows(align=16)``, which the SSD kernels' wrappers apply to x, B,
+    C and dy: a strided view of the model's conv output (16-byte token stride
     and starts) passes as it is; a view starting 2 bytes in, or with a
     token stride of 1000 bytes, is copied to packed rows."""
     conv = torch.zeros(2, 9, 3 * 64 + 2 * 64, dtype=torch.bfloat16)
@@ -177,7 +244,7 @@ def test_rows_copies_what_vector_loads_cannot_read():
         out, stride = tssd._rows(view, torch.bfloat16, align=16)
         assert out.is_contiguous() and stride == 64
         assert torch.equal(out, view)
-    # without align (the forward's scalar loads) both pass in place
+    # without align (dt's scalar loads) both pass in place
     for view in (odd, wide):
         assert tssd._rows(view, torch.bfloat16)[0].data_ptr() \
             == view.data_ptr()
