@@ -26,10 +26,12 @@ Phases, each of which fails the run (non-zero exit, no result line):
    up + swiglu with its residuals: max |diff| <= 1e-2 * max |plain| at M =
    32768 routed rows for a router draw and a skewed set with an empty
    group, an 8192-row group and trash rows, whose output rows and
-   empty-group dW must be exact zeros, and gmm and tgmm at their tiles'
+   empty-group dW must be exact zeros, and all three at their tiles'
    edges (M = 8200 in groups of 1, 127, 129, 0, 4095, 63, 65 and 1000
    rows, at the layer's widths and at K = 1000, N = 520; NaN and inf in
-   the trash rows of lhs and dout; tgmm twice, bitwise equal), with the
+   the trash rows of lhs and dout; tgmm and the swiglu twice, bitwise
+   equal; the swiglu with and without its residuals, the same y bit for
+   bit), the swiglu split by kernel with its host µs a call, with the
    ptxas line of each wgmma kernel (the grouped GEMMs' and the flash
    forward, dK/dV and dQ kernels', with their local-memory accesses in the
    built code); the flash forward and backward also at their wgmma tiles'
@@ -53,9 +55,10 @@ Phases, each of which fails the run (non-zero exit, no result line):
    decay, a_t = 0, in bf16); every output finite, each within 1e-4 of max
    |plain| in f32 I/O and 1e-2 in bf16 I/O, all computing in f32, the
    three backwards and the SSD forward twice at the path's shape (bitwise
-   equal), the chunk-parallel kernels' ptxas lines and local-memory
+   equal; the scan forward too, y and the chunk states), the scan
+   forward's and the chunk-parallel kernels' ptxas lines and local-memory
    accesses, their ms split by kernel (``torch.profiler``), the host µs a
-   call of the WKV backward and SSD forward wrappers, and, for the scan,
+   call of the scan, WKV backward and SSD forward wrappers, and, for the scan,
    the special-function unit's floor for its exponentials beside the
    bound), with its time, its bound (H100
    SXM: 3.35 TB/s HBM, 989 TFLOP/s bf16 dense; the scan 67 TFLOP/s f32
@@ -1016,6 +1019,11 @@ def check_grouped_gemm(torch, gen, flush):
                   f"torch._grouped_mm "
                   f"{'none' if lib_ms is None else f'{lib_ms:.4f} ms'}"
                   f"{ratio}, per-group torch.matmul loop {loop_ms:.4f} ms")
+            if row == "grouped_gemm_swiglu":
+                split = kernel_split(torch, fn, ("swiglu_wgmma",))
+                print(f"    by kernel (ms a call): {split}; wrapper "
+                      f"{host_us_per_call(torch, fn):.1f} us a call on the "
+                      f"host")
             r = rows[row]
             r["ms"] += ms
             r["plain_ms"] += plain
@@ -1072,16 +1080,17 @@ def print_ptxas(sources, pattern, label):
 
 
 def print_wgmma_ptxas():
-    """What ptxas reported for each wgmma kernel (the gmm and tgmm of
-    ``csrc/grouped_gemm.cu``, the flash forward, dK/dV and dQ kernels), with
-    the local-memory accesses in the built code, and the dynamic shared
-    memory they launch with."""
+    """What ptxas reported for each wgmma kernel (the gmm, tgmm and fused
+    swiglu of ``csrc/grouped_gemm.cu``, the flash forward, dK/dV and dQ
+    kernels), with the local-memory accesses in the built code, and the
+    dynamic shared memory they launch with."""
     import re
 
     from paddle_tpu_torch.ops.cuda import _build
 
-    pattern = re.compile(r"(t?gmm_wgmma_kernel|flash_fwd_kernel|"
-                         r"flash_bwd_dkdv_kernel|flash_bwd_dq_kernel)"
+    pattern = re.compile(r"(t?gmm_wgmma_kernel|swiglu_wgmma_kernel|"
+                         r"flash_fwd_kernel|flash_bwd_dkdv_kernel|"
+                         r"flash_bwd_dq_kernel)"
                          r"(?:ILb([01])E|ILi(\d+)E)?")
 
     def label(m):
@@ -1094,7 +1103,7 @@ def print_wgmma_ptxas():
     smem = _build.load("grouped_gemm").ptt_wgmma_smem_bytes()
     fwd = _build.load("flash_attention").ptt_flash_fwd_smem_bytes
     bwd = _build.load("flash_attention_bwd").ptt_flash_bwd_smem_bytes
-    print(f"  wgmma kernels' dynamic shared memory: gmm and tgmm {smem} "
+    print(f"  wgmma kernels' dynamic shared memory: gmm, tgmm and swiglu {smem} "
           f"bytes; flash forward {fwd(64)} / {fwd(128)} (d = 64 / 128), dK/dV "
           f"{bwd(64, 0)} / {bwd(128, 0)}, dQ {bwd(64, 1)} / {bwd(128, 1)}. "
           f"The producer warpgroups drop to 40 (grouped GEMMs) or 24 "
@@ -1103,14 +1112,14 @@ def print_wgmma_ptxas():
 
 
 def print_ssm_ptxas():
-    """ptxas's line and the SASS's local accesses of each chunk-parallel
-    SSM kernel: the scan backward's three, the SSD forward's and backward's
-    two each and the WKV backward's two (per I/O type; the SSD's per head
-    and state width, the WKV's per head width)."""
+    """ptxas's line and the SASS's local accesses of the scan forward and
+    of each chunk-parallel SSM kernel: the scan backward's three, the SSD
+    forward's and backward's two each and the WKV backward's two (per I/O
+    type; the SSD's per head and state width, the WKV's per head width)."""
     import re
 
-    pattern = re.compile(r"(scan_bwd_local_kernel|scan_bwd_pass_kernel|"
-                         r"scan_bwd_kernel|ssd_fwd_carry_kernel|"
+    pattern = re.compile(r"(scan_fwd_kernel|scan_bwd_local_kernel|"
+                         r"scan_bwd_pass_kernel|scan_bwd_kernel|ssd_fwd_carry_kernel|"
                          r"ssd_fwd_chunk_kernel|ssd_bwd_carry_kernel|"
                          r"ssd_bwd_kernel|wkv_bwd_carry_kernel|"
                          r"wkv_bwd_chunk_kernel)(I(f|13__nv_bfloat16)"
@@ -1169,25 +1178,30 @@ def sfu_floor_ms(exps):
 
 
 def check_grouped_gemm_edges(torch, gen):
-    """gmm and tgmm at the wgmma kernels' edges against their plain
+    """The three wgmma grouped GEMMs at their edges against their plain
     versions: M = 8200 rows in the ``GG_RAGGED`` groups (starts off every
     64- and 128-row boundary, a one-row group, an empty group, 2720 trash
-    rows), at the MoE layer's widths (K = 2816, N = 1024) and at an odd
-    width (K = 1000, N = 520: multiples of 8, not of 64); gmm in both
-    orientations with and without bias, tgmm. Then NaN and inf in the
-    trash rows (of lhs for gmm, of lhs and dout for tgmm): the kept rows
-    and every dW equal the plain version's and, bit for bit, the NaN-free
-    run's. Every output within ``GG_RTOL`` of max |plain|, trash rows and
-    the empty group's dW exact zeros, tgmm twice bitwise equal. Returns the
-    largest |kernel - plain| per kernel row."""
+    rows). gmm in both orientations with and without bias, and tgmm, at the
+    MoE layer's w2 widths (K = 2816, N = 1024); the fused swiglu with and
+    without its residuals at its widths (K = 1024, N = 2816); each also at
+    an odd width (K = 1000, N = 520: multiples of 8, not of 64 or 128).
+    Then NaN and inf in the trash rows (of lhs for gmm and the swiglu, of
+    lhs and dout for tgmm): the kept rows and every dW equal the plain
+    version's and, bit for bit, the NaN-free run's. Every output within
+    ``GG_RTOL`` of max |plain|, trash rows and the empty group's dW exact
+    zeros, tgmm and the swiglu twice bitwise equal, the swiglu's y without
+    residuals bit for bit its y with them. Returns the largest |kernel -
+    plain| per kernel row."""
     from paddle_tpu_torch.ops.cuda.grouped_gemm import (
-        gmm, gmm_reference, tgmm, tgmm_reference)
+        gmm, gmm_reference, gmm_swiglu, gmm_swiglu_reference, tgmm,
+        tgmm_reference)
 
     M, E = GG_RAGGED_M, len(GG_RAGGED)
     sizes = torch.tensor(GG_RAGGED, dtype=torch.int32, device="cuda")
     kept = sum(GG_RAGGED)
     empty = [g for g, s in enumerate(GG_RAGGED) if s == 0]
-    errs = {"grouped_gemm": 0.0, "grouped_gemm_tgmm": 0.0}
+    errs = {"grouped_gemm": 0.0, "grouped_gemm_tgmm": 0.0,
+            "grouped_gemm_swiglu": 0.0}
 
     def rnd(*shape, scale=1.0):
         return (torch.randn(*shape, generator=gen, device="cuda")
@@ -1245,6 +1259,30 @@ def check_grouped_gemm_edges(torch, gen):
              f"and dout ({label})", tgmm(xn, doutn, sizes),
              tgmm_reference(xn, doutn, sizes), same=dw)
         del x, xt, dout, w, xn, doutn, dw
+    for label, K, N in (("swiglu widths", 1024, 2816), ("odd width", 1000,
+                                                         520)):
+        x = rnd(M, K)
+        w1, b1 = rnd(E, K, 2 * N, scale=K ** -0.5), rnd(E, 2 * N, scale=0.1)
+        outs = gmm_swiglu(x, w1, sizes, b1)
+        for name, o, r in zip("ygu", outs, gmm_swiglu_reference(x, w1, sizes,
+                                                                b1)):
+            held("grouped_gemm_swiglu", f"swiglu {name} [{M},{K}]x[{E},{K},"
+                 f"{2 * N}] + b1 ({label})", o, r)
+        y_only = gmm_swiglu(x, w1, sizes, b1, emit_residuals=False)
+        again = gmm_swiglu(x, w1, sizes, b1)
+        torch.cuda.synchronize()
+        check(y_only[1] is None and torch.equal(y_only[0], outs[0]),
+              f"swiglu ({label}) without residuals: y bit for bit y with "
+              f"them")
+        check(all(torch.equal(a, o) for a, o in zip(again, outs)),
+              f"swiglu ({label}) run twice: bitwise equal")
+        xn = poisoned(x)
+        for name, o, r, same in zip(
+                "ygu", gmm_swiglu(xn, w1, sizes, b1),
+                gmm_swiglu_reference(xn, w1, sizes, b1), outs):
+            held("grouped_gemm_swiglu", f"swiglu {name} with NaN/inf trash "
+                 f"rows ({label})", o, r, same=same)
+        del x, w1, b1, outs, y_only, again, xn
     return errs
 
 
@@ -1289,11 +1327,12 @@ def check_pair(what, outs, refs, names, tol):
     return worst
 
 
-def plain_vjp(torch, fn, ins, dy):
-    """The plain version's forward and its autograd gradients in f32."""
-    xs = [t.detach().float().requires_grad_() for t in ins]
+def plain_vjp(torch, fn, ins, dy, dtype=None):
+    """The plain version's forward and its autograd gradients in f32 (or
+    ``dtype``)."""
+    xs = [t.detach().to(dtype or torch.float32).requires_grad_() for t in ins]
     y = fn(*xs)
-    return y.detach(), torch.autograd.grad(y, xs, dy.float())
+    return y.detach(), torch.autograd.grad(y, xs, dy.to(xs[0].dtype))
 
 
 SCAN_CASES = (                   # b, l, d, n, strong decay
@@ -1329,9 +1368,12 @@ def check_selective_scan(torch, gen, flush):
     path's bf16 within SSM_BF16_RTOL, the forward's chunk states too; and at
     the backward's edges (``SCAN_CASES``, each in f32 and bf16): one step, a
     chunk less one, one, one more, lengths off every tile, d = 100 and 200
-    (off the 64-channel tile and the 128 channels of a partial), n = 5, and
-    a strong decay (exp(delta A) = 0). The backward twice at the path's
-    shape, bitwise equal. Timed in bf16; the bound counts the JAX audit's
+    (off the 64-channel tile and the 128 channels of a partial; d = 100 in
+    bf16 also off the forward's 16-byte rows), n = 5, and a strong decay
+    (exp(delta A) = 0). The forward (y and the chunk states) and the
+    backward twice at the path's shape, each bitwise equal. Timed in bf16,
+    each split by kernel, with each wrapper's host µs a call; the bound
+    counts the JAX audit's
     10 / 25 ops per (b, l, d, n) at the f32 non-tensor rate; beside it the
     special-function unit's floor for the exponentials (one per (b, l, d, n)
     forward, three backward)."""
@@ -1366,7 +1408,16 @@ def check_selective_scan(torch, gen, flush):
     # timing at the path's shape and dtype (the last case)
     torch.cuda.empty_cache()
     ms = time_ms(torch, lambda: ss.selective_scan_fwd(*ins), flush=flush)
-    _, bounds = ss.selective_scan_fwd(*ins)
+    y, bounds = ss.selective_scan_fwd(*ins)
+    y2, bounds2 = ss.selective_scan_fwd(*ins)
+    torch.cuda.synchronize()
+    check(torch.equal(y, y2) and torch.equal(bounds, bounds2),
+          f"selective scan forward b{b} l{l} d{d} n{n} run twice: y and the "
+          f"chunk states bitwise equal")
+    del y, y2, bounds2
+    fwd_split = kernel_split(torch, lambda: ss.selective_scan_fwd(*ins),
+                             ("scan_fwd_",))
+    fwd_host = host_us_per_call(torch, lambda: ss.selective_scan_fwd(*ins))
     grads = ss.selective_scan_bwd(*ins, bounds, dy)
     again = ss.selective_scan_bwd(*ins, bounds, dy)
     torch.cuda.synchronize()
@@ -1378,6 +1429,8 @@ def check_selective_scan(torch, gen, flush):
                      flush=flush)
     split = kernel_split(torch, lambda: ss.selective_scan_bwd(
         *ins, bounds, dy), ("scan_bwd_",))
+    bwd_host = host_us_per_call(torch, lambda: ss.selective_scan_bwd(
+        *ins, bounds, dy))
     xs = [t.float() for t in ins]
     with torch.no_grad():
         plain = time_ms(torch, lambda: ss.selective_scan_reference(*xs),
@@ -1404,7 +1457,10 @@ def check_selective_scan(torch, gen, flush):
               f"{mhz:.0f} MHz), plain {plain_t:.3f} ms, library: none")
         rows[key] = dict(ms=t, plain_ms=plain_t, bound_ms=b_ms,
                          bound_by=b_by, library_ms=None)
-    print(f"  selective_scan_bwd by kernel (ms a call): {split}")
+    print(f"  selective_scan by kernel (ms a call): {fwd_split}; wrapper "
+          f"{fwd_host:.1f} us a call on the host")
+    print(f"  selective_scan_bwd by kernel (ms a call): {split}; wrapper "
+          f"{bwd_host:.1f} us a call on the host")
     print(f"  (plain fwd + bwd {plain_both:.3f} ms; the backward's plain ms "
           f"is that minus the forward's)")
     rows["selective_scan"]["max_abs_err"] = errs[0]
@@ -1586,8 +1642,10 @@ def check_ssd(torch, gen, flush):
     """The SSD forward (y, the chunk states) and backward (dx, ddt, dA, dB,
     dC, dD) kernels against their plain version ``ssd_chunked_reference``
     at phase 11's shape (b8 l1024 h24 dh64 ds64, x, B and C strided as the
-    model's), in f32 I/O within SSM_F32_RTOL and in the path's bf16 within
-    SSM_BF16_RTOL; and at the chunk-parallel kernels' edges (``SSD_CASES``):
+    model's), in f32 I/O within SSM_F32_RTOL of the plain version evaluated
+    in float64 (its f32 evaluation's own dA lies up to 3.3e-4 of max |dA|
+    from float64 at these edges: dA sums the chunks' reverse cumsums, which
+    cancel) and in the path's bf16 within SSM_BF16_RTOL; and at the chunk-parallel kernels' edges (``SSD_CASES``):
     one step, a chunk less one, one, one more, lengths off every chunk (150,
     1001), head counts off the groups of 12, every (dh, ds) in {64, 128}^2
     (chunk 32 but at 64 x 64), a strong decay (a_t = 0 exactly, bf16).
@@ -1619,14 +1677,15 @@ def check_ssd(torch, gen, flush):
                   for t in (y, states, *grads)),
               f"{what}: y, the states and every gradient finite")
         chunk = ssd.kernel_chunk(cdh, cds)
+        ref_dt = torch.float64 if dt_io == torch.float32 else torch.float32
         with torch.no_grad():
             y_ref, s_ref = ssd.ssd_chunked_reference(
-                *(t.float() for t in ins), chunk, True)
+                *(t.to(ref_dt) for t in ins), chunk, True)
         errs[0] = max(errs[0], check_pair(
             what, (y.float(), states), (y_ref.to(dt_io), s_ref),
             ("y", "chunk states"), tol))
         _, g_ref = plain_vjp(torch, lambda *a: ssd.ssd_chunked_reference(
-            *a, chunk), ins, dy)
+            *a, chunk), ins, dy, ref_dt)
         errs[1] = max(errs[1], check_pair(
             what, grads, [g.to(t.dtype) for g, t in zip(g_ref, ins)],
             names, tol))
@@ -2426,7 +2485,8 @@ def phase_eager(torch, seed):
 
 
 # gmm_kernel: the fused swiglu; gmm_wgmma_kernel: gmm and tgmm_wgmma_kernel
-MOE_GROUPS = {"grouped GEMM": ("gmm_kernel", "gmm_wgmma_kernel"), **TRAIN_GROUPS}
+MOE_GROUPS = {"grouped GEMM": ("swiglu_wgmma_kernel", "gmm_wgmma_kernel"),
+              **TRAIN_GROUPS}
 
 
 def phase_moe_train(torch, seed):
@@ -2505,7 +2565,7 @@ def phase_moe_train(torch, seed):
 
 
 SSM_GROUPS = {
-    "selective scan fwd": ("scan_fwd_kernel",),
+    "selective scan fwd": ("scan_fwd_",),
     "selective scan bwd": ("scan_bwd_",),
     "wkv fwd": ("wkv_fwd_kernel",), "wkv bwd": ("wkv_bwd_",),
     **TRAIN_GROUPS}

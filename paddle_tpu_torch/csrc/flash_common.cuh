@@ -1,13 +1,13 @@
 // mma.sync building blocks shared by the kernels that feed the tensor cores
 // from ldmatrix fragments (the int8 / int4 weight-only GEMMs in
-// int8_matmul.cu, the fused gate + up + swiglu in grouped_gemm.cu and the
-// chunk-parallel SSM kernels through ssm_common.cuh): cp.async copies,
-// ldmatrix loads (x4 and x2, plain and transposed), the bf16 mma.sync
-// m16n8k16 product with f32 accumulation, and the TF32 m16n8k8 product with
-// its rounding (the SSM kernels' f32 instantiations split each f32 operand
-// into two TF32 values). Tiles in shared memory are row-major with padded
-// rows (16 bytes of padding keep the eight 16-byte rows an ldmatrix reads
-// on distinct banks).
+// int8_matmul.cu and the chunk-parallel SSM kernels through
+// ssm_common.cuh), and cp.async, which the selective scan's forward also
+// uses: cp.async copies, ldmatrix loads (x4 and x2, plain and transposed),
+// the bf16 mma.sync m16n8k16 product with f32 accumulation, and the TF32
+// m16n8k8 product with its rounding (the SSM kernels' f32 instantiations
+// split each f32 operand into two TF32 values). Tiles in shared memory are
+// row-major with padded rows (16 bytes of padding keep the eight 16-byte
+// rows an ldmatrix reads on distinct banks).
 //
 // Fragment layouts of mma.sync m16n8k16 (lane = threadIdx.x % 32,
 // g = lane / 4, c2 = 2 * (lane % 4)):
@@ -91,29 +91,6 @@ __device__ __forceinline__ uint32_t to_tf32(float x) {
   uint32_t r;
   asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
   return r;
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// The A fragment of a 16 x 16 block at (row0, col0) of a row-major shared
-// tile with row stride LD (x4 load: lanes 0-15 address rows 0-15 at col0,
-// lanes 16-31 the same rows at col0 + 8).
-template <int LD>
-__device__ __forceinline__ void load_a(uint32_t (&r)[4], const bf16* tile, int row0, int col0,
-                                       int lane) {
-  ldmatrix_x4(r, tile + (row0 + lane % 16) * LD + col0 + (lane / 16) * 8);
-}
-
-// B fragments of two 8-wide n-tiles from a shared tile stored [k][n]
-// (row k, n contiguous), transposed on load: r[0], r[1] for n-tile n0,
-// r[2], r[3] for n0 + 8.
-template <int LD>
-__device__ __forceinline__ void load_b_kn(uint32_t (&r)[4], const bf16* tile, int k0, int n0,
-                                          int lane) {
-  ldmatrix_x4_trans(r, tile + (k0 + lane % 8 + ((lane / 8) % 2) * 8) * LD + n0 + (lane / 16) * 8);
 }
 
 }  // namespace ptt

@@ -28,7 +28,7 @@
 // operations per row against 2 (K + N) bytes, about 900 per byte, three
 // times the card's ~295. Only wgmma reaches the tensor cores' full rate.
 //
-// gmm and tgmm: one persistent, warp-specialised kernel family.
+// gmm, tgmm and gmm_swiglu: one persistent, warp-specialised kernel family.
 // - Grid: one block per SM, or per tile where there are fewer; a block
 //   walks the output tiles t = blockIdx.x, + gridDim.x, ...
 // - Block: 3 warpgroups. Warpgroup 0 keeps 40 registers (setmaxnreg) and
@@ -89,10 +89,30 @@
 //   busy without splitting the rows, and each tile's sum runs in one fixed
 //   order.
 
-// gmm_swiglu keeps its first design: mma.sync m16n8k16 with fragments from
-// ldmatrix, a 4-stage cp.async ring of 32-deep slices, 128 x 64 tiles over
-// 8 warps with two accumulators (gate and up), a grid of (N / 64,
-// ceil(M / 128) + G + 1) blocks, each finding its row tile with one thread.
+// gmm_swiglu: gmm's kernel with two products in one accumulator.
+// - The mainloop is gmm's (w1 [G, K, 2N] read MN-major): the producer
+//   fills the 4 B panels of a stage with gate columns [n0, n0 + 128)
+//   (panels 0, 1) and up columns [n0, n0 + 128) (panels 2, 3), so one
+//   wgmma m64n256 per k16 accumulates both and a thread holds gate column
+//   j and up column j in its own registers. An output tile is 128 x 128 of
+//   y (22 column tiles at N = 2816).
+// - w1 goes through a 4-D map [G, K, 2, N] with boxes of 64 columns of one
+//   half: a gate box near N is clipped there and zero-filled instead of
+//   reading up's columns (widths off 128, as N = 520).
+// - Epilogue in f32: the biases (none for the trash group), g sigmoid(g) u
+//   (ex2 and rcp on the special-function unit), one rounding to bf16. The
+//   residuals g and u are staged together in the two 32 KB halves of the
+//   output buffer and stored by TMA; then y, computed in place of g, is
+//   staged in the first half once g's store has read it: two rounds of
+//   named barriers a tile, no values live beside the accumulators. The
+//   stores drain under the next tile's mainloop. Rows as in gmm: a group's
+//   last, shorter tile from registers. Shared memory as gmm's: 3 stages and
+//   the 64 KB output buffer (three staged 32 KB outputs beside three stages
+//   would need 240 KB; two stages cost the mainloop more than the staging
+//   saves, tools/grouped_gemm_variants.py).
+// - Bounded as gmm by the tensor cores (4 K N operations per routed row),
+//   plus the stores of three [M, N] outputs (554 MB at M = 32768, N =
+//   2816: 0.165 ms at 3.35 TB/s) under the mainloop.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -100,12 +120,11 @@
 
 #include <atomic>
 
-#include "flash_common.cuh"
 #include "hopper.cuh"
 
 namespace {
 
-using ptt::bf16;
+using bf16 = __nv_bfloat16;
 namespace hw = ptt::sm90;
 
 constexpr int MAX_GROUPS = 256;  // G + 1 groups at most, the trash group included
@@ -295,9 +314,9 @@ __device__ __forceinline__ void stage_out(uint8_t* outbuf, const float (&acc)[WG
     }
     uint8_t* at = outbuf + (j / 8) * OUT_PANEL + ((j % 8) ^ (r % 8)) * 16 + (tid % 4) * 4;
     *reinterpret_cast<uint32_t*>(at + r * 128) =
-        ptt::pack_bf16(acc[4 * j] + b0, acc[4 * j + 1] + b1);
+        hw::pack_bf16x2(acc[4 * j] + b0, acc[4 * j + 1] + b1);
     *reinterpret_cast<uint32_t*>(at + (r + 8) * 128) =
-        ptt::pack_bf16(acc[4 * j + 2] + b0, acc[4 * j + 3] + b1);
+        hw::pack_bf16x2(acc[4 * j + 2] + b0, acc[4 * j + 3] + b1);
   }
   hw::fence_proxy_async();
   hw::named_barrier(1, 256);
@@ -561,175 +580,212 @@ cudaError_t launch_tgmm(const CUtensorMap& ml, const CUtensorMap& md, const CUte
   return cudaGetLastError();
 }
 
-// --------------------------------------------------- gmm_swiglu (mma.sync)
-constexpr int BK = 32;           // contraction depth of one pipeline stage
-constexpr int STAGES = 4;
-constexpr int THREADS = 256;     // 8 warps
-constexpr int NB = 2;            // two accumulators: gate and up
+// ------------------------------------------------------ gmm_swiglu (wgmma)
+constexpr int SW_BN = WG_BN / 2;            // y columns of a tile: its gate and up halves
+constexpr int SW_UP = WG_BN / 4;            // the up half's first accumulator slot
+constexpr int SW_PANELS = SW_BN / 64;       // B panels of each half
+constexpr int SW_OUT = WG_BM * SW_BN * 2;   // bytes of one staged output tile
+static_assert(2 * SW_OUT == OUT_BYTES, "two staged outputs fill the output buffer");
 
-// The grid's row-tile table: offs[0..G+1] (rows) and tstart[0..G+1] (row
-// tiles), built by thread 0 from sizes. Returns false for a block past the
-// last tile; else sets its group and row range [r0, r1).
-template <int BM>
-__device__ bool find_row_tile(const int* __restrict__ sizes, int G, int M, int t, int* offs,
-                              int* tstart, int& group, int& r0, int& r1) {
-  if (threadIdx.x == 0) {
-    int off = 0, tiles = 0;
-    offs[0] = 0;
-    tstart[0] = 0;
-    for (int g = 0; g <= G; ++g) {
-      const int end = g < G ? min(M, off + max(sizes[g], 0)) : M;
-      tiles += (end - off + BM - 1) / BM;
-      off = end;
-      offs[g + 1] = off;
-      tstart[g + 1] = tiles;
-    }
+// This warpgroup's 64 rows of one staged 128 x 128 output (y, g or u) as
+// bf16, in the layout the output maps' 64 x 128 boxes read (as stage_out):
+// value(j, e) is the f32 value at row r (e < 2) or r + 8 (e >= 2) and
+// column 8 j + 2 (tid % 4) + e % 2, as accumulator slot 4 j + e holds it.
+template <typename F>
+__device__ __forceinline__ void stage_swiglu(uint8_t* buf, int wg, int tid, F value) {
+  const int r = wg * 64 + (tid / 32) * 16 + (tid % 32) / 4;
+#pragma unroll
+  for (int j = 0; j < SW_BN / 8; ++j) {
+    uint8_t* at = buf + (j / 8) * OUT_PANEL + ((j % 8) ^ (r % 8)) * 16 + (tid % 4) * 4;
+    *reinterpret_cast<uint32_t*>(at + r * 128) = hw::pack_bf16x2(value(j, 0), value(j, 1));
+    *reinterpret_cast<uint32_t*>(at + (r + 8) * 128) = hw::pack_bf16x2(value(j, 2), value(j, 3));
   }
-  __syncthreads();
-  if (t >= tstart[G + 1]) return false;
-  int g = 0;
-  while (tstart[g + 1] <= t) ++g;  // empty groups own no tile
-  group = g;
-  r0 = offs[g] + (t - tstart[g]) * BM;
-  r1 = min(r0 + BM, offs[g + 1]);
-  return true;
 }
 
-template <int BM, int BN>
-struct GmmSmem {
-  static constexpr int LDA = BK + 8;
-  static constexpr int LDB = BN + 8;
-  bf16 a[STAGES][BM][LDA];
-  bf16 b[NB][STAGES][BK][LDB];
-  int offs[MAX_GROUPS + 1];
-  int tstart[MAX_GROUPS + 1];
-};
+// One staged output (2 panels of 64 columns, clipped at N) stored by TMA
+// at rows [r0, r0 + 128): one bulk group.
+__device__ __forceinline__ void store_staged(const CUtensorMap* map, const uint8_t* buf, int n0,
+                                             int r0, int N) {
+#pragma unroll
+  for (int j = 0; j < SW_PANELS; ++j)
+    if (n0 + 64 * j < N) hw::tma_store_2d(map, buf + j * OUT_PANEL, n0 + 64 * j, r0);
+  hw::tma_store_commit();
+}
 
-// grid (ceil(N / BN), ceil(M / BM) + G + 1); w1 [G, K, 2N], two accumulators
-template <int BM, int BN, int WM, int WN>
-__global__ void __launch_bounds__(THREADS)
-gmm_kernel(const bf16* __restrict__ lhs, const bf16* __restrict__ rhs,
-           const bf16* __restrict__ bias, const int* __restrict__ sizes, bf16* __restrict__ out,
-           bf16* __restrict__ gres, bf16* __restrict__ ures, int M, int K, int N, int G) {
-  using S = GmmSmem<BM, BN>;
-  constexpr int LDA = S::LDA, LDB = S::LDB;
-  constexpr int WTM = BM / WM, WTN = BN / WN;  // a warp's tile
-  constexpr int MT = WTM / 16, NT = WTN / 8;
-  static_assert(WM * WN * 32 == THREADS && NT % 2 == 0, "warp layout");
+__device__ __forceinline__ float swiglu(float g, float u) {
+  return __fdividef(g, 1.f + __expf(-g)) * u;
+}
+
+// A 128 x 128 tile of y = silu(x wg + bg) (x wu + bu), rows [r0, r1) of one
+// group: gmm's mainloop with the B slice's 4 panels holding gate columns
+// [n0, n0 + 128) (panels 0, 1) and up columns [n0, n0 + 128) (panels 2, 3),
+// so one m64n256 wgmma accumulates both; a thread holds gate column j and
+// up column j in slots 4 j + e and SW_UP + 4 j + e (SW_UP = 64).
+__global__ void __launch_bounds__(WG_THREADS, 1)
+swiglu_wgmma_kernel(const __grid_constant__ CUtensorMap map_lhs,
+                    const __grid_constant__ CUtensorMap map_w1,
+                    const __grid_constant__ CUtensorMap map_y,
+                    const __grid_constant__ CUtensorMap map_g,
+                    const __grid_constant__ CUtensorMap map_u, const bf16* __restrict__ bias,
+                    const int* __restrict__ sizes, bf16* __restrict__ y,
+                    bf16* __restrict__ gres, bf16* __restrict__ ures, int M, int K, int N,
+                    int G) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  S& sm = *reinterpret_cast<S*>(smem_raw);
-
-  int g, r0, r1;
-  if (!find_row_tile<BM>(sizes, G, M, blockIdx.y, sm.offs, sm.tstart, g, r0, r1)) return;
-  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
-  const int wm = warp / WN, wn = warp % WN;
-  const int n0 = blockIdx.x * BN;
-  const long ldb = long(NB) * N;  // row stride of rhs[g]
-  const bf16* rhs_g = rhs + long(min(g, G - 1)) * K * ldb;
-
-  float acc[NB][MT][NT][4];
-#pragma unroll
-  for (int j = 0; j < NB; ++j)
-#pragma unroll
-    for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-      for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[j][mt][nt][e] = 0.f;
-
-  if (g < G) {  // the trash group stores zeros without a K loop
-    auto load_stage = [&](int stage, int kt) {
-      const int k0 = kt * BK;
-      constexpr int KCH = BK / 8;  // 16-byte chunks across BK
-      for (int i = tid; i < BM * KCH; i += THREADS) {
-        const int r = i / KCH, c = (i % KCH) * 8;
-        const bool ok = r0 + r < r1 && k0 + c < K;
-        ptt::cp_async16(&sm.a[stage][r][c], ok ? lhs + long(r0 + r) * K + k0 + c : lhs,
-                        ok ? 16 : 0);
-      }
-      constexpr int NCH = BN / 8;
-#pragma unroll
-      for (int j = 0; j < NB; ++j)
-        for (int i = tid; i < BK * NCH; i += THREADS) {
-          const int r = i / NCH, c = (i % NCH) * 8;
-          const bool ok = k0 + r < K && n0 + c < N;
-          ptt::cp_async16(&sm.b[j][stage][r][c],
-                          ok ? rhs_g + long(k0 + r) * ldb + long(j) * N + n0 + c : rhs_g,
-                          ok ? 16 : 0);
-        }
-    };
-
-    const int nkt = (K + BK - 1) / BK;
-#pragma unroll
-    for (int st = 0; st < STAGES - 1; ++st) {
-      if (st < nkt) load_stage(st, st);
-      ptt::cp_async_commit();
-    }
-    for (int kt = 0; kt < nkt; ++kt) {
-      ptt::cp_async_wait<STAGES - 2>();
-      __syncthreads();  // stage kt landed; every warp is done with kt - 1
-      const int nxt = kt + STAGES - 1;
-      if (nxt < nkt) load_stage(nxt % STAGES, nxt);
-      ptt::cp_async_commit();
-      const int s = kt % STAGES;
-#pragma unroll
-      for (int kk = 0; kk < BK / 16; ++kk) {
-        uint32_t a[MT][4];
-#pragma unroll
-        for (int mt = 0; mt < MT; ++mt)
-          ptt::load_a<LDA>(a[mt], &sm.a[s][0][0], wm * WTM + mt * 16, kk * 16, lane);
-#pragma unroll
-        for (int j = 0; j < NB; ++j)
-#pragma unroll
-          for (int np = 0; np < NT / 2; ++np) {
-            uint32_t b[4];
-            ptt::load_b_kn<LDB>(b, &sm.b[j][s][0][0], kk * 16, wn * WTN + np * 16, lane);
-#pragma unroll
-            for (int mt = 0; mt < MT; ++mt) {
-              ptt::mma16816(acc[j][mt][2 * np], a[mt], b[0], b[1]);
-              ptt::mma16816(acc[j][mt][2 * np + 1], a[mt], b[2], b[3]);
-            }
-          }
-      }
-    }
-    ptt::cp_async_wait<0>();
+  const Ring ring(smem_raw);
+  int* offs = ring.tab0;
+  int* tstart = ring.tab1;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (warp == 0) {
+    build_offsets(sizes, G, M, offs, lane);
+    build_row_tiles(offs, G, tstart, lane);
+  } else if (threadIdx.x == 32) {
+    init_ring(ring);
   }
+  __syncthreads();
 
-  // epilogue in f32: the bias (none for the trash group), swiglu, one
-  // rounding to bf16; only rows of this tile's group are stored
-  const bool has_bias = bias != nullptr && g < G;
-  const bf16* bias_g = has_bias ? bias + long(g) * NB * N : bias;
-  const int gr = lane / 4, c2 = 2 * (lane % 4);
+  const int ntn = (N + SW_BN - 1) / SW_BN;
+  const int ntiles = tstart[G + 1] * ntn;
+  const int nk = (K + WG_BK - 1) / WG_BK;
+
+  if (warp < 4) {  // producer warpgroup: one thread issues every load
+    hw::setmaxnreg_dec<PRODUCER_REGS>();
+    if (threadIdx.x == 0) {
+      hw::tma_prefetch(&map_lhs);
+      hw::tma_prefetch(&map_w1);
+      int stage = 0;
+      uint32_t phase = 0;
+      for (int t = blockIdx.x; t < ntiles; t += gridDim.x) {
+        int g, r0, r1;
+        locate_row_tile(offs, tstart, G, t / ntn, g, r0, r1);
+        if (g == G) continue;  // trash tiles load nothing
+        const int n0 = (t % ntn) * SW_BN;
+        for (int kt = 0; kt < nk; ++kt) {
+          hw::mbar_wait(&ring.empty[stage], phase ^ 1);
+          uint8_t* st = ring.stage(stage);
+          uint64_t* bar = &ring.full[stage];
+          hw::mbar_expect_tx(bar, STAGE_BYTES);
+          hw::tma_load_2d(st, &map_lhs, bar, kt * WG_BK, r0);
+          // w1 as [G, K, 2, N]: half 0 gate, half 1 up; a box clips at N
 #pragma unroll
-  for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt) {
-      const int col = n0 + wn * WTN + nt * 8 + c2;
-      if (col >= N) continue;
-      float b0[NB], b1[NB];
-#pragma unroll
-      for (int j = 0; j < NB; ++j) {
-        b0[j] = has_bias ? __bfloat162float(bias_g[j * N + col]) : 0.f;
-        b1[j] = has_bias ? __bfloat162float(bias_g[j * N + col + 1]) : 0.f;
-      }
-#pragma unroll
-      for (int hf = 0; hf < 2; ++hf) {
-        const int row = r0 + wm * WTM + mt * 16 + gr + hf * 8;
-        if (row >= r1) continue;
-        const long at = long(row) * N + col;
-        const float x0 = acc[0][mt][nt][2 * hf] + b0[0];
-        const float x1 = acc[0][mt][nt][2 * hf + 1] + b1[0];
-        const float u0 = acc[1][mt][nt][2 * hf] + b0[1];
-        const float u1 = acc[1][mt][nt][2 * hf + 1] + b1[1];
-        const float y0 = x0 * (1.f / (1.f + expf(-x0))) * u0;
-        const float y1 = x1 * (1.f / (1.f + expf(-x1))) * u1;
-        store_bf16x2(out + at, y0, y1);
-        if (gres != nullptr) {
-          store_bf16x2(gres + at, x0, x1);
-          store_bf16x2(ures + at, u0, u1);
+          for (int j = 0; j < WG_BN / 64; ++j)
+            hw::tma_load_4d(st + A_BYTES + j * PANEL, &map_w1, bar, n0 + 64 * (j % SW_PANELS),
+                            j / SW_PANELS, kt * WG_BK, g);
+          advance(stage, phase);
         }
       }
     }
+  } else {  // consumer warpgroups 1, 2: rows [64 wg, 64 wg + 64) of a tile
+    hw::setmaxnreg_inc<CONSUMER_REGS>();
+    const int wg = warp / 4 - 1;
+    const int tid = threadIdx.x % 128;
+    const bool leader = tid == 0, issuer = threadIdx.x == 128;
+    const bool residuals = gres != nullptr;
+    int stage = 0, prev = -1;
+    uint32_t phase = 0;
+    float acc[WG_BN / 2];
+    for (int t = blockIdx.x; t < ntiles; t += gridDim.x) {
+      int g, r0, r1;
+      locate_row_tile(offs, tstart, G, t / ntn, g, r0, r1);
+      const int n0 = (t % ntn) * SW_BN;
+#pragma unroll
+      for (int i = 0; i < WG_BN / 2; ++i) acc[i] = 0.f;
+      hw::fence_operand(acc);
+      if (g < G) {
+        for (int kt = 0; kt < nk; ++kt) {
+          hw::mbar_wait(&ring.full[stage], phase);
+          const uint8_t* st = ring.stage(stage);
+          consume_slice<0, 1, 2, 128>(acc, hw::desc_k_major(st + wg * PANEL),
+                                      hw::desc_mn_major(st + A_BYTES, PANEL), ring, stage, prev,
+                                      leader);
+          advance(stage, phase);
+        }
+        finish_tile(acc, ring, prev, leader);
+        // the biases in f32, in place: gate slots 4 j + e, up SW_UP + 4 j + e
+        const bf16* bias_g = bias + long(g) * 2 * N;
+#pragma unroll
+        for (int j = 0; j < SW_BN / 8; ++j) {
+          const int col = n0 + 8 * j + 2 * (tid % 4);
+          if (col >= N) continue;
+          const float2 bg = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(bias_g + col));
+          const float2 bu =
+              __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(bias_g + N + col));
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            acc[4 * j + e] += e % 2 ? bg.y : bg.x;
+            acc[SW_UP + 4 * j + e] += e % 2 ? bu.y : bu.x;
+          }
+        }
+      }
+      // the outputs in f32, one rounding: y, g and u. The outputs of a tile
+      // of 128 rows of its group go out by TMA, staged through the two
+      // halves of the output buffer; a shorter tile's (a group's last) from
+      // registers, rows [r0, r1) only (o runs unrolled: every accumulator
+      // index is a constant)
+      auto value = [&](int o, int j, int e) {
+        return o == 0 ? swiglu(acc[4 * j + e], acc[SW_UP + 4 * j + e])
+                      : acc[(o == 1 ? 0 : SW_UP) + 4 * j + e];
+      };
+      const int outs = residuals ? 3 : 1;
+      if (r1 - r0 == WG_BM) {
+        // g and u staged together, then y computed in place of g and
+        // staged once g's store has read its half
+        if (residuals) {
+          if (issuer) hw::tma_store_wait_read<0>();
+          hw::named_barrier(1, 256);
+          stage_swiglu(ring.outbuf, wg, tid, [&](int j, int e) { return acc[4 * j + e]; });
+          stage_swiglu(ring.outbuf + SW_OUT, wg, tid,
+                       [&](int j, int e) { return acc[SW_UP + 4 * j + e]; });
+          hw::fence_proxy_async();
+          hw::named_barrier(1, 256);
+          if (issuer) {
+            store_staged(&map_g, ring.outbuf, n0, r0, N);
+            store_staged(&map_u, ring.outbuf + SW_OUT, n0, r0, N);
+          }
+        }
+#pragma unroll
+        for (int i = 0; i < SW_UP; ++i) acc[i] = swiglu(acc[i], acc[SW_UP + i]);
+        if (issuer) {
+          if (residuals)
+            hw::tma_store_wait_read<1>();
+          else
+            hw::tma_store_wait_read<0>();
+        }
+        hw::named_barrier(1, 256);
+        stage_swiglu(ring.outbuf, wg, tid, [&](int j, int e) { return acc[4 * j + e]; });
+        hw::fence_proxy_async();
+        hw::named_barrier(1, 256);
+        if (issuer) store_staged(&map_y, ring.outbuf, n0, r0, N);
+        continue;
+      }
+      const int row = r0 + wg * 64 + (tid / 32) * 16 + (tid % 32) / 4;
+#pragma unroll
+      for (int j = 0; j < SW_BN / 8; ++j) {
+        const int col = n0 + 8 * j + 2 * (tid % 4);
+        if (col >= N) continue;
+#pragma unroll
+        for (int o = 0; o < 3; ++o) {
+          if (o == outs) break;
+          bf16* dst = (o == 0 ? y : o == 1 ? gres : ures) + col;
+          if (row < r1) store_bf16x2(dst + long(row) * N, value(o, j, 0), value(o, j, 1));
+          if (row + 8 < r1)
+            store_bf16x2(dst + long(row + 8) * N, value(o, j, 2), value(o, j, 3));
+        }
+      }
+    }
+    if (issuer) hw::tma_store_wait<0>();
+  }
+}
+
+cudaError_t launch_swiglu(const CUtensorMap& ml, const CUtensorMap& mw, const CUtensorMap& my,
+                          const CUtensorMap& mg, const CUtensorMap& mu, const bf16* bias,
+                          const int* sizes, bf16* y, bf16* gres, bf16* ures, int M, int K, int N,
+                          int G, int grid, cudaStream_t stream) {
+  static std::atomic<uint64_t> done{0};
+  cudaError_t err = ptt::allow_smem(swiglu_wgmma_kernel, WG_SMEM, done);
+  if (err != cudaSuccess) return err;
+  swiglu_wgmma_kernel<<<grid, WG_THREADS, WG_SMEM, stream>>>(ml, mw, my, mg, mu, bias, sizes, y,
+                                                             gres, ures, M, K, N, G);
+  return cudaGetLastError();
 }
 
 bool dims_ok(int M, int K, int N, int G) {
@@ -754,7 +810,7 @@ const char* ptt_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// Dynamic shared memory of the wgmma kernels (gmm and tgmm).
+// Dynamic shared memory of the wgmma kernels (gmm, tgmm and gmm_swiglu).
 int ptt_wgmma_smem_bytes() { return WG_SMEM; }
 
 // lhs [M, K] bf16, rhs [G, K, N] bf16 ([G, N, K] when transpose_rhs), bias
@@ -800,25 +856,37 @@ int ptt_gmm(const void* lhs, const void* rhs, const void* bias, const void* size
 }
 
 // lhs [M, K] bf16, w1 [G, K, 2N] bf16, b1 [G, 2N] bf16, sizes [G] int32;
-// out, gres, ures [M, N] bf16 (gres and ures both null: out only). Needs K %
-// 8 == 0, N % 8 == 0 and 1 <= G <= 255.
+// out, gres, ures [M, N] bf16 (gres and ures both null: out only); all
+// contiguous and 16-byte aligned. Needs K % 8 == 0, N % 8 == 0 and 1 <= G
+// <= 255. Returns a CUDA error code as ptt_gmm does.
 int ptt_gmm_swiglu(const void* lhs, const void* w1, const void* b1, const void* sizes,
                    void* out, void* gres, void* ures, int M, int K, int N, int G,
                    void* stream) {
   if (!dims_ok(M, K, N, G) || (gres == nullptr) != (ures == nullptr) || b1 == nullptr)
     return int(cudaErrorInvalidValue);
-  constexpr int BM = 128, BN = 64;
-  static std::atomic<uint64_t> done{0};
-  auto kern = gmm_kernel<BM, BN, 4, 2>;
-  const int smem = int(sizeof(GmmSmem<BM, BN>));
-  cudaError_t err = ptt::allow_smem(kern, smem, done);
+  if (M == 0) return int(cudaSuccess);
+  int grid = 0;
+  cudaError_t err = persistent_grid(
+      long((M + WG_BM - 1) / WG_BM + G + 1) * ((N + SW_BN - 1) / SW_BN), &grid);
   if (err != cudaSuccess) return int(err);
-  const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM + G + 1);
-  kern<<<grid, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(lhs), static_cast<const bf16*>(w1), static_cast<const bf16*>(b1),
-      static_cast<const int*>(sizes), static_cast<bf16*>(out), static_cast<bf16*>(gres),
-      static_cast<bf16*>(ures), M, K, N, G);
-  return int(cudaGetLastError());
+  CUtensorMap ml, mw, mo[3];
+  const uint64_t ldims[2] = {uint64_t(K), uint64_t(M)}, lstr[1] = {uint64_t(K) * 2};
+  const uint64_t odims[2] = {uint64_t(N), uint64_t(M)}, ostr[1] = {uint64_t(N) * 2};
+  const uint32_t lbox[2] = {WG_BK, WG_BM}, obox[2] = {64, WG_BM};
+  // w1 as [G, K, 2, N]: a box of 64 columns of one half never crosses N
+  const uint64_t wdims[4] = {uint64_t(N), 2, uint64_t(K), uint64_t(G)};
+  const uint64_t wstr[3] = {uint64_t(N) * 2, uint64_t(N) * 4, uint64_t(K) * N * 4};
+  const uint32_t wbox[4] = {64, 1, WG_BK, 1};
+  void* outs[3] = {out, gres != nullptr ? gres : out, ures != nullptr ? ures : out};
+  err = hw::encode_tma_bf16(&ml, lhs, 2, ldims, lstr, lbox);
+  if (err == cudaSuccess) err = hw::encode_tma_bf16(&mw, w1, 4, wdims, wstr, wbox);
+  for (int o = 0; o < 3 && err == cudaSuccess; ++o)
+    err = hw::encode_tma_bf16(&mo[o], outs[o], 2, odims, ostr, obox);
+  if (err != cudaSuccess) return int(err);
+  return int(launch_swiglu(ml, mw, mo[0], mo[1], mo[2], static_cast<const bf16*>(b1),
+                           static_cast<const int*>(sizes), static_cast<bf16*>(out),
+                           static_cast<bf16*>(gres), static_cast<bf16*>(ures), M, K, N, G, grid,
+                           static_cast<cudaStream_t>(stream)));
 }
 
 // lhs [M, K] bf16, dout [M, N] bf16, sizes [G] int32, out [G, K, N] bf16.

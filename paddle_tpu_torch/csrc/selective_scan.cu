@@ -15,15 +15,33 @@
 // runs l steps one after the other. The bound is max(bytes / 3.35 TB/s,
 // 10 (forward) or 25 (backward) ops per (b, l, d, n) / 67 TFLOP/s f32).
 //
-// Forward (simple first): one thread per (b, channel) holds the n <= 16
-// states in registers and walks the sequence; a block is 64 channels of one
-// batch row. B_t and C_t (shared by every channel) are staged in shared
-// memory a chunk of 64 steps at a time; u, delta (and dy) come into
-// registers 8 steps at a time, their loads in flight together, so the walk
-// does not wait on memory at every step. The forward writes y and the state
-// entering every chunk of 64 steps, [b, ceil(l/64), n, d] f32 (the Pallas
-// design's residual, 25 MB per layer at b16 l1024 d1536 n16, where the whole
-// history would be 1.6 GB).
+// Forward: a walk over the sequence per (b, channel) that keeps one
+// exponential per (b, t, d, n), split over lanes and fed from shared memory.
+// - Lanes: FWD_LPC = 2 lanes a channel, each holding FWD_NS = 8 of its 16
+//   states; a block is 64 channels of one batch row (128 threads), so the
+//   path's b16 d1536 runs 384 blocks, three an SM. y_t's sum over the
+//   states takes one shuffle; lane 0 of the channel writes it.
+// - Loads ahead of the walk: each chunk of 64 steps (u and delta as [64
+//   steps x 64 channels] tiles, B and C as [64 x 16] rows) lands in shared
+//   memory by 16-byte cp.async, zero-filled past l and past the row, while
+//   the previous chunk is walked (two stages). Each thread widens the bf16
+//   B and C vectors it copied to f32 once they land, so no lane converts
+//   them at every step. The walk reads shared memory only, and a chunk
+//   needs one barrier. Steps past l walk on zeros (delta 0: the state stays
+//   as it is) and are not stored.
+// - Out: each chunk's y is staged in shared memory and stored by rows (16
+//   bytes a thread) while the next chunk is walked; the state entering each
+//   chunk of 64 steps, [b, ceil(l/64), n, d] f32, goes straight from the
+//   lanes' registers (the backward's residual, 25 MB per layer at b16
+//   l1024 d1536 n16, where the whole history would be 1.6 GB).
+// - What bounds it: the instructions a step issues (~70 a thread: the 8
+//   exponentials and state updates, y's sum, the loads of u, delta and the
+//   f32 B and C rows), beside the special-function unit's floor of one
+//   exponential per (b, t, d, n) (b l d n / (132 SMs x 16 a clock)); the
+//   bytes (~177 MB at the path) take a third of that. Measured against
+//   variants (tools/ssm_variants.py, PERF.md): 1 or 4 lanes a channel, B and
+//   C converted at every step, TMA staging and the chunk-parallel form
+//   (three launches, two exponentials per element) were each slower.
 // The backward (described above its kernels) is chunk-parallel: the
 // gradient carry crosses a chunk as an elementwise affine map, so a local
 // sweep, a short pass over the chunks and the chunks' own backward each
@@ -38,18 +56,16 @@
 
 #include <atomic>
 
+#include "flash_common.cuh"
 #include "hopper.cuh"
 
 namespace {
 
 using bf16 = __nv_bfloat16;
+using ptt::sm90::ex2_approx;
 
-constexpr int N = 16;          // states held per thread (n <= N; the rest are zero)
+constexpr int N = 16;          // states a channel at most (n <= N; the rest are zero)
 constexpr int CHUNK = 64;      // steps between saved states
-constexpr int SUB = 8;         // backward replay sub-chunk
-constexpr int NSUB = CHUNK / SUB;
-constexpr int THREADS = 64;    // channels per block
-constexpr int WARPS = THREADS / 32;
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr float LN2 = 0.6931471805599453f;
 
@@ -59,86 +75,179 @@ template <typename T> __device__ __forceinline__ T from_f(float x);
 template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
 template <> __device__ __forceinline__ bf16 from_f<bf16>(float x) { return __float2bfloat16(x); }
 
-// B and C of one chunk, [CHUNK][N] f32, zero past the sequence end and past n
+// ------------------------------------------------------------------ forward
+constexpr int FWD_NS = 8;                        // states a thread
+constexpr int FWD_LPC = N / FWD_NS;              // lanes a channel
+constexpr int FWD_TD = 64;                       // channels a block
+constexpr int FWD_THREADS = FWD_TD * FWD_LPC;
+
+// One chunk of the forward's inputs: this block's channels of u and delta,
+// and B and C as rows of N (the wrapper pads n to N).
 template <typename T>
-__device__ __forceinline__ void stage_bc(float (*sB)[N], float (*sC)[N], const T* __restrict__ B,
-                                         const T* __restrict__ C, size_t row0, int len, int n) {
+struct FwdStage {
+  T u[CHUNK][FWD_TD], delta[CHUNK][FWD_TD];
+  T B[CHUNK][N], C[CHUNK][N];
+};
+
+// B and C of one chunk as f32 (bf16 I/O: widened once a chunk, not by every
+// lane at every step)
+struct FwdBC {
+  float B[CHUNK][N], C[CHUNK][N];
+};
+
+template <typename T>
+struct FwdSmem {
+  FwdStage<T> in[2];        // chunk c in in[c % 2] while chunk c + 1 lands in the other
+  T y[2][CHUNK][FWD_TD];    // chunk c's y in y[c % 2], stored during chunk c + 1
+  FwdBC bc[2];              // chunk c's B and C in bc[c % 2] (bf16 I/O)
+};
+
+// Chunk rows [0, len) from row0 into `st` by 16-byte cp.async: channels
+// [ch0, ch0 + FWD_TD) of u and delta (rows of ld values, ld a multiple of
+// a vector), whole rows of B and C; zero past len and past ld. One group.
+template <typename T>
+__device__ __forceinline__ void stage_chunk(FwdStage<T>& st, const T* __restrict__ u,
+                                            const T* __restrict__ delta, const T* __restrict__ B,
+                                            const T* __restrict__ C, size_t row0, int len, int ld,
+                                            int ch0) {
+  constexpr int V = 16 / int(sizeof(T));         // values a vector
+  constexpr int VR = FWD_TD / V, VB = N / V;     // vectors a row
 #pragma unroll
-  for (int it = 0; it < CHUNK * N / THREADS; ++it) {   // every load in flight at once
-    const int i = it * THREADS + threadIdx.x;
-    const int t = i / N, k = i % N;
-    float bv = 0.f, cv = 0.f;
-    if (t < len && k < n) {
-      const size_t off = (row0 + t) * n + k;
-      bv = to_f(B[off]);
-      cv = to_f(C[off]);
+  for (int it = 0; it < CHUNK * VR / FWD_THREADS; ++it) {
+    const int i = it * FWD_THREADS + threadIdx.x, t = i / VR, c = (i % VR) * V;
+    const bool ok = t < len && ch0 + c < ld;
+    const size_t off = ok ? (row0 + t) * ld + ch0 + c : 0;
+    ptt::cp_async16(&st.u[t][c], u + off, ok ? 16 : 0);
+    ptt::cp_async16(&st.delta[t][c], delta + off, ok ? 16 : 0);
+  }
+  for (int i = threadIdx.x; i < CHUNK * VB; i += FWD_THREADS) {
+    const int t = i / VB, k = (i % VB) * V;
+    const size_t off = t < len ? (row0 + t) * N + k : 0;
+    ptt::cp_async16(&st.B[t][k], B + off, t < len ? 16 : 0);
+    ptt::cp_async16(&st.C[t][k], C + off, t < len ? 16 : 0);
+  }
+  ptt::cp_async_commit();
+}
+
+// The B and C vectors this thread staged for a chunk (stage_chunk's
+// order), widened to f32 once its copies have landed: the barrier that
+// starts the chunk's walk then shows them to the block.
+__device__ __forceinline__ void widen_bc(FwdBC& dst, const FwdStage<bf16>& st) {
+  constexpr int V = 8, VB = N / V;
+  for (int i = threadIdx.x; i < CHUNK * VB; i += FWD_THREADS) {
+    const int t = i / VB, k = (i % VB) * V;
+#pragma unroll
+    for (int j = 0; j < V; j += 2) {
+      const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&st.B[t][k + j]));
+      const float2 c = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&st.C[t][k + j]));
+      *reinterpret_cast<float2*>(&dst.B[t][k + j]) = b;
+      *reinterpret_cast<float2*>(&dst.C[t][k + j]) = c;
     }
-    sB[t][k] = bv;
-    sC[t][k] = cv;
+  }
+}
+__device__ __forceinline__ void widen_bc(FwdBC&, const FwdStage<float>&) {}
+
+// the f32 B and C rows the walk of a chunk reads: f32 I/O's as staged
+__device__ __forceinline__ const FwdBC& walk_bc(const FwdBC& bc, const FwdStage<bf16>&) {
+  return bc;
+}
+__device__ __forceinline__ const FwdBC& walk_bc(const FwdBC&, const FwdStage<float>& st) {
+  return *reinterpret_cast<const FwdBC*>(&st.B[0][0]);
+}
+
+// this thread's FWD_NS values of an f32 row of N
+__device__ __forceinline__ void load_states(float (&v)[FWD_NS], const float* p) {
+#pragma unroll
+  for (int i = 0; i < FWD_NS; i += 4) {
+    const float4 x = *reinterpret_cast<const float4*>(p + i);
+    v[i] = x.x, v[i + 1] = x.y, v[i + 2] = x.z, v[i + 3] = x.w;
   }
 }
 
-// S steps from t0 of one channel's [b, l, d] values, in registers: the loads
-// are all in flight together (zero past the sequence end)
-template <int S, typename T>
-__device__ __forceinline__ void load_steps(float (&dst)[S], const T* __restrict__ src,
-                                           size_t row0, int t0, int len, int D, int ch,
-                                           bool active) {
-#pragma unroll
-  for (int i = 0; i < S; ++i)
-    dst[i] = (active && t0 + i < len) ? to_f(src[(row0 + t0 + i) * D + ch]) : 0.f;
+// One chunk's y (rows [0, len) of src) into channels [ch0, ch0 + FWD_TD) of
+// rows of D values, nothing past len or D: 16-byte stores where D is a
+// multiple of a vector.
+template <typename T>
+__device__ __forceinline__ void store_y(T* __restrict__ y, const T (*src)[FWD_TD], size_t row0,
+                                        int len, int D, int ch0) {
+  constexpr int V = 16 / int(sizeof(T)), VR = FWD_TD / V;
+  if (D % V == 0) {
+    for (int i = threadIdx.x; i < len * VR; i += FWD_THREADS) {
+      const int t = i / VR, c = (i % VR) * V;
+      if (ch0 + c < D)
+        *reinterpret_cast<uint4*>(y + (row0 + t) * D + ch0 + c) =
+            *reinterpret_cast<const uint4*>(&src[t][c]);
+    }
+  } else {
+    for (int i = threadIdx.x; i < len * FWD_TD; i += FWD_THREADS) {
+      const int t = i / FWD_TD, c = i % FWD_TD;
+      if (ch0 + c < D) y[(row0 + t) * D + ch0 + c] = src[t][c];
+    }
+  }
 }
 
 template <typename T>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(FWD_THREADS, 3)
 scan_fwd_kernel(const T* __restrict__ u, const T* __restrict__ delta, const float* __restrict__ A,
                 const T* __restrict__ B, const T* __restrict__ C, T* __restrict__ y,
-                float* __restrict__ bounds, int L, int D, int n) {
-  __shared__ float sB[CHUNK][N], sC[CHUNK][N];
-  const int bi = blockIdx.y, tid = threadIdx.x;
-  const int ch = blockIdx.x * THREADS + tid;
+                float* __restrict__ bounds, int L, int D, int ld, int n) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  FwdSmem<T>& s = *reinterpret_cast<FwdSmem<T>*>(smem_raw);
+  const int tid = threadIdx.x, q = tid % FWD_LPC, cl = tid / FWD_LPC;
+  const int ch0 = blockIdx.x * FWD_TD, ch = ch0 + cl, bi = blockIdx.y;
   const bool active = ch < D;
   const int nc = (L + CHUNK - 1) / CHUNK;
-  float a[N], h[N];
+  float a[FWD_NS], h[FWD_NS];
 #pragma unroll
-  for (int k = 0; k < N; ++k) {
-    a[k] = (active && k < n) ? A[size_t(ch) * n + k] * LOG2E : 0.f;
-    h[k] = 0.f;
+  for (int i = 0; i < FWD_NS; ++i) {
+    const int k = q * FWD_NS + i;
+    a[i] = (active && k < n) ? A[size_t(ch) * n + k] * LOG2E : 0.f;
+    h[i] = 0.f;
   }
+  stage_chunk(s.in[0], u, delta, B, C, size_t(bi) * L, min(CHUNK, L), ld, ch0);
+  ptt::cp_async_wait<0>();
+  widen_bc(s.bc[0], s.in[0]);
   for (int c = 0; c < nc; ++c) {
-    const int t0 = c * CHUNK;
-    const int len = min(CHUNK, L - t0);
-    const size_t row0 = size_t(bi) * L + t0;
-    if (active) {
+    const size_t row0 = size_t(bi) * L + c * CHUNK;
+    if (active) {                          // the state entering chunk c
       float* dst = bounds + (size_t(bi) * nc + c) * n * D + ch;
 #pragma unroll
-      for (int k = 0; k < N; ++k)
-        if (k < n) dst[size_t(k) * D] = h[k];
+      for (int i = 0; i < FWD_NS; ++i)
+        if (q * FWD_NS + i < n) dst[size_t(q * FWD_NS + i) * D] = h[i];
     }
-    __syncthreads();                       // the previous chunk is done with smem
-    stage_bc(sB, sC, B, C, row0, len, n);
-    __syncthreads();
-    for (int j0 = 0; j0 < len; j0 += SUB) {
-      float dts[SUB], us[SUB];
-      load_steps(dts, delta, row0, j0, len, D, ch, active);
-      load_steps(us, u, row0, j0, len, D, ch, active);
+    __syncthreads();   // chunk c staged and widened; every thread is done with chunk c - 1
+    if (c + 1 < nc)
+      stage_chunk(s.in[(c + 1) & 1], u, delta, B, C, row0 + CHUNK, min(CHUNK, L - (c + 1) * CHUNK),
+                  ld, ch0);
+    if (c > 0) store_y(y, s.y[(c - 1) & 1], row0 - CHUNK, CHUNK, D, ch0);
+    // the walk reads shared memory only; steps past the sequence end were
+    // staged as zeros (delta 0: h stays as it is; C 0: y 0, not stored)
+    const FwdStage<T>& st = s.in[c & 1];
+    const FwdBC& bc = walk_bc(s.bc[c & 1], st);
+    T (*yc)[FWD_TD] = s.y[c & 1];
+#pragma unroll 4
+    for (int t = 0; t < CHUNK; ++t) {
+      const float dt = to_f(st.delta[t][cl]), dtu = dt * to_f(st.u[t][cl]);
+      float bv[FWD_NS], cv[FWD_NS];
+      load_states(bv, &bc.B[t][q * FWD_NS]);
+      load_states(cv, &bc.C[t][q * FWD_NS]);
+      float acc = 0.f;
 #pragma unroll
-      for (int j = 0; j < SUB; ++j) {
-        if (j0 + j >= len) break;
-        const int t = j0 + j;
-        const float dtu = dts[j] * us[j];
-        float acc0 = 0.f, acc1 = 0.f;
-#pragma unroll
-        for (int k = 0; k < N; k += 2) {
-          h[k] = exp2f(dts[j] * a[k]) * h[k] + dtu * sB[t][k];
-          h[k + 1] = exp2f(dts[j] * a[k + 1]) * h[k + 1] + dtu * sB[t][k + 1];
-          acc0 += sC[t][k] * h[k];
-          acc1 += sC[t][k + 1] * h[k + 1];
-        }
-        if (active) y[(row0 + t) * D + ch] = from_f<T>(acc0 + acc1);
+      for (int i = 0; i < FWD_NS; ++i) {
+        h[i] = fmaf(ex2_approx(dt * a[i]), h[i], dtu * bv[i]);
+        acc = fmaf(cv[i], h[i], acc);
       }
+#pragma unroll
+      for (int o = 1; o < FWD_LPC; o <<= 1) acc += __shfl_xor_sync(0xffffffffu, acc, o);
+      if (q == 0) yc[t][cl] = from_f<T>(acc);
+    }
+    if (c + 1 < nc) {      // chunk c + 1 landed: its B and C widened for its walk
+      ptt::cp_async_wait<0>();
+      widen_bc(s.bc[(c + 1) & 1], s.in[(c + 1) & 1]);
     }
   }
+  __syncthreads();
+  store_y(y, s.y[(nc - 1) & 1], size_t(bi) * L + (nc - 1) * CHUNK, L - (nc - 1) * CHUNK, D, ch0);
 }
 
 // ------------------------------------------------------------------ backward
@@ -182,8 +291,6 @@ constexpr int BSUB = 4;                      // steps replayed in registers
 constexpr int BNSUB = CHUNK / BSUB;
 constexpr int PASS_THREADS = 256;
 constexpr int PASS_DEPTH = 8;                // carries loaded at once
-
-using ptt::sm90::ex2_approx;
 
 // rows [0, len) of one chunk of a [b, l, n] tensor into dst[CHUNK][N] as
 // f32, zero past len and past n
@@ -484,12 +591,16 @@ scan_bwd_kernel(const T* __restrict__ u, const T* __restrict__ delta, const floa
 
 template <typename T>
 int launch_fwd(const void* u, const void* delta, const void* A, const void* B, const void* C,
-               void* y, void* bounds, int batch, int L, int D, int n, cudaStream_t st) {
-  const dim3 grid((D + THREADS - 1) / THREADS, batch);
-  scan_fwd_kernel<T><<<grid, THREADS, 0, st>>>(
+               void* y, void* bounds, int batch, int L, int D, int ld, int n, cudaStream_t st) {
+  static std::atomic<uint64_t> done{0};
+  const int smem = int(sizeof(FwdSmem<T>));
+  cudaError_t err = ptt::allow_smem(scan_fwd_kernel<T>, smem, done);
+  if (err != cudaSuccess) return int(err);
+  const dim3 grid((D + FWD_TD - 1) / FWD_TD, batch);
+  scan_fwd_kernel<T><<<grid, FWD_THREADS, smem, st>>>(
       static_cast<const T*>(u), static_cast<const T*>(delta), static_cast<const float*>(A),
       static_cast<const T*>(B), static_cast<const T*>(C), static_cast<T*>(y),
-      static_cast<float*>(bounds), L, D, n);
+      static_cast<float*>(bounds), L, D, ld, n);
   return int(cudaGetLastError());
 }
 
@@ -534,17 +645,20 @@ const char* ptt_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// u, delta, y [batch, L, D]; B, C [batch, L, n]; all contiguous, f32
-// (bf16 = 0) or bf16 (bf16 = 1). A [D, n] f32. bounds [batch, ceil(L/64),
-// n, D] f32: the state entering each chunk of 64 steps. Needs 1 <= n <= 16.
-// Returns cudaGetLastError() after the launch.
+// u, delta [batch, L, ld] (channels [0, D) used; ld * the value size a
+// multiple of 16 bytes), B, C [batch, L, 16] (states [0, n) used; the rest
+// zero), y [batch, L, D]; f32 (bf16 = 0) or bf16 (bf16 = 1), contiguous and
+// 16-byte aligned. A [D, n] f32. bounds [batch, ceil(L/64), n, D] f32: the
+// state entering each chunk of 64 steps. Needs 1 <= n <= 16. Returns
+// cudaGetLastError() after the launch.
 int ptt_selective_scan_fwd(const void* u, const void* delta, const void* A, const void* B,
-                           const void* C, void* y, void* bounds, int batch, int L, int D, int n,
-                           int bf16_io, void* stream) {
-  if (bad_shape(batch, L, D, n)) return int(cudaErrorInvalidValue);
+                           const void* C, void* y, void* bounds, int batch, int L, int D, int ld,
+                           int n, int bf16_io, void* stream) {
+  if (bad_shape(batch, L, D, n) || ld < D || ld % (bf16_io ? 8 : 4) != 0)
+    return int(cudaErrorInvalidValue);
   const auto st = static_cast<cudaStream_t>(stream);
-  return bf16_io ? launch_fwd<bf16>(u, delta, A, B, C, y, bounds, batch, L, D, n, st)
-                 : launch_fwd<float>(u, delta, A, B, C, y, bounds, batch, L, D, n, st);
+  return bf16_io ? launch_fwd<bf16>(u, delta, A, B, C, y, bounds, batch, L, D, ld, n, st)
+                 : launch_fwd<float>(u, delta, A, B, C, y, bounds, batch, L, D, ld, n, st);
 }
 
 // The channels summed into one slice of the backward's dB and dC partials.

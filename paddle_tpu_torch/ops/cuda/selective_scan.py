@@ -112,6 +112,16 @@ def _check_states(what, n):
             f"channel, got n = {n}")
 
 
+def _rows16(t, width):
+    """``t [b, l, w]`` as a 16-byte aligned tensor with rows of ``width``
+    values (``width`` >= w, zero past w): ``t`` itself when it already is
+    one, else a padded copy (the forward kernel stages rows by 16-byte
+    cp.async)."""
+    if t.shape[-1] == width and t.data_ptr() % 16 == 0:
+        return t
+    return torch.nn.functional.pad(t, (0, width - t.shape[-1]))
+
+
 def selective_scan_fwd(u, delta, A, B, C):
     """``(y, bounds)``: y ``[b, l, d]`` in u's dtype and the f32 state
     entering each chunk of :data:`KERNEL_CHUNK` steps ``[b, ceil(l / 64),
@@ -127,13 +137,19 @@ def selective_scan_fwd(u, delta, A, B, C):
         return y, bounds.contiguous()
     _check_states(what, n)
     dt, (uk, dk, Bk, Ck) = _build.float_io(what, u, delta, B, C)
+    # u and delta in rows of a whole number of 16-byte vectors, B and C in
+    # rows of MAX_STATE (copies only off those widths or alignments)
+    vec = 16 // uk.element_size()
+    ld = -(-d // vec) * vec
+    uk, dk = _rows16(uk, ld), _rows16(dk, ld)
+    Bk, Ck = _rows16(Bk, MAX_STATE), _rows16(Ck, MAX_STATE)
     Ak = A.float().contiguous()
     y = torch.empty((b, l, d), dtype=dt, device=u.device)
     nc = -(-l // KERNEL_CHUNK)
     bounds = torch.empty((b, nc, n, d), dtype=torch.float32, device=u.device)
-    rc = _build.entry("selective_scan", "ptt_selective_scan_fwd", 7, 5)(
+    rc = _build.entry("selective_scan", "ptt_selective_scan_fwd", 7, 6)(
         uk.data_ptr(), dk.data_ptr(), Ak.data_ptr(), Bk.data_ptr(),
-        Ck.data_ptr(), y.data_ptr(), bounds.data_ptr(), b, l, d, n,
+        Ck.data_ptr(), y.data_ptr(), bounds.data_ptr(), b, l, d, ld, n,
         int(dt == torch.bfloat16), _build.stream(u))
     _build.check(_build.load("selective_scan"), rc, what)
     launches += 1

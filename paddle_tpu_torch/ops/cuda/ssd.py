@@ -75,8 +75,8 @@ def ssd_reference(x, dt, A, B, C, D):
 
 
 def _chunk_step(S, xc, dtc, Bc, Cc, Af, Df):
-    """One chunk of ``paddle_tpu/ops/fused/ssd.py:85-110`` in f32:
-    ``(S_out [b, h, dh, ds], y [b, c, h, dh])``."""
+    """One chunk of ``paddle_tpu/ops/fused/ssd.py:85-110`` in the inputs'
+    precision: ``(S_out [b, h, dh, ds], y [b, c, h, dh])``."""
     c = xc.shape[1]
     loga = Af * dtc                                           # [b, c, h]
     cum = torch.cumsum(loga, dim=1)                           # inclusive
@@ -99,23 +99,26 @@ def _chunk_step(S, xc, dtc, Bc, Cc, Af, Df):
 def ssd_chunked_reference(x, dt, A, B, C, D, chunk: int = 64,
                           return_states: bool = False):
     """The plain version: the reference's XLA chunked route
-    (``paddle_tpu/ops/fused/ssd.py:54-118``) in f32, zero-padded to a
+    (``paddle_tpu/ops/fused/ssd.py:54-118``) in f32 (float64 when x is
+    float64: how ``chip_smoke.py`` holds the f32 kernels, whose gradients a
+    float32 evaluation does not pin down to their gate), zero-padded to a
     multiple of the chunk (dt = 0 is an identity step), each chunk recomputed
     in the backward (``torch.utils.checkpoint``, as its ``jax.checkpoint``),
-    the D skip added in f32 and y cast to x's dtype once. Differentiable.
-    With ``return_states`` also the f32 state entering each chunk, ``[b,
-    ceil(l / chunk), h, dh, ds]``."""
+    the D skip added in that precision and y cast to x's dtype once.
+    Differentiable. With ``return_states`` also the state entering each
+    chunk, ``[b, ceil(l / chunk), h, dh, ds]``, in that precision."""
     b, l, h, dh = x.shape
     ds = B.shape[-1]
     c = min(chunk, l)
     pad = (-l) % c
-    xf, dtf, Bf, Cf = (t.float() for t in (x, dt, B, C))
+    work = torch.promote_types(x.dtype, torch.float32)
+    xf, dtf, Bf, Cf = (t.to(work) for t in (x, dt, B, C))
     if pad:
         xf = torch.nn.functional.pad(xf, (0, 0, 0, 0, 0, pad))
         dtf, Bf, Cf = (torch.nn.functional.pad(t, (0, 0, 0, pad))
                        for t in (dtf, Bf, Cf))
-    Af, Df = A.float(), D.float()
-    S = torch.zeros(b, h, dh, ds, dtype=torch.float32, device=x.device)
+    Af, Df = A.to(work), D.to(work)
+    S = torch.zeros(b, h, dh, ds, dtype=work, device=x.device)
     ys, states = [], []
     grad = torch.is_grad_enabled()
     for c0 in range(0, l + pad, c):

@@ -32,7 +32,8 @@ def names_of(argv, variants):
 
 def build(names, variants, sources, out_dir):
     """``{(name, source): ctypes.CDLL}`` of "base" and every variant in
-    ``names``, one nvcc per (name, source), all started together, into
+    ``names``, one nvcc per (name, source) that the variant edits (a source
+    it leaves as it is maps to base's library), all started together, into
     ``build/<out_dir>/``. Prints what ptxas says of serialised wgmma or
     spills, and each kernel whose machine code loads or stores local
     memory."""
@@ -43,6 +44,8 @@ def build(names, variants, sources, out_dir):
         edits = [e for part in name.split("+") if part != "base"
                  for e in variants[part][1]]
         for src in sources:
+            if name != "base" and not any(e[0] == src for e in edits):
+                continue
             text = (_build.SRC_DIR / f"{src}.cu").read_text()
             for which, old, new in edits:
                 if which != src:
@@ -74,6 +77,9 @@ def build(names, variants, sources, out_dir):
                 print(f"  {name} {m.group(0) if m else symbol}: {st} local "
                       f"stores, {ld} local loads")
         libs[(name, src)] = ctypes.CDLL(str(so))
+    for name in names:
+        for src in sources:
+            libs.setdefault((name, src), libs[("base", src)])
     return libs
 
 

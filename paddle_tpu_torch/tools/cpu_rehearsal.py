@@ -1,7 +1,7 @@
 """Run the chunk-parallel SSM kernels' CUDA sources on the CPU and hold them
 to their plain versions, before their first call on a card:
 
-    python3 -m paddle_tpu_torch.tools.cpu_rehearsal [wkv] [ssd]
+    python3 -m paddle_tpu_torch.tools.cpu_rehearsal [wkv] [ssd] [selective_scan]
 
 Each named source of ``paddle_tpu_torch/csrc/`` is turned into C++ by
 :func:`prep` (the dynamic shared-memory declaration dropped for the
@@ -17,10 +17,13 @@ max |kernel - plain| / max |plain| against 1e-4 (f32 I/O) or 1e-2 (bf16),
 the gates of ``chip_smoke.py``, and that every output is finite. Exits 1 if
 a case fails.
 
-The cases are the WKV backward (``wkv``) and the SSD forward and backward
-(``ssd``) at their chunk-parallel edges, cut to sizes the CPU runs in
-seconds: lengths around the sub-chunks and chunks, d = 64 and 128, a strong
-decay, logw >= 0 (dlogw exactly 0). The inline PTX of the sources stays in
+The cases are the WKV backward (``wkv``), the SSD forward and backward
+(``ssd``) and the selective scan's forward and backward
+(``selective_scan``) at their edges, cut to sizes the CPU runs in
+seconds: lengths around the sub-chunks and chunks, d = 64 and 128 (the
+scan's d = 100 and 72, off its 64-channel blocks and, in bf16, off its
+16-byte rows; n = 5 and 16), a strong decay, logw >= 0 (dlogw exactly
+0). cp.async is a synchronous copy there. The inline PTX of the sources stays in
 ``flash_common.cuh`` and ``hopper.cuh``, which the stand-ins replace; what
 the stand-ins do not model (timing, occupancy, the compiler's register
 allocation) only a card shows.
@@ -190,6 +193,40 @@ def ssd_case(b, l, h, dh, ds, dt_io, strong=False, seed=0):
                    ("dx", "ddt", "dA", "dB", "dC", "dD"), tol) and ok
 
 
+def scan_case(b, l, d, n, dt, strong=False, seed=0):
+    """The selective scan's forward (y, the chunk states) and backward
+    against the plain version, inputs as ``chip_smoke.py``'s
+    ``scan_inputs`` draws them."""
+    import torch.nn.functional as F
+
+    from ..ops.cuda import selective_scan as ss
+
+    g = torch.Generator().manual_seed(seed)
+    u = torch.randn(b, l, d, generator=g)
+    delta = F.softplus(torch.randn(b, l, d, generator=g))
+    A = -torch.arange(1, n + 1, dtype=torch.float32).expand(d, n).contiguous()
+    if strong:
+        A[:3] = -1e4
+        delta[:, l // 3:l // 2 + 1] = 20.0
+    B, C = torch.randn(b, l, n, generator=g), torch.randn(b, l, n, generator=g)
+    dy = torch.randn(b, l, d, generator=g).to(dt)
+    ins = (u.to(dt), delta.to(dt), A, B.to(dt), C.to(dt))
+    y, bounds = ss.selective_scan_fwd(*ins)
+    grads = ss.selective_scan_bwd(*ins, bounds, dy)
+    xs = [t.detach().float().requires_grad_() for t in ins]
+    y_ref, b_ref = ss.selective_scan_reference(*xs, ss.KERNEL_CHUNK, True)
+    g_ref = torch.autograd.grad(y_ref, xs, dy.float())
+    tol = F32_RTOL if dt == torch.float32 else BF16_RTOL
+    what = (f"selective scan b{b} l{l} d{d} n{n} {str(dt)[6:]}"
+            + (" strong decay" if strong else ""))
+    ok = _report(what + " forward", (y, bounds),
+                 (y_ref.detach().to(dt), b_ref.detach()),
+                 ("y", "chunk states"), tol)
+    return _report(what + " backward", grads,
+                   [a.to(t.dtype) for a, t in zip(g_ref, ins)],
+                   ("du", "ddelta", "dA", "dB", "dC"), tol) and ok
+
+
 CASES = {
     "wkv": lambda f32, bf16: [
         wkv_case(1, 1, 1, 64, f32), wkv_case(1, 17, 1, 64, bf16, clamp=True),
@@ -202,6 +239,12 @@ CASES = {
         ssd_case(1, 130, 13, 64, 64, bf16, strong=True),
         ssd_case(2, 150, 3, 64, 128, f32),
         ssd_case(1, 77, 2, 128, 128, bf16, strong=True)],
+    "selective_scan": lambda f32, bf16: [
+        scan_case(1, 1, 100, 5, f32), scan_case(2, 63, 72, 16, bf16),
+        scan_case(1, 64, 100, 16, f32), scan_case(2, 65, 100, 5, bf16,
+                                                  strong=True),
+        scan_case(1, 150, 72, 5, f32, strong=True),
+        scan_case(1, 130, 100, 16, bf16)],
 }
 
 

@@ -1,4 +1,5 @@
-// flash_common.cuh for tools/cpu_rehearsal.py: ldmatrix (x2, x4, plain
+// flash_common.cuh for tools/cpu_rehearsal.py: cp.async as a synchronous
+// copy (the rest of the 16 bytes zero-filled); ldmatrix (x2, x4, plain
 // and transposed), mma.sync (m16n8k16 bf16, m16n8k8 TF32) and the TF32
 // rounding (to nearest, ties away) as warp collectives: each lane posts its
 // operands to its warp's exchange, a barrier, each lane computes its own
@@ -7,6 +8,12 @@
 #include "cuda_bf16.h"
 namespace ptt {
 typedef __nv_bfloat16 bf16;
+inline void cp_async16(void* dst, const void* src, int src_bytes) {
+  std::memcpy(dst, src, src_bytes);
+  std::memset(static_cast<char*>(dst) + src_bytes, 0, 16 - src_bytes);
+}
+inline void cp_async_commit() {}
+template <int N> inline void cp_async_wait() {}
 inline uint16_t stub_elem(const StubWarp& w, int m, int row, int col) {
   return reinterpret_cast<const uint16_t*>(w.addr[8 * m + row])[col];
 }

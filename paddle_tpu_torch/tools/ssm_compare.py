@@ -1,4 +1,4 @@
-"""Time the WKV backward and SSD forward wrappers of checkouts of this repo
+"""Time the SSM wrappers and the fused swiglu of checkouts of this repo
 against each other at the training paths' shapes, on one CUDA card:
 
     python3 -m paddle_tpu_torch.tools.ssm_compare ROOT [ROOT ...]
@@ -7,11 +7,14 @@ A ROOT is a directory that holds a checkout's ``paddle_tpu_torch/`` (this
 one: ``.``; an earlier commit: ``git archive COMMIT | tar -x -C
 build/NAME``). Each ROOT runs in a process of its own, in the order given
 (name a root twice to bracket the others: A B B A), which imports that
-checkout's ``ops.cuda.wkv`` and ``ops.cuda.ssd`` (built into the
-checkout's own ``build/``) and times ``wkv_bwd`` at phase 10's b16 l1024
-h12 d64 and ``ssd_fwd`` at phase 11's b8 l1024 h24 dh64 ds64 (x, B and C
-strided as the model's), bf16, on inputs made from one seed, each output
-held against the plain version (1e-2 of max |plain|): the mean device ms
+checkout's ``ops.cuda`` wrappers (built into the checkout's own
+``build/``) and times ``wkv_bwd`` at phase 10's b16 l1024 h12 d64,
+``ssd_fwd`` at phase 11's b8 l1024 h24 dh64 ds64 (x, B and C strided as
+the model's), ``selective_scan_fwd`` at phase 9's b16 l1024 d1536 n16 and
+``gmm_swiglu`` at phase 8's MoE layer (M = 32768 rows, 472 of them trash,
+K 1024, N 2816, 8 experts, b1, with residuals), bf16, on inputs made from
+one seed, each output held against the plain version (1e-2 of max
+|plain|): the mean device ms
 of 20 calls, each alone after the 50 MB L2 was flushed (``cold_ms`` of
 ``tools/_variants.py``, the timer of ``chip_smoke.py``), and the wrapper's
 host µs a call (median of 5 rounds of 32 calls, as ``chip_smoke.py``'s
@@ -66,7 +69,21 @@ def _inputs(torch):
     dt = F.softplus(torch.randn(b, l, h, generator=gen, device=dev)).to(bf)
     A = -torch.linspace(1.0, 16.0, h, device=dev).to(bf)
     D = torch.randn(h, generator=gen, device=dev).to(bf)
-    return wkv, (x, dt, A, B, C, D)
+    b, l, d, n = 16, 1024, 1536, 16
+    scan = (torch.randn(b, l, d, generator=gen, device=dev).to(bf),
+            F.softplus(torch.randn(b, l, d, generator=gen, device=dev)).to(bf),
+            -torch.arange(1, n + 1, dtype=torch.float32,
+                          device=dev).expand(d, n).contiguous(),
+            torch.randn(b, l, n, generator=gen, device=dev).to(bf),
+            torch.randn(b, l, n, generator=gen, device=dev).to(bf))
+    m, k, h2, e = 32768, 1024, 2 * 2816, 8
+    swiglu = (torch.randn(m, k, generator=gen, device=dev).to(bf),
+              (torch.randn(e, k, h2, generator=gen, device=dev)
+               * k ** -0.5).to(bf),
+              torch.tensor([4100, 4000, 4200, 3900, 4096, 4050, 4150, 3800],
+                           dtype=torch.int32, device=dev),
+              (0.1 * torch.randn(e, h2, generator=gen, device=dev)).to(bf))
+    return wkv, (x, dt, A, B, C, D), scan, swiglu
 
 
 def _rel(a, ref):
@@ -78,10 +95,12 @@ def worker(root):
     """Times the checkout at ``root``; prints one JSON line."""
     sys.path.insert(0, os.path.abspath(root))
     import torch
+    from paddle_tpu_torch.ops.cuda import grouped_gemm as gg
+    from paddle_tpu_torch.ops.cuda import selective_scan as ss
     from paddle_tpu_torch.ops.cuda import ssd, wkv
     from paddle_tpu_torch.tools._variants import cold_ms
 
-    (wins, dy), sins = _inputs(torch)
+    (wins, dy), sins, scins, swins = _inputs(torch)
     bad, ms, host = [], {}, {}
     grads = wkv.wkv_bwd(*wins, dy)
     xs = [t.detach().float().requires_grad_() for t in wins]
@@ -101,9 +120,26 @@ def worker(root):
         if not err <= RTOL:
             bad.append(f"ssd_fwd {name}: {err:.3e} of max |plain|")
     del y, states, y_ref, s_ref
+    y, bounds = ss.selective_scan_fwd(*scins)
+    with torch.no_grad():
+        y_ref, b_ref = ss.selective_scan_reference(
+            *(t.float() for t in scins), ss.KERNEL_CHUNK, True)
+    for name, a, ref in (("y", y, y_ref.to(y.dtype)), ("bounds", bounds,
+                                                        b_ref)):
+        err = _rel(a, ref)
+        if not err <= RTOL:
+            bad.append(f"selective_scan_fwd {name}: {err:.3e} of max |plain|")
+    del y, bounds, y_ref, b_ref
+    for name, a, ref in zip("ygu", gg.gmm_swiglu(*swins),
+                            gg.gmm_swiglu_reference(*swins)):
+        err = _rel(a, ref)
+        if not err <= RTOL:
+            bad.append(f"gmm_swiglu {name}: {err:.3e} of max |plain|")
     torch.cuda.empty_cache()
     for key, fn in (("wkv_bwd", lambda: wkv.wkv_bwd(*wins, dy)),
-                    ("ssd_fwd", lambda: ssd.ssd_fwd(*sins))):
+                    ("ssd_fwd", lambda: ssd.ssd_fwd(*sins)),
+                    ("scan_fwd", lambda: ss.selective_scan_fwd(*scins)),
+                    ("gmm_swiglu", lambda: gg.gmm_swiglu(*swins))):
         ms[key] = cold_ms(fn, reps=20)
         host[key] = _host_us(torch, fn)
     print(json.dumps({"root": root, "ms": ms, "host": host, "bad": bad}))

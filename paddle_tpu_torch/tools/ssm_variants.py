@@ -8,8 +8,8 @@ Each variant is the sources with a few lines replaced (``VARIANTS``; "a+b"
 applies the edits of both), built by nvcc into ``build/ssm_variants/`` and
 loaded beside the others (``tools/_variants.py``). Every build runs, in
 bf16 at the shapes of ``chip_smoke.py`` phase 3, each call whose source a
-named variant edits (every call when none is named): the scan backward at
-phase 9's b16 l1024 d1536 n16, the SSD backward and forward at phase 11's
+named variant edits (every call when none is named): the scan forward and
+backward at phase 9's b16 l1024 d1536 n16, the SSD backward and forward at phase 11's
 b8 l1024 h24 dh64 ds64 with x, B and C strided as the model's, the WKV
 backward at phase 10's b16 l1024 h12 d64; a backward's residual comes from
 the sources as they are. Prints per call the mean device ms of each build,
@@ -53,8 +53,256 @@ def _no_products(src):
             (src, "mma_tile<", "skip_tile<")]
 
 
+# The scan forward as three launches over (channel tile, chunk, b): each
+# chunk's end state from zero and its sum of delta; a pass over the chunks
+# (the state entering chunk c + 1 is exp(A sum delta) o h_in(c) + local(c)),
+# which writes the chunk states; each chunk's y from its true start state.
+# Two exponentials per (b, t, d, n). The sums of delta borrow y's memory
+# (b nc d f32 fits in b l d values while l >= 2 nc), as they are read before
+# y is written.
+_CHUNKED = r"""
+__device__ __forceinline__ void load_raw(float (&v)[FWD_NS], const float* p) {
+  load_states(v, p);
+}
+__device__ __forceinline__ void load_raw(float (&v)[FWD_NS], const bf16* p) {
+#pragma unroll
+  for (int i = 0; i < FWD_NS; ++i) v[i] = __bfloat162float(p[i]);
+}
+
+template <typename T, bool LOCAL>
+__global__ void __launch_bounds__(FWD_THREADS, 3)
+scan_fwd_chunk_kernel(const T* __restrict__ u, const T* __restrict__ delta,
+                      const float* __restrict__ A, const T* __restrict__ B,
+                      const T* __restrict__ C, T* __restrict__ y, float* __restrict__ bounds,
+                      float* __restrict__ dsum, int L, int D, int ld, int n) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  FwdSmem<T>& s = *reinterpret_cast<FwdSmem<T>*>(smem_raw);
+  const int tid = threadIdx.x, q = tid % FWD_LPC, cl = tid / FWD_LPC;
+  const int ch0 = blockIdx.x * FWD_TD, ch = ch0 + cl, c = blockIdx.y, bi = blockIdx.z;
+  const bool active = ch < D;
+  const int nc = (L + CHUNK - 1) / CHUNK, len = min(CHUNK, L - c * CHUNK);
+  const size_t row0 = size_t(bi) * L + c * CHUNK;
+  stage_chunk(s.in[0], u, delta, B, C, row0, len, ld, ch0);
+  float* sc = bounds + (size_t(bi) * nc + c) * n * D + ch;
+  float a[FWD_NS], h[FWD_NS];
+#pragma unroll
+  for (int i = 0; i < FWD_NS; ++i) {
+    const int k = q * FWD_NS + i;
+    const bool on = active && k < n;
+    a[i] = on ? A[size_t(ch) * n + k] * LOG2E : 0.f;
+    h[i] = !LOCAL && on ? sc[size_t(k) * D] : 0.f;
+  }
+  ptt::cp_async_wait<0>();
+  __syncthreads();
+  const FwdStage<T>& st = s.in[0];
+  float sd = 0.f;
+#pragma unroll 4
+  for (int t = 0; t < CHUNK; ++t) {
+    const float dt = to_f(st.delta[t][cl]), dtu = dt * to_f(st.u[t][cl]);
+    float bv[FWD_NS], cv[FWD_NS];
+    load_raw(bv, &st.B[t][q * FWD_NS]);
+    sd += dt;
+    float acc = 0.f;
+#pragma unroll
+    for (int i = 0; i < FWD_NS; ++i) h[i] = fmaf(ex2_approx(dt * a[i]), h[i], dtu * bv[i]);
+    if (!LOCAL) {
+      load_raw(cv, &st.C[t][q * FWD_NS]);
+#pragma unroll
+      for (int i = 0; i < FWD_NS; ++i) acc = fmaf(cv[i], h[i], acc);
+#pragma unroll
+      for (int o = 1; o < FWD_LPC; o <<= 1) acc += __shfl_xor_sync(0xffffffffu, acc, o);
+      if (q == 0) s.y[0][t][cl] = from_f<T>(acc);
+    }
+  }
+  if (LOCAL) {
+    if (active && c + 1 < nc) {
+#pragma unroll
+      for (int i = 0; i < FWD_NS; ++i)
+        if (q * FWD_NS + i < n) sc[size_t(n + q * FWD_NS + i) * D] = h[i];
+    }
+    if (active && q == 0) dsum[(size_t(bi) * nc + c) * D + ch] = sd;
+  } else {
+    __syncthreads();
+    store_y(y, s.y[0], row0, len, D, ch0);
+  }
+}
+
+__global__ void __launch_bounds__(256)
+scan_fwd_pass_kernel(const float* __restrict__ A, float* __restrict__ bounds,
+                     const float* __restrict__ dsum, int nc, int D, int n) {
+  const int ch = blockIdx.x * 256 + threadIdx.x, k = blockIdx.y, bi = blockIdx.z;
+  if (ch >= D) return;
+  const float a = A[size_t(ch) * n + k] * LOG2E;
+  float h = 0.f;
+  for (int c = 0; c < nc; ++c) {
+    float* p = bounds + ((size_t(bi) * nc + c) * n + k) * D + ch;
+    if (c > 0) h = fmaf(ex2_approx(a * dsum[(size_t(bi) * nc + c - 1) * D + ch]), h, *p);
+    *p = h;
+  }
+}
+
+"""
+_CHUNKED_LAUNCH = r"""  static std::atomic<uint64_t> d1{0}, d3{0};
+  if ((err = ptt::allow_smem(scan_fwd_chunk_kernel<T, true>, smem, d1)) != cudaSuccess ||
+      (err = ptt::allow_smem(scan_fwd_chunk_kernel<T, false>, smem, d3)) != cudaSuccess)
+    return int(err);
+  const int nc = (L + CHUNK - 1) / CHUNK;
+  const dim3 grid((D + FWD_TD - 1) / FWD_TD, nc, batch);
+  float* dsum = static_cast<float*>(y);
+  scan_fwd_chunk_kernel<T, true><<<grid, FWD_THREADS, smem, st>>>(
+      static_cast<const T*>(u), static_cast<const T*>(delta), static_cast<const float*>(A),
+      static_cast<const T*>(B), static_cast<const T*>(C), static_cast<T*>(y),
+      static_cast<float*>(bounds), dsum, L, D, ld, n);
+  scan_fwd_pass_kernel<<<dim3((D + 255) / 256, n, batch), 256, 0, st>>>(
+      static_cast<const float*>(A), static_cast<float*>(bounds), dsum, nc, D, n);
+  scan_fwd_chunk_kernel<T, false><<<grid, FWD_THREADS, smem, st>>>(
+      static_cast<const T*>(u), static_cast<const T*>(delta), static_cast<const float*>(A),
+      static_cast<const T*>(B), static_cast<const T*>(C), static_cast<T*>(y),
+      static_cast<float*>(bounds), dsum, L, D, ld, n);
+"""
+
+# The scan forward's chunks staged by TMA (3-D maps of u, delta [b, l, ld]
+# and of B, C [b, l, 16], boxes of 64 steps, no swizzle) into the same
+# stages, each completing on an mbarrier, instead of cp.async.
+_TMA_STAGE = r"""
+template <typename T>
+__device__ __forceinline__ void tma_chunk(FwdStage<T>& st, uint64_t* bar,
+                                          const CUtensorMap* mu, const CUtensorMap* md,
+                                          const CUtensorMap* mb, const CUtensorMap* mc, int t0,
+                                          int bi, int ch0) {
+  if (threadIdx.x != 0) return;
+  ptt::sm90::mbar_expect_tx(bar, sizeof(FwdStage<T>));
+  ptt::sm90::tma_load_3d(&st.u[0][0], mu, bar, ch0, t0, bi);
+  ptt::sm90::tma_load_3d(&st.delta[0][0], md, bar, ch0, t0, bi);
+  ptt::sm90::tma_load_3d(&st.B[0][0], mb, bar, 0, t0, bi);
+  ptt::sm90::tma_load_3d(&st.C[0][0], mc, bar, 0, t0, bi);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(FWD_THREADS, 3)
+scan_fwd_kernel("""
+_TMA_MAPS = r"""  CUtensorMap mu, md, mb, mc;
+  const auto ty = sizeof(T) == 2 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 : CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
+  const uint64_t dd[3] = {uint64_t(ld), uint64_t(L), uint64_t(batch)};
+  const uint64_t ds[2] = {uint64_t(ld) * sizeof(T), uint64_t(ld) * L * sizeof(T)};
+  const uint64_t bd[3] = {uint64_t(N), uint64_t(L), uint64_t(batch)};
+  const uint64_t bs[2] = {N * sizeof(T), uint64_t(N) * L * sizeof(T)};
+  const uint32_t dbox[3] = {FWD_TD, CHUNK, 1}, bbox[3] = {N, CHUNK, 1};
+  const auto l2 = CU_TENSOR_MAP_L2_PROMOTION_L2_256B;
+  const auto sw = CU_TENSOR_MAP_SWIZZLE_NONE;
+  if ((err = ptt::sm90::encode_tma(&mu, ty, u, 3, dd, ds, dbox, l2, sw)) != cudaSuccess ||
+      (err = ptt::sm90::encode_tma(&md, ty, delta, 3, dd, ds, dbox, l2, sw)) != cudaSuccess ||
+      (err = ptt::sm90::encode_tma(&mb, ty, B, 3, bd, bs, bbox, l2, sw)) != cudaSuccess ||
+      (err = ptt::sm90::encode_tma(&mc, ty, C, 3, bd, bs, bbox, l2, sw)) != cudaSuccess)
+    return int(err);
+  const dim3 grid((D + FWD_TD - 1) / FWD_TD, batch);
+"""
+
 #: name: (what it changes, [(source, text, replacement), ...])
 VARIANTS = {
+    "fwd_lanes1": ("scan forward: 1 lane a channel (16 states a thread, "
+                   "64 threads a block)", [_const(SCAN, "FWD_NS", 8, 16)]),
+    "fwd_lanes8": ("scan forward: 8 lanes a channel (2 states a thread, "
+                   "512 threads a block)",
+                   [_const(SCAN, "FWD_NS", 8, 2),
+                    (SCAN, "  for (int i = 0; i < FWD_NS; i += 4) {\n"
+                     "    const float4 x = *reinterpret_cast<const float4*>"
+                     "(p + i);\n    v[i] = x.x, v[i + 1] = x.y, v[i + 2] = "
+                     "x.z, v[i + 3] = x.w;", "  for (int i = 0; i < FWD_NS; "
+                     "i += 2) {\n    const float2 x = *reinterpret_cast<const "
+                     "float2*>(p + i);\n    v[i] = x.x, v[i + 1] = x.y;")]),
+    "fwd_lanes4": ("scan forward: 4 lanes a channel (4 states a thread, "
+                   "256 threads a block)", [_const(SCAN, "FWD_NS", 8, 4)]),
+    "fwd_bc_raw": ("scan forward: B and C read as staged, every lane "
+                   "widening its bf16 values at every step",
+                   [(SCAN, "// this thread's FWD_NS values of an f32 row of N",
+                     "__device__ __forceinline__ void load_states(float (&v)"
+                     "[FWD_NS], const bf16* p) {\n#pragma unroll\n  for (int "
+                     "i = 0; i < FWD_NS; i += 2) {\n    const float2 x = "
+                     "__bfloat1622float2(*reinterpret_cast<const "
+                     "__nv_bfloat162*>(p + i));\n    v[i] = x.x, v[i + 1] = "
+                     "x.y;\n  }\n}\n// this thread's FWD_NS values of an f32 "
+                     "row of N"),
+                    (SCAN, "const FwdBC& bc = walk_bc(s.bc[c & 1], st);",
+                     "const FwdStage<T>& bc = st;"),
+                    (SCAN, "  widen_bc(s.bc[0], s.in[0]);", ""),
+                    (SCAN, "      widen_bc(s.bc[(c + 1) & 1], s.in[(c + 1) & 1]);",
+                     "")]),
+    "fwd_chunked": ("scan forward: chunk-parallel, three launches (local "
+                    "end states, a pass over the chunks, each chunk's y; "
+                    "two ex2 per (b, t, d, n))",
+                    [(SCAN, "template <typename T>\nint launch_fwd(",
+                      _CHUNKED + "template <typename T>\nint launch_fwd("),
+                     (SCAN, """  const dim3 grid((D + FWD_TD - 1) / FWD_TD, batch);
+  scan_fwd_kernel<T><<<grid, FWD_THREADS, smem, st>>>(
+      static_cast<const T*>(u), static_cast<const T*>(delta), static_cast<const float*>(A),
+      static_cast<const T*>(B), static_cast<const T*>(C), static_cast<T*>(y),
+      static_cast<float*>(bounds), L, D, ld, n);
+""", _CHUNKED_LAUNCH)]),
+    "fwd_tma": ("scan forward: chunks staged by TMA (3-D maps, an mbarrier "
+                "a stage) instead of cp.async",
+                [(SCAN, "template <typename T>\n__global__ void "
+                  "__launch_bounds__(FWD_THREADS, 3)\nscan_fwd_kernel(",
+                  _TMA_STAGE),
+                 (SCAN, "float* __restrict__ bounds, int L, int D, int ld, "
+                  "int n) {\n  extern __shared__ __align__(16) unsigned char "
+                  "smem_raw[];\n  FwdSmem<T>& s = *reinterpret_cast"
+                  "<FwdSmem<T>*>(smem_raw);",
+                  "float* __restrict__ bounds, int L, int D, int ld, int n,\n"
+                  "                const __grid_constant__ CUtensorMap mu, "
+                  "const __grid_constant__ CUtensorMap md,\n"
+                  "                const __grid_constant__ CUtensorMap mb, "
+                  "const __grid_constant__ CUtensorMap mc) {\n"
+                  "  extern __shared__ __align__(16) unsigned char "
+                  "smem_raw[];\n  FwdSmem<T>& s = *reinterpret_cast"
+                  "<FwdSmem<T>*>((reinterpret_cast<uintptr_t>(smem_raw) + "
+                  "127) & ~uintptr_t(127));\n  uint64_t* bars = "
+                  "reinterpret_cast<uint64_t*>(&s + 1);\n  if (threadIdx.x "
+                  "== 0) {\n    ptt::sm90::mbar_init(&bars[0], 1);\n    "
+                  "ptt::sm90::mbar_init(&bars[1], 1);\n    "
+                  "ptt::sm90::mbar_fence_init();\n  }\n  __syncthreads();"),
+                 (SCAN, "stage_chunk(s.in[0], u, delta, B, C, size_t(bi) * L, "
+                  "min(CHUNK, L), ld, ch0);",
+                  "tma_chunk(s.in[0], &bars[0], &mu, &md, &mb, &mc, 0, bi, "
+                  "ch0);"),
+                 (SCAN, "      stage_chunk(s.in[(c + 1) & 1], u, delta, B, C, "
+                  "row0 + CHUNK, min(CHUNK, L - (c + 1) * CHUNK),\n"
+                  "                  ld, ch0);",
+                  "      tma_chunk(s.in[(c + 1) & 1], &bars[(c + 1) & 1], &mu, "
+                  "&md, &mb, &mc, (c + 1) * CHUNK, bi, ch0);"),
+                 (SCAN, "  ptt::cp_async_wait<0>();\n  widen_bc(s.bc[0], "
+                  "s.in[0]);", "  ptt::sm90::mbar_wait(&bars[0], 0);\n  "
+                  "widen_bc(s.bc[0], s.in[0]);"),
+                 (SCAN, "      ptt::cp_async_wait<0>();\n      widen_bc(",
+                  "      ptt::sm90::mbar_wait(&bars[(c + 1) & 1], ((c + 1) >> "
+                  "1) & 1);\n      widen_bc("),
+                 (SCAN, "  const int smem = int(sizeof(FwdSmem<T>));\n"
+                  "  cudaError_t err = ptt::allow_smem(scan_fwd_kernel<T>, "
+                  "smem, done);\n  if (err != cudaSuccess) return int(err);\n"
+                  "  const dim3 grid((D + FWD_TD - 1) / FWD_TD, batch);\n",
+                  "  const int smem = int(sizeof(FwdSmem<T>)) + 128 + 16;\n"
+                  "  cudaError_t err = ptt::allow_smem(scan_fwd_kernel<T>, "
+                  "smem, done);\n  if (err != cudaSuccess) return int(err);\n"
+                  + _TMA_MAPS),
+                 (SCAN, "      static_cast<float*>(bounds), L, D, ld, n);\n"
+                  "  return int(cudaGetLastError());\n}\n\ntemplate "
+                  "<typename T>\nint launch_bwd(",
+                  "      static_cast<float*>(bounds), L, D, ld, n, mu, md, mb, "
+                  "mc);\n  return int(cudaGetLastError());\n}\n\ntemplate "
+                  "<typename T>\nint launch_bwd(")]),
+    "fwd_unroll8": ("scan forward: the walk unrolled 8 steps deep",
+                    [(SCAN, "#pragma unroll 4\n    for (int t = 0; t < CHUNK; "
+                      "++t) {", "#pragma unroll 8\n    for (int t = 0; t < "
+                      "CHUNK; ++t) {")]),
+    "fwd_no_exp": ("scan forward: exp(delta A) replaced by an FMA "
+                   "(diagnostic)",
+                   [(SCAN, "h[i] = fmaf(ex2_approx(dt * a[i]), h[i], dtu * "
+                     "bv[i]);", "h[i] = fmaf(fmaf(dt, a[i], 1.f), h[i], dtu * "
+                     "bv[i]);")]),
+    "fwd_no_load": ("scan forward: only the first chunk is staged, the "
+                    "walk never waits on a load (diagnostic)",
+                    [(SCAN, "    if (c + 1 < nc)\n      stage_chunk(",
+                      "    if (c + 1 < 1)\n      stage_chunk(")]),
     "tiles2": ("scan: two 64-channel tiles a block (dB, dC partials per "
                "128 channels)", [_const(SCAN, "TILES", 1, 2)]),
     "tiles4": ("scan: four channel tiles a block", [_const(SCAN, "TILES", 1,
@@ -161,7 +409,7 @@ VARIANTS = {
                       "ds_out + sidx, 0, D, 0, 0);")]),
 }
 #: variants that take work out on purpose: their outputs are not checked
-DIAGNOSTIC = {"no_scatter", "ssd_no_mma", "ssd_fwd_no_load", "wkv_no_mma",
+DIAGNOSTIC = {"fwd_no_exp", "fwd_no_load", "no_scatter", "ssd_no_mma", "ssd_fwd_no_load", "wkv_no_mma",
               "wkv_no_cube", "wkv_no_acube", "wkv_no_gcube", "wkv_no_scale",
               "wkv_no_load"}
 
@@ -174,7 +422,7 @@ def build(names):
     for name in ["base", *names]:
         scan, ssd, wkv = (libs[(name, src)] for src in (SCAN, SSD, WKV))
         scan.ptt_selective_scan_fwd.argtypes = [ctypes.c_void_p] * 7 \
-            + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+            + [ctypes.c_int] * 6 + [ctypes.c_void_p]
         scan.ptt_selective_scan_bwd.argtypes = [ctypes.c_void_p] * 14 \
             + [ctypes.c_int] * 5 + [ctypes.c_void_p]
         ssd.ptt_ssd_fwd.argtypes = [ctypes.c_void_p] * 8 \
@@ -206,7 +454,7 @@ def scan_case(libs, gen):
     st = _build.stream(u)
     assert libs["base"][0].ptt_selective_scan_fwd(
         u.data_ptr(), delta.data_ptr(), A.data_ptr(), B.data_ptr(),
-        C.data_ptr(), y.data_ptr(), bounds.data_ptr(), b, l, d, n, 1,
+        C.data_ptr(), y.data_ptr(), bounds.data_ptr(), b, l, d, d, n, 1,
         st) == 0
 
     def run(name):
@@ -227,6 +475,33 @@ def scan_case(libs, gen):
         return (du, ddelta, dA.sum(0), *dBC.sum(1).to(bf))
 
     return f"scan bwd b{b} l{l} d{d} n{n}", run, r"scan_bwd_\w*kernel"
+
+
+def scan_fwd_case(libs, gen):
+    """``run(name)``: the scan forward of build ``name`` at phase 9's
+    shape, y and the chunk states."""
+    b, l, d, n = 16, 1024, 1536, 16
+    dev, bf = "cuda", torch.bfloat16
+    u = torch.randn(b, l, d, generator=gen, device=dev).to(bf)
+    delta = F.softplus(torch.randn(b, l, d, generator=gen, device=dev)).to(bf)
+    A = -torch.arange(1, n + 1, dtype=torch.float32,
+                      device=dev).expand(d, n).contiguous()
+    B, C = (torch.randn(b, l, n, generator=gen, device=dev).to(bf)
+            for _ in range(2))
+    nc = -(-l // 64)
+    st = _build.stream(u)
+
+    def run(name):
+        y = torch.empty_like(u)
+        bounds = torch.empty((b, nc, n, d), dtype=torch.float32, device=dev)
+        rc = libs[name][0].ptt_selective_scan_fwd(
+            u.data_ptr(), delta.data_ptr(), A.data_ptr(), B.data_ptr(),
+            C.data_ptr(), y.data_ptr(), bounds.data_ptr(), b, l, d, d, n, 1,
+            st)
+        assert rc == 0, (name, rc)
+        return y, bounds
+
+    return f"scan fwd b{b} l{l} d{d} n{n}", run, r"scan_fwd_\w*kernel"
 
 
 def ssd_case(libs, gen):
@@ -332,8 +607,8 @@ def wkv_case(libs, gen):
 
 
 #: (the call's runner, the source whose variants it times)
-CASES = ((scan_case, SCAN), (ssd_case, SSD), (ssd_fwd_case, SSD),
-         (wkv_case, WKV))
+CASES = ((scan_fwd_case, SCAN), (scan_case, SCAN), (ssd_case, SSD),
+         (ssd_fwd_case, SSD), (wkv_case, WKV))
 
 
 def main(argv):

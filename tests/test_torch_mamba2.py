@@ -97,6 +97,29 @@ def test_plain_ssd_matches_xla_route(l, chunk, ds):
         assert _rel(a, b) <= F32_TOL, name
 
 
+@pytest.mark.parametrize("ds", [64, 128])
+def test_plain_ssd_runs_float64_in_float64(ds):
+    """The plain version evaluates float64 inputs in float64 (the oracle
+    ``chip_smoke.py`` holds the f32 kernels to): y, the chunk states and
+    every gradient come back float64 and agree with the JAX XLA route (f32)
+    within F32_TOL; f32 inputs still compute in f32."""
+    args, dy = _inputs(2, 70, 3, 64, ds, seed=ds)
+    jy, jg = _jax_vjp(lambda *a: jssd.ssd_chunked.raw_fn(*a, chunk=32),
+                      args, dy)
+    ty, tg = _torch_vjp(lambda *a: tssd.ssd_chunked_reference(*a, 32), args,
+                        dy, torch.float64)
+    assert _rel(ty, jy) <= F32_TOL
+    for name, a, b in zip(NAMES, tg, jg):
+        assert _rel(a, b) <= F32_TOL, name
+    with torch.no_grad():
+        _, s64 = tssd.ssd_chunked_reference(
+            *(torch.tensor(a, dtype=torch.float64) for a in args), 32, True)
+        _, s32 = tssd.ssd_chunked_reference(
+            *(torch.tensor(a) for a in args), 32, True)
+    assert s64.dtype == torch.float64 and s32.dtype == torch.float32
+    assert _rel(s32.numpy(), s64.numpy()) <= F32_TOL
+
+
 @pytest.mark.parametrize("ref", ["oracle", "pallas"])
 @pytest.mark.parametrize("l,ds", [(40, 64), (32, 128)])
 def test_plain_ssd_matches_oracle_and_pallas(ref, l, ds):

@@ -168,6 +168,42 @@ def test_swiglu_residuals_match_pallas():
         assert (o[_trash()] == 0).all()
 
 
+# ragged groups for the fused swiglu: a one-row group, an empty group,
+# starts off the 16-row tiles, a group over two tiles and 11 trash rows
+SW_SIZES = np.asarray([1, 0, 21, 9, 28], np.int32)
+SW_M = 70
+
+
+@pytest.mark.parametrize("emit_residuals", [True, False])
+@pytest.mark.parametrize("k,n", [(24, 40), (64, 120)])
+def test_swiglu_reference_matches_pallas_at_ragged_edges(k, n,
+                                                         emit_residuals):
+    """The plain fused swiglu (the wgmma kernel's oracle) against
+    ``_gmm_swiglu_call`` in interpret mode at widths that are multiples of
+    8 but not of 128 (N = 40 and 120), with and without the residuals: y,
+    g and u within 2e-5, trash rows exact zeros, no residuals when none
+    are asked for."""
+    rng = np.random.RandomState(11 + n + emit_residuals)
+    G = len(SW_SIZES)
+    x = rng.randn(SW_M, k).astype(np.float32)
+    w1 = (rng.randn(G, k, 2 * n) * k ** -0.5).astype(np.float32)
+    b1 = (rng.randn(G, 2 * n) * 0.1).astype(np.float32)
+    refs = jgg._gmm_swiglu_call(jnp.asarray(x), jnp.asarray(w1),
+                                jnp.asarray(SW_SIZES), jnp.asarray(b1), TM,
+                                512, 512, True,
+                                emit_residuals=emit_residuals)
+    outs = gmm_swiglu_reference(torch.from_numpy(x), torch.from_numpy(w1),
+                                torch.from_numpy(SW_SIZES),
+                                torch.from_numpy(b1), emit_residuals)
+    for name, o, r in zip(("y", "g", "u"), outs, refs):
+        if r is None:
+            assert o is None, name
+            continue
+        np.testing.assert_allclose(o.numpy(), _np(r), rtol=KERNEL_TOL,
+                                   atol=KERNEL_TOL, err_msg=name)
+        assert (o[int(SW_SIZES.sum()):] == 0).all(), name
+
+
 # ---------------------------------------------------------------- routing
 def _gate_pair(topk, cf, d, E, seed):
     paddle.seed(seed)

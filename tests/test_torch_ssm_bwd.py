@@ -98,6 +98,30 @@ def test_scan_gradients_match_pallas_bwd_kernel(l, strong):
         assert _rel(a, b) <= SCAN_TOL, name
 
 
+@pytest.mark.parametrize("l,n,strong", [(l, 5, False)
+                                        for l in (1, 63, 64, 65, 150)]
+                         + [(l, 16, True) for l in (1, 63, 64, 65, 150)])
+def test_scan_forward_matches_pallas_fwd_kernel(l, n, strong):
+    """y and the state entering every chunk of 64 steps of the plain scan
+    (the forward kernel's oracle) against ``_fwd_kernel`` in interpret mode
+    at chunk 64, on the sequence zero-padded to a multiple of it as its
+    wrapper pads: b2 d100, lengths 1, 63, 64, 65 and 150, n = 5 and 16, and
+    a strong decay (exp(delta A) = 0 on three channels over a stretch)."""
+    args, _ = _scan_inputs(2, l, 100, n, seed=l + n, strong=strong)
+    pad = ((0, 0), (0, (-l) % 64), (0, 0))
+    u, delta, A, B, C = (jnp.asarray(a if a.ndim == 2 else np.pad(a, pad))
+                         for a in args)
+    jy, (*_, jbounds, _) = jss._scan_fwd(u, delta, A, B, C, 64, True)
+    with torch.no_grad():
+        ty, tbounds = tss.selective_scan_reference(
+            *(torch.tensor(a) for a in args), tss.KERNEL_CHUNK,
+            return_bounds=True)
+    assert tuple(tbounds.shape) == jbounds.shape == (2, -(-l // 64), n, 100)
+    assert np.isfinite(ty.numpy()).all()
+    assert _rel(ty.numpy(), np.asarray(jy)[:, :l]) <= SCAN_TOL
+    assert _rel(tbounds.numpy(), np.asarray(jbounds)) <= SCAN_TOL
+
+
 def _ssd_inputs(b, l, h, dh, ds, seed, strong):
     rs = np.random.RandomState(seed)
     x = (0.5 * rs.randn(b, l, h, dh)).astype(np.float32)
