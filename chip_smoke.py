@@ -21,7 +21,12 @@ Phases, each of which fails the run (non-zero exit, no result line):
    boundary at K = 14336, N = 384, where the decode grid takes stream-K
    shares that do not divide a tile's steps; one column tile at the
    smallest K; f32 out), ffn2 twice bitwise equal, with each kernel's
-   ptxas line and local-memory accesses; int8 paged as the bf16 one; the grouped GEMMs of the MoE layer, gmm
+   ptxas line and local-memory accesses; the paged decode on bf16 and on
+   int8 pages at the serving path's shapes and at its edges (groups of 1, 2
+   and 8 query heads, d = 64, one row of 2048 tokens, a batch with no
+   token, 64 rows; empty rows exactly out 0, m -1e30, l 0), twice at the
+   path's shape (bitwise equal), split by kernel, with its ptxas line and
+   its wrapper's host µs a call; the grouped GEMMs of the MoE layer, gmm
    in both orientations with and without bias, tgmm and the fused gate +
    up + swiglu with its residuals: max |diff| <= 1e-2 * max |plain| at M =
    32768 routed rows for a router draw and a skewed set with an empty
@@ -44,7 +49,7 @@ Phases, each of which fails the run (non-zero exit, no result line):
    (lengths 1, 63, 64, 65, 150 and 1001, d = 100 and 200, n = 5, a strong
    decay, each in f32 and bf16), the WKV
    forward (y) and backward (dr, dk, dv, dlogw, du) at b16 l1024 h12 d64
-   with the model's decay ramp and at the chunk-parallel backward's edges
+   with the model's decay ramp and at the chunk-parallel kernels' edges
    (lengths 1, 15, 16, 17, 63, 64, 65, 150 and 1001, d = 64 and 128, 1, 3
    and 13 heads, a strong decay, logw = -1e10 (w = 0), and logw >= 0 on
    three channels, whose dlogw must be exactly 0, each in f32 and bf16),
@@ -54,11 +59,11 @@ Phases, each of which fails the run (non-zero exit, no result line):
    and 1001, 3, 4, 7 and 13 heads, every dh, ds in {64, 128}, a strong
    decay, a_t = 0, in bf16); every output finite, each within 1e-4 of max
    |plain| in f32 I/O and 1e-2 in bf16 I/O, all computing in f32, the
-   three backwards and the SSD forward twice at the path's shape (bitwise
-   equal; the scan forward too, y and the chunk states), the scan
+   three backwards and the SSD and WKV forwards twice at the path's shape
+   (bitwise equal; the scan forward too, y and the chunk states), the scan
    forward's and the chunk-parallel kernels' ptxas lines and local-memory
    accesses, their ms split by kernel (``torch.profiler``), the host µs a
-   call of the scan, WKV backward and SSD forward wrappers, and, for the scan,
+   call of the scan, WKV and SSD forward and WKV backward wrappers, and, for the scan,
    the special-function unit's floor for its exponentials beside the
    bound), with its time, its bound (H100
    SXM: 3.35 TB/s HBM, 989 TFLOP/s bf16 dense; the scan 67 TFLOP/s f32
@@ -270,8 +275,6 @@ def phase_kernels(torch, gen, flush):
     print("== phase 3: kernels against their plain versions")
     import torch.nn.functional as F
 
-    from paddle_tpu_torch.ops.cuda.paged_attention import (
-        paged_attention, paged_attention_reference)
     from paddle_tpu_torch.ops.fused.flash_attention import (
         flash_attention, flash_attn_reference)
 
@@ -340,48 +343,9 @@ def phase_kernels(torch, gen, flush):
     flash_row["max_abs_err"] = flash_err
     rows["flash_attention"] = flash_row
 
-    # paged decode at the path's shapes: q [8, 32, 128], one layer's pool
-    # [8, 1025, 16, 128], table [8, 128]; empty rows, page boundaries and
-    # null table tails
-    B, page, pps, blocks = 8, 16, 128, 1025
-    lens_list = PAGED_LENS
-    kp = torch.randn(hk, blocks, page, d, generator=gen, device=dev).bfloat16()
-    vp = torch.randn(hk, blocks, page, d, generator=gen, device=dev).bfloat16()
-    q = torch.randn(B, hq, d, generator=gen, device=dev).bfloat16()
-    table, lens = paged_inputs(torch, gen)
-    out, m, l = paged_attention(q, kp, vp, table, lens, return_stats=True)
-    rout, rm, rl = paged_attention_reference(q, kp, vp, table, lens,
-                                             return_stats=True)
-    torch.cuda.synchronize()
-    err = (out.float() - rout.float()).abs().max().item()
-    check(math.isfinite(err) and err <= OUT_ATOL,
-          f"paged out: max |kernel - plain| = {err:.3e} <= {OUT_ATOL}")
-    for name, a, r in (("m", m, rm), ("l", l, rl)):
-        rel = ((a - r).abs() / r.abs().clamp_min(1.0)).max().item()
-        check(rel <= STATS_RTOL, f"paged {name}: max |diff|/max(|ref|,1) = "
-                                 f"{rel:.3e} <= {STATS_RTOL}")
-    check(bool((m[0] == -1e30).all() and (l[0] == 0).all()
-               and (out[0] == 0).all()),
-          "paged empty row: m = -1e30, l = 0, out = 0")
-    ms = time_ms(torch, lambda: paged_attention(q, kp, vp, table, lens,
-                                                return_stats=True),
-                 reps=20, flush=flush)
-    plain = time_ms(torch, lambda: paged_attention_reference(
-        q, kp, vp, table, lens, return_stats=True), reps=5, flush=flush)
-    tokens = sum(lens_list)
-    flops = 4 * hq * d * tokens
-    nbytes = (2 * tokens * hk * d * 2            # K and V rows read once
-              + 2 * 2 * B * hq * d               # q in, out back
-              + 4 * (B * pps + B) + 2 * 4 * B * hq)  # table, lens, m, l
-    b_ms, b_by = bound(flops, nbytes)
-    print(f"  paged decode (lens {lens_list}): {ms:.4f} ms (bound "
-          f"{b_ms:.4f} ms by {b_by}, {b_ms / ms:.1%} of it), plain "
-          f"{plain:.3f} ms, library: none")
-    rows["paged_attention"] = dict(ms=ms, plain_ms=plain, bound_ms=b_ms,
-                                   bound_by=b_by, library_ms=None,
-                                   max_abs_err=err)
-    del kp, vp, q, out, m, l, rout, rm, rl
-    rows["paged_attention_int8"] = check_paged_int8(torch, gen, flush)
+    print_paged_ptxas()
+    rows["paged_attention"] = check_paged(torch, gen, flush, quant=False)
+    rows["paged_attention_int8"] = check_paged(torch, gen, flush, quant=True)
     print_weight_only_ptxas()
     rows["int8_matmul"] = check_weight_only(torch, gen, flush, int4=False)
     rows["int4_matmul"] = check_weight_only(torch, gen, flush, int4=True)
@@ -403,67 +367,124 @@ def phase_kernels(torch, gen, flush):
 
 
 PAGED_LENS = [0, 1, 16, 17, 1000, 2048, 700, 1532]
+# the paged kernel's edges: (what, lens, kv heads, group, d)
+PAGED_EDGES = (
+    ("group 1", PAGED_LENS, 8, 1, 128), ("group 2", PAGED_LENS, 8, 2, 128),
+    ("group 8", PAGED_LENS, 4, 8, 128), ("d 64", PAGED_LENS, 8, 4, 64),
+    ("batch 1 at 2048 tokens", [2048], 8, 4, 128),
+    ("an all-empty batch", [0] * 8, 8, 4, 128),
+    ("64 rows", "64 rows", 8, 4, 128))
 
 
-def paged_inputs(torch, gen, blocks=1025, B=8, page=16, pps=128):
-    """The serving path's decode table: rows of PAGED_LENS tokens on
-    distinct shuffled blocks, null table tails."""
-    perm = torch.randperm(blocks - 1, generator=gen, device="cuda") + 1
-    table = torch.zeros(B, pps, dtype=torch.int32, device="cuda")
+def paged_inputs(torch, gen, lens=PAGED_LENS, kvh=8, group=4, d=128,
+                 quant=False, blocks=1025, page=16, pps=128):
+    """The serving path's decode table and one layer's pool: rows of
+    ``lens`` tokens on distinct shuffled blocks (block 0 never used), null
+    table tails; q [B, kvh group, d] and the pool [kvh, blocks, page, d] in
+    bf16, or int8 with its block-major scales [blocks, kvh, page]. Returns
+    the positional arguments and the keyword arguments of
+    ``paged_attention``."""
+    from paddle_tpu_torch.models.kv_cache import quantize_kv
+
+    dev, B = "cuda", len(lens)
+    blocks = max(blocks, sum(-(-n // page) for n in lens) + 1)
+    k, v = (torch.randn(kvh, blocks, page, d, generator=gen, device=dev)
+            for _ in range(2))
+    kw = dict(return_stats=True)
+    if quant:
+        (k, ks), (v, vs) = quantize_kv(k), quantize_kv(v)
+        kw.update(k_scales=ks.transpose(0, 1).contiguous(),
+                  v_scales=vs.transpose(0, 1).contiguous())
+    else:
+        k, v = k.bfloat16(), v.bfloat16()
+    q = torch.randn(B, kvh * group, d, generator=gen, device=dev).bfloat16()
+    perm = torch.randperm(blocks - 1, generator=gen, device=dev) + 1
+    table = torch.zeros(B, pps, dtype=torch.int32, device=dev)
     at = 0
-    for i, n in enumerate(PAGED_LENS):
+    for i, n in enumerate(lens):
         used = -(-n // page)
         table[i, :used] = perm[at:at + used].int()
         at += used
-    lens = torch.tensor(PAGED_LENS, dtype=torch.int32, device="cuda")
-    return table, lens
+    lens = torch.tensor(lens, dtype=torch.int32, device=dev)
+    return (q, k, v, table, lens), kw
 
 
-def check_paged_int8(torch, gen, flush):
-    """The int8-page paged kernel against its plain version at the path's
-    shapes: q [8, 32, 128], one layer's int8 pool [8, 1025, 16, 128] with
-    its block-major scales [1025, 8, 16], lens PAGED_LENS."""
-    from paddle_tpu_torch.models.kv_cache import quantize_kv
+def check_paged_once(torch, what, args, kw):
+    """One call of the paged kernel against its plain version: out within
+    OUT_ATOL, m and l within STATS_RTOL of max(|plain|, 1), empty rows
+    exactly (out 0, m -1e30, l 0). Returns max |out - plain|."""
     from paddle_tpu_torch.ops.cuda.paged_attention import (
         paged_attention, paged_attention_reference)
 
-    hq, hk, d, blocks, page = 32, 8, 128, 1025, 16
-    B = len(PAGED_LENS)
-    kq, ks = quantize_kv(torch.randn(hk, blocks, page, d, generator=gen,
-                                     device="cuda"))
-    vq, vs = quantize_kv(torch.randn(hk, blocks, page, d, generator=gen,
-                                     device="cuda"))
-    ks, vs = ks.transpose(0, 1).contiguous(), vs.transpose(0, 1).contiguous()
-    q = torch.randn(B, hq, d, generator=gen, device="cuda").bfloat16()
-    table, lens = paged_inputs(torch, gen)
-    args = (q, kq, vq, table, lens)
-    kw = dict(return_stats=True, k_scales=ks, v_scales=vs)
     out, m, l = paged_attention(*args, **kw)
     rout, rm, rl = paged_attention_reference(*args, **kw)
     torch.cuda.synchronize()
     err = (out.float() - rout.float()).abs().max().item()
     check(math.isfinite(err) and err <= OUT_ATOL,
-          f"paged int8 out: max |kernel - plain| = {err:.3e} <= {OUT_ATOL}")
+          f"{what} out: max |kernel - plain| = {err:.3e} <= {OUT_ATOL}")
     for name, a, r in (("m", m, rm), ("l", l, rl)):
         rel = ((a - r).abs() / r.abs().clamp_min(1.0)).max().item()
-        check(rel <= STATS_RTOL, f"paged int8 {name}: max |diff|/max(|ref|,"
-                                 f"1) = {rel:.3e} <= {STATS_RTOL}")
-    check(bool((m[0] == -1e30).all() and (l[0] == 0).all()
-               and (out[0] == 0).all()),
-          "paged int8 empty row: m = -1e30, l = 0, out = 0")
+        check(rel <= STATS_RTOL, f"{what} {name}: max |diff|/max(|ref|,1) = "
+                                 f"{rel:.3e} <= {STATS_RTOL}")
+    empty = args[4] == 0
+    check(bool((m[empty] == -1e30).all() and (l[empty] == 0).all()
+               and (out[empty] == 0).all()),
+          f"{what} empty rows ({int(empty.sum())}): m = -1e30, l = 0, "
+          f"out = 0")
+    return err
+
+
+def check_paged(torch, gen, flush, quant):
+    """The paged decode kernel on bf16 (or int8) pages against its plain
+    version at the serving path's shapes (q [8, 32, 128], one layer's pool
+    [8, 1025, 16, 128], int8 with its block-major scales [1025, 8, 16],
+    lens PAGED_LENS) and at ``PAGED_EDGES`` (groups of 1, 2 and 8, d = 64,
+    one row of 2048 tokens, a batch with no token, 64 rows of 0 to 2048
+    tokens), the path's shape twice (bitwise equal); timed there, split by
+    kernel, with the wrapper's host µs a call."""
+    from paddle_tpu_torch.ops.cuda.paged_attention import (
+        paged_attention, paged_attention_reference)
+
+    kind = "int8 pages" if quant else "bf16 pages"
+    err = 0.0
+    for what, lens, kvh, group, d in PAGED_EDGES:
+        if lens == "64 rows":
+            lens = torch.randint(0, 2049, (64,), generator=gen,
+                                 device="cuda").tolist()
+            lens[:3] = [0, 2048, 1]
+        args, kw = paged_inputs(torch, gen, lens, kvh, group, d, quant)
+        err = max(err, check_paged_once(torch, f"paged {kind}, {what}",
+                                        args, kw))
+        del args, kw
+    torch.cuda.empty_cache()
+    args, kw = paged_inputs(torch, gen, quant=quant)
+    err = max(err, check_paged_once(torch, f"paged {kind}", args, kw))
+    first = paged_attention(*args, **kw)
+    again = paged_attention(*args, **kw)
+    torch.cuda.synchronize()
+    check(all(torch.equal(a, b) for a, b in zip(first, again)),
+          f"paged {kind} run twice: out, m and l bitwise equal")
     ms = time_ms(torch, lambda: paged_attention(*args, **kw), reps=20,
                  flush=flush)
     plain = time_ms(torch, lambda: paged_attention_reference(*args, **kw),
                     reps=5, flush=flush)
+    split = kernel_split(torch, lambda: paged_attention(*args, **kw),
+                         ("paged_",))
+    host = host_us_per_call(torch, lambda: paged_attention(*args, **kw))
+    q, table = args[0], args[3]
+    B, hq, d = q.shape
+    hk = args[1].shape[0]
     tokens = sum(PAGED_LENS)
     flops = 4 * hq * d * tokens
-    nbytes = (tokens * hk * (2 * d + 2 * 4)      # int8 K, V rows + 2 scales
-              + 2 * 2 * B * hq * d               # q in, out back
+    row = 2 * d + 2 * 4 if quant else 2 * 2 * d   # K and V (+ 2 scales)
+    nbytes = (tokens * hk * row                   # each valid row read once
+              + 2 * 2 * B * hq * d                # q in, out back
               + 4 * (table.numel() + B) + 2 * 4 * B * hq)  # table, lens, m, l
     b_ms, b_by = bound(flops, nbytes)
-    print(f"  paged decode, int8 pages (lens {PAGED_LENS}): {ms:.4f} ms "
-          f"(bound {b_ms:.4f} ms by {b_by}, {b_ms / ms:.1%} of it), plain "
-          f"{plain:.3f} ms, library: none")
+    print(f"  paged decode, {kind} (lens {PAGED_LENS}): {ms:.4f} ms (bound "
+          f"{b_ms:.4f} ms by {b_by}, {b_ms / ms:.1%} of it), plain "
+          f"{plain:.3f} ms, library: none; by kernel (ms a call): {split}; "
+          f"wrapper {host:.1f} us a call on the host")
     return dict(ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
                 library_ms=None, max_abs_err=err)
 
@@ -1114,14 +1135,16 @@ def print_wgmma_ptxas():
 def print_ssm_ptxas():
     """ptxas's line and the SASS's local accesses of the scan forward and
     of each chunk-parallel SSM kernel: the scan backward's three, the SSD
-    forward's and backward's two each and the WKV backward's two (per I/O
-    type; the SSD's per head and state width, the WKV's per head width)."""
+    forward's and backward's two each and the WKV forward's and backward's
+    two each (per I/O type; the SSD's per head and state width, the WKV's
+    per head width)."""
     import re
 
     pattern = re.compile(r"(scan_fwd_kernel|scan_bwd_local_kernel|"
                          r"scan_bwd_pass_kernel|scan_bwd_kernel|ssd_fwd_carry_kernel|"
                          r"ssd_fwd_chunk_kernel|ssd_bwd_carry_kernel|"
-                         r"ssd_bwd_kernel|wkv_bwd_carry_kernel|"
+                         r"ssd_bwd_kernel|wkv_fwd_carry_kernel|"
+                         r"wkv_fwd_chunk_kernel|wkv_bwd_carry_kernel|"
                          r"wkv_bwd_chunk_kernel)(I(f|13__nv_bfloat16)"
                          r"(?:Li(\d+)E(?:Li(\d+)E)?)?E)?")
 
@@ -1133,6 +1156,21 @@ def print_ssm_ptxas():
         return f"{m.group(1)}<{dt}{dims}>"
 
     print_ptxas(("selective_scan", "ssd", "wkv"), pattern, label)
+
+
+def print_paged_ptxas():
+    """ptxas's line and the SASS's local accesses of the paged decode
+    kernel at the serving path's instantiations (d = 128, group 4, bf16
+    and int8 pages)."""
+    import re
+
+    pattern = re.compile(r"(paged_kernel)ILi(128)ELi(4)E(13__nv_bfloat16|a)E")
+
+    def label(m):
+        kind = "bf16" if m.group(4) != "a" else "int8"
+        return f"{m.group(1)}<{m.group(2)}, {m.group(3)}, {kind} pages>"
+
+    print_ptxas(("paged_attention",), pattern, label)
 
 
 def kernel_split(torch, fn, keys, reps=5):
@@ -1508,13 +1546,14 @@ def check_wkv(torch, gen, flush):
     phase 10's shape (b16 l1024 h12 d64; logw from the model's decay ramp
     through ``rwkv_log_decay``, the bonus 0.5 plus noise), in f32 I/O within
     SSM_F32_RTOL and in the path's bf16 within SSM_BF16_RTOL; and at the
-    chunk-parallel backward's edges (``WKV_CASES``, each in f32 and bf16):
+    chunk-parallel kernels' edges (``WKV_CASES``, each in f32 and bf16):
     one step, a sub-chunk less one, one, one more, a chunk less one, one,
     one more, lengths off every chunk (150, 1001), d = 64 and 128 (chunks
     of 64 and 32), 1, 3 and 13 heads, a strong decay (logw = -1e10, w = 0)
     and logw >= 0 on three channels (dlogw exactly 0 there). Every case
-    checks all outputs for finite values. The backward twice at the path's
-    shape, bitwise equal. Timed in bf16; the bound is the JAX audit's 2 b h
+    checks all outputs for finite values. The forward and the backward twice
+    at the path's shape, bitwise equal; each split by kernel, with its
+    wrapper's host µs a call. Timed in bf16; the bound is the JAX audit's 2 b h
     l (c + 2d) d operations (c = 64, the JAX route's kernel chunk at b >=
     16; x 3 for the backward) at 989 TFLOP/s against the bytes."""
     from paddle_tpu_torch.ops.cuda import wkv as wk
@@ -1553,14 +1592,20 @@ def check_wkv(torch, gen, flush):
         del y, grads, y_ref, g_ref
     # timing at the path's shape and dtype (the last case)
     torch.cuda.empty_cache()
+    y, again = wk.wkv_fwd(*ins), wk.wkv_fwd(*ins)
+    torch.cuda.synchronize()
+    check(torch.equal(y, again),
+          f"wkv forward b{b} l{l} h{h} d{d} run twice: bitwise equal")
     grads = wk.wkv_bwd(*ins, dy)
     again = wk.wkv_bwd(*ins, dy)
     torch.cuda.synchronize()
     check(all(torch.equal(a, r) for a, r in zip(again, grads)),
           f"wkv backward b{b} l{l} h{h} d{d} run twice: bitwise equal")
-    del grads, again
+    del y, grads, again
     ms = time_ms(torch, lambda: wk.wkv_fwd(*ins), flush=flush)
     bwd_ms = time_ms(torch, lambda: wk.wkv_bwd(*ins, dy), flush=flush)
+    fwd_split = kernel_split(torch, lambda: wk.wkv_fwd(*ins), ("wkv_fwd_",))
+    fwd_host = host_us_per_call(torch, lambda: wk.wkv_fwd(*ins))
     split = kernel_split(torch, lambda: wk.wkv_bwd(*ins, dy), ("wkv_bwd_",))
     host = host_us_per_call(torch, lambda: wk.wkv_bwd(*ins, dy))
     xs = [t.float() for t in ins]
@@ -1581,6 +1626,8 @@ def check_wkv(torch, gen, flush):
               f"{plain_t:.3f} ms, library: none")
         rows[key] = dict(ms=t, plain_ms=plain_t, bound_ms=b_ms,
                          bound_by=b_by, library_ms=None)
+    print(f"  wkv by kernel (ms a call): {fwd_split}; wrapper {fwd_host:.1f} "
+          f"us a call on the host")
     print(f"  wkv_bwd by kernel (ms a call): {split}; wrapper {host:.1f} us "
           f"a call on the host")
     print(f"  (plain fwd + bwd {plain_both:.3f} ms; the backward's plain ms "
@@ -1870,7 +1917,8 @@ def phase_slice(torch, seed):
           f"teacher-forced greedy agreement (argmax, or a tie within the "
           f"bf16 noise) {strict + ties}/{total} = "
           f"{(strict + ties) / total:.1%} >= {AGREE_MIN:.0%}")
-    profile_decode(torch, engine, cfg.vocab_size, seed)
+    profile_decode(torch, engine, cfg.vocab_size, seed,
+                   launches={"paged_kernel": L})
     return {"flash_attention": flash_n, "paged_attention": paged_n}, noise
 
 
@@ -1935,8 +1983,8 @@ def profile_decode(torch, engine, vocab, seed, steps=8,
     for part in absent:
         check(launched(part) == 0,
               f"profiled decode steps: no {part} kernel ({launched(part)})")
-    groups = {"paged_attention": ("paged_partial", "paged_merge"),
-              "weight_only_gemm": ("wo_gemm", "wo_reduce"),
+    groups = {"paged_attention": ("paged_kernel",),
+              "weight_only_gemm": ("wo_gemm",),
               "matmul": ("gemm", "gemv", "nvjet", "cutlass", "xmma")}
     by_group = dict.fromkeys(list(groups) + ["other"], 0.0)
     for name, ms in kernels.items():
@@ -2124,7 +2172,7 @@ def serve_quantized(torch, model, prompts, quant, kv_dtype, chunked, seed):
     # one weight-only kernel a product: 4 a layer, no second pass
     profile_decode(torch, engine, cfg.vocab_size, seed,
                    title=f"phase 5b: where a decode step of {what} goes",
-                   launches={"wo_gemm": 4 * L}, absent=("wo_reduce",))
+                   launches={"wo_gemm": 4 * L, "paged_kernel": L})
     dequantize_into(torch, model, engine.weights, quant == "int4")
     return reqs, firsts, n
 
@@ -2567,7 +2615,7 @@ def phase_moe_train(torch, seed):
 SSM_GROUPS = {
     "selective scan fwd": ("scan_fwd_",),
     "selective scan bwd": ("scan_bwd_",),
-    "wkv fwd": ("wkv_fwd_kernel",), "wkv bwd": ("wkv_bwd_",),
+    "wkv fwd": ("wkv_fwd_",), "wkv bwd": ("wkv_bwd_",),
     **TRAIN_GROUPS}
 # the conv group first: cuDNN's implicit-GEMM convolutions are xmma kernels;
 # "copies": PyTorch's same-dtype copies (layout changes and .contiguous())

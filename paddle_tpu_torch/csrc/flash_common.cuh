@@ -2,7 +2,7 @@
 // from ldmatrix fragments (the int8 / int4 weight-only GEMMs in
 // int8_matmul.cu and the chunk-parallel SSM kernels through
 // ssm_common.cuh), and cp.async, which the selective scan's forward also
-// uses: cp.async copies, ldmatrix loads (x4 and x2, plain and transposed),
+// uses: cp.async copies, an acquire-release atomic, ldmatrix loads (x4 and x2, plain and transposed),
 // the bf16 mma.sync m16n8k16 product with f32 accumulation, and the TF32
 // m16n8k8 product with its rounding (the SSM kernels' f32 instantiations
 // split each f32 operand into two TF32 values). Tiles in shared memory are
@@ -43,6 +43,22 @@ __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commi
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// x as it is, in a register: the compiler may not recompute it from what it
+// was computed from (a loop-invariant offset stays hoisted)
+__device__ __forceinline__ void opaque(int& x) { asm volatile("" : "+r"(x)); }
+
+// *p += v at the device's scope, ordering this CTA's earlier writes (made
+// this thread's by a barrier) before it and its later reads after it;
+// returns the old value
+__device__ __forceinline__ int atom_add_acq_rel(int* p, int v) {
+  int old;
+  asm volatile("atom.acq_rel.gpu.global.add.s32 %0, [%1], %2;\n"
+               : "=r"(old)
+               : "l"(p), "r"(v)
+               : "memory");
+  return old;
 }
 
 __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {

@@ -14,18 +14,32 @@
 // + 2d) d operations forward, takes a fraction of the time needed to read
 // r, k, v and write y.
 //
-// Forward (simple first): one block per (b, head). Thread j owns column j
-// of S, d/64 threads a column when d = 128 (64 rows each, their partial
-// outputs added by a shuffle); r, k, v of 2048 / d steps at a time are
-// staged in shared memory (the loads in flight together) and read as
-// broadcasts. It runs the recurrence as it is written, on the CUDA cores.
-// w = 0 (logw at its -1e10 floor) is exact and
-// harmless: nothing divides by w.
+// Both directions run the chunked matrix form, every chunk in parallel.
+// With a chunk of CH steps (64 at d = 64, 32 at d = 128), position j in the
+// chunk, S_in the state entering it and t0 the first step of j's 16-step
+// sub-chunk, the pairs s < j inside the chunk weigh v_s by
+//   A[j,s] = sum_i r_j[i] w_i^(j-1-s) k_s[i].
+// On the 16 x 16 diagonal sub-blocks A comes from the masked decay cube on
+// the CUDA cores. Off them, w^(j-1-s) = w^(j-t0) w^(t0-1-s): both exponents
+// are >= 0 steps of a non-positive log decay, so every factor is <= 1, and
+// A is the product of r o w^(j-t0) and k o w^(t0-1-s) (`intra_a`). Every
+// product runs on mma.sync (ssm_common.cuh): bf16 tiles through ldmatrix,
+// f32 tiles as split TF32. Only non-positive numbers are exponentiated and
+// an exponent of 0 gives exactly 1, so w = 0 (logw at its -1e10 floor)
+// stays exact.
 //
-// Backward: the chunked matrix form of `_bwd_kernel` (:174-287), every
-// chunk in parallel, in two launches. With a chunk of CH steps (64 at d =
-// 64, 32 at d = 128), position j in the chunk and S_in the state entering
-// it, dS_out the gradient of the state leaving it:
+// Forward, two launches:
+//  1. wkv_fwd_carry_kernel carries S_in over the chunks, S_in <- diag(w^CH)
+//     S_in + (k o w^(CH-1-j))ᵀ v (`carry`, the backward's role 0), into [b,
+//     nc, h, d, d] scratch in the I/O type;
+//  2. wkv_fwd_chunk_kernel, one block per (chunk, head, b):
+//     y_j = (r_j o w^j) S_in + sum_{s<j} A[j,s] v_s + (r_j . (u o k_j)) v_j,
+//     the readout and A v as two mma.sync products.
+// The forward saves nothing for the backward; y is the same bit for bit on
+// every run (no atomics).
+//
+// Backward: the chunked matrix form of `_bwd_kernel` (:174-287), two
+// launches. With dS_out the gradient of the state leaving a chunk:
 //  1. wkv_bwd_carry_kernel carries both over the chunks: role 0 forward,
 //     S_in <- diag(w^CH) S_in + (k o w^(CH-1-j))ᵀ v, role 1 backward,
 //     dS_out <- diag(w^CH) dS_out + (r o w^j)ᵀ dy, one [d x CH] x [CH x
@@ -37,25 +51,19 @@
 //  2. wkv_bwd_chunk_kernel, one block per (chunk, head, b), follows
 //     `_bwd_kernel`'s chain from S_in and dS_out: the readout dr += w^j o
 //     (dy S_inᵀ), the state update dk += w^(CH-1-s) o (v dS_outᵀ), dv += (k o
-//     w^(CH-1-s)) dS_out, the bonus, and the pairs s < j inside the chunk,
-//     A[j,s] = sum_i r_j[i] w_i^(j-1-s) k_s[i] and dA[j,s] = dy_j . v_s. On the
-//     16 x 16 diagonal sub-blocks A and the gradients through it come from
-//     the masked decay cube on the CUDA cores. Off them, w^(j-1-s) = w^(j-t0)
-//     w^(t0-1-s) around the first step t0 of j's sub-chunk: both exponents
-//     are >= 0 steps of a non-positive log decay, so every factor is <= 1,
-//     and A, dr and dk are products of r o w^(j-t0), k o w^(t0-1-s) and dA.
-//     Every product runs on mma.sync (ssm_common.cuh): bf16 tiles through
-//     ldmatrix, f32 tiles as split TF32.
+//     w^(CH-1-s)) dS_out, the bonus, and the pairs s < j through A and dA[j,s]
+//     = dy_j . v_s, the gradients through A on the diagonal sub-blocks from
+//     the decay cube, off them products of r o w^(j-t0), k o w^(t0-1-s) and
+//     dA.
 // dlogw: d(w^n)/dlogw = n w^n, so each factored term carries its own
 // exponent (`_decay_tables`' p* tables): a (r~ o dr~) and b (k~ o dk~) with a,
 // b < CH, j (readout), CH-1-s (update), CH w^CH (S_in o dS_out) summed over
 // the columns, (j-1-s) on the cube. No term subtracts two sums over the
-// sequence. Only non-positive numbers are exponentiated; an exponent of 0
-// gives exactly 1, so w = 0 stays exact. dlogw and du come out per (b,
+// sequence. dlogw and du come out per (b,
 // chunk), [b, nc, h, d] f32, summed by the caller in a fixed order: no
-// atomics, the same result on every run. The forward saves nothing beyond
-// its inputs; the backward's scratch is 2 b nc h d² in the I/O type (50 MB
-// in bf16 at the path's shapes).
+// atomics, the same result on every run. The backward's scratch is 2 b nc
+// h d² in the I/O type (50 MB in bf16 at the path's shapes), the
+// forward's half of it.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -71,80 +79,6 @@ namespace {
 
 using bf16 = __nv_bfloat16;
 using namespace ptt::ssm;
-
-constexpr int SEG = 64;        // forward: rows (or columns) of S a thread holds
-
-// sum over the SEGS adjacent lanes that share a row or column
-template <int SEGS>
-__device__ __forceinline__ float seg_sum(float x) {
-#pragma unroll
-  for (int o = 1; o < SEGS; o <<= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
-}
-
-// TC steps of COUNT [b, l, h, d] tensors into shared memory as f32, zero
-// past the sequence end; eight iterations' loads in flight together
-template <int D, int TC, int NT, int COUNT, typename T>
-__device__ __forceinline__ void stage(float (*dst)[TC][D], const T* const* src, size_t base,
-                                      size_t stride_t, int t0, int len) {
-#pragma unroll 8
-  for (int it = 0; it < TC * D / NT; ++it) {
-    const int x = it * NT + threadIdx.x;
-    const int tt = x / D, c = x % D;
-    const size_t off = base + size_t(t0 + tt) * stride_t + c;
-#pragma unroll
-    for (int q = 0; q < COUNT; ++q) dst[q][tt][c] = tt < len ? to_f(src[q][off]) : 0.f;
-  }
-}
-
-template <int D, typename T>
-__global__ void __launch_bounds__(D * (D / SEG))
-wkv_fwd_kernel(const T* __restrict__ r, const T* __restrict__ k, const T* __restrict__ v,
-               const float* __restrict__ logw, const float* __restrict__ bonus,
-               T* __restrict__ y, int L, int H) {
-  constexpr int SEGS = D / SEG, NT = D * SEGS, TC = 2048 / D;
-  __shared__ __align__(16) float sbuf[3][TC][D];
-  __shared__ __align__(16) float sw[D], su[D];
-  const int bi = blockIdx.x / H, hh = blockIdx.x % H;
-  const int j = threadIdx.x / SEGS, i0 = (threadIdx.x % SEGS) * SEG;
-  for (int x = threadIdx.x; x < D; x += NT) {
-    sw[x] = expf(fminf(logw[hh * D + x], 0.f));
-    su[x] = bonus[hh * D + x];
-  }
-  const size_t stride_t = size_t(H) * D;
-  const size_t base = size_t(bi) * L * stride_t + size_t(hh) * D;
-  const T* srcs[3] = {r, k, v};
-  float S[SEG];
-#pragma unroll
-  for (int i = 0; i < SEG; ++i) S[i] = 0.f;
-  for (int t0 = 0; t0 < L; t0 += TC) {
-    const int len = min(TC, L - t0);
-    __syncthreads();
-    stage<D, TC, NT, 3>(sbuf, srcs, base, stride_t, t0, len);
-    __syncthreads();
-    for (int tt = 0; tt < len; ++tt) {
-      const float vj = sbuf[2][tt][j];
-      float acc[4] = {0.f, 0.f, 0.f, 0.f};
-#pragma unroll
-      for (int i = 0; i < SEG; i += 4) {
-        const float4 r4 = *reinterpret_cast<const float4*>(&sbuf[0][tt][i0 + i]);
-        const float4 k4 = *reinterpret_cast<const float4*>(&sbuf[1][tt][i0 + i]);
-        const float4 w4 = *reinterpret_cast<const float4*>(&sw[i0 + i]);
-        const float4 u4 = *reinterpret_cast<const float4*>(&su[i0 + i]);
-        const float rr[4] = {r4.x, r4.y, r4.z, r4.w}, kk[4] = {k4.x, k4.y, k4.z, k4.w};
-        const float ww[4] = {w4.x, w4.y, w4.z, w4.w}, uu[4] = {u4.x, u4.y, u4.z, u4.w};
-#pragma unroll
-        for (int q = 0; q < 4; ++q) {
-          const float kv = kk[q] * vj;
-          acc[q] += rr[q] * (uu[q] * kv + S[i + q]);
-          S[i + q] = S[i + q] * ww[q] + kv;
-        }
-      }
-      const float out = seg_sum<SEGS>((acc[0] + acc[1]) + (acc[2] + acc[3]));
-      if (i0 == 0) y[base + size_t(t0 + tt) * stride_t + j] = from_f<T>(out);
-    }
-  }
-}
 
 // ------------------------------------------------------------------ backward
 constexpr int THREADS = 256;           // the chunk kernel
@@ -222,30 +156,29 @@ __device__ __forceinline__ void decay_add(float (&acc)[NT][4], float (&dlw)[NT][
 template <typename T, int D>
 struct CarrySmem {
   static constexpr int CH = Chunk<D>::CH, PD = Pad<T>::V;
-  T a[CH][D + PD];                     // k o w^(CH-1-j) (role 0) or r o w^j (role 1)
+  T a[CH][D + PD];                     // k o w^(CH-1-j) (forward) or r o w^j (backward)
   T b[CH][SLICE + PD];                 // the block's columns of v or dy
   float scale[CH][D];                  // w^(CH-1-j) or w^j
   float wc[D];                         // w^CH
 };
 
-// Role 0 (blockIdx.z = 0) writes S_in of every chunk, role 1 dS_out, both
-// [b, nc, h, d, d] f32, for the columns [SLICE blockIdx.x, + SLICE) of head
-// blockIdx.y % H of batch row blockIdx.y / H. Each chunk's r or k and v or
-// dy are loaded while the previous chunk's product runs.
+// The state at every chunk's edge for the columns [SLICE blockIdx.x, + SLICE) of
+// head blockIdx.y % H of batch row blockIdx.y / H, [b, nc, h, d, d] in the
+// I/O type: fwd, S_in of every chunk from k and v; else dS_out from r and
+// dy, the chunks taken from the last. Each chunk's operands are loaded
+// while the previous chunk's product runs.
 template <typename T, int D>
-__global__ void __launch_bounds__(CARRY_THREADS)
-wkv_bwd_carry_kernel(const T* __restrict__ r, const T* __restrict__ k, const T* __restrict__ v,
-                     const T* __restrict__ dy, const float* __restrict__ logw,
-                     T* __restrict__ s_in, T* __restrict__ ds_out, int L, int H) {
+__device__ __forceinline__ void carry(const T* __restrict__ src_a, const T* __restrict__ src_b,
+                                      const float* __restrict__ logw, T* __restrict__ out,
+                                      bool fwd, int L, int H) {
   using S = CarrySmem<T, D>;
   constexpr int CH = S::CH, PD = S::PD, NTH = CARRY_THREADS;
-  constexpr int MT = D / 64, NT = SLICE / 8;   // a warp: D / 4 rows, the slice's columns
+  constexpr int MT = D / 64, NT = SLICE / 8;  // a warp: D / 4 rows, the slice's columns
   using RA = RowVecs<CH, D, T, NTH>;
   using RB = RowVecs<CH, SLICE, T, NTH>;
   extern __shared__ __align__(128) unsigned char smem_raw[];
   S& s = *reinterpret_cast<S*>(smem_raw);
   const int col0 = blockIdx.x * SLICE, bi = blockIdx.y / H, hi = blockIdx.y % H;
-  const bool fwd = blockIdx.z == 0;
   const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32, g = lane / 4;
   const int c2 = 2 * (lane % 4), m0 = warp * (D / 4);
   const int nc = (L + CH - 1) / CH;
@@ -255,15 +188,12 @@ wkv_bwd_carry_kernel(const T* __restrict__ r, const T* __restrict__ k, const T* 
     s.scale[j][x] = expf(float(fwd ? CH - 1 - j : j) * lw);
     if (j == 0) s.wc[x] = expf(float(CH) * lw);
   }
-  const T* src_a = fwd ? k : r;
-  const T* src_b = fwd ? v : dy;
-  T* out = fwd ? s_in : ds_out;
   const long st = long(H) * D;
   float acc[MT][NT][4];
 #pragma unroll
   for (int mt = 0; mt < MT; ++mt) zero(acc[mt]);
-  // two chunks' r or k and v or dy in flight: chunk step + 2 loads while
-  // steps step and step + 1 are computed
+  // two chunks' operands in flight: chunk step + 2 loads while steps step
+  // and step + 1 are computed
   uint4 va[2][RA::IT], vb[2][RB::IT];
   auto chunk_of = [&](int step) { return fwd ? step : nc - 1 - step; };
   auto fetch = [&](uint4 (&a)[RA::IT], uint4 (&b)[RB::IT], int c) {
@@ -320,6 +250,98 @@ wkv_bwd_carry_kernel(const T* __restrict__ r, const T* __restrict__ k, const T* 
   for (int step = 0; step < nc; step += 2) {
     body(va[0], vb[0], step);
     if (step + 1 < nc) body(va[1], vb[1], step + 1);
+  }
+}
+
+// The forward's S_in (grid (D / SLICE, b h)).
+template <typename T, int D>
+__global__ void __launch_bounds__(CARRY_THREADS)
+wkv_fwd_carry_kernel(const T* __restrict__ k, const T* __restrict__ v,
+                     const float* __restrict__ logw, T* __restrict__ s_in, int L, int H) {
+  carry<T, D>(k, v, logw, s_in, true, L, H);
+}
+
+// The backward's S_in (blockIdx.z = 0) and dS_out (1), grid (D / SLICE, b h,
+// 2).
+template <typename T, int D>
+__global__ void __launch_bounds__(CARRY_THREADS)
+wkv_bwd_carry_kernel(const T* __restrict__ r, const T* __restrict__ k, const T* __restrict__ v,
+                     const T* __restrict__ dy, const float* __restrict__ logw,
+                     T* __restrict__ s_in, T* __restrict__ ds_out, int L, int H) {
+  const bool fwd = blockIdx.z == 0;
+  carry<T, D>(fwd ? k : r, fwd ? v : dy, logw, fwd ? s_in : ds_out, fwd, L, H);
+}
+
+// s.rt = r_j o w^(j - t0) (with LO its remainder into rtl) and the rows of
+// s.kt, k_s o w^(SUB J - 1 - s) for s < SUB J, from row SUB J (J - 1) / 2,
+// for each sub-chunk J > 0: the factors of A off the diagonal sub-blocks.
+// table(n, x) and power(n, x) give w^n of the channels x, x + 1.
+template <int CH, int D, int LD, bool LO, typename Sm, typename T, typename Table,
+          typename Power>
+__device__ __forceinline__ void factor_rows(Sm& s, T* rtl, Table table, Power power) {
+  scale_rows<D, LD, LD, THREADS, LO>(&s.rt[0][0], rtl, &s.r[0][0], CH,
+                                     [](int q, int& r, int& n) { r = q; n = q % SUB; }, table);
+  scale_rows<D, LD, LD, THREADS, false>(&s.kt[0][0], static_cast<T*>(nullptr), &s.k[0][0],
+                                        Sm::KT,
+                                        [](int q, int& r, int& n) {
+                                          int J = 1;
+                                          while (q >= SUB * J * (J + 1) / 2) ++J;
+                                          r = q - SUB * J * (J - 1) / 2;
+                                          n = SUB * J - 1 - r;
+                                        },
+                                        power);
+}
+
+// A[j][s] of the chunk's pairs s < j into X (rows of LX), zero on and above
+// the diagonal: off the diagonal sub-blocks a product of s.rt and s.kt a
+// warp, on them the decay cube of s.r, s.k and s.wp on the CUDA cores
+template <int CH, int D, int LD, int LX, typename Sm, typename T>
+__device__ __forceinline__ void intra_a(Sm& s, T* X, int warp, int lane) {
+  constexpr int NB = CH / SUB;
+  const int tid = threadIdx.x, g = lane / 4, c2 = 2 * (lane % 4);
+  if (warp < NB * (NB - 1) / 2) {      // A off the diagonal: sub-chunk J's rows, Sb's columns
+    int J = 1;
+    while (warp >= J * (J + 1) / 2) ++J;
+    const int Sb = warp - J * (J - 1) / 2;
+    float t[2][4];
+    zero(t);
+    mma_tile<D, 2, false, false>(t, &s.rt[SUB * J][0], LD,
+                                 &s.kt[SUB * J * (J - 1) / 2 + SUB * Sb][0], LD, 0, 0, lane);
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        X[(SUB * J + g + 8 * (e / 2)) * LX + SUB * Sb + 8 * nt + c2 + e % 2] = from_f<T>(t[nt][e]);
+  }
+  // A on the diagonal: the decay cube over the pairs s < j of each sub-chunk
+  constexpr int PAIRS = SUB * (SUB - 1) / 2;
+  for (int p = tid; p < NB * PAIRS; p += THREADS) {
+    const int q = p % PAIRS, j0 = SUB * (p / PAIRS);
+    int jj = 1;
+    while (q >= jj * (jj + 1) / 2) ++jj;
+    const int j = j0 + jj, sj = j0 + q - jj * (jj - 1) / 2;
+    const float* w = s.wp[j - 1 - sj];
+    constexpr int E = 16 / int(sizeof(T));
+    float a[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+    for (int x = 0; x < D; x += E) {
+      const uint4 r4 = *reinterpret_cast<const uint4*>(&s.r[j][x]);
+      const uint4 k4 = *reinterpret_cast<const uint4*>(&s.k[sj][x]);
+      const T *re = reinterpret_cast<const T*>(&r4), *ke = reinterpret_cast<const T*>(&k4);
+#pragma unroll
+      for (int c = 0; c < E; c += 4) {
+        const float4 w4 = *reinterpret_cast<const float4*>(w + x + c);
+        a[0] += to_f(re[c]) * to_f(ke[c]) * w4.x;
+        a[1] += to_f(re[c + 1]) * to_f(ke[c + 1]) * w4.y;
+        a[2] += to_f(re[c + 2]) * to_f(ke[c + 2]) * w4.z;
+        a[3] += to_f(re[c + 3]) * to_f(ke[c + 3]) * w4.w;
+      }
+    }
+    X[j * LX + sj] = from_f<T>((a[0] + a[1]) + (a[2] + a[3]));
+  }
+  for (int q = tid; q < CH * CH; q += THREADS) {    // and zero on and above it
+    const int j = q / CH, sj = q % CH;
+    if (sj >= j) X[j * LX + sj] = from_f<T>(0.f);
   }
 }
 
@@ -430,17 +452,7 @@ wkv_bwd_chunk_kernel(const T* __restrict__ r, const T* __restrict__ k, const T* 
     const float2 l = *reinterpret_cast<const float2*>(&s.lw2[x]);
     return make_float2(exp2f(float(n) * l.x), exp2f(float(n) * l.y));
   };
-  scale_rows<D, LD, LD, THREADS, LO>(&s.rt[0][0], &s.rtl[0][0], &s.r[0][0], CH,
-                                     [](int q, int& r, int& n) { r = q; n = q % SUB; }, table);
-  scale_rows<D, LD, LD, THREADS, false>(&s.kt[0][0], static_cast<T*>(nullptr), &s.k[0][0],
-                                        S::KT,
-                                        [](int q, int& r, int& n) {
-                                          int J = 1;
-                                          while (q >= SUB * J * (J + 1) / 2) ++J;
-                                          r = q - SUB * J * (J - 1) / 2;
-                                          n = SUB * J - 1 - r;
-                                        },
-                                        power);
+  factor_rows<CH, D, LD, LO>(s, &s.rtl[0][0], table, power);
   __syncthreads();
   {                                    // du = sum_j (v_j . dy_j) r_j o k_j
     constexpr int JP = THREADS / (D / 2);   // threads a channel pair, over the rows
@@ -489,50 +501,7 @@ wkv_bwd_chunk_kernel(const T* __restrict__ r, const T* __restrict__ k, const T* 
         split<LO>(i < j ? t[nt][e] : 0.f, s.dA[j][i], s.dAl[LO ? j : 0][i]);
       }
   }
-  if (warp < NB * (NB - 1) / 2) {      // A off the diagonal: sub-chunk J's rows, Sb's columns
-    int J = 1;
-    while (warp >= J * (J + 1) / 2) ++J;
-    const int Sb = warp - J * (J - 1) / 2;
-    float t[2][4];
-    zero(t);
-    mma_tile<D, 2, false, false>(t, &s.rt[SUB * J][0], LD,
-                                 &s.kt[SUB * J * (J - 1) / 2 + SUB * Sb][0], LD, 0, 0, lane);
-#pragma unroll
-    for (int nt = 0; nt < 2; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e)
-        s.X[SUB * J + g + 8 * (e / 2)][SUB * Sb + 8 * nt + c2 + e % 2] = from_f<T>(t[nt][e]);
-  }
-  // A on the diagonal: the decay cube over the pairs s < j of each sub-chunk
-  constexpr int PAIRS = SUB * (SUB - 1) / 2;
-  for (int p = tid; p < NB * PAIRS; p += THREADS) {
-    const int q = p % PAIRS, j0 = SUB * (p / PAIRS);
-    int jj = 1;
-    while (q >= jj * (jj + 1) / 2) ++jj;
-    const int j = j0 + jj, sj = j0 + q - jj * (jj - 1) / 2;
-    const float* w = s.wp[j - 1 - sj];
-    constexpr int E = 16 / int(sizeof(T));
-    float a[4] = {0.f, 0.f, 0.f, 0.f};
-#pragma unroll
-    for (int x = 0; x < D; x += E) {
-      const uint4 r4 = *reinterpret_cast<const uint4*>(&s.r[j][x]);
-      const uint4 k4 = *reinterpret_cast<const uint4*>(&s.k[sj][x]);
-      const T *re = reinterpret_cast<const T*>(&r4), *ke = reinterpret_cast<const T*>(&k4);
-#pragma unroll
-      for (int c = 0; c < E; c += 4) {
-        const float4 w4 = *reinterpret_cast<const float4*>(w + x + c);
-        a[0] += to_f(re[c]) * to_f(ke[c]) * w4.x;
-        a[1] += to_f(re[c + 1]) * to_f(ke[c + 1]) * w4.y;
-        a[2] += to_f(re[c + 2]) * to_f(ke[c + 2]) * w4.z;
-        a[3] += to_f(re[c + 3]) * to_f(ke[c + 3]) * w4.w;
-      }
-    }
-    s.X[j][sj] = from_f<T>((a[0] + a[1]) + (a[2] + a[3]));
-  }
-  for (int q = tid; q < CH * CH; q += THREADS) {    // and zero on and above it
-    const int j = q / CH, sj = q % CH;
-    if (sj >= j) s.X[j][sj] = from_f<T>(0.f);
-  }
+  intra_a<CH, D, LD, LX>(s, &s.X[0][0], warp, lane);
   __syncthreads();
   if (wm > 0) {                        // dr~ of sub-chunk wm against every earlier step
     float t[NT][4];
@@ -709,14 +678,134 @@ wkv_bwd_chunk_kernel(const T* __restrict__ r, const T* __restrict__ k, const T* 
   }
 }
 
+template <typename T, int D>
+struct FwdSmem {
+  static constexpr int CH = Chunk<D>::CH, PD = Pad<T>::V, NB = CH / SUB;
+  static constexpr int LD = D + PD, LC = CH + PD;
+  static constexpr int KT = SUB * NB * (NB - 1) / 2;
+  T r[CH][LD], k[CH][LD], v[CH][LD];
+  T S[D][LD];                          // S_in
+  T rw[CH][LD];                        // r o w^j, the readout's factor
+  T rt[CH][LD];                        // r o w^(j - t0)
+  T kt[KT][LD];                        // k o w^(SUB J - 1 - s), s < SUB J, from row 8 J (J - 1)
+  T X[CH][LC];                         // A [j][s]
+  float wp[SUB][D + 4];                // w^n, n < SUB (rows 4 banks apart)
+  float lw2[D];                        // min(logw, 0) log2(e): w^n = exp2(n lw2)
+  float u[D], ruk[CH];
+};
+
+// One block per (chunk, head, b); 8 warps, each a 16-row by d / WN-column
+// tile of y (rows: the chunk's steps) in registers: the readout (r o w^j)
+// S_in, then A v, then the bonus.
+template <typename T, int D>
+__global__ void __launch_bounds__(THREADS, 2)
+wkv_fwd_chunk_kernel(const T* __restrict__ r, const T* __restrict__ k, const T* __restrict__ v,
+                     const float* __restrict__ logw, const float* __restrict__ bonus,
+                     const T* __restrict__ s_in, T* __restrict__ y, int L, int H) {
+  using S = FwdSmem<T, D>;
+  constexpr int CH = S::CH, LD = S::LD, LC = S::LC;
+  constexpr int WM = Warps<CH>::WM, WN = Warps<CH>::WN, NT = D / (8 * WN);
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  S& s = *reinterpret_cast<S*>(smem_raw);
+  const int c = blockIdx.x, hi = blockIdx.y, bi = blockIdx.z, tid = threadIdx.x;
+  const int lane = tid % 32, warp = tid / 32, g = lane / 4, c2 = 2 * (lane % 4);
+  const int m0 = 16 * (warp % WM), n0 = (warp / WM) * (D / WN);
+  const int nc = (L + CH - 1) / CH, t0 = c * CH, len = min(CH, L - t0);
+  const size_t row0 = size_t(bi) * L + t0;
+  const long st = long(H) * D, col = long(hi) * D;
+  {
+    uint4 vr[RowVecs<CH, D, T>::IT], vk[RowVecs<CH, D, T>::IT], vv[RowVecs<CH, D, T>::IT];
+    load_rows<CH, D>(vr, r, row0, st, col, len);
+    load_rows<CH, D>(vk, k, row0, st, col, len);
+    load_rows<CH, D>(vv, v, row0, st, col, len);
+    if (tid < D) {
+      s.u[tid] = bonus[hi * D + tid];
+      s.lw2[tid] = fminf(logw[hi * D + tid], 0.f) * 1.4426950408889634f;
+    }
+    // the decay table while the tiles are in flight
+    for (int i = tid; i < SUB * D; i += THREADS) {
+      const int n = i / D, x = i % D;
+      s.wp[n][x] = expf(float(n) * fminf(logw[hi * D + x], 0.f));
+    }
+    {
+      uint4 vs[RowVecs<D, D, T>::IT];
+      load_rows<D, D>(vs, s_in + ((size_t(bi) * nc + c) * H + hi) * D * D, 0, D, 0, D);
+      store_rows<D, D>(&s.S[0][0], LD, vs);
+    }
+    store_rows<CH, D>(&s.r[0][0], LD, vr);
+    store_rows<CH, D>(&s.k[0][0], LD, vk);
+    store_rows<CH, D>(&s.v[0][0], LD, vv);
+  }
+  __syncthreads();
+  {                                    // the bonus's row sums (r_j o u) . k_j
+    constexpr int TPR = THREADS / CH, SPAN = D / TPR, E = 16 / int(sizeof(T));
+    const int j = tid / TPR, x0 = (tid % TPR) * SPAN;
+    float sr = 0.f;
+#pragma unroll
+    for (int x = x0; x < x0 + SPAN; x += E) {
+      const uint4 r4 = *reinterpret_cast<const uint4*>(&s.r[j][x]);
+      const uint4 k4 = *reinterpret_cast<const uint4*>(&s.k[j][x]);
+      const T *re = reinterpret_cast<const T*>(&r4), *ke = reinterpret_cast<const T*>(&k4);
+#pragma unroll
+      for (int e = 0; e < E; ++e) sr += to_f(re[e]) * s.u[x + e] * to_f(ke[e]);
+    }
+#pragma unroll
+    for (int o = 1; o < TPR; o <<= 1) sr += __shfl_xor_sync(FULL, sr, o);
+    if (tid % TPR == 0) s.ruk[j] = sr;
+  }
+  const auto table = [&](int n, int x) {
+    return *reinterpret_cast<const float2*>(&s.wp[n][x]);
+  };
+  const auto power = [&](int n, int x) {
+    const float2 l = *reinterpret_cast<const float2*>(&s.lw2[x]);
+    return make_float2(exp2f(float(n) * l.x), exp2f(float(n) * l.y));
+  };
+  scale_rows<D, LD, LD, THREADS, false>(&s.rw[0][0], static_cast<T*>(nullptr), &s.r[0][0], CH,
+                                        [](int q, int& r, int& n) { r = q; n = q; }, power);
+  factor_rows<CH, D, LD, false>(s, static_cast<T*>(nullptr), table, power);
+  __syncthreads();
+  float acc[NT][4];
+  zero(acc);
+  // the readout: y += (r o w^j) S_in
+  mma_tile<D, NT, false, true>(acc, &s.rw[0][0], LD, &s.S[0][0], LD, m0, n0, lane);
+  intra_a<CH, D, LD, LC>(s, &s.X[0][0], warp, lane);
+  __syncthreads();
+  // the pairs s < j: y += A v, and the bonus
+  mma_tile<CH, NT, false, true>(acc, &s.X[0][0], LC, &s.v[0][0], LD, m0, n0, lane);
+#pragma unroll
+  for (int h2 = 0; h2 < 2; ++h2) {
+    const int j = m0 + g + 8 * h2;
+    if (j >= len) continue;
+    const size_t o = (row0 + j) * st + col + n0 + c2;
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+      const float2 vj = pair(&s.v[j][n0 + 8 * nt + c2]);
+      store_pair(y + o + 8 * nt, acc[nt][2 * h2] + s.ruk[j] * vj.x,
+                 acc[nt][2 * h2 + 1] + s.ruk[j] * vj.y);
+    }
+  }
+}
+
 template <int D, typename T>
 int launch_fwd(const void* r, const void* k, const void* v, const void* logw, const void* bonus,
-               void* y, int batch, int L, int H, cudaStream_t st) {
-  constexpr int NT = D * (D / SEG);
-  wkv_fwd_kernel<D, T><<<batch * H, NT, 0, st>>>(
-      static_cast<const T*>(r), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const float*>(logw), static_cast<const float*>(bonus), static_cast<T*>(y), L,
-      H);
+               void* y, void* s_in, int batch, int L, int H, cudaStream_t st) {
+  static std::atomic<uint64_t> done_carry{0}, done{0};
+  const int smem_carry = int(sizeof(CarrySmem<T, D>));
+  const int smem = int(sizeof(FwdSmem<T, D>));
+  cudaError_t err = ptt::allow_smem(wkv_fwd_carry_kernel<T, D>, smem_carry, done_carry);
+  if (err == cudaSuccess) err = ptt::allow_smem(wkv_fwd_chunk_kernel<T, D>, smem, done);
+  if (err != cudaSuccess) return int(err);
+  const auto* rr = static_cast<const T*>(r);
+  const auto* kk = static_cast<const T*>(k);
+  const auto* vv = static_cast<const T*>(v);
+  const auto* lw = static_cast<const float*>(logw);
+  auto* sin = static_cast<T*>(s_in);
+  const int nc = (L + Chunk<D>::CH - 1) / Chunk<D>::CH;
+  wkv_fwd_carry_kernel<T, D><<<dim3(D / SLICE, batch * H), CARRY_THREADS, smem_carry, st>>>(
+      kk, vv, lw, sin, L, H);
+  if ((err = cudaGetLastError()) != cudaSuccess) return int(err);
+  wkv_fwd_chunk_kernel<T, D><<<dim3(nc, H, batch), THREADS, smem, st>>>(
+      rr, kk, vv, lw, static_cast<const float*>(bonus), sin, static_cast<T*>(y), L, H);
   return int(cudaGetLastError());
 }
 
@@ -730,7 +819,8 @@ struct BwdArgs {
 template <int D, typename T>
 int launch_bwd(const BwdArgs& a) {
   static std::atomic<uint64_t> done_carry{0}, done{0};
-  const int smem_carry = int(sizeof(CarrySmem<T, D>)), smem = int(sizeof(ChunkSmem<T, D>));
+  const int smem_carry = int(sizeof(CarrySmem<T, D>));
+  const int smem = int(sizeof(ChunkSmem<T, D>));
   cudaError_t err = ptt::allow_smem(wkv_bwd_carry_kernel<T, D>, smem_carry, done_carry);
   if (err == cudaSuccess) err = ptt::allow_smem(wkv_bwd_chunk_kernel<T, D>, smem, done);
   if (err != cudaSuccess) return int(err);
@@ -766,20 +856,23 @@ const char* ptt_error_string(int code) {
 }
 
 // r, k, v, y [batch, L, H, D], contiguous, f32 (bf16_io = 0) or bf16 (1);
-// logw, bonus [H, D] f32. D is 64 or 128. Returns cudaGetLastError().
+// logw, bonus [H, D] f32; s_in [batch, nc, H, D, D] scratch in the I/O type,
+// nc = ceil(L / ptt_wkv_bwd_chunk(D)). D is 64 or 128. Two launches (the
+// state at the chunks' edges, then every chunk); returns cudaGetLastError().
 int ptt_wkv_fwd(const void* r, const void* k, const void* v, const void* logw, const void* bonus,
-                void* y, int batch, int L, int H, int D, int bf16_io, void* stream) {
+                void* y, void* s_in, int batch, int L, int H, int D, int bf16_io,
+                void* stream) {
   if (bad_shape(batch, L, H, D)) return int(cudaErrorInvalidValue);
   const auto st = static_cast<cudaStream_t>(stream);
   if (D == 64)
-    return bf16_io ? launch_fwd<64, bf16>(r, k, v, logw, bonus, y, batch, L, H, st)
-                   : launch_fwd<64, float>(r, k, v, logw, bonus, y, batch, L, H, st);
-  return bf16_io ? launch_fwd<128, bf16>(r, k, v, logw, bonus, y, batch, L, H, st)
-                 : launch_fwd<128, float>(r, k, v, logw, bonus, y, batch, L, H, st);
+    return bf16_io ? launch_fwd<64, bf16>(r, k, v, logw, bonus, y, s_in, batch, L, H, st)
+                   : launch_fwd<64, float>(r, k, v, logw, bonus, y, s_in, batch, L, H, st);
+  return bf16_io ? launch_fwd<128, bf16>(r, k, v, logw, bonus, y, s_in, batch, L, H, st)
+                 : launch_fwd<128, float>(r, k, v, logw, bonus, y, s_in, batch, L, H, st);
 }
 
-// The backward's chunk at head width D: the scratch and the partials have
-// ceil(L / chunk) chunks.
+// The chunk of both directions at head width D: the scratch and the
+// partials have ceil(L / chunk) chunks.
 int ptt_wkv_bwd_chunk(int D) { return D == 64 ? Chunk<64>::CH : Chunk<128>::CH; }
 
 // The backward of ptt_wkv_fwd for dy [batch, L, H, D] (the inputs' type), two

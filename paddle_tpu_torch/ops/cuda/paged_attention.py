@@ -7,8 +7,12 @@ without), over bf16 pages and, with ``k_scales``/``v_scales``, over int8
 pages (the Pallas ``_kernel_quant*`` variants). Bounded on the H100 by the
 device-memory bytes of the K/V rows it reads (plus 8 bytes of scales per
 token and kv head on int8 pages); the kernel reads each valid row once and
-never touches a page past a row's length. CPU tensors take the plain
-version; CUDA tensors launch the kernel or raise.
+never touches a page past a row's length. One launch a call over a fixed
+grid (``ptt_paged_grid``) that shares 32-token units out evenly; the rows
+split across CTAs are merged in the same launch through an f32 scratch of
+two partials a CTA and a counter per (row, kv head), both kept per
+(device, stream): every launch leaves the counters at 0. CPU tensors take
+the plain version; CUDA tensors launch the kernel or raise.
 """
 
 from __future__ import annotations
@@ -32,11 +36,12 @@ launches = 0
 #: kernel launches over int8 pages since the count was last set to 0
 int8_launches = 0
 
-#: pages one CTA walks: a row of ``pps`` pages is split into
-#: ``ceil(pps / PAGES_PER_SPLIT)`` ranges processed in parallel
-PAGES_PER_SPLIT = 16
+#: pages hold a multiple of this many tokens (the kernel's half unit)
+TOKENS = 16
 
 _c_int, _ptr = ctypes.c_int, ctypes.c_void_p
+_GRID = {}                 # device index -> the kernel's grid
+_SCRATCH = {}              # (device, stream) -> (partials, counters)
 
 
 def paged_attention_reference(q, k_pages, v_pages, page_table, seq_lens,
@@ -84,13 +89,30 @@ def paged_attention_reference(q, k_pages, v_pages, page_table, seq_lens,
 def _lib():
     lib = _build.load("paged_attention")
     if lib.ptt_paged_decode.argtypes is None:
-        lib.ptt_paged_decode.argtypes = [_ptr] * 11 + [_c_int] * 8 \
+        lib.ptt_paged_decode.argtypes = [_ptr] * 10 + [_c_int] * 8 \
             + [ctypes.c_float, _ptr]
         lib.ptt_paged_decode.restype = _c_int
-        lib.ptt_paged_decode_int8.argtypes = [_ptr] * 13 + [_c_int] * 8 \
+        lib.ptt_paged_decode_int8.argtypes = [_ptr] * 12 + [_c_int] * 8 \
             + [ctypes.c_float, _ptr]
         lib.ptt_paged_decode_int8.restype = _c_int
+        lib.ptt_paged_grid.argtypes = [_c_int]
     return lib
+
+
+def _scratch(q, stream: int, floats: int, counters: int):
+    """The partials (at least ``floats`` f32) and the counters (at least
+    ``counters`` int32, all 0) of ``q``'s device and ``stream``: one pair
+    per stream, grown when a call needs more. Launches on one stream run in
+    order, and each leaves every counter at 0."""
+    key = (q.get_device(), stream)
+    part, cnt = _SCRATCH.get(key, (None, None))
+    if part is None or part.numel() < floats:
+        part = torch.empty(floats, dtype=torch.float32, device=q.device)
+    if cnt is None or cnt.numel() < counters:
+        cnt = torch.zeros(max(counters, 256), dtype=torch.int32,
+                          device=q.device)
+    _SCRATCH[key] = (part, cnt)
+    return part, cnt
 
 
 def paged_attention(q, k_pages, v_pages, page_table, seq_lens,
@@ -99,19 +121,19 @@ def paged_attention(q, k_pages, v_pages, page_table, seq_lens,
                     v_scales=None):
     """Decode attention over paged K/V: the kernel on CUDA tensors (bf16 q,
     bf16 pages or int8 pages with f32 ``k_scales``/``v_scales``
-    ``[P, KVH, page]``, int32 table and lens, all contiguous), the plain
-    version on CPU tensors. Same contract as
-    :func:`paged_attention_reference`."""
+    ``[P, KVH, page]``, int32 table and lens, all contiguous; pages of a
+    multiple of 16 tokens), the plain version on CPU tensors. Same contract
+    as :func:`paged_attention_reference`."""
     global launches, int8_launches
+    what = "paged_attention"
     if (k_scales is None) != (v_scales is None):
         raise ValueError("paged_attention: pass both k_scales and v_scales "
                          "for int8 pages, or neither")
-    if q.device.type == "cpu":
+    if _build.device_of(what, q, k_pages, v_pages, page_table, seq_lens,
+                        k_scales, v_scales) == "cpu":
         return paged_attention_reference(q, k_pages, v_pages, page_table,
                                          seq_lens, scale, return_stats,
                                          k_scales, v_scales)
-    if q.device.type != "cuda":
-        raise ValueError(f"paged_attention: unsupported device {q.device}")
     b, h, d = q.shape
     if k_pages.dim() != 4 or k_pages.shape != v_pages.shape \
             or k_pages.shape[3] != d:
@@ -119,10 +141,12 @@ def paged_attention(q, k_pages, v_pages, page_table, seq_lens,
                          f"{tuple(k_pages.shape)}/{tuple(v_pages.shape)} "
                          f"disagree")
     kvh, num_pages, page, _ = k_pages.shape
-    if h % kvh or h // kvh not in (1, 2, 4, 8) or d not in (64, 128):
+    if h % kvh or h // kvh not in (1, 2, 4, 8) or d not in (64, 128) \
+            or page % TOKENS:
         raise ValueError(f"paged_attention: needs group h/kvh in "
-                         f"(1, 2, 4, 8) and d in (64, 128), got h={h} "
-                         f"kvh={kvh} d={d}")
+                         f"(1, 2, 4, 8), d in (64, 128) and pages of a "
+                         f"multiple of {TOKENS} tokens, got h={h} kvh={kvh} "
+                         f"d={d} page={page}")
     if page_table.dim() != 2 or page_table.shape[0] != b \
             or seq_lens.shape != (b,):
         raise ValueError(f"paged_attention: page_table "
@@ -149,25 +173,31 @@ def paged_attention(q, k_pages, v_pages, page_table, seq_lens,
             raise ValueError(f"paged_attention: {name} must be a contiguous "
                              f"{dtype} tensor on {q.device}, got {t.dtype} "
                              f"on {t.device}")
+    lib = _lib()
+    if b > lib.ptt_paged_max_rows():
+        raise ValueError(f"paged_attention: the kernel takes at most "
+                         f"{lib.ptt_paged_max_rows()} rows, got {b}")
     scale = 1.0 / math.sqrt(d) if scale is None else float(scale)
-    pps = page_table.shape[1]
-    splits = -(-pps // PAGES_PER_SPLIT)
-    f32 = dict(device=q.device, dtype=torch.float32)
+    dev = q.get_device()
+    grid = _GRID.get(dev)
+    if grid is None:
+        grid = _GRID[dev] = lib.ptt_paged_grid(dev)
+        if grid <= 0:
+            raise RuntimeError(f"paged_attention: no grid for device {dev}")
+    stream = _build.stream(q)
+    part, counters = _scratch(q, stream, 2 * grid * (h // kvh) * (d + 4),
+                              b * kvh)
     out = torch.empty_like(q)
     m = l = None
     if return_stats:
+        f32 = dict(device=q.device, dtype=torch.float32)
         m, l = torch.empty((b, h), **f32), torch.empty((b, h), **f32)
-    part_m = torch.empty((b, h, splits), **f32)
-    part_l = torch.empty((b, h, splits), **f32)
-    part_acc = torch.empty((b, h, splits, d), **f32)
-    lib = _lib()
-    stream = torch.cuda.current_stream(q.device).cuda_stream
     pages = (k_pages.data_ptr(), v_pages.data_ptr())
     rest = (page_table.data_ptr(), seq_lens.data_ptr(), out.data_ptr(),
             m.data_ptr() if return_stats else None,
-            l.data_ptr() if return_stats else None, part_m.data_ptr(),
-            part_l.data_ptr(), part_acc.data_ptr(), b, h, kvh, num_pages,
-            page, pps, PAGES_PER_SPLIT, d, scale, stream)
+            l.data_ptr() if return_stats else None, part.data_ptr(),
+            counters.data_ptr(), grid, b, h, kvh, num_pages, page,
+            page_table.shape[1], d, scale, stream)
     if quant:
         rc = lib.ptt_paged_decode_int8(q.data_ptr(), *pages,
                                        k_scales.data_ptr(),

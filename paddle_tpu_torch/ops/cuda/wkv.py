@@ -29,7 +29,8 @@ from . import _build
 __all__ = ["wkv_fwd", "wkv_bwd", "wkv_reference", "bwd_chunk", "launches",
            "bwd_launches"]
 
-#: forward kernel launches since the count was last set to 0
+#: forward calls (two kernel launches each) since the count was last set
+#: to 0
 launches = 0
 #: backward calls (two kernel launches each) since the count was last set
 #: to 0
@@ -130,8 +131,10 @@ def _check_head_dim(what, d):
 
 
 def wkv_fwd(r, k, v, logw, u):
-    """y ``[b, l, h, d]`` in r's dtype. One kernel launch on CUDA tensors,
-    the plain version on CPU tensors."""
+    """y ``[b, l, h, d]`` in r's dtype. On CUDA tensors one call launches
+    two kernels (the state at every chunk's edge into scratch of ``[b, nc,
+    h, d, d]`` in the I/O type, allocated per call, then every chunk in
+    parallel); on CPU tensors the plain version."""
     global launches
     what = "wkv"
     b, l, h, d = _shapes(what, r, k, v, logw, u)
@@ -141,11 +144,13 @@ def wkv_fwd(r, k, v, logw, u):
     _check_head_dim(what, d)
     dt, (rk, kk, vk) = _build.float_io(what, r, k, v)
     lw, uf = (t.float().contiguous() for t in (logw, u))
+    nc = -(-l // bwd_chunk(d))
     y = torch.empty((b, l, h, d), dtype=dt, device=r.device)
-    rc = _build.entry("wkv", "ptt_wkv_fwd", 6, 5)(
+    s_in = torch.empty((b, nc, h, d, d), dtype=dt, device=r.device)
+    rc = _build.entry("wkv", "ptt_wkv_fwd", 7, 5)(
         rk.data_ptr(), kk.data_ptr(), vk.data_ptr(), lw.data_ptr(),
-        uf.data_ptr(), y.data_ptr(), b, l, h, d, int(dt == torch.bfloat16),
-        _build.stream(r))
+        uf.data_ptr(), y.data_ptr(), s_in.data_ptr(), b, l, h, d,
+        int(dt == torch.bfloat16), _build.stream(r))
     _build.check(_build.load("wkv"), rc, what)
     launches += 1
     return y.to(r.dtype)
@@ -155,8 +160,8 @@ _CHUNK = {}
 
 
 def bwd_chunk(d: int) -> int:
-    """The backward kernels' chunk at head width d (64 at d = 64, 32 at d =
-    128), as the library reports it."""
+    """The kernels' chunk at head width d (64 at d = 64, 32 at d = 128), as
+    the library reports it."""
     c = _CHUNK.get(d)
     if c is None:
         c = _CHUNK[d] = int(_build.load("wkv").ptt_wkv_bwd_chunk(d))

@@ -1,7 +1,8 @@
-"""Run the chunk-parallel SSM kernels' CUDA sources on the CPU and hold them
-to their plain versions, before their first call on a card:
+"""Run the chunk-parallel SSM kernels' and the paged decode kernel's CUDA
+sources on the CPU and hold them to their plain versions, before their
+first call on a card:
 
-    python3 -m paddle_tpu_torch.tools.cpu_rehearsal [wkv] [ssd] [selective_scan]
+    python3 -m paddle_tpu_torch.tools.cpu_rehearsal [wkv] [ssd] [selective_scan] [paged_attention]
 
 Each named source of ``paddle_tpu_torch/csrc/`` is turned into C++ by
 :func:`prep` (the dynamic shared-memory declaration dropped for the
@@ -14,17 +15,25 @@ the shuffles as warp collectives). The libraries take the place of the nvcc
 builds in ``ops/cuda/_build`` with ``device_of`` answering "cuda", so the
 wrappers launch the kernels on CPU tensors. Every case prints each output's
 max |kernel - plain| / max |plain| against 1e-4 (f32 I/O) or 1e-2 (bf16),
-the gates of ``chip_smoke.py``, and that every output is finite. Exits 1 if
-a case fails.
+the gates of ``chip_smoke.py``, and that every output is finite; the
+paged decode's out within 2e-2 and m, l within 1e-3 of max(|plain|, 1),
+the empty rows exact. Exits 1 if a case fails.
 
-The cases are the WKV backward (``wkv``), the SSD forward and backward
-(``ssd``) and the selective scan's forward and backward
-(``selective_scan``) at their edges, cut to sizes the CPU runs in
+The cases are the WKV forward and backward (``wkv``), the SSD forward and
+backward (``ssd``), the selective scan's forward and backward
+(``selective_scan``) and the paged decode on bf16 and int8 pages
+(``paged_attention``) at their edges, cut to sizes the CPU runs in
 seconds: lengths around the sub-chunks and chunks, d = 64 and 128 (the
 scan's d = 100 and 72, off its 64-channel blocks and, in bf16, off its
 16-byte rows; n = 5 and 16), a strong decay, logw >= 0 (dlogw exactly
-0). cp.async is a synchronous copy there. The inline PTX of the sources stays in
-``flash_common.cuh`` and ``hopper.cuh``, which the stand-ins replace; what
+0); rows of 0 to 257 tokens around the kernel's 16-token halves on
+shuffled blocks with null table tails, groups of 1, 2, 4 and 8 query
+heads, pages of 16 and 32 tokens, 24 rows at once, shares of the stand-in
+card's 8 CTAs longer than the addresses a CTA looks up at once, run twice
+(bitwise equal). cp.async is a synchronous copy there, and atomics act on
+the host's memory (blocks run one at a time). The inline PTX of the
+sources stays in ``flash_common.cuh`` and ``hopper.cuh``, which the
+stand-ins replace; what
 the stand-ins do not model (timing, occupancy, the compiler's register
 allocation) only a card shows.
 """
@@ -32,6 +41,7 @@ allocation) only a card shows.
 from __future__ import annotations
 
 import ctypes
+import os
 import re
 import subprocess
 import sys
@@ -44,6 +54,7 @@ from ..ops.cuda import _build
 STUB_DIR = Path(__file__).resolve().parent / "cpu_stub"
 OUT_DIR = _build.BUILD_DIR.parent / "cpu_rehearsal"
 F32_RTOL, BF16_RTOL = 1e-4, 1e-2
+OUT_ATOL, STATS_RTOL = 2e-2, 1e-3
 
 
 def _split_top(text):
@@ -79,10 +90,13 @@ def build(names):
     against the stand-ins, one process per source, all at once."""
     OUT_DIR.mkdir(parents=True, exist_ok=True)
     # the shared headers that need no stand-in sit beside the C++, so that
-    # their own includes find the stand-ins, not the real headers
+    # their own includes find the stand-ins, not the real headers (each
+    # replaced whole: rehearsals of other sources may run at once)
     for h in _build.SRC_DIR.glob("*.cuh"):
         if not (STUB_DIR / h.name).exists():
-            (OUT_DIR / h.name).write_text(h.read_text())
+            tmp = OUT_DIR / f"{h.name}.{os.getpid()}.tmp"
+            tmp.write_text(h.read_text())
+            os.replace(tmp, OUT_DIR / h.name)
     procs = {}
     for name in names:
         cpp = OUT_DIR / f"{name}.cpp"
@@ -128,7 +142,8 @@ def _report(what, outs, refs, names, tol):
 
 
 def wkv_case(b, l, h, d, dt, strong=False, clamp=False, seed=0):
-    """The WKV backward against the plain version's gradients."""
+    """The WKV forward's y and the backward against the plain version and
+    its gradients."""
     from ..ops.cuda import wkv
 
     g = torch.Generator().manual_seed(seed)
@@ -142,15 +157,21 @@ def wkv_case(b, l, h, d, dt, strong=False, clamp=False, seed=0):
     u = 0.5 + 0.1 * torch.randn(h, d, generator=g)
     dy = torch.randn(b, l, h, d, generator=g).to(dt)
     ins = (r.to(dt), k.to(dt), v.to(dt), logw, u)
+    y = wkv.wkv_fwd(*ins)
     got = wkv.wkv_bwd(*ins, dy)
     xs = [t.detach().float().requires_grad_() for t in ins]
-    ref = torch.autograd.grad(wkv.wkv_reference(*xs), xs, dy.float())
+    y_ref = wkv.wkv_reference(*xs)
+    ref = torch.autograd.grad(y_ref, xs, dy.float())
     ref = [a.to(t.dtype) for a, t in zip(ref, ins)]
-    what = (f"wkv backward b{b} l{l} h{h} d{d} {str(dt)[6:]}"
+    what = (f"b{b} l{l} h{h} d{d} {str(dt)[6:]}"
             + (" strong decay" if strong else "")
             + (" logw >= 0" if clamp else ""))
+    tol = F32_RTOL if dt == torch.float32 else BF16_RTOL
+    ok = _report("wkv forward " + what, (y,), (y_ref.detach().to(dt),),
+                 ("y",), tol)
+    what = "wkv backward " + what
     ok = _report(what, got, ref, ("dr", "dk", "dv", "dlogw", "du"),
-                 F32_RTOL if dt == torch.float32 else BF16_RTOL)
+                 tol) and ok
     if clamp and not bool((got[3][0, 3:6] == 0).all()):
         print(f"  BAD {what}: dlogw is not 0 where logw >= 0")
         ok = False
@@ -227,6 +248,53 @@ def scan_case(b, l, d, n, dt, strong=False, seed=0):
                    ("du", "ddelta", "dA", "dB", "dC"), tol) and ok
 
 
+def paged_case(group, d, quant, lens=(0, 1, 15, 16, 17, 100, 257), kvh=2,
+               page=16, seed=0):
+    """The paged decode on bf16 (or int8) pages against its plain version:
+    rows of ``lens`` tokens on shuffled blocks, null table tails."""
+    from ..models.kv_cache import quantize_kv
+    from ..ops.cuda import paged_attention as pa
+
+    g = torch.Generator().manual_seed(seed)
+    B = len(lens)
+    used = [-(-n // page) for n in lens]
+    pps, blocks = max(used) + 2, sum(used) + 3
+    perm = torch.randperm(blocks - 1, generator=g) + 1
+    table = torch.zeros(B, pps, dtype=torch.int32)
+    at = 0
+    for i, n in enumerate(used):
+        table[i, :n] = perm[at:at + n].int()
+        at += n
+    k, v = (torch.randn(kvh, blocks, page, d, generator=g) for _ in range(2))
+    kw = dict(return_stats=True)
+    if quant:
+        (k, ks), (v, vs) = quantize_kv(k), quantize_kv(v)
+        kw.update(k_scales=ks.transpose(0, 1).contiguous(),
+                  v_scales=vs.transpose(0, 1).contiguous())
+    else:
+        k, v = k.bfloat16(), v.bfloat16()
+    q = torch.randn(B, kvh * group, d, generator=g).bfloat16()
+    seq = torch.tensor(lens, dtype=torch.int32)
+    args = (q, k, v, table, seq)
+    out, m, l = pa.paged_attention(*args, **kw)
+    again = pa.paged_attention(*args, **kw)
+    rout, rm, rl = pa.paged_attention_reference(*args, **kw)
+    err = (out.float() - rout.float()).abs().max().item()
+    stats = [((a - r).abs() / r.abs().clamp_min(1.0)).max().item()
+             for a, r in ((m, rm), (l, rl))]
+    empty = torch.tensor(lens) == 0
+    ok = (err <= OUT_ATOL and max(stats) <= STATS_RTOL
+          and bool((m[empty] == -1e30).all() and (l[empty] == 0).all()
+                   and (out[empty] == 0).all())
+          and all(torch.equal(a, r) for a, r in zip(again, (out, m, l))))
+    what = (f"paged {'int8' if quant else 'bf16'} pages B{B} group {group} "
+            f"d{d} page {page}")
+    print(f"  {'ok ' if ok else 'BAD'} {what}: out {err:.1e} (<= {OUT_ATOL})"
+          f", m {stats[0]:.1e}, l {stats[1]:.1e} (<= {STATS_RTOL}), empty "
+          f"rows exact, run twice bitwise", flush=True)
+    return ok
+
+
 CASES = {
     "wkv": lambda f32, bf16: [
         wkv_case(1, 1, 1, 64, f32), wkv_case(1, 17, 1, 64, bf16, clamp=True),
@@ -245,6 +313,13 @@ CASES = {
                                                   strong=True),
         scan_case(1, 150, 72, 5, f32, strong=True),
         scan_case(1, 130, 100, 16, bf16)],
+    "paged_attention": lambda f32, bf16: [
+        paged_case(g, d, quant) for quant in (False, True)
+        for g, d in ((1, 64), (4, 128), (8, 64), (8, 128))] + [
+        paged_case(2, 128, False, page=32),
+        paged_case(4, 64, True, page=32, seed=1),
+        paged_case(4, 128, True, lens=tuple(range(0, 480, 20)), seed=2),
+        paged_case(1, 64, False, lens=(8400, 8222, 8400, 8194), seed=3)],
 }
 
 

@@ -3,7 +3,7 @@
 // the warp collectives (shuffles here, ldmatrix and mma.sync in
 // flash_common.cuh) meet on std::barrier, and the dynamic shared memory is
 // one global buffer filled with 0xff before each block, so a read of an
-// unset value shows as NaN.
+// unset value shows as NaN. Atomics act on the host's memory.
 #pragma once
 #include <algorithm>
 #include <atomic>
@@ -37,23 +37,36 @@ struct alignas(8) float2 { float x, y; };
 struct alignas(8) uint2 { unsigned x, y; };
 struct alignas(16) float4 { float x, y, z, w; };
 inline uint4 make_uint4(unsigned a, unsigned b, unsigned c, unsigned d) { return {a, b, c, d}; }
+inline uint2 make_uint2(unsigned a, unsigned b) { return {a, b}; }
 inline float2 make_float2(float a, float b) { return {a, b}; }
 inline float4 make_float4(float a, float b, float c, float d) { return {a, b, c, d}; }
 
 typedef int cudaError_t;
 enum { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
 enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
+enum cudaDeviceAttr { cudaDevAttrMultiProcessorCount = 16 };
 typedef void* cudaStream_t;
 inline cudaError_t cudaGetLastError() { return 0; }
 inline const char* cudaGetErrorString(cudaError_t) { return "stub error"; }
 template <class K> inline cudaError_t cudaFuncSetAttribute(K, cudaFuncAttribute, int) { return 0; }
 inline cudaError_t cudaGetDevice(int* d) { *d = 0; return 0; }
+// a card of 4 SMs: grids sized by the SM count stay small
+inline cudaError_t cudaDeviceGetAttribute(int* v, cudaDeviceAttr, int) { *v = 4; return 0; }
 
 inline int min(int a, int b) { return a < b ? a : b; }
 inline int max(int a, int b) { return a > b ? a : b; }
 inline float __uint_as_float(uint32_t u) { float f; std::memcpy(&f, &u, 4); return f; }
 inline uint32_t __float_as_uint(float f) { uint32_t u; std::memcpy(&u, &f, 4); return u; }
 inline size_t __cvta_generic_to_shared(const void* p) { return (size_t)p; }
+inline float __expf(float x) { return expf(x); }
+// byte n of the result is byte (s >> 4 n) & 7 of y:x (x bytes 0-3)
+inline uint32_t __byte_perm(uint32_t x, uint32_t y, uint32_t s) {
+  const uint64_t v = uint64_t(y) << 32 | x;
+  uint32_t r = 0;
+  for (int n = 0; n < 4; ++n) r |= uint32_t((v >> (8 * ((s >> (4 * n)) & 7))) & 0xffu) << (8 * n);
+  return r;
+}
+template <class T> inline T __ldcg(const T* p) { return *p; }
 
 struct StubWarp {
   std::barrier<> bar{32};
@@ -90,6 +103,21 @@ inline float __shfl_up_sync(unsigned, float v, int o) {
   const float r = lane >= o ? w.f[lane - o] : v;
   w.bar.arrive_and_wait();
   return r;
+}
+inline float __shfl_sync(unsigned, float v, int src) {
+  auto& w = stub_warp();
+  const int lane = threadIdx.x % 32;
+  w.f[lane] = v;
+  w.bar.arrive_and_wait();
+  const float r = w.f[src % 32];
+  w.bar.arrive_and_wait();
+  return r;
+}
+inline int __shfl_sync(unsigned m, int v, int src) {
+  return __float_as_uint(__shfl_sync(m, __uint_as_float(uint32_t(v)), src));
+}
+inline int __shfl_up_sync(unsigned m, int v, int o) {
+  return __float_as_uint(__shfl_up_sync(m, __uint_as_float(uint32_t(v)), o));
 }
 
 inline void stub_launch(dim3 grid, dim3 block, std::function<void()> fn) {

@@ -14,6 +14,8 @@ inline void cp_async16(void* dst, const void* src, int src_bytes) {
 }
 inline void cp_async_commit() {}
 template <int N> inline void cp_async_wait() {}
+inline int atom_add_acq_rel(int* p, int v) { return __atomic_fetch_add(p, v, __ATOMIC_ACQ_REL); }
+inline void opaque(int&) {}
 inline uint16_t stub_elem(const StubWarp& w, int m, int row, int col) {
   return reinterpret_cast<const uint16_t*>(w.addr[8 * m + row])[col];
 }

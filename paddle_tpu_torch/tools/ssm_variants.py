@@ -11,8 +11,9 @@ bf16 at the shapes of ``chip_smoke.py`` phase 3, each call whose source a
 named variant edits (every call when none is named): the scan forward and
 backward at phase 9's b16 l1024 d1536 n16, the SSD backward and forward at phase 11's
 b8 l1024 h24 dh64 ds64 with x, B and C strided as the model's, the WKV
-backward at phase 10's b16 l1024 h12 d64; a backward's residual comes from
-the sources as they are. Prints per call the mean device ms of each build,
+forward (its base also against the plain version) and backward at phase
+10's b16 l1024 h12 d64; a backward's residual comes from the sources as
+they are. Prints per call the mean device ms of each build,
 the source as it is first and last: each call alone after the 50 MB L2 was
 flushed ("cold", as ``chip_smoke.py`` times) and ten calls back to back
 ("warm"), then each build's ms per kernel of a call (``torch.profiler``).
@@ -361,13 +362,26 @@ VARIANTS = {
                          (SSD, "v4[j] = reinterpret_cast<const float4*>(st)"
                           "[(r0 + j) * THREADS + tid];",
                           "v4[j] = make_float4(0.f, 0.f, 0.f, 0.f);")]),
+    "wkv_fwd_3blocks": ("wkv: the forward chunk kernel's A in the readout "
+                        "factor's tile, 3 blocks an SM",
+                        [(WKV, "  T X[CH][LC];                         "
+                          "// A [j][s]\n", ""),
+                         (WKV, "  intra_a<CH, D, LD, LC>(s, &s.X[0][0], warp, "
+                          "lane);", "  __syncthreads();\n  intra_a<CH, D, LD, "
+                          "LC>(s, &s.rw[0][0], warp, lane);"),
+                         (WKV, "mma_tile<CH, NT, false, true>(acc, &s.X[0][0], "
+                          "LC, &s.v[0][0]", "mma_tile<CH, NT, false, true>(acc, "
+                          "&s.rw[0][0], LC, &s.v[0][0]"),
+                         (WKV, "__launch_bounds__(THREADS, 2)\n"
+                          "wkv_fwd_chunk_kernel", "__launch_bounds__(THREADS, "
+                          "3)\nwkv_fwd_chunk_kernel")]),
     "wkv_chunk32": ("wkv: chunks of 32 at d = 64 (twice the carries and "
                     "scratch, a quarter of the shared memory)",
                     [(WKV, "static constexpr int CH = D == 64 ? 64 : 32;",
                       "static constexpr int CH = 32;")]),
-    "wkv_slice16": ("wkv: 16 state columns a carry block",
+    "wkv_slice16": ("wkv: 16 state columns a carry block (both directions)",
                     [_const(WKV, "SLICE", 64, 16)]),
-    "wkv_slice32": ("wkv: 32 state columns a carry block",
+    "wkv_slice32": ("wkv: 32 state columns a carry block (both directions)",
                     [_const(WKV, "SLICE", 64, 32)]),
     "wkv_1block": ("wkv: the chunk kernel without the 2-blocks-an-SM "
                    "register cap", [(WKV, "__launch_bounds__(THREADS, 2)",
@@ -430,6 +444,8 @@ def build(names):
         ssd.ptt_ssd_bwd.argtypes = [ctypes.c_void_p] * 15 \
             + [ctypes.c_int] * 11 + [ctypes.c_void_p]
         wkv.ptt_wkv_bwd.argtypes = [ctypes.c_void_p] * 13 \
+            + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+        wkv.ptt_wkv_fwd.argtypes = [ctypes.c_void_p] * 7 \
             + [ctypes.c_int] * 5 + [ctypes.c_void_p]
         out[name] = (scan, ssd, wkv)
     return out
@@ -606,9 +622,44 @@ def wkv_case(libs, gen):
     return f"wkv bwd b{b} l{l} h{h} d{d}", run, r"wkv_bwd_\w*kernel"
 
 
+def wkv_fwd_case(libs, gen):
+    """``run(name)``: the WKV forward of build ``name`` at phase 10's
+    shape, its y; the base build's y held to the plain version first
+    (within 1e-2 of max |plain|, the bf16 gate of ``chip_smoke.py``)."""
+    from ..ops.cuda.wkv import wkv_reference
+
+    b, l, h, d = 16, 1024, 12, 64
+    dev, bf = "cuda", torch.bfloat16
+    r, k, v = (0.5 * torch.randn(b, l, h, d, generator=gen, device=dev)
+               .to(bf) for _ in range(3))
+    logw = -5 * torch.rand(h, d, generator=gen, device=dev) - 0.02
+    u = 0.5 + 0.1 * torch.randn(h, d, generator=gen, device=dev)
+    ins = (r, k, v, logw, u)
+    st = _build.stream(r)
+
+    def run(name):
+        lib = libs[name][2]
+        y = torch.empty_like(r)
+        s_in = torch.empty((b, -(-l // lib.ptt_wkv_bwd_chunk(d)), h, d, d),
+                           dtype=bf, device=dev)
+        rc = lib.ptt_wkv_fwd(*(t.data_ptr() for t in ins), y.data_ptr(),
+                             s_in.data_ptr(), b, l, h, d, 1, st)
+        assert rc == 0, (name, rc)
+        return (y,)
+
+    ref = wkv_reference(*(t.float() for t in ins))
+    got = run("base")[0].float()
+    diff = (got - ref).abs().max().item()
+    peak = ref.abs().max().item()
+    print(f"wkv fwd base against the plain version: max |diff| / max |plain|"
+          f" = {diff / peak:.3e}")
+    assert diff <= 1e-2 * peak, (diff, peak)
+    return f"wkv fwd b{b} l{l} h{h} d{d}", run, r"wkv_fwd_\w*kernel"
+
+
 #: (the call's runner, the source whose variants it times)
 CASES = ((scan_fwd_case, SCAN), (scan_case, SCAN), (ssd_case, SSD),
-         (ssd_fwd_case, SSD), (wkv_case, WKV))
+         (ssd_fwd_case, SSD), (wkv_fwd_case, WKV), (wkv_case, WKV))
 
 
 def main(argv):

@@ -1,4 +1,5 @@
-"""The SSM kernels' CUDA sources run on the CPU: each source
+"""The SSM kernels' CUDA sources run on the CPU (the paged decode kernel's
+in ``test_torch_paged_rehearsal.py``): each source
 built with g++ against the stand-in CUDA headers of
 ``paddle_tpu_torch/tools/cpu_stub/`` (``tools/cpu_rehearsal.py``) and its
 wrappers, driven with CPU tensors, held to the plain versions at the
@@ -38,10 +39,10 @@ def test_prep_makes_launches_synchronous():
 
 @pytest.mark.parametrize("source", ["wkv", "ssd", "selective_scan"])
 def test_kernels_agree_with_plain_versions_on_the_cpu(source):
-    """The WKV backward (``wkv``: lengths 1 to 150 around the sub-chunks and
-    chunks, d = 64 and 128, w = 0, logw >= 0), the SSD forward and
-    backward (``ssd``: lengths 1 to 150, 3 to 13 heads, every state width,
-    a strong decay) and the selective scan's forward and backward
+    """The WKV forward and backward (``wkv``: lengths 1 to 150 around the
+    sub-chunks and chunks, d = 64 and 128, w = 0, logw >= 0), the SSD
+    forward and backward (``ssd``: lengths 1 to 150, 3 to 13 heads, every
+    state width, a strong decay) and the selective scan's forward and backward
     (``selective_scan``: lengths 1 to 150, d = 72 and 100, n = 5 and 16, a
     strong decay), each in f32 and bf16, every output finite."""
     if shutil.which("g++") is None:
