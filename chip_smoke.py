@@ -43,7 +43,16 @@ Phases, each of which fails the run (non-zero exit, no result line):
    edges (b = 2, sq = 200, sk = 333; q_offset = 37 with kv_len = 300; GQA
    32/8 and 16/4 at d = 64, causal and non-causal), the backward twice at
    the training shape (bitwise equal), and each timed flash shape's ratio
-   to SDPA and its wrapper's host µs per call; the selective scan's
+   to SDPA and its wrapper's host µs per call; the flash forward (out,
+   lse) and backward (dq, dk, dv) with an additive f32 mask [b, 1, S, S]
+   (finite biases, -inf blocks, rows that see nothing), a bool mask [b, S,
+   S] and packed segment ids (3-6 segments a row), causal, at b2 S2048
+   32/32 d128 and b2 S1000 GQA 16/4 d64, with the unmasked tolerances and
+   exact zeros (out, dq) and the empty lse on rows that see nothing, each
+   timed beside the unmasked kernels and SDPA given the same mask, its
+   bound counting the pairs it lets through and the mask read once, and
+   the host µs of a call through the ``paddle_tpu_torch::flash_fwd``
+   operator; the selective scan's
    forward (y and the chunk states) and backward (du, ddelta, dA, dB, dC)
    at b16 l1024 d1536 n16 and at the chunk-parallel backward's edges
    (lengths 1, 63, 64, 65, 150 and 1001, d = 100 and 200, n = 5, a strong
@@ -99,6 +108,26 @@ Phases, each of which fails the run (non-zero exit, no result line):
    (lr 3e-4, weight decay 0.1, bf16 moments) and clip 1.0; checks finite,
    falling losses and L flash forward + L flash backward launches per
    step; times the step at 4 and 2 layers and profiles one;
+6b. the 7B proxy at its 32 layers, as ``bench.py:132-140`` trains it
+   (``recompute=True, recompute_policy="save_dots"``), batch 2 x 2048, 6
+   ``TrainStep`` steps (AdamW lr 3e-4, weight decay 0.1, bf16 moments,
+   clip 1.0); checks falling losses, 32 x steps flash forward and flash
+   backward launches (``save_dots`` keeps flash's out and lse) and no
+   plain-route flash call; prints the peak memory, the step host ms, tokens/s
+   and the model-FLOP share at 32 layers, and profiles a step;
+6c. the ``full`` policy at 4 layers: the first step's loss bit for bit and
+   its gradient global norm within 1e-3 of a model without recompute from
+   the same seed, then 4 steps of each policy (none, ``full``,
+   ``save_dots``) with their launch counts (``full``: 2 L x steps flash
+   forward launches), peak memory and step host ms;
+6d. packed sequences at the 7B widths, 4 layers: 3-6 segments of random
+   lengths a row, positions restarting per segment, the label of each
+   segment's first token ignored, 6 steps; checks falling losses, L x steps
+   flash launches each way, and one packed row's logits against each of
+   its segments run alone (relative L2 <= 0.1);
+6e. ``bench.py:325-342``'s long context: 24 layers, hidden 1024, 8 heads of
+   128, b1 x 16384, ``save_dots``, 3 steps; checks finite losses and the
+   flash launch counts, prints the step host ms and the peak memory;
 7. eager: the same model rebuilt, 5 steps of ``loss.backward();
    FusedAdamW.step()``; checks falling losses and one fused AdamW launch
    per step;
@@ -158,6 +187,7 @@ PROMPT_LENS = (17, 64, 200, 333, 511, 700, 1024, 1500)
 NEW_TOKENS = 32
 TRAIN_BATCH, TRAIN_SEQ = 2, 2048
 TRAIN_STEPS, EAGER_STEPS = 10, 5
+LONG_SEQ, LONG_STEPS = 16384, 3  # phase 6e: bench.py's long-context cell
 GG_RTOL = 1e-2                   # grouped GEMMs: max |diff| / max |plain|
 # group starts off every 64- and 128-row boundary, a one-row group, an
 # empty group and 2720 trash rows at M = 8200
@@ -352,6 +382,10 @@ def phase_kernels(torch, gen, flush):
     torch.cuda.empty_cache()
     rows["flash_attention_bwd"] = check_flash_backward(torch, gen, flush)
     torch.cuda.empty_cache()
+    fwd_err, bwd_err = check_flash_masks(torch, gen, flush)
+    for name, err in (("flash_attention", fwd_err),
+                      ("flash_attention_bwd", bwd_err)):
+        rows[name]["max_abs_err"] = max(rows[name]["max_abs_err"], err)
     rows["fused_adamw"] = check_fused_adamw(torch, gen)
     torch.cuda.empty_cache()
     rows.update(check_grouped_gemm(torch, gen, flush))
@@ -818,6 +852,173 @@ def check_flash_backward(torch, gen, flush):
     return row
 
 
+# masked flash cases of phase 3: (label, b, S, hq, hk, d), causal, each with
+# an additive f32 mask [b, 1, S, S] (finite biases, -inf blocks, rows 100-103
+# hidden whole), a bool mask [b, S, S] (rows 200-203 hidden) and packed
+# segment ids (3-6 segments a row)
+MASK_SHAPES = (("b=2 S=2048 heads 32/32 d=128", TRAIN_BATCH, TRAIN_SEQ, 32, 32,
+                128),
+               ("b=2 S=1000 GQA 16/4 d=64", 2, 1000, 16, 4, 64))
+MASK_KINDS = ("additive f32 [b,1,S,S]", "bool [b,S,S]", "segments")
+
+
+def packed_segments(torch, gen, b, s, device="cuda"):
+    """int32 segment ids [b, s]: 3-6 segments a row, cut at random places,
+    and the positions [b, s] restarting at each segment's start."""
+    seg = torch.zeros(b, s, dtype=torch.int32, device=device)
+    pos = torch.arange(s, device=device).repeat(b, 1)
+    for i in range(b):
+        n = int(torch.randint(3, 7, (1,), generator=gen, device=device))
+        cuts = torch.randperm(s - 1, generator=gen, device=device)[:n - 1] + 1
+        cuts = cuts.sort().values
+        seg[i] = torch.searchsorted(cuts, torch.arange(s, device=device),
+                                    right=True).int()
+        starts = torch.cat([torch.zeros(1, dtype=cuts.dtype, device=device),
+                            cuts])
+        pos[i] -= starts[seg[i].long()]
+    return seg, pos
+
+
+def flash_mask_case(torch, gen, kind, b, s, device="cuda"):
+    """The keyword arguments of one masked case and the ``[b, 1 | hq, S,
+    S]`` bool map of the pairs it lets through (before the causal rule)."""
+    if kind.startswith("additive"):
+        mask = torch.randn(b, 1, s, s, generator=gen, device=device) * 2
+        mask[..., 256:512, 128:384] = float("-inf")
+        mask[..., 100:104, :] = float("-inf")
+        return dict(attn_mask=mask), mask > float("-inf")
+    if kind.startswith("bool"):
+        mask = torch.rand(b, s, s, generator=gen, device=device) > 0.3
+        mask[:, 200:204, :] = False
+        return dict(attn_mask=mask), mask[:, None]
+    seg, _ = packed_segments(torch, gen, b, s, device)
+    return (dict(q_segment_ids=seg, kv_segment_ids=seg),
+            seg[:, None, :, None] == seg[:, None, None, :])
+
+
+def check_flash_masks(torch, gen, flush):
+    """Masks and segment ids in the flash forward (out, lse) and backward
+    (dq, dk, dv) against their plain versions at ``MASK_SHAPES``, with the
+    unmasked tolerances; rows that see nothing give exact zeros, the empty
+    lse and zero dq. Each case timed beside the unmasked kernels and SDPA
+    given the same mask (a yardstick only); the bound counts the pairs the
+    case lets through, and the mask and segment ids read once. Returns the
+    max |kernel - plain| of the forward and of the backward."""
+    import torch.nn.functional as F
+
+    from paddle_tpu_torch.ops.cuda.flash_attention import (
+        flash_attention_bwd_cuda, flash_attention_cuda)
+    from paddle_tpu_torch.ops.fused.flash_attention import (
+        EMPTY_ROW_LSE, flash_attention, flash_attn_bwd_reference,
+        flash_attn_reference)
+
+    dev, fwd_err, bwd_err = "cuda", 0.0, 0.0
+    for label, b, S, hq, hk, d in MASK_SHAPES:
+        scale = d ** -0.5
+        q = torch.randn(b, S, hq, d, generator=gen, device=dev).bfloat16()
+        k = torch.randn(b, S, hk, d, generator=gen, device=dev).bfloat16()
+        v = torch.randn(b, S, hk, d, generator=gen, device=dev).bfloat16()
+        do = torch.randn(b, S, hq, d, generator=gen, device=dev).bfloat16()
+        causal = torch.ones(S, S, dtype=torch.bool, device=dev).tril()
+        out0, lse0 = flash_attention_cuda(q, k, v, True, scale, 0, S, True)
+        u_fwd = time_ms(torch, lambda: flash_attention_cuda(
+            q, k, v, True, scale, 0, S, True), flush=flush)
+        u_bwd = time_ms(torch, lambda: flash_attention_bwd_cuda(
+            q, k, v, out0, lse0, do, True, scale, 0, S), flush=flush)
+        del out0, lse0
+        qkv_bytes = 2 * b * (3 * S * hq * d + 2 * S * hk * d)   # q,o,dO,k,v
+        for kind in MASK_KINDS:
+            kw, lets = flash_mask_case(torch, gen, kind, b, S)
+            what = f"flash {kind} {label}"
+            fwd = lambda: flash_attention_cuda(  # noqa: E731
+                q, k, v, True, scale, 0, S, True, **kw)
+            out, lse = fwd()
+            rout, rlse = flash_attn_reference(q, k, v, True, scale, S, 0,
+                                              True, **kw)
+            torch.cuda.synchronize()
+            err = (out.float() - rout.float()).abs().max().item()
+            check(math.isfinite(err) and err <= OUT_ATOL,
+                  f"{what} fwd: max |kernel - plain| = {err:.3e} <= "
+                  f"{OUT_ATOL}")
+            rel = ((lse - rlse).abs() / rlse.abs().clamp_min(1.0)).max().item()
+            check(rel <= STATS_RTOL, f"{what} lse: max |diff| / max(|ref|, "
+                                     f"1) = {rel:.3e} <= {STATS_RTOL}")
+            empty = rlse == EMPTY_ROW_LSE                       # [b, hq, S]
+            rows = empty.transpose(1, 2)                        # [b, S, hq]
+            check(bool((lse[empty] == EMPTY_ROW_LSE).all())
+                  and bool((out[rows] == 0).all())
+                  and (int(empty.sum()) > 0) == (kind != "segments"),
+                  f"{what}: {int(empty.sum())} rows see nothing: out exactly "
+                  f"0 and lse {EMPTY_ROW_LSE:.4e} there")
+            fwd_err = max(fwd_err, err)
+            del rout, rlse
+            bwd = lambda: flash_attention_bwd_cuda(  # noqa: E731
+                q, k, v, out, lse, do, True, scale, 0, S, **kw)
+            grads = bwd()
+            refs = flash_attn_bwd_reference(q, k, v, out, lse, do, True,
+                                            scale, S, 0, **kw)
+            torch.cuda.synchronize()
+            for name, g, r in zip(("dq", "dk", "dv"), grads, refs):
+                diff = (g.float() - r.float()).abs().max().item()
+                peak = r.float().abs().max().item()
+                check(math.isfinite(diff) and diff <= BWD_RTOL * peak,
+                      f"{what} bwd {name}: max |kernel - plain| = {diff:.3e}"
+                      f" = {diff / peak:.3e} of max |plain| <= {BWD_RTOL}")
+                bwd_err = max(bwd_err, diff)
+            check(bool((grads[0][rows] == 0).all()),
+                  f"{what}: dq exactly 0 on the rows that see nothing")
+            del grads, refs
+            ms, b_ms_ = time_ms(torch, fwd, flush=flush), \
+                time_ms(torch, bwd, flush=flush)
+            # SDPA given the same pairs: an additive mask as bf16, else bool
+            if kind.startswith("additive"):
+                sd_mask = kw["attn_mask"].masked_fill(~causal, float("-inf")
+                                                      ).bfloat16()
+            else:
+                sd_mask = lets & causal
+            qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
+                          for t in (q, k, v))
+            gqa = dict(enable_gqa=True) if hk != hq else {}
+            with torch.no_grad():
+                lib_fwd = time_ms(torch, lambda: F.scaled_dot_product_attention(
+                    qt, kt, vt, attn_mask=sd_mask, **gqa), flush=flush)
+            so = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=sd_mask,
+                                                **gqa)
+            dot = do.transpose(1, 2)
+            lib_bwd = time_ms(torch, lambda: torch.autograd.grad(
+                so, (qt, kt, vt), dot, retain_graph=True), flush=flush)
+            del qt, kt, vt, so, sd_mask
+            pairs = int((lets & causal).sum()) * (hq // lets.shape[1])
+            extra = sum(t.numel() * t.element_size() for t in kw.values())
+            f_ms, f_by = bound(4 * d * pairs, 2 * b * (2 * S * hq * d + 2 * S
+                                                       * hk * d)
+                               + 4 * b * hq * S + extra)
+            g_ms, g_by = bound(10 * d * pairs, qkv_bytes + 4 * b * hq * S
+                               + 2 * b * (S * hq * d + 2 * S * hk * d) + extra)
+            print(f"  {what}: fwd+lse {ms:.4f} ms ({ms / u_fwd:.2f}x the "
+                  f"unmasked {u_fwd:.4f}; bound {f_ms:.4f} by {f_by}, "
+                  f"{f_ms / ms:.1%} of it; sdpa {lib_fwd:.4f}), bwd "
+                  f"{b_ms_:.4f} ms ({b_ms_ / u_bwd:.2f}x the unmasked "
+                  f"{u_bwd:.4f}; bound {g_ms:.4f} by {g_by}, "
+                  f"{g_ms / b_ms_:.1%} of it; sdpa backward {lib_bwd:.4f}); "
+                  f"{pairs / (b * hq * S * (S + 1) / 2):.1%} of the causal "
+                  f"pairs seen")
+            del out, lse, kw, lets
+        if label.startswith("b=2 S=2048"):
+            qg = q.detach().requires_grad_()
+            op = host_us_per_call(torch, lambda: flash_attention(
+                qg, k, v, causal=True))
+            bare = host_us_per_call(torch, lambda: flash_attention_cuda(
+                q, k, v, True, scale, 0, S, True))
+            print(f"  flash host us a call at {label}: "
+                  f"{op:.1f} through the paddle_tpu_torch::flash_fwd "
+                  f"operator with grad, {bare:.1f} the bare wrapper")
+            del qg
+        del q, k, v, do, causal
+    torch.cuda.empty_cache()
+    return fwd_err, bwd_err
+
+
 def check_fused_adamw(torch, gen):
     """The fused AdamW kernel against its plain version at the slice's
     parameter count and at an unaligned n = 1000."""
@@ -1112,12 +1313,14 @@ def print_wgmma_ptxas():
     pattern = re.compile(r"(t?gmm_wgmma_kernel|swiglu_wgmma_kernel|"
                          r"flash_fwd_kernel|flash_bwd_dkdv_kernel|"
                          r"flash_bwd_dq_kernel)"
-                         r"(?:ILb([01])E|ILi(\d+)E)?")
+                         r"(?:ILb([01])E|ILi(\d+)ELb([01])E|ILi(\d+)E)?")
 
     def label(m):
         if m.group(2) is not None:
             return f"{m.group(1)}<transpose_rhs {m.group(2)}>"
-        return m.group(1) + ("" if m.group(3) is None else f"<{m.group(3)}>")
+        if m.group(3) is not None:     # the flash kernels: <d, masked>
+            return f"{m.group(1)}<{m.group(3)}, masked {m.group(4)}>"
+        return m.group(1) + ("" if m.group(5) is None else f"<{m.group(5)}>")
 
     print_ptxas(("grouped_gemm", "flash_attention", "flash_attention_bwd"),
                 pattern, label)
@@ -2283,15 +2486,29 @@ def phase_paired_decode(torch, seed, rounds=5, steps=8):
     free_cuda(torch)
 
 
-def train_config(layers):
-    """``bench.py``'s Llama-2-7B proxy widths at ``layers`` layers."""
+def train_config(layers, **over):
+    """``bench.py``'s Llama-2-7B proxy widths at ``layers`` layers
+    (``over``: other fields, such as the recompute policy)."""
     from paddle_tpu_torch.models import LlamaConfig
 
     return LlamaConfig(vocab_size=32000, hidden_size=4096,
                        intermediate_size=11008, num_hidden_layers=layers,
                        num_attention_heads=32, num_key_value_heads=32,
                        max_position_embeddings=TRAIN_SEQ, dtype="bfloat16",
-                       fused_loss=True)
+                       fused_loss=True, **over)
+
+
+def save_dots(layers):
+    """The 7B proxy as ``bench.py:132-140`` trains it: per-layer recompute
+    with the ``save_dots`` policy."""
+    return train_config(layers, recompute=True, recompute_policy="save_dots")
+
+
+def llama_flops_per_token(cfg, seq):
+    """``bench.py:56-59``: 6 N plus the causal attention term, per token
+    (recomputed operations are not counted)."""
+    return 6 * cfg.num_params() \
+        + 12 * cfg.num_hidden_layers * seq * cfg.hidden_size * 0.5
 
 
 def train_tokens(torch, seed, shape=(TRAIN_BATCH, TRAIN_SEQ)):
@@ -2310,8 +2527,10 @@ def reset_counts():
     from paddle_tpu_torch.ops.cuda import selective_scan as ss
     from paddle_tpu_torch.ops.cuda import ssd
     from paddle_tpu_torch.ops.cuda import wkv as wk
+    from paddle_tpu_torch.ops.fused import flash_attention as fd
 
     fa.launches = fa.bwd_launches = pa.launches = fw.launches = 0
+    fd.dense_calls = 0
     pa.int8_launches = wo.launches = wo.int4_launches = 0
     gg.launches = gg.tgmm_launches = gg.swiglu_launches = 0
     ss.launches = ss.bwd_launches = wk.launches = wk.bwd_launches = 0
@@ -2327,8 +2546,10 @@ def read_counts():
     from paddle_tpu_torch.ops.cuda import selective_scan as ss
     from paddle_tpu_torch.ops.cuda import ssd
     from paddle_tpu_torch.ops.cuda import wkv as wk
+    from paddle_tpu_torch.ops.fused import flash_attention as fd
 
-    return {"selective_scan": ss.launches,
+    return {"flash_dense": fd.dense_calls,
+            "selective_scan": ss.launches,
             "selective_scan_bwd": ss.bwd_launches,
             "ssd": ssd.launches, "ssd_bwd": ssd.bwd_launches,
             "wkv": wk.launches, "wkv_bwd": wk.bwd_launches,
@@ -2355,25 +2576,30 @@ def free_cuda(torch):
     torch.cuda.empty_cache()
 
 
-def run_train_steps(torch, layers, steps, seed):
-    """A fresh model of ``layers`` layers and ``steps`` TrainStep calls;
-    returns the model, the step, the losses and each step's host ms."""
+def run_train_steps(torch, cfg, steps, seed, batch=None, weight_decay=0.1):
+    """A fresh model of config ``cfg`` and ``steps`` TrainStep calls (AdamW
+    lr 3e-4, bf16 moments, clip 1.0) on ``batch`` (default: the seeded
+    tokens as ids and labels); returns the model, the step, the ids, the
+    losses and each step's host ms."""
     from paddle_tpu_torch.jit import TrainStep
     from paddle_tpu_torch.models import LlamaForCausalLM
     from paddle_tpu_torch.optimizer import AdamW
 
-    model = LlamaForCausalLM(train_config(layers), seed=seed)
+    model = LlamaForCausalLM(cfg, seed=seed)
     step = TrainStep(model, None, AdamW(
-        learning_rate=3e-4, weight_decay=0.1, moment_dtype="bfloat16",
-        parameters=model.parameters()), clip_norm=1.0)
-    ids = train_tokens(torch, seed)
+        learning_rate=3e-4, weight_decay=weight_decay,
+        moment_dtype="bfloat16", parameters=model.parameters()),
+        clip_norm=1.0)
+    if batch is None:
+        ids = train_tokens(torch, seed)
+        batch = (ids, ids)
     torch.cuda.synchronize()
     losses, times = [], []
     for _ in range(steps):
         t0 = time.perf_counter()
-        losses.append(step(ids, ids).item())
+        losses.append(step(*batch).item())
         times.append((time.perf_counter() - t0) * 1e3)
-    return model, step, ids, losses, times
+    return model, step, batch[0], losses, times
 
 
 def phase_train(torch, seed):
@@ -2382,8 +2608,8 @@ def phase_train(torch, seed):
     cfg = train_config(L)
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
-    model, step, ids, losses, times = run_train_steps(torch, L, TRAIN_STEPS,
-                                                      seed)
+    model, step, ids, losses, times = run_train_steps(
+        torch, train_config(L), TRAIN_STEPS, seed)
     n = read_counts()
     print(f"  model: {cfg.num_params() / 1e9:.3f} B params, {L} layers, "
           f"batch {TRAIN_BATCH} x {TRAIN_SEQ}; step host ms "
@@ -2410,7 +2636,7 @@ def phase_train(torch, seed):
     print(f"  peak device memory {peak:.1f} GiB")
     del model, step
     free_cuda(torch)
-    _, _, _, _, times2 = run_train_steps(torch, 2, 4, seed)
+    _, _, _, _, times2 = run_train_steps(torch, train_config(2), 4, seed)
     free_cuda(torch)
     step_ms2 = sum(times2[2:]) / len(times2[2:])
     per_layer = (step_ms4 - step_ms2) / 2
@@ -2432,24 +2658,26 @@ TRAIN_GROUPS = {"flash fwd": ("flash_fwd",), "flash bwd": ("flash_bwd",),
                 "matmul": ("gemm", "gemv", "nvjet", "cutlass", "xmma")}
 
 
-def profile_train_step(torch, step, ids, step_ms, groups=None, top=8):
-    """One TrainStep under ``torch.profiler``: device ms by group (kernel
-    names containing a group's keys; the first group that matches takes
-    it) and the device's idle share of the unprofiled step."""
+def profile_train_step(torch, step, ids, step_ms, groups=None, top=8,
+                       batch=None):
+    """One TrainStep under ``torch.profiler`` (on ``batch``, default ``(ids,
+    ids)``): device ms by group (kernel names containing a group's keys;
+    the first group that matches takes it) and the device's idle share of
+    the unprofiled step."""
     from torch.profiler import ProfilerActivity, profile, record_function
 
     opt = step._opt
-    apply = opt.apply_gradients
+    apply = opt.apply_gradients_
 
     def traced(*args, **kw):
         with record_function("ptt::apply_gradients"):
             return apply(*args, **kw)
 
-    opt.apply_gradients = traced
+    opt.apply_gradients_ = traced
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        step(ids, ids).item()
-    del opt.apply_gradients
+        step(*(batch or (ids, ids))).item()
+    del opt.apply_gradients_
     # the annotation shows up as a device range too: its span is the
     # optimizer's device time, and it is no kernel
     kernels, adamw = {}, 0.0
@@ -2493,6 +2721,196 @@ def profile_train_step(torch, step, ids, step_ms, groups=None, top=8):
         for g, ms in by_group.items()))
     for name, ms in sorted(kernels.items(), key=lambda kv: -kv[1])[:top]:
         print(f"    {ms:8.3f} ms  {name[:100]}")
+
+
+def check_flash_counts(n, layers, steps, what, fwd_per_layer=1):
+    check(n["flash_attention"] == fwd_per_layer * layers * steps
+          and n["flash_attention_bwd"] == layers * steps
+          and n["flash_dense"] == 0 and n["paged_attention"] == 0
+          and n["fused_adamw"] == 0,
+          f"{what}: launches over {steps} steps: flash fwd "
+          f"{n['flash_attention']} ({fwd_per_layer} x L x steps = "
+          f"{fwd_per_layer * layers * steps}), flash bwd "
+          f"{n['flash_attention_bwd']} (L x steps = {layers * steps}), "
+          f"plain-route flash calls {n['flash_dense']}, paged "
+          f"{n['paged_attention']}, fused_adamw {n['fused_adamw']} (0 each)")
+
+
+def phase_train_32(torch, seed):
+    L, steps = 32, 6
+    print(f"== phase 6b: the 7B proxy at its {L} layers (save_dots "
+          f"recompute), TrainStep + AdamW")
+    cfg = save_dots(L)
+    free_cuda(torch)
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    model, step, ids, losses, times = run_train_steps(torch, cfg, steps, seed)
+    n = read_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"  model: {cfg.num_params() / 1e9:.3f} B params, {L} layers, "
+          f"batch {TRAIN_BATCH} x {TRAIN_SEQ}, {steps} steps in "
+          f"{time.perf_counter() - t0:.1f} s (build included); step host ms "
+          f"{[round(t, 1) for t in times]}")
+    check_losses(losses, f"{L}-layer TrainStep x {steps}")
+    check_flash_counts(n, L, steps, "save_dots keeps flash's out and lse")
+    step_ms = sum(times[2:]) / len(times[2:])
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    tps = tokens / (step_ms / 1e3)
+    flops_tok = llama_flops_per_token(cfg, TRAIN_SEQ)
+    print(f"  step host ms {step_ms:.1f} (mean of steps 3-{steps}), "
+          f"{tps:.0f} tokens/s, model-FLOP share "
+          f"{flops_tok * tps / BF16_FLOP_PER_S:.1%} of 989 TFLOP/s at "
+          f"{L} layers (no extrapolation; {flops_tok * tokens / 1e12:.1f} "
+          f"TFLOP a step), peak device memory {peak:.1f} GiB "
+          f"({torch.cuda.get_device_properties(0).total_memory / 2**30:.1f}"
+          f" GiB on the card) on {smi()}")
+    profile_train_step(torch, step, ids, step_ms, top=12)
+    del model, step
+    free_cuda(torch)
+    return n
+
+
+def phase_recompute_full(torch, seed):
+    L, steps = 4, 4
+    print(f"== phase 6c: the full recompute policy at {L} layers")
+    from paddle_tpu_torch.models import LlamaForCausalLM
+
+    ids = train_tokens(torch, seed)
+    first = {}
+    for policy in (None, "full"):
+        over = {} if policy is None else dict(recompute=True,
+                                              recompute_policy=policy)
+        model = LlamaForCausalLM(train_config(L, **over), seed=seed)
+        loss, _ = model(ids, labels=ids)
+        grads = torch.autograd.grad(loss, list(model.parameters()))
+        norm = torch.sqrt(sum(torch.sum(torch.square(g.float()))
+                              for g in grads)).item()
+        first[policy] = (loss.detach().float().cpu(), norm)
+        del model, loss, grads
+        free_cuda(torch)
+    (l0, n0), (l1, n1) = first[None], first["full"]
+    check(torch.equal(l0, l1),
+          f"full recompute: first-step loss {l1.item():.6f} equals the "
+          f"loss without recompute {l0.item():.6f} bit for bit")
+    check(abs(n1 - n0) <= 1e-3 * n0,
+          f"full recompute: gradient global norm {n1:.6f} within 1e-3 "
+          f"relative of {n0:.6f} without recompute")
+    peaks, above, step_ms = {}, {}, {}
+    for policy in (None, "full", "save_dots"):
+        over = {} if policy is None else dict(recompute=True,
+                                              recompute_policy=policy)
+        free_cuda(torch)
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        model, step, _, losses, times = run_train_steps(
+            torch, train_config(L, **over), steps, seed)
+        n = read_counts()
+        peaks[policy] = torch.cuda.max_memory_allocated() / 2**30
+        step_ms[policy] = sum(times[2:]) / len(times[2:])
+        # the forward and backward alone, above the weights and moments:
+        # the activations a policy keeps (and the gradients as they land);
+        # the whole step's peak is the update's at this depth
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        resident = torch.cuda.memory_allocated()
+        loss, _ = model(ids, labels=ids)
+        grads = torch.autograd.grad(loss, list(model.parameters()))
+        above[policy] = (torch.cuda.max_memory_allocated() - resident) / 2**30
+        del loss, grads
+        name = policy or "none"
+        check(all(math.isfinite(x) for x in losses),
+              f"{name}: losses finite {[round(x, 4) for x in losses]}")
+        check_flash_counts(n, L, steps, f"recompute {name}",
+                           fwd_per_layer=2 if policy == "full" else 1)
+        del model, step
+        free_cuda(torch)
+    print(f"  {L} layers, batch {TRAIN_BATCH} x {TRAIN_SEQ}: peak device "
+          f"memory of a step " + ", ".join(f"{p or 'none'} {peaks[p]:.2f} GiB"
+                                           for p in peaks)
+          + "; forward and backward above the weights and moments "
+          + ", ".join(f"{p or 'none'} {above[p]:.2f} GiB" for p in above)
+          + "; step host ms (mean of steps 3-4) " + ", ".join(
+              f"{p or 'none'} {step_ms[p]:.1f}" for p in step_ms)
+          + f" on {smi()}")
+
+
+def phase_packed(torch, seed):
+    L, steps = 4, 6
+    print(f"== phase 6d: packed sequences (segment ids, positions restarting"
+          f" per segment) at the 7B widths, {L} layers")
+    from paddle_tpu_torch.core.device import make_generator
+
+    gen = make_generator(seed + 2, "cuda")
+    seg, pos = packed_segments(torch, gen, TRAIN_BATCH, TRAIN_SEQ)
+    ids = train_tokens(torch, seed)
+    labels = ids.clone()
+    # a segment's first token is no target of the previous segment
+    labels[:, 1:][seg[:, 1:] != seg[:, :-1]] = -100
+    print(f"  segments a row: {[int(r.max()) + 1 for r in seg]}")
+    free_cuda(torch)
+    reset_counts()
+    model, step, _, losses, times = run_train_steps(
+        torch, train_config(L), steps, seed,
+        batch=(ids, labels, None, seg, pos))
+    n = read_counts()
+    print(f"  step host ms {[round(t, 1) for t in times]}")
+    check_losses(losses, f"packed TrainStep x {steps}")
+    check_flash_counts(n, L, steps, "packed")
+    with torch.no_grad():
+        full = model(ids[:1], segment_ids=seg[:1], position_ids=pos[:1])[0]
+        worst = 0.0
+        for sid in range(int(seg[0].max()) + 1):
+            cols = (seg[0] == sid).nonzero().squeeze(1)
+            alone = model(ids[:1, cols])[0]
+            rel = ((full[cols] - alone).norm() / alone.norm()).item()
+            worst = max(worst, rel)
+        check(math.isfinite(worst) and worst <= LOGITS_REL_L2,
+              f"packed row 0: each segment's logits against the segment "
+              f"run alone, worst relative L2 {worst:.3e} <= {LOGITS_REL_L2}")
+    del model, step, full
+    free_cuda(torch)
+
+
+def longctx_config():
+    """``bench.py:325-342``'s long-context Llama: 24 layers, hidden 1024, 8
+    heads of 128, sequences of 16384, ``save_dots`` recompute."""
+    from paddle_tpu_torch.models import LlamaConfig
+
+    return LlamaConfig(vocab_size=32000, hidden_size=1024,
+                       intermediate_size=2816, num_hidden_layers=24,
+                       num_attention_heads=8, num_key_value_heads=8,
+                       max_position_embeddings=LONG_SEQ, dtype="bfloat16",
+                       recompute=True, recompute_policy="save_dots",
+                       fused_loss=True)
+
+
+def phase_longctx(torch, seed):
+    cfg = longctx_config()
+    L, steps = cfg.num_hidden_layers, LONG_STEPS
+    print(f"== phase 6e: long context, b1 x {LONG_SEQ}, {L} layers, "
+          f"save_dots")
+    free_cuda(torch)
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    ids = train_tokens(torch, seed, (1, LONG_SEQ))
+    # bench.py's AdamW: lr 3e-4, the default weight decay, bf16 moments
+    model, step, _, losses, times = run_train_steps(
+        torch, cfg, steps, seed, batch=(ids, ids), weight_decay=0.01)
+    n = read_counts()
+    check(all(math.isfinite(x) for x in losses),
+          f"long context: losses finite {[round(x, 4) for x in losses]}")
+    check_flash_counts(n, L, steps, "long context")
+    step_ms = sum(times[1:]) / len(times[1:])
+    tps = LONG_SEQ / (step_ms / 1e3)
+    flops_tok = llama_flops_per_token(cfg, LONG_SEQ)
+    print(f"  {cfg.num_params() / 1e6:.1f} M params; step host ms "
+          f"{[round(t, 1) for t in times]}, {step_ms:.1f} (mean of steps "
+          f"2-{steps}), {tps:.0f} tokens/s, model-FLOP share "
+          f"{flops_tok * tps / BF16_FLOP_PER_S:.1%}; peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB on {smi()}")
+    del model, step
+    free_cuda(torch)
 
 
 def phase_eager(torch, seed):
@@ -2735,6 +3153,10 @@ def main():
         phase_paired_decode(torch, args.seed)
         launches["flash_attention_bwd"] = \
             phase_train(torch, args.seed)["flash_attention_bwd"]
+        phase_train_32(torch, args.seed)
+        phase_recompute_full(torch, args.seed)
+        phase_packed(torch, args.seed)
+        phase_longctx(torch, args.seed)
         launches["fused_adamw"] = phase_eager(torch, args.seed)["fused_adamw"]
         moe = phase_moe_train(torch, args.seed)
         launches.update({k: moe[k] for k in (

@@ -11,7 +11,10 @@
 //     K/V are never repeated in memory;
 //   * causal masking with a bottom-right offset: row r sees column c iff
 //     c <= q_offset + r;
-//   * kv_len: columns >= kv_len are masked.
+//   * kv_len: columns >= kv_len are masked;
+//   * optionally an additive f32 or bool mask [b, hq | 1, sq, sk] read by
+//     strides, and q / kv segment ids (a pair in different segments is
+//     masked): csrc/flash_mask.cuh.
 // Layout is BSHD: q [b, sq, hq, d], k/v [b, sk, hk, d], out [b, sq, hq, d],
 // all contiguous and 16-byte aligned; d is 64 or 128. With a non-null `lse`
 // it also writes the f32 row logsumexp lse [b, hq, sq] of the scaled, masked
@@ -57,10 +60,22 @@
 //   through two named barriers, so one warpgroup's softmax runs while the
 //   other's products hold the tensor cores.
 // - Masks: tiles past the last visible column (q_offset + last row, or
-//   kv_len) are never loaded; a tile wholly visible to a warpgroup's 64
-//   rows runs without a mask; only a tile that straddles the causal
-//   diagonal or kv_len tests its columns (`needs_mask`, which is where a
-//   later mask kind would enter).
+//   kv_len) are never loaded; without a mask or segment ids, a tile wholly
+//   visible to a warpgroup's 64 rows runs without a mask, and only a tile
+//   that straddles the causal diagonal or kv_len tests its columns
+//   (`needs_mask`). With a mask or segment ids every tile takes the
+//   general path (`general_scores`): once a tile's S has landed, each score
+//   becomes s c + bias (base 2) where the pair is seen (the causal / kv_len
+//   rule, the segment ids, the mask) and -inf where it is not, then the
+//   online softmax runs with c = 1, so a row whose every score is -inf
+//   keeps max -inf as above. The mask's values and the kv columns'
+//   segment ids come straight from global memory (L2) into registers: at
+//   d = 128 the shared memory is full (below), and an f32 mask tile (64
+//   KB) could not take a ring stage. A thread's two q rows' segment ids
+//   are read once per q tile. No load is issued between a product's issue
+//   and its wait: one that was (the seen bits of segment ids and a bool
+//   mask, gathered while S was in flight) gave wrong outputs for segment
+//   ids on the card (PERF.md, PR 14).
 // - Epilogue: O / l rounded to bf16, staged in the warpgroup's own rows of
 //   Q's buffer (free once its last S has landed) in the swizzled layout,
 //   and stored by one 4-D TMA store per panel, clipped at sq. lse leaves
@@ -77,6 +92,7 @@
 
 #include <atomic>
 
+#include "flash_mask.cuh"
 #include "hopper.cuh"
 
 namespace {
@@ -174,13 +190,16 @@ struct Softmax {
   }
 };
 
-template <int D>
+// MASKED: a mask or segment ids apply (csrc/flash_mask.cuh); the kernel
+// without them is compiled apart, so its code is the same as before masks
+template <int D, bool MASKED>
 __global__ void __launch_bounds__(THREADS, 1)
 flash_fwd_kernel(const __grid_constant__ CUtensorMap map_q,
                  const __grid_constant__ CUtensorMap map_k,
                  const __grid_constant__ CUtensorMap map_v,
                  const __grid_constant__ CUtensorMap map_o, float* __restrict__ lse, int sq,
-                 int sk, int hq, int hk, int kv_len, int q_offset, int causal, float scale_log2) {
+                 int sk, int hq, int hk, int kv_len, int q_offset, int causal, float scale_log2,
+                 const ptt::FlashMask fm) {
   using L = Smem<D>;
   constexpr int BN = L::BN;
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -297,9 +316,44 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap map_q,
       hw::wgmma_rs<D, 1>(o, pa[kk], hw::desc_advance(v_desc, kk * 2048), 1);
     hw::wgmma_commit();
   };
+  // the general path: s c + bias where the pair is seen, -inf where not.
+  // Every load is made (at an index kept in bounds) and the select drops
+  // what is not seen, so the tile's loads issue together.
+  int lim_abs[2], qid[2];
+  long long mrow[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = r0 + row_lo + 8 * r;
+    const int at = min(row, sq - 1);   // rows past sq are computed, never stored
+    lim_abs[r] = causal ? min(kv_end, q_offset + row + 1) : kv_end;
+    qid[r] = MASKED ? fm.q_id(b, sq, at) : 0;
+    mrow[r] = fm.row_at(b, h, at);
+  }
+  auto general_scores = [&](int k0) {
+    fm.dispatch([&](auto kind, auto segs) {
+      const int* kv_ids = fm.kv_seg;   // of batch b: at b sk + column
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int r = e / 2, col = k0 + 8 * j + 2 * t4 + (e & 1);
+          const int at = min(col, sk - 1);
+          bool seen = col < lim_abs[r];
+          if constexpr (decltype(segs)::value)
+            seen = seen && kv_ids[(long long)b * sk + at] == qid[r];
+          const float x = fmaf(s[4 * j + e], scale_log2,
+                               fm.template bias2<decltype(kind)::value>(mrow[r], at));
+          s[4 * j + e] = seen ? x : -INFINITY;
+        }
+    });
+  };
   auto softmax = [&](int j, float (&alpha)[2]) {
     const int k0 = j * BN;
-    if (needs_mask(k0)) {
+    if constexpr (MASKED) {
+      general_scores(k0);
+      const int lim[2] = {BN, BN};
+      sm.template step<false>(s, 1.f, lim, alpha, t4);
+    } else if (needs_mask(k0)) {
       int lim[2];
       row_limits(k0, lim);
       sm.template step<true>(s, scale_log2, lim, alpha, t4);
@@ -411,10 +465,10 @@ cudaError_t bshd_map(CUtensorMap* map, const void* p, int b, int s, int h, int d
   return hw::encode_tma_bf16(map, p, 4, dims, str, box);
 }
 
-template <int D>
+template <int D, bool MASKED>
 cudaError_t launch(const void* q, const void* k, const void* v, void* out, float* lse, int b,
                    int sq, int sk, int hq, int hk, int kv_len, int q_offset, int causal,
-                   float scale, cudaStream_t stream) {
+                   float scale, const ptt::FlashMask& fm, cudaStream_t stream) {
   using L = Smem<D>;
   CUtensorMap mq, mk, mv, mo;
   cudaError_t err = bshd_map(&mq, q, b, sq, hq, D, BM);
@@ -423,13 +477,13 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out, float
   if (err == cudaSuccess) err = bshd_map(&mo, out, b, sq, hq, D, 64);
   if (err != cudaSuccess) return err;
   static std::atomic<uint64_t> done{0};
-  auto kern = flash_fwd_kernel<D>;
+  auto kern = flash_fwd_kernel<D, MASKED>;
   err = ptt::allow_smem(kern, L::BYTES, done);
   if (err != cudaSuccess) return err;
   const int ntq = (sq + BM - 1) / BM;
   const dim3 grid(hq, b, ntq);
   kern<<<grid, THREADS, L::BYTES, stream>>>(mq, mk, mv, mo, lse, sq, sk, hq, hk, kv_len,
-                                            q_offset, causal, scale * LOG2E);
+                                            q_offset, causal, scale * LOG2E, fm);
   return cudaGetLastError();
 }
 
@@ -447,21 +501,35 @@ int ptt_flash_fwd_smem_bytes(int d) {
 }
 
 // q [b, sq, hq, d], k/v [b, sk, hk, d], out [b, sq, hq, d]: contiguous,
-// 16-byte aligned bf16; lse [b, hq, sq] f32 or null. Returns a CUDA error
-// code: of the tensor maps' encoding, of the shared-memory opt-in, or
-// cudaGetLastError() after the launch (0 on success).
-int ptt_flash_fwd(const void* q, const void* k, const void* v, void* out, void* lse, int b,
-                  int sq, int sk, int hq, int hk, int d, int kv_len, int q_offset, int causal,
-                  float scale, void* stream) {
-  if (b <= 0 || sq <= 0 || sk <= 0 || hk <= 0 || hq % hk != 0)
+// 16-byte aligned bf16; lse [b, hq, sq] f32 or null. mask (kind 0: none,
+// 1: additive f32, 2: bool bytes) at element (b, h, r, c) mask[b msb + h
+// msh + r msr + c]; q_seg [b, sq] and kv_seg [b, sk] int32, both or neither.
+// Returns a CUDA error code: of the tensor maps' encoding, of the
+// shared-memory opt-in, or cudaGetLastError() after the launch (0 on
+// success).
+int ptt_flash_fwd(const void* q, const void* k, const void* v, void* out, void* lse,
+                  const void* mask, const void* q_seg, const void* kv_seg, int b, int sq, int sk,
+                  int hq, int hk, int d, int kv_len, int q_offset, int causal, int mask_kind,
+                  long long msb, long long msh, long long msr, float scale, void* stream) {
+  if (b <= 0 || sq <= 0 || sk <= 0 || hk <= 0 || hq % hk != 0 || mask_kind < 0 ||
+      mask_kind > 2 || (mask_kind != 0) != (mask != nullptr) ||
+      (q_seg == nullptr) != (kv_seg == nullptr))
     return int(cudaErrorInvalidValue);
+  const ptt::FlashMask fm{mask, static_cast<const int*>(q_seg), static_cast<const int*>(kv_seg),
+                          mask_kind, msb, msh, msr};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* l = static_cast<float*>(lse);
+  const bool m = fm.any();
   if (d == 128)
-    return int(launch<128>(q, k, v, out, static_cast<float*>(lse), b, sq, sk, hq, hk, kv_len,
-                           q_offset, causal, scale, s));
+    return int(m ? launch<128, true>(q, k, v, out, l, b, sq, sk, hq, hk, kv_len, q_offset,
+                                     causal, scale, fm, s)
+                 : launch<128, false>(q, k, v, out, l, b, sq, sk, hq, hk, kv_len, q_offset,
+                                      causal, scale, fm, s));
   if (d == 64)
-    return int(launch<64>(q, k, v, out, static_cast<float*>(lse), b, sq, sk, hq, hk, kv_len,
-                          q_offset, causal, scale, s));
+    return int(m ? launch<64, true>(q, k, v, out, l, b, sq, sk, hq, hk, kv_len, q_offset, causal,
+                                    scale, fm, s)
+                 : launch<64, false>(q, k, v, out, l, b, sq, sk, hq, hk, kv_len, q_offset,
+                                     causal, scale, fm, s));
   return int(cudaErrorInvalidValue);
 }
 

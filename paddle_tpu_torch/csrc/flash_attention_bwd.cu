@@ -6,7 +6,10 @@
 // training path (the autograd Function in ops/fused/flash_attention.py).
 // It covers exactly the forward's subset: causal with a bottom-right
 // q_offset (row r sees column c iff c <= q_offset + r), kv_len (columns >=
-// kv_len masked), GQA (query head h reads kv head h / (hq / hk)), d in
+// kv_len masked), the optional additive f32 or bool mask and q / kv segment
+// ids of csrc/flash_mask.cuh (the mask gets no gradient, as in the Pallas
+// backward; the dispatch sends a mask that requires grad to the plain
+// version), GQA (query head h reads kv head h / (hq / hk)), d in
 // {64, 128}, BSHD layout: q, out, dout, dq [b, sq, hq, d]; k, v, dk, dv
 // [b, sk, hk, d], contiguous and 16-byte aligned; lse [b, hq, sq] f32 in
 // natural-log units.
@@ -56,7 +59,12 @@
 // Masks as in the forward: a tile wholly visible runs without a mask, a
 // tile that straddles the causal diagonal, kv_len, or (in dK/dV) the rows
 // past sq tests its elements, by a select so that an empty row's
-// exp2(+huge) never reaches a product. Every warpgroup runs the products of
+// exp2(+huge) never reaches a product. With a mask or segment ids every
+// tile tests its elements: P = exp2(s c + bias - lse2) where the pair is
+// seen (the bias read straight from global memory, -inf for a False of a
+// bool mask, so P = 0 there), 0 by the select where it is not; the q
+// rows' segment ids ride in the dK/dV ring's stage beside lse and delta,
+// the rows a thread owns read theirs once. Every warpgroup runs the products of
 // every tile of its CTA, even one wholly invisible to its 64 rows (at most
 // one such tile a CTA under a causal mask): a wgmma issued on a branch that
 // ptxas cannot prove warpgroup-uniform makes it serialise every wgmma of
@@ -75,6 +83,7 @@
 
 #include <atomic>
 
+#include "flash_mask.cuh"
 #include "hopper.cuh"
 
 namespace {
@@ -157,13 +166,16 @@ struct DkdvSmem {
   static constexpr int KV_BYTES = PANELS * KV_PANEL;   // K or V
   static constexpr int Q_PANEL = QS * 128;
   static constexpr int Q_BYTES = PANELS * Q_PANEL;     // one Q or dO tile
-  static constexpr int STAGE_BYTES = 2 * Q_BYTES + 1024;   // Q, dO, then lse2, delta [QS]
+  // Q, dO, then lse2, delta [QS] f32 and the q rows' segment ids [QS]
+  static constexpr int STAGE_BYTES = 2 * Q_BYTES + 1024;
   static constexpr int BYTES = 1024 + 2 * KV_BYTES + STAGES * STAGE_BYTES + (1 + 2 * STAGES) * 8;
-  static_assert(Q_PANEL % 1024 == 0 && 2 * QS * 4 <= 1024, "swizzle atom alignment");
+  static_assert(Q_PANEL % 1024 == 0 && 3 * QS * 4 <= 1024, "swizzle atom alignment");
   static_assert(BYTES <= 232448, "shared memory");
 };
 
-template <int D>
+// MASKED: a mask or segment ids apply (csrc/flash_mask.cuh); the kernels
+// without them are compiled apart, so their code is the same as before masks
+template <int D, bool MASKED>
 __global__ void __launch_bounds__(THREADS, 1)
 flash_bwd_dkdv_kernel(const __grid_constant__ CUtensorMap map_q,
                       const __grid_constant__ CUtensorMap map_k,
@@ -172,7 +184,8 @@ flash_bwd_dkdv_kernel(const __grid_constant__ CUtensorMap map_q,
                       const __grid_constant__ CUtensorMap map_dk,
                       const __grid_constant__ CUtensorMap map_dv, const float* __restrict__ lse,
                       const float* __restrict__ delta, int sq, int sk, int hq, int hk,
-                      int kv_len, int q_offset, int causal, float scale, float scale_log2) {
+                      int kv_len, int q_offset, int causal, float scale, float scale_log2,
+                      const ptt::FlashMask fm) {
   using L = DkdvSmem<D>;
   constexpr int QS = L::QS;
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -180,7 +193,7 @@ flash_bwd_dkdv_kernel(const __grid_constant__ CUtensorMap map_q,
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
   uint8_t* sK = base;
   uint8_t* sV = sK + L::KV_BYTES;
-  uint8_t* ring = sV + L::KV_BYTES;   // stage s: Q, dO, lse2 [QS], delta [QS]
+  uint8_t* ring = sV + L::KV_BYTES;   // stage s: Q, dO, lse2 [QS], delta [QS], q ids [QS]
   uint64_t* bar_kv = reinterpret_cast<uint64_t*>(ring + STAGES * L::STAGE_BYTES);
   uint64_t* full = bar_kv + 1;
   uint64_t* empty = full + STAGES;
@@ -228,11 +241,13 @@ flash_bwd_dkdv_kernel(const __grid_constant__ CUtensorMap map_q,
       hw::mbar_wait(&empty[stage], phase ^ 1);
       uint8_t* st = ring + stage * L::STAGE_BYTES;
       float* st_lse = reinterpret_cast<float*>(st + 2 * L::Q_BYTES);
+      int* st_seg = reinterpret_cast<int*>(st_lse + 2 * QS);
       const long row0 = (long(b) * hq + h) * sq;
       for (int r = lane; r < QS; r += 32) {
         const bool ok = q0 + r < sq;
         st_lse[r] = ok ? lse[row0 + q0 + r] * LOG2E : 0.f;
         st_lse[QS + r] = ok ? delta[row0 + q0 + r] : 0.f;
+        if constexpr (MASKED) st_seg[r] = fm.q_id(b, sq, min(q0 + r, sq - 1));
       }
       if (lane == 0) {
         hw::mbar_expect_tx(&full[stage], 2 * L::Q_BYTES);
@@ -298,8 +313,18 @@ flash_bwd_dkdv_kernel(const __grid_constant__ CUtensorMap map_q,
   // S^T and dP^T are only read (an accumulator that a non-wgmma
   // instruction rewrites makes ptxas serialise the wgmmas, C7515). Column
   // i of a tile is q row q0 + i, row r the kv row row_lo + 8 r.
-  auto probs = [&](const float* st_lse, int q0) {
-    const bool mask = j0 + 64 > kv_end || q0 + QS > sq || (causal && j0 + 63 > q_offset + q0);
+  // masked: every load is made (at an index kept in bounds) and the select
+  // drops what is not seen
+  int kvid[2], kv_at[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    kv_at[r] = min(row_lo + 8 * r, sk - 1);
+    kvid[r] = MASKED ? fm.kv_id(b, sk, kv_at[r]) : 0;
+  }
+  auto probs = [&](const float* st_lse, int q0, int hh) {
+    const bool mask = MASKED || j0 + 64 > kv_end || q0 + QS > sq ||
+                      (causal && j0 + 63 > q_offset + q0);
+    const int* st_seg = reinterpret_cast<const int*>(st_lse + 2 * QS);
     // kv row r sees the tile's columns [lo[r], hi) (none past kv_end)
     int lo[2];
 #pragma unroll
@@ -308,20 +333,34 @@ flash_bwd_dkdv_kernel(const __grid_constant__ CUtensorMap map_q,
       lo[r] = kv >= kv_end ? QS : causal ? kv - q_offset - q0 : 0;
     }
     const int hi = sq - q0;
+    // P^T of one tile; KIND and SEGS: the mask's kind and whether segment
+    // ids apply (FlashMask::dispatch), with no mask at all when !MASKED
+    auto tile = [&](auto kind, auto segs) {
 #pragma unroll
-    for (int kk = 0; kk < QS / 16; ++kk)
+      for (int kk = 0; kk < QS / 16; ++kk)
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        float p[2];
+        for (int i = 0; i < 4; ++i) {
+          float p[2];
 #pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const int idx = 8 * kk + 2 * i + h, r = (idx % 4) / 2;
-          const int col = 8 * (idx / 4) + 2 * t4 + h;
-          const float e = hw::ex2_approx(fmaf(s[idx], scale_log2, -st_lse[col]));
-          p[h] = !mask || (col >= lo[r] && col < hi) ? e : 0.f;
+          for (int h = 0; h < 2; ++h) {
+            const int idx = 8 * kk + 2 * i + h, r = (idx % 4) / 2;
+            const int col = 8 * (idx / 4) + 2 * t4 + h;
+            bool seen = !mask || (col >= lo[r] && col < hi);
+            if constexpr (decltype(segs)::value) seen = seen && st_seg[col] == kvid[r];
+            float arg = -st_lse[col];
+            if constexpr (decltype(kind)::value != ptt::FlashMask::NONE)
+              arg += fm.template bias2<decltype(kind)::value>(
+                  fm.row_at(b, hh, min(q0 + col, sq - 1)), kv_at[r]);
+            const float e = hw::ex2_approx(fmaf(s[idx], scale_log2, arg));
+            p[h] = seen ? e : 0.f;
+          }
+          pa[kk][i] = hw::pack_bf16x2(p[0], p[1]);
         }
-        pa[kk][i] = hw::pack_bf16x2(p[0], p[1]);
-      }
+    };
+    if constexpr (MASKED)
+      fm.dispatch(tile);
+    else
+      tile(std::integral_constant<int, ptt::FlashMask::NONE>{}, std::false_type{});
   };
   auto dscores = [&](const float* st_delta) {
 #pragma unroll
@@ -353,7 +392,7 @@ flash_bwd_dkdv_kernel(const __grid_constant__ CUtensorMap map_q,
       pp.end();
       hw::wgmma_wait<0>();
       hw::fence_operand(s);
-      probs(st_lse, (t0 + it % nt) * QS);
+      probs(st_lse, (t0 + it % nt) * QS, kvh * group + it / nt);
       pp.begin();
       hw::wgmma_fence();
       issue_nn(dv, pa, sDO);
@@ -411,7 +450,7 @@ struct DqSmem {
   static_assert(BYTES <= 232448, "shared memory");
 };
 
-template <int D>
+template <int D, bool MASKED>
 __global__ void __launch_bounds__(THREADS, 1)
 flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap map_q,
                     const __grid_constant__ CUtensorMap map_k,
@@ -419,7 +458,8 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap map_q,
                     const __grid_constant__ CUtensorMap map_do,
                     const __grid_constant__ CUtensorMap map_dq, const float* __restrict__ lse,
                     const float* __restrict__ delta, int sq, int sk, int hq, int hk, int kv_len,
-                    int q_offset, int causal, float scale, float scale_log2) {
+                    int q_offset, int causal, float scale, float scale_log2,
+                    const ptt::FlashMask fm) {
   using L = DqSmem<D>;
   constexpr int KS = L::KS;
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -488,7 +528,8 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap map_q,
   const int row_lo = r0 + 16 * (tid / 32) + lane / 4;   // q rows row_lo, row_lo + 8
   const bool leader = tid == 0;
   float lse2[2], dl[2];
-  int lim[2];
+  int lim[2], qid[2];
+  long long mrow[2];
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int row = row_lo + 8 * r;
@@ -496,6 +537,8 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap map_q,
     lse2[r] = ok ? lse[(long(b) * hq + h) * sq + row] * LOG2E : 0.f;
     dl[r] = ok ? delta[(long(b) * hq + h) * sq + row] : 0.f;
     lim[r] = causal ? min(kv_end, q_offset + row + 1) : kv_end;
+    qid[r] = MASKED ? fm.q_id(b, sq, min(row, sq - 1)) : 0;
+    mrow[r] = fm.row_at(b, h, min(row, sq - 1));
   }
 
   float dq[D / 2];
@@ -527,21 +570,36 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap map_q,
   // dS = P (dP - delta), P = exp2(S c - lse2) on visible columns, packed
   // as the A operand of dQ one k16 step at a time (S and dP only read)
   auto grads = [&](int k0) {
-    const bool mask = k0 + KS > kv_end || (causal && k0 + KS - 1 > q_offset + r0);
+    const bool mask = MASKED || k0 + KS > kv_end || (causal && k0 + KS - 1 > q_offset + r0);
+    // KIND and SEGS as in dK/dV's `probs`
+    auto tile = [&](auto kind, auto segs) {
+      const int* kv_ids = fm.kv_seg;   // of batch b: at b sk + column
 #pragma unroll
-    for (int kk = 0; kk < KS / 16; ++kk)
+      for (int kk = 0; kk < KS / 16; ++kk)
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        float ds[2];
+        for (int i = 0; i < 4; ++i) {
+          float ds[2];
 #pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const int idx = 8 * kk + 2 * i + h, r = (idx % 4) / 2;
-          const int col = k0 + 8 * (idx / 4) + 2 * t4 + h;
-          const float p = hw::ex2_approx(fmaf(s[idx], scale_log2, -lse2[r]));
-          ds[h] = !mask || col < lim[r] ? p * (dp[idx] - dl[r]) : 0.f;
+          for (int h = 0; h < 2; ++h) {
+            const int idx = 8 * kk + 2 * i + h, r = (idx % 4) / 2;
+            const int col = k0 + 8 * (idx / 4) + 2 * t4 + h;
+            const int at = min(col, sk - 1);
+            bool seen = !mask || col < lim[r];
+            if constexpr (decltype(segs)::value)
+              seen = seen && kv_ids[(long long)b * sk + at] == qid[r];
+            float arg = -lse2[r];
+            if constexpr (decltype(kind)::value != ptt::FlashMask::NONE)
+              arg += fm.template bias2<decltype(kind)::value>(mrow[r], at);
+            const float p = hw::ex2_approx(fmaf(s[idx], scale_log2, arg));
+            ds[h] = seen ? p * (dp[idx] - dl[r]) : 0.f;
+          }
+          da[kk][i] = hw::pack_bf16x2(ds[0], ds[1]);
         }
-        da[kk][i] = hw::pack_bf16x2(ds[0], ds[1]);
-      }
+    };
+    if constexpr (MASKED)
+      fm.dispatch(tile);
+    else
+      tile(std::integral_constant<int, ptt::FlashMask::NONE>{}, std::false_type{});
   };
   // dQ += dS K (K MN-major)
   auto issue_dq = [&](int stage) {
@@ -602,11 +660,11 @@ cudaError_t bshd_map(CUtensorMap* map, const void* p, int b, int s, int h, int d
   return hw::encode_tma_bf16(map, p, 4, dims, str, box);
 }
 
-template <int D>
+template <int D, bool MASKED>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* out,
                    const void* dout, const float* lse, float* delta, void* dq, void* dk,
                    void* dv, int b, int sq, int sk, int hq, int hk, int kv_len, int q_offset,
-                   int causal, float scale, cudaStream_t stream) {
+                   int causal, float scale, const ptt::FlashMask& fm, cudaStream_t stream) {
   using LK = DkdvSmem<D>;
   using LQ = DqSmem<D>;
   // dK/dV: Q and dO in tiles of QS rows, K and V whole blocks, stores of 64
@@ -633,23 +691,23 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* out,
   if (err != cudaSuccess) return err;
 
   static std::atomic<uint64_t> done_kv{0}, done_q{0};
-  auto kern_kv = flash_bwd_dkdv_kernel<D>;
+  auto kern_kv = flash_bwd_dkdv_kernel<D, MASKED>;
   err = ptt::allow_smem(kern_kv, LK::BYTES, done_kv);
   if (err != cudaSuccess) return err;
   const int nkv = (sk + BKV - 1) / BKV, ntq = (sq + BQ - 1) / BQ;
   const dim3 grid_kv(hk, b, nkv), grid_q(hq, b, ntq);
   kern_kv<<<grid_kv, THREADS, LK::BYTES, stream>>>(
       kq, kk, kv, kdo, kdk, kdv, lse, delta, sq, sk, hq, hk, kv_len, q_offset, causal, scale,
-      scale * LOG2E);
+      scale * LOG2E, fm);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
 
-  auto kern_q = flash_bwd_dq_kernel<D>;
+  auto kern_q = flash_bwd_dq_kernel<D, MASKED>;
   err = ptt::allow_smem(kern_q, LQ::BYTES, done_q);
   if (err != cudaSuccess) return err;
   kern_q<<<grid_q, THREADS, LQ::BYTES, stream>>>(
       qq, qk, qv, qdo, qdq, lse, delta, sq, sk, hq, hk, kv_len, q_offset, causal, scale,
-      scale * LOG2E);
+      scale * LOG2E, fm);
   return cudaGetLastError();
 }
 
@@ -671,24 +729,35 @@ int ptt_flash_bwd_smem_bytes(int d, int which) {
 
 // q, out, dout, dq [b, sq, hq, d]; k, v, dk, dv [b, sk, hk, d]: contiguous,
 // 16-byte aligned bf16. lse [b, hq, sq] f32 from the forward; delta [b, hq,
-// sq] f32 scratch. Runs three kernels (delta, dK/dV, dQ) on `stream`;
-// returns a CUDA error code: of the tensor maps' encoding, of a
+// sq] f32 scratch. mask, q_seg, kv_seg and the mask's kind and strides as
+// the forward's (ptt_flash_fwd). Runs three kernels (delta, dK/dV, dQ) on
+// `stream`; returns a CUDA error code: of the tensor maps' encoding, of a
 // shared-memory opt-in, or cudaGetLastError() after a launch (0 on success).
 int ptt_flash_bwd(const void* q, const void* k, const void* v, const void* out,
                   const void* dout, const void* lse, void* delta, void* dq, void* dk, void* dv,
-                  int b, int sq, int sk, int hq, int hk, int d, int kv_len, int q_offset,
-                  int causal, float scale, void* stream) {
-  if (b <= 0 || sq <= 0 || sk <= 0 || hk <= 0 || hq % hk != 0)
+                  const void* mask, const void* q_seg, const void* kv_seg, int b, int sq, int sk,
+                  int hq, int hk, int d, int kv_len, int q_offset, int causal, int mask_kind,
+                  long long msb, long long msh, long long msr, float scale, void* stream) {
+  if (b <= 0 || sq <= 0 || sk <= 0 || hk <= 0 || hq % hk != 0 || mask_kind < 0 ||
+      mask_kind > 2 || (mask_kind != 0) != (mask != nullptr) ||
+      (q_seg == nullptr) != (kv_seg == nullptr))
     return int(cudaErrorInvalidValue);
+  const ptt::FlashMask fm{mask, static_cast<const int*>(q_seg), static_cast<const int*>(kv_seg),
+                          mask_kind, msb, msh, msr};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* l = static_cast<const float*>(lse);
   float* dl = static_cast<float*>(delta);
+  const bool m = fm.any();
   if (d == 128)
-    return int(launch<128>(q, k, v, out, dout, l, dl, dq, dk, dv, b, sq, sk, hq, hk, kv_len,
-                           q_offset, causal, scale, s));
+    return int(m ? launch<128, true>(q, k, v, out, dout, l, dl, dq, dk, dv, b, sq, sk, hq, hk,
+                                     kv_len, q_offset, causal, scale, fm, s)
+                 : launch<128, false>(q, k, v, out, dout, l, dl, dq, dk, dv, b, sq, sk, hq, hk,
+                                      kv_len, q_offset, causal, scale, fm, s));
   if (d == 64)
-    return int(launch<64>(q, k, v, out, dout, l, dl, dq, dk, dv, b, sq, sk, hq, hk, kv_len,
-                          q_offset, causal, scale, s));
+    return int(m ? launch<64, true>(q, k, v, out, dout, l, dl, dq, dk, dv, b, sq, sk, hq, hk,
+                                    kv_len, q_offset, causal, scale, fm, s)
+                 : launch<64, false>(q, k, v, out, dout, l, dl, dq, dk, dv, b, sq, sk, hq, hk,
+                                     kv_len, q_offset, causal, scale, fm, s));
   return int(cudaErrorInvalidValue);
 }
 

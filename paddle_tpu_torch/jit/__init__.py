@@ -1,8 +1,12 @@
 """The whole training step (the counterpart of ``paddle_tpu.jit.TrainStep``).
 
-PyTorch runs eagerly, so there is no compile and no donation: one call runs
-the forward and backward, clips by global norm, applies the optimizer's
-functional update and writes the new parameters into the model in place.
+PyTorch runs eagerly, so there is no compile: one call runs the forward and
+backward, clips by global norm, and applies the optimizer's update one
+parameter at a time, writing each new parameter and state back at once and
+dropping its gradient (``Optimizer.apply_gradients_``): the counterpart of
+the JAX step's buffer donation, without which a second copy of the
+parameters and moments would be alive at the update (at 6.7 B parameters
+that does not fit on an 80 GB card).
 """
 
 from __future__ import annotations
@@ -54,8 +58,9 @@ class TrainStep:
     def __call__(self, *batch) -> torch.Tensor:
         self._step += 1
         loss = self._loss(batch)
-        grads = torch.autograd.grad(loss, self._params, allow_unused=True,
-                                    materialize_grads=True)
+        grads = list(torch.autograd.grad(loss, self._params,
+                                         allow_unused=True,
+                                         materialize_grads=True))
         with torch.no_grad():
             if self._clip_norm is not None:
                 clip = float(self._clip_norm)
@@ -64,10 +69,6 @@ class TrainStep:
                 scale = clip / torch.clamp_min(gn, clip)
                 for g in grads:   # fresh tensors of this step: scale in place
                     g.copy_(g.float() * scale)
-            new_params, self._state = self._opt.apply_gradients(
-                self._params, grads, self._state, self._opt.get_lr(),
-                self._step)
-            del grads
-            for p, new in zip(self._params, new_params):
-                p.copy_(new)
+            self._opt.apply_gradients_(self._params, grads, self._state,
+                                       self._opt.get_lr(), self._step)
         return loss.detach()

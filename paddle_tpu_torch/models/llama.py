@@ -4,10 +4,14 @@ The counterpart of ``paddle_tpu/models/llama.py`` for serving and training:
 the same parameter names and shapes (linear weights in PyTorch's
 ``[out, in]``; ``models/convert.py`` transposes the JAX ``[in, out]``
 ones), the JAX model's bf16 rounding in its layers, and attention through
-the flash dispatch (differentiable when grad is on). Without labels the
-forward returns logits from the shared f32 tail (``lm_head_tail``: final
-RMS norm and LM head in f32), which is what the serving engine computes
-too; with labels it returns the training loss as the JAX model does.
+the flash dispatch (differentiable when grad is on), with an optional
+attention mask and packed-varlen segment ids and positions. Without labels
+the forward returns logits from the shared f32 tail (``lm_head_tail``:
+final RMS norm and LM head in f32), which is what the serving engine
+computes too; with labels it returns the training loss as the JAX model
+does. ``recompute`` rematerialises each decoder layer in training
+(``framework/recompute.py``); ``tie_word_embeddings`` makes the embedding
+matrix the LM head.
 """
 
 from __future__ import annotations
@@ -22,6 +26,7 @@ from torch import nn
 
 from ..core.device import make_generator, resolve_device
 from ..core.dtype import to_torch_dtype
+from ..framework.recompute import recompute
 from ..nn.functional import RMSNorm, swiglu
 from ..ops.fused.cross_entropy import fused_linear_cross_entropy
 from ..ops.fused.flash_attention import flash_attention
@@ -46,13 +51,21 @@ class LlamaConfig:
     rms_norm_eps: float = 1e-5
     rope_theta: float = 10000.0
     initializer_range: float = 0.02
+    # the embedding matrix is the LM head (no lm_head parameter)
+    tie_word_embeddings: bool = False
     dtype: str = "bfloat16"
+    # rematerialise each decoder layer in training (framework/recompute.py)
+    recompute: bool = False
+    # "full": keep only each layer's input; "save_dots": keep the matrix
+    # products' and flash's outputs, recompute the elementwise ops
+    recompute_policy: str = "full"
+    # the JAX model's ring attention over a mesh's 'sep' axis; the port has
+    # no mesh yet (ROADMAP A8), so it runs flash attention, as the JAX
+    # model does without a 'sep' axis
+    context_parallel: bool = False
     # with labels, forward returns (loss, None) from the chunked fused
     # linear + cross-entropy instead of (loss, logits)
     fused_loss: bool = False
-    # per-layer rematerialisation: not ported yet (ROADMAP A2,
-    # framework/recompute.py); True raises NotImplementedError
-    recompute: bool = False
 
     def __post_init__(self):
         if self.num_key_value_heads is None:
@@ -66,7 +79,8 @@ class LlamaConfig:
         h, v, i = self.hidden_size, self.vocab_size, self.intermediate_size
         kvh = self.num_key_value_heads * self.head_dim
         per_layer = 2 * h * h + 2 * h * kvh + 3 * h * i + 2 * h
-        return 2 * v * h + self.num_hidden_layers * per_layer + h
+        head = 0 if self.tie_word_embeddings else v * h
+        return v * h + self.num_hidden_layers * per_layer + h + head
 
 
 LLAMA_PRESETS = {
@@ -88,21 +102,30 @@ LLAMA_PRESETS = {
                               intermediate_size=688, num_hidden_layers=4,
                               num_attention_heads=8, num_key_value_heads=4,
                               max_position_embeddings=512),
+    "llama-350m": LlamaConfig(vocab_size=32000, hidden_size=1024,
+                              intermediate_size=2816, num_hidden_layers=24,
+                              num_attention_heads=16, num_key_value_heads=16,
+                              max_position_embeddings=2048),
+    "llama-1b": LlamaConfig(vocab_size=32000, hidden_size=2048,
+                            intermediate_size=5504, num_hidden_layers=22,
+                            num_attention_heads=16, num_key_value_heads=16,
+                            max_position_embeddings=2048),
 }
 
 
-def causal_lm_loss(h: torch.Tensor, lm_head: nn.Linear, labels: torch.Tensor,
+def causal_lm_loss(h: torch.Tensor, head: torch.Tensor, labels: torch.Tensor,
                    fused_loss: bool):
-    """The causal LM loss of normed hidden states ``h [b, s, H]`` as
-    ``paddle_tpu/models/llama.py:334-357`` computes it: position t predicts
-    label t + 1 (``-100`` is ignored), the mean f32 cross-entropy. Returns
-    ``(loss, None)`` from the chunked fused loss when ``fused_loss``, else
-    ``(loss, logits)`` with the logits in the model dtype."""
+    """The causal LM loss of normed hidden states ``h [b, s, H]`` through
+    the LM head ``head [vocab, H]`` (an ``nn.Linear`` weight, or a tied
+    embedding matrix) as ``paddle_tpu/models/llama.py:334-357`` computes
+    it: position t predicts label t + 1 (``-100`` is ignored), the mean f32
+    cross-entropy. Returns ``(loss, None)`` from the chunked fused loss when
+    ``fused_loss``, else ``(loss, logits)`` with the logits in the model
+    dtype."""
     if fused_loss:
         return fused_linear_cross_entropy(
-            h[:, :-1], lm_head.weight, labels[:, 1:],
-            ignore_index=IGNORE_INDEX), None
-    logits = lm_head(h)
+            h[:, :-1], head, labels[:, 1:], ignore_index=IGNORE_INDEX), None
+    logits = F.linear(h, head)
     shift_labels = labels[:, 1:].reshape(-1)
     per_token = F.cross_entropy(
         logits[:, :-1].reshape(-1, logits.shape[-1]).float(), shift_labels,
@@ -123,14 +146,16 @@ class LlamaAttention(nn.Module):
         self.v_proj = nn.Linear(h, self.num_kv_heads * hd, bias=False, **dd)
         self.o_proj = nn.Linear(self.num_heads * hd, h, bias=False, **dd)
 
-    def forward(self, x, cos, sin):
+    def forward(self, x, cos, sin, attn_mask=None, segment_ids=None):
         b, s = x.shape[0], x.shape[1]
         q = self.q_proj(x).view(b, s, self.num_heads, self.head_dim)
         k = self.k_proj(x).view(b, s, self.num_kv_heads, self.head_dim)
         v = self.v_proj(x).view(b, s, self.num_kv_heads, self.head_dim)
         q = apply_rotary_position_embedding(q, cos, sin)
         k = apply_rotary_position_embedding(k, cos, sin)
-        out = flash_attention(q, k, v, causal=True)
+        out = flash_attention(q, k, v, causal=True, attn_mask=attn_mask,
+                              q_segment_ids=segment_ids,
+                              kv_segment_ids=segment_ids)
         return self.o_proj(out.reshape(b, s, -1))
 
 
@@ -155,8 +180,9 @@ class LlamaDecoderLayer(nn.Module):
                                                 cfg.rms_norm_eps, **dd)
         self.mlp = LlamaMLP(cfg, **dd)
 
-    def forward(self, x, cos, sin):
-        x = x + self.self_attn(self.input_layernorm(x), cos, sin)
+    def forward(self, x, cos, sin, attn_mask=None, segment_ids=None):
+        x = x + self.self_attn(self.input_layernorm(x), cos, sin,
+                               attn_mask=attn_mask, segment_ids=segment_ids)
         return x + self.mlp(self.post_attention_layernorm(x))
 
 
@@ -177,15 +203,31 @@ class LlamaModel(nn.Module):
         self.register_buffer("rope_cos", cos, persistent=False)
         self.register_buffer("rope_sin", sin, persistent=False)
 
-    def forward(self, input_ids):
+    def forward(self, input_ids, attn_mask=None, segment_ids=None,
+                position_ids=None):
+        """``segment_ids [b, s]`` masks attention across packed sequences
+        and ``position_ids [b, s]`` gives each token its rope row (restarting
+        at each packed sequence); ``attn_mask`` as ``flash_attention``
+        takes it. In training with ``config.recompute`` each layer is
+        recomputed in the backward under ``config.recompute_policy``."""
         s = input_ids.shape[1]
-        if s > self.rope_cos.shape[0]:
+        if position_ids is None and s > self.rope_cos.shape[0]:
             raise ValueError(f"sequence {s} exceeds max_position_embeddings "
                              f"{self.rope_cos.shape[0]}")
         x = self.embed_tokens(input_ids)
-        cos, sin = self.rope_cos[:s], self.rope_sin[:s]
+        if position_ids is not None:
+            cos, sin = self.rope_cos[position_ids], self.rope_sin[position_ids]
+        else:
+            cos, sin = self.rope_cos[:s], self.rope_sin[:s]
+        cfg = self.config
         for layer in self.layers:
-            x = layer(x, cos, sin)
+            if cfg.recompute and self.training:
+                x = recompute(layer, x, cos, sin, attn_mask=attn_mask,
+                              segment_ids=segment_ids,
+                              policy=cfg.recompute_policy)
+            else:
+                x = layer(x, cos, sin, attn_mask=attn_mask,
+                          segment_ids=segment_ids)
         return x
 
 
@@ -195,26 +237,30 @@ class LlamaForCausalLM(nn.Module):
     ``torch.inference_mode()``. Weights are drawn on ``device`` (default
     ``cuda``) from a ``torch.Generator`` seeded with ``seed``: normal with
     the config's ``initializer_range`` (the output projections scaled by
-    1/sqrt(2L)), RMS norm weights one."""
+    1/sqrt(2L)), RMS norm weights one. With ``tie_word_embeddings``,
+    ``lm_head`` is None and the embedding matrix is the head."""
 
     def __init__(self, config: LlamaConfig, device=None, seed: int = 0):
         super().__init__()
-        if config.recompute:
-            raise NotImplementedError(
-                "LlamaConfig.recompute: per-layer rematerialisation is not "
-                "ported yet (ROADMAP A2, framework/recompute.py)")
         self.config = config
         dev = resolve_device(device)
         dd = {"device": dev, "dtype": to_torch_dtype(config.dtype)}
         self.model = LlamaModel(config, **dd)
-        self.lm_head = nn.Linear(config.hidden_size, config.vocab_size,
-                                 bias=False, **dd)
+        self.lm_head = None if config.tie_word_embeddings else nn.Linear(
+            config.hidden_size, config.vocab_size, bias=False, **dd)
         with torch.no_grad():
             self._init_weights(make_generator(seed, dev))
 
     @property
     def device(self) -> torch.device:
-        return self.lm_head.weight.device
+        return self.head_weight.device
+
+    @property
+    def head_weight(self) -> torch.Tensor:
+        """The LM head ``[vocab, hidden]``: ``lm_head.weight``, or the
+        embedding matrix when the embeddings are tied."""
+        return self.model.embed_tokens.weight if self.lm_head is None \
+            else self.lm_head.weight
 
     def _init_weights(self, gen: torch.Generator):
         std = self.config.initializer_range
@@ -228,21 +274,27 @@ class LlamaForCausalLM(nn.Module):
                 nn.init.normal_(p, 0.0, std, generator=gen)
 
     def forward(self, input_ids: torch.Tensor,
-                labels: Optional[torch.Tensor] = None):
+                labels: Optional[torch.Tensor] = None, attn_mask=None,
+                segment_ids=None, position_ids=None):
         """Without ``labels``: ``input_ids [b, s]`` -> f32 logits
         ``[b, s, vocab]`` from the f32 tail (where the JAX model keeps the
         model dtype). With ``labels [b, s]`` (``-100`` is ignored), as
         ``paddle_tpu/models/llama.py:334-357``: the final norm and the LM
         head in the model dtype, position t predicting label t + 1, and the
         mean f32 cross-entropy. Returns ``(loss, None)`` from the chunked
-        fused loss when ``config.fused_loss``, else ``(loss, logits)``."""
-        h = self.model(input_ids)
+        fused loss when ``config.fused_loss``, else ``(loss, logits)``.
+        ``attn_mask``, ``segment_ids`` and ``position_ids``: see
+        :meth:`LlamaModel.forward`; with packed segments, set the label of
+        each segment's first token to ``-100`` (the position before it,
+        in the previous sequence, would predict it)."""
+        h = self.model(input_ids, attn_mask=attn_mask,
+                       segment_ids=segment_ids, position_ids=position_ids)
         if labels is None:
             b, s, d = h.shape
             logits = lm_head_tail(h.reshape(b * s, d), self.model.norm.weight,
-                                  self.lm_head.weight.t(),
+                                  self.head_weight.t(),
                                   self.config.rms_norm_eps)
             return logits.view(b, s, -1)
-        return causal_lm_loss(self.model.norm(h), self.lm_head, labels,
+        return causal_lm_loss(self.model.norm(h), self.head_weight, labels,
                               self.config.fused_loss)
 

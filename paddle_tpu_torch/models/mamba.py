@@ -123,17 +123,6 @@ class _MambaLayer(nn.Module):
         return x + self.mixer(self.norm(x))
 
 
-class _TiedHead:
-    """The embedding matrix as the LM head (``causal_lm_loss`` calls it and
-    reads its ``weight``)."""
-
-    def __init__(self, weight):
-        self.weight = weight
-
-    def __call__(self, h):
-        return F.linear(h, self.weight)
-
-
 class MambaForCausalLM(nn.Module):
     """Weights are drawn on ``device`` (default ``cuda``) from a
     ``torch.Generator`` seeded with ``seed``, by the JAX model's rules:
@@ -182,7 +171,7 @@ class MambaForCausalLM(nn.Module):
         for layer in self.layers:
             x = layer(x)
         x = self.norm_f(x)
-        head = _TiedHead(self.embed_tokens.weight)
+        head = self.embed_tokens.weight
         if labels is None:
-            return head(x)
+            return F.linear(x, head)
         return causal_lm_loss(x, head, labels, fused_loss=False)

@@ -159,4 +159,5 @@ class Mamba2ForCausalLM(nn.Module):
         x = self.norm_f(x)
         if labels is None:
             return self.lm_head(x)
-        return causal_lm_loss(x, self.lm_head, labels, fused_loss=False)
+        return causal_lm_loss(x, self.lm_head.weight, labels,
+                              fused_loss=False)

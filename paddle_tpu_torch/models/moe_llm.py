@@ -6,7 +6,9 @@ Parameter names are the JAX model's (``embed_tokens``, ``layers.{i}``,
 is a ``LlamaMLP`` or, when ``i % moe_every == moe_every - 1``, a
 ``MoELayer`` (``GShardGate``, or ``SwitchGate`` at top-1, over swiglu
 ``MLPExperts``). The gates' aux losses join the LM loss with weight
-``aux_loss_alpha``.
+``aux_loss_alpha``. With ``recompute`` the dense layers are recomputed in
+the backward under ``recompute_policy``; the MoE layers are not, as in the
+JAX model (their gate's ``aux_loss`` is a side output of the forward).
 """
 
 from __future__ import annotations
@@ -20,6 +22,7 @@ from torch import nn
 
 from ..core.device import make_generator, resolve_device
 from ..core.dtype import to_torch_dtype
+from ..framework.recompute import recompute
 from ..nn.functional import RMSNorm
 from ..ops.fused.rope import build_rope_cache
 from ..parallel.moe import GShardGate, MLPExperts, MoELayer, SwitchGate
@@ -67,8 +70,9 @@ class MoEDecoderLayer(nn.Module):
         else:
             self.mlp = LlamaMLP(cfg, **dd)
 
-    def forward(self, x, cos, sin):
-        x = x + self.self_attn(self.input_layernorm(x), cos, sin)
+    def forward(self, x, cos, sin, attn_mask=None):
+        x = x + self.self_attn(self.input_layernorm(x), cos, sin,
+                               attn_mask=attn_mask)
         return x + self.mlp(self.post_attention_layernorm(x))
 
 
@@ -76,15 +80,10 @@ class MoELlamaForCausalLM(nn.Module):
     """Weights are drawn on ``device`` (default ``cuda``) from a
     ``torch.Generator`` seeded with ``seed``: the Llama layers as
     ``LlamaForCausalLM`` draws them, gates and experts Xavier-uniform with
-    zero expert biases. ``recompute=True`` and ``attn_mask`` raise
-    ``NotImplementedError`` (ROADMAP A2)."""
+    zero expert biases. The head is untied, as in the JAX model."""
 
     def __init__(self, config: MoELlamaConfig, device=None, seed: int = 0):
         super().__init__()
-        if config.recompute:
-            raise NotImplementedError(
-                "MoELlamaConfig.recompute: per-layer rematerialisation is "
-                "not ported yet (ROADMAP A2, framework/recompute.py)")
         self.config = config
         dev = resolve_device(device)
         dd = {"device": dev, "dtype": to_torch_dtype(config.dtype)}
@@ -129,11 +128,8 @@ class MoELlamaForCausalLM(nn.Module):
         """Without ``labels``: logits ``[b, s, vocab]`` in the model dtype,
         as the JAX model returns them. With ``labels``: ``(loss + alpha ·
         Σ aux, None)`` from the chunked fused loss when
-        ``config.fused_loss``, else ``(loss + alpha · Σ aux, logits)``."""
-        if attn_mask is not None:
-            raise NotImplementedError(
-                "MoELlamaForCausalLM: attn_mask is not ported yet (ROADMAP "
-                "A2: masks in the flash kernels)")
+        ``config.fused_loss``, else ``(loss + alpha · Σ aux, logits)``.
+        ``attn_mask`` as ``flash_attention`` takes it."""
         s = input_ids.shape[1]
         if s > self.rope_cos.shape[0]:
             raise ValueError(f"sequence {s} exceeds max_position_embeddings "
@@ -141,15 +137,20 @@ class MoELlamaForCausalLM(nn.Module):
         x = self.embed_tokens(input_ids)
         cos, sin = self.rope_cos[:s], self.rope_sin[:s]
         aux_total = None
+        cfg = self.config
         for layer in self.layers:
-            x = layer(x, cos, sin)
+            if cfg.recompute and self.training and not layer.use_moe:
+                x = recompute(layer, x, cos, sin, attn_mask=attn_mask,
+                              policy=cfg.recompute_policy)
+            else:
+                x = layer(x, cos, sin, attn_mask=attn_mask)
             if layer.use_moe:
                 a = layer.mlp.aux_loss
                 aux_total = a if aux_total is None else aux_total + a
         x = self.norm(x)
         if labels is None:
             return self.lm_head(x)
-        loss, logits = causal_lm_loss(x, self.lm_head, labels,
+        loss, logits = causal_lm_loss(x, self.lm_head.weight, labels,
                                       self.config.fused_loss)
         if aux_total is not None:
             loss = loss + aux_total * self.config.aux_loss_alpha

@@ -166,4 +166,4 @@ class RwkvForCausalLM(nn.Module):
         x = self.ln_out(x)
         if labels is None:
             return self.head(x)
-        return causal_lm_loss(x, self.head, labels, fused_loss=False)
+        return causal_lm_loss(x, self.head.weight, labels, fused_loss=False)

@@ -4,8 +4,9 @@ The paddle surface (``step()`` reading each parameter's ``.grad``,
 ``clear_grad()``, ``get_lr()``/``set_lr()``) drives a functional core: each
 optimizer defines ``_init_state(param)`` and ``_update(param, grad, state,
 lr, step)``, and :meth:`Optimizer.apply_gradients` maps it over lists of
-tensors, which is what ``jit.TrainStep`` calls. PyTorch runs it eagerly,
-one parameter at a time.
+tensors (pure), :meth:`Optimizer.apply_gradients_` in place, which is what
+``jit.TrainStep`` calls. PyTorch runs it eagerly, one parameter at a
+time.
 
 A float learning rate only: an ``LRScheduler``, ``grad_clip=`` objects and
 ``multi_precision=True`` (f32 master weights) are not ported yet (ROADMAP
@@ -125,3 +126,22 @@ class Optimizer:
             new_params.append(np_)
             new_state.append(ns)
         return new_params, new_state
+
+    @torch.no_grad()
+    def apply_gradients_(self, params: Sequence[torch.Tensor],
+                         grads: List[Optional[torch.Tensor]],
+                         state: List[Dict[str, Any]], lr=None,
+                         step: int = 0) -> None:
+        """In place, one parameter at a time: each parameter is updated
+        with the arithmetic of :meth:`apply_gradients` and written back at
+        once, its entry of ``state`` replaced, and its entry of ``grads``
+        set to None, so that only one parameter's new value and state are
+        alive beside the old ones (the counterpart of the JAX
+        ``TrainStep``'s buffer donation)."""
+        lr = torch.tensor(self.get_lr() if lr is None else float(lr),
+                          dtype=torch.float32, device=self.device)
+        for i, p in enumerate(params):
+            new, state[i] = self._update(p, grads[i], state[i], lr, int(step))
+            grads[i] = None
+            p.copy_(new)
+            del new

@@ -164,8 +164,7 @@ class ServingEngine:
                  device=None):
         cfg = model.config
         self.config = c = (config or ServingConfig()).resolve()
-        self.device = entry_device(model.lm_head.weight.device, device,
-                                   "ServingEngine")
+        self.device = entry_device(model.device, device, "ServingEngine")
         if c.max_seq_len > cfg.max_position_embeddings:
             raise ValueError(
                 f"ServingConfig.max_seq_len {c.max_seq_len} exceeds the "
@@ -183,8 +182,9 @@ class ServingEngine:
         self.weights = fused_weights_from_llama(model, quantize=c.quantize)
         self._embed = model.model.embed_tokens.weight
         self._final_norm = model.model.norm.weight
-        # the f32 tail multiplies by an f32 head: convert it once
-        self._head = model.lm_head.weight.detach().float().t()
+        # the f32 tail multiplies by an f32 head (the embedding matrix when
+        # tied): convert it once
+        self._head = model.head_weight.detach().float().t()
         self._cos, self._sin = build_rope_cache(
             c.max_seq_len, cfg.head_dim, cfg.rope_theta, device=self.device)
         self._active: Dict[int, Request] = {}

@@ -110,6 +110,8 @@ VARIANTS = {
                   " + p * L::KV_PANEL, &map_v")]),
 }
 DIAGNOSTIC = {"no_exp", "no_pv", "no_load"}
+# the C entries' mask arguments when there is no mask and no segment ids
+NO_MASK_PTRS, NO_MASK_INTS = (None, None, None), (0, 0, 0, 0)
 
 
 def build(names):
@@ -119,11 +121,11 @@ def build(names):
     fns = {}
     for name in ["base", *names]:
         fwd = libs[(name, FWD)].ptt_flash_fwd
-        fwd.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 9 \
-            + [ctypes.c_float, ctypes.c_void_p]
+        fwd.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 10 \
+            + [ctypes.c_longlong] * 3 + [ctypes.c_float, ctypes.c_void_p]
         bwd = libs[(name, BWD)].ptt_flash_bwd
-        bwd.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 9 \
-            + [ctypes.c_float, ctypes.c_void_p]
+        bwd.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 10 \
+            + [ctypes.c_longlong] * 3 + [ctypes.c_float, ctypes.c_void_p]
         fns[name] = (fwd, bwd)
     return fns
 
@@ -149,8 +151,8 @@ def main(argv):
         lse = torch.empty(b, hq, s, device="cuda") if with_lse else None
         rc = fns[name][0](q.data_ptr(), k.data_ptr(), v.data_ptr(),
                           out.data_ptr(), None if lse is None else lse.data_ptr(),
-                          b, s, s, hq, k.shape[2], d, s, 0, 1, d ** -0.5,
-                          _build.stream(q))
+                          *NO_MASK_PTRS, b, s, s, hq, k.shape[2], d, s, 0, 1,
+                          *NO_MASK_INTS, d ** -0.5, _build.stream(q))
         assert rc == 0, rc
         return out, lse
 
@@ -161,8 +163,9 @@ def main(argv):
         rc = fns[name][1](q.data_ptr(), k.data_ptr(), v.data_ptr(),
                           out.data_ptr(), do.data_ptr(), lse.data_ptr(),
                           delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-                          dv.data_ptr(), b, s, s, hq, k.shape[2], d, s, 0, 1,
-                          d ** -0.5, _build.stream(q))
+                          dv.data_ptr(), *NO_MASK_PTRS, b, s, s, hq,
+                          k.shape[2], d, s, 0, 1, *NO_MASK_INTS, d ** -0.5,
+                          _build.stream(q))
         assert rc == 0, rc
         return dq, dk, dv
 

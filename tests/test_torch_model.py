@@ -238,3 +238,139 @@ def test_load_state_transposes_linear_modules_of_every_family():
         if bad[some].shape != state[some].shape:
             with pytest.raises(ValueError, match=some):
                 load_paddle_tpu_state(tm, bad)
+
+
+# ------------------------------------------------- Llama training surface
+def test_presets_match_jax():
+    """Every preset, ``llama-350m`` and ``llama-1b`` among them, equals the
+    JAX one field by field (the two configs have the same fields)."""
+    from dataclasses import asdict
+
+    from paddle_tpu.models.llama import LLAMA_PRESETS as JAX_PRESETS
+    from paddle_tpu_torch.models.llama import LLAMA_PRESETS
+
+    assert sorted(LLAMA_PRESETS) == sorted(JAX_PRESETS)
+    assert {"llama-350m", "llama-1b"} <= set(LLAMA_PRESETS)
+    for name, cfg in LLAMA_PRESETS.items():
+        assert asdict(cfg) == asdict(JAX_PRESETS[name]), name
+        assert cfg.num_params() == JAX_PRESETS[name].num_params(), name
+
+
+def test_tied_llama_matches_jax():
+    """``tie_word_embeddings``: no ``lm_head``, the parameter count without
+    the head, and the logits and the loss (both loss paths) through the
+    embedding matrix, against the JAX model."""
+    paddle.seed(9)
+    jm = JaxLlama(JaxLlamaConfig(**TINY, tie_word_embeddings=True))
+    jm.eval()
+    cfg = LlamaConfig(**TINY, tie_word_embeddings=True)
+    tm = LlamaForCausalLM(cfg, device="cpu")
+    load_paddle_tpu_state(tm, state_numpy(jm))
+    assert tm.lm_head is None and tm.head_weight is \
+        tm.model.embed_tokens.weight
+    assert cfg.num_params() == jm.config.num_params() \
+        == sum(p.numel() for p in tm.parameters()) \
+        == LlamaConfig(**TINY).num_params() - 256 * 64
+    ids = np.random.RandomState(10).randint(0, 256, (2, 24))
+    labels = ids.copy()
+    labels[0, 3] = -100
+    with torch.no_grad():
+        np.testing.assert_allclose(
+            tm(torch.from_numpy(ids)).numpy(),
+            np.asarray(jm(paddle.to_tensor(ids)).numpy()), atol=1e-4)
+        for fused in (False, True):
+            jm.config.fused_loss = tm.config.fused_loss = fused
+            jloss, _ = jm(paddle.to_tensor(ids), labels=paddle.to_tensor(labels))
+            tloss, _ = tm(torch.from_numpy(ids), labels=torch.from_numpy(labels))
+            np.testing.assert_allclose(float(tloss), float(jloss), rtol=1e-5)
+
+
+def _packed(rng, b, s):
+    """Segment ids (3-6 segments a row), positions restarting at each
+    segment, as a packed-varlen batch carries them."""
+    seg = np.zeros((b, s), np.int32)
+    pos = np.zeros((b, s), np.int64)
+    for i in range(b):
+        cuts = np.sort(rng.choice(np.arange(1, s), rng.randint(2, 6),
+                                  replace=False))
+        seg[i] = np.searchsorted(cuts, np.arange(s), side="right")
+        starts = np.concatenate([[0], cuts])
+        pos[i] = np.arange(s) - starts[seg[i]]
+    return seg, pos
+
+
+@pytest.mark.parametrize("kind", ["additive_4d", "bool_2d", "packed"])
+def test_masked_and_packed_logits_match_jax(pair, kind):
+    """``attn_mask`` (additive ``[b, 1, s, s]``, bool ``[s, s]`` with the
+    diagonal kept), and ``segment_ids`` with ``position_ids`` restarting per
+    segment: the logits against the JAX model (its dense flash path on the
+    CPU, which takes 2- and 4-D masks; the 3-D form is held against the
+    Pallas kernel in ``test_torch_flash_mask.py``), and each packed segment
+    against the same tokens run alone."""
+    jm, tm = pair
+    rng = np.random.RandomState(12)
+    b, s = 2, 24
+    ids = rng.randint(0, 256, (b, s))
+    kw = {}
+    if kind == "additive_4d":
+        kw["attn_mask"] = rng.standard_normal((b, 1, s, s)).astype(np.float32)
+    elif kind == "bool_2d":
+        m = rng.random_sample((s, s)) > 0.4
+        m[np.arange(s), np.arange(s)] = True
+        kw["attn_mask"] = m
+    else:
+        kw["segment_ids"], kw["position_ids"] = _packed(rng, b, s)
+    ours = tm(torch.from_numpy(ids), **{k: torch.from_numpy(v)
+                                        for k, v in kw.items()})
+    ref = jm(paddle.to_tensor(ids), **{k: paddle.to_tensor(v)
+                                       for k, v in kw.items()})
+    np.testing.assert_allclose(ours.detach().numpy(),
+                               np.asarray(ref.numpy()), atol=1e-4)
+    if kind == "packed":
+        # each segment alone, at positions from 0, gives the same logits
+        seg = kw["segment_ids"][0]
+        for sid in np.unique(seg):
+            cols = np.flatnonzero(seg == sid)
+            alone = tm(torch.from_numpy(ids[:1, cols]))
+            np.testing.assert_allclose(alone.detach().numpy()[0],
+                                       ours.detach().numpy()[0, cols],
+                                       atol=1e-4)
+
+
+def test_positions_past_the_rope_table_raise(pair):
+    _, tm = pair
+    ids = torch.zeros(1, TINY["max_position_embeddings"] + 1,
+                      dtype=torch.long)
+    with pytest.raises(ValueError, match="max_position_embeddings"):
+        tm(ids)
+
+
+def test_context_parallel_runs_flash(pair):
+    """``context_parallel=True`` without a mesh (the port has none until
+    ROADMAP A8) runs flash attention: the same logits as ``False``."""
+    jm, _ = pair
+    ids = torch.from_numpy(np.random.RandomState(13).randint(0, 256, (2, 20)))
+    out = []
+    for cp in (False, True):
+        tm = LlamaForCausalLM(LlamaConfig(**TINY, context_parallel=cp),
+                              device="cpu")
+        load_paddle_tpu_state(tm, state_numpy(jm))
+        out.append(tm(ids).detach())
+    assert torch.equal(out[0], out[1])
+
+
+def test_serving_engine_on_tied_model_matches_dense_greedy():
+    """The serving engine reads the head from the embedding matrix of a
+    tied model: its streamed tokens are the dense forward's greedy argmax,
+    teacher-forced."""
+    from paddle_tpu_torch.serving import ServingConfig, ServingEngine
+
+    tm = LlamaForCausalLM(LlamaConfig(**TINY, tie_word_embeddings=True),
+                          device="cpu", seed=14)
+    tm.eval()
+    eng = ServingEngine(tm, ServingConfig(max_seq_len=64, block_size=8))
+    prompt = np.arange(3, 22, dtype=np.int32)
+    toks = list(eng.stream(eng.submit(prompt, 8)))
+    with torch.no_grad():
+        logits = tm(torch.tensor(np.concatenate([prompt, toks])[None]))
+    assert logits[0, len(prompt) - 1:-1].argmax(-1).tolist() == toks
