@@ -102,6 +102,28 @@ Phases, each of which fails the run (non-zero exit, no result line):
    kernel a product at most, none of a second pass);
 5c. decode steps of bf16, int8 and int4 engines (bf16 pools) over one
    model, alternated round by round: host ms per step, paired;
+5d. the shared-prefix cache: 8 prompts of a 1024-token prefix (64 blocks)
+   and seeded tails of 33-480 tokens, 32 new tokens each, the first alone,
+   then the other 7, through an engine with the prefix cache and one
+   without, on a bf16 and on an int8 pool; checks the hits (7 x 64 blocks,
+   7 x 1024 tokens saved), that only the first request's first chunk ran
+   at offset 0 and the hits prefilled their tails only, the launch counts
+   (flash = L x prefill chunks, paged = L x decode steps on the pool's page
+   type), a clean drain with the cached blocks, and the streams against
+   the cache-off engine's: equal, or equal up to a first divergence that
+   the dense forward calls a tie, and each stream's teacher-forced
+   agreement with the dense forward (phase 4's rule; the int8 pool's
+   noise from 5b widens the tie window there, as in 5b); prints the hit
+   requests' TTFT with the cache on and off;
+5e. speculative decoding, k = 4: phase 4's 8 prompts through a Llama-3-8B
+   verifier with an independent drafter of 2 layers (seed + 1; run A,
+   bf16 and int8 pools) and drafting with itself (run B), each against
+   plain decoding on the same settings; checks the tokens (as 5d), the
+   launch counts (paged = L_v x verify steps + L_d x draft steps, draft
+   steps = (k + 1) x verify steps; flash = (L_v + L_d) x prefill chunks),
+   a clean drain and run B's acceptance >= 0.5; prints the acceptance,
+   the tokens committed per verify step and the decode ms per token
+   against plain decoding;
 6. training: the Llama-2-7B widths (``bench.py``'s 7B proxy: vocab 32000,
    hidden 4096, intermediate 11008, 32 heads, bf16, fused loss) at 4
    layers, batch 2 x 2048 seeded tokens, 10 ``TrainStep`` steps with AdamW
@@ -185,6 +207,10 @@ WO_RTOL = 1e-2                   # weight-only GEMM: max |diff| / max |plain|
 KV_NOISE_MAX = 1.0               # int8 vs bf16 pool, max first-token logit change
 PROMPT_LENS = (17, 64, 200, 333, 511, 700, 1024, 1500)
 NEW_TOKENS = 32
+PREFIX_LEN = 1024                # phase 5d: the shared prefix (64 blocks)
+PREFIX_TAILS = (33, 480)         # phase 5d: the 8 tails' length range
+SPEC_K = 4                       # phase 5e: drafted tokens an iteration
+DRAFT_LAYERS = 2                 # phase 5e run A: the independent drafter
 TRAIN_BATCH, TRAIN_SEQ = 2, 2048
 TRAIN_STEPS, EAGER_STEPS = 10, 5
 LONG_SEQ, LONG_STEPS = 16384, 3  # phase 6e: bench.py's long-context cell
@@ -2127,28 +2153,33 @@ def phase_slice(torch, seed):
 
 def profile_decode(torch, engine, vocab, seed, steps=8,
                    title="phase 5: where a decode step's time goes",
-                   launches=None, absent=()):
+                   launches=None, absent=(), new=None, unit="decode step"):
     """Where a full decode step's time goes: ``steps`` decode iterations
     over ``max_batch`` rows timed on the host clock, then ``steps`` more
     under ``torch.profiler`` for the device time by kernel and the
     device's idle share. ``launches`` ({name part: kernels a step, at
     most}) and ``absent`` (name parts) are checked against the profiled
-    kernels."""
+    kernels. ``new`` (default ``2 steps + 4``) is each request's token
+    budget: a speculative engine commits up to k + 1 a step, so it needs
+    more to keep every row busy through both windows."""
     print(f"== {title}")
     import numpy as np
     from torch.profiler import ProfilerActivity, profile
 
+    new = 2 * steps + 4 if new is None else new
     rng = np.random.RandomState(seed + 1)
-    reqs = [engine.submit(rng.randint(0, vocab, (64,)), 2 * steps + 4)
+    reqs = [engine.submit(rng.randint(0, vocab, (64,)), new)
             for _ in range(engine.config.max_batch)]
     while engine.scheduler.has_queued() or engine.stats()["prefilling"]:
         engine.step()
     torch.cuda.synchronize()
+    made = sum(len(r.tokens) for r in reqs)
     t0 = time.perf_counter()
     for _ in range(steps):
         engine.step()
     torch.cuda.synchronize()
     step_ms = (time.perf_counter() - t0) * 1e3 / steps
+    per_row = (sum(len(r.tokens) for r in reqs) - made) / (steps * len(reqs))
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -2157,8 +2188,10 @@ def profile_decode(torch, engine, vocab, seed, steps=8,
         torch.cuda.synchronize()
         prof_ms = (time.perf_counter() - t0) * 1e3 / steps
     engine.run_until_complete()
-    check(all(len(r.tokens) == 2 * steps + 4 for r in reqs),
+    check(all(len(r.tokens) == new for r in reqs),
           f"profiled batch of {len(reqs)} finished")
+    print(f"  {unit}s commit {per_row:.2f} tokens a row; host ms per row "
+          f"token {step_ms / per_row:.2f}")
     kernels, calls = {}, {}
     for e in prof.key_averages():
         t = getattr(e, "self_device_time_total", 0.0)
@@ -2167,7 +2200,7 @@ def profile_decode(torch, engine, vocab, seed, steps=8,
             calls[e.key] = calls.get(e.key, 0) + e.count
     busy = sum(kernels.values())
     if busy == 0:
-        print(f"  decode step, batch {len(reqs)}: {step_ms:.2f} ms on the "
+        print(f"  {unit}, batch {len(reqs)}: {step_ms:.2f} ms on the "
               f"host clock; the profiler recorded no device time (device "
               f"breakdown and kernel counts not measured)")
         return
@@ -2195,7 +2228,7 @@ def profile_decode(torch, engine, vocab, seed, steps=8,
         group = next((g for g, keys in groups.items()
                       if any(k in low for k in keys)), "other")
         by_group[group] += ms
-    print(f"  decode step, batch {len(reqs)}: {step_ms:.2f} ms on the host "
+    print(f"  {unit}, batch {len(reqs)}: {step_ms:.2f} ms on the host "
           f"clock ({prof_ms:.2f} ms under the profiler); device busy "
           f"{busy:.2f} ms per step: idle share {1 - busy / step_ms:.1%} of "
           f"the plain step ({1 - busy / prof_ms:.1%} of the profiled one)")
@@ -2384,8 +2417,9 @@ def phase_quant_serving(torch, seed, noise_bf16):
     """Runs A (int8 weights, int8 KV pool) and B (int4 weights, bf16 pool)
     of Llama-3-8B, one engine at a time, each held against a dense forward
     over its dequantized weights. Returns the int8 paged kernel's and the
-    weight-only GEMMs' launches: run A's for the int8 kernels, run B's for
-    the int4 GEMM."""
+    weight-only GEMMs' launches (run A's for the int8 kernels, run B's for
+    the int4 GEMM) and the int8 pool's largest first-token logit change
+    against a bf16 pool."""
     print("== phase 5b: quantized serving, Llama-3-8B")
     import numpy as np
 
@@ -2398,7 +2432,7 @@ def phase_quant_serving(torch, seed, noise_bf16):
                for n in PROMPT_LENS]
     budget = ServingConfig().resolve().prefill_token_budget
     chunked = [i for i, n in enumerate(PROMPT_LENS) if n > budget]
-    launches = {}
+    launches, kv_noise = {}, 0.0
     for quant, kv_dtype in (("int8", "int8"), ("int4", "")):
         model = LlamaForCausalLM(cfg, device="cuda", seed=seed)
         noise = noise_bf16
@@ -2433,7 +2467,7 @@ def phase_quant_serving(torch, seed, noise_bf16):
             else ("int4_matmul",))})
         del model
         free_cuda(torch)
-    return launches
+    return launches, kv_noise
 
 
 def phase_paired_decode(torch, seed, rounds=5, steps=8):
@@ -2483,6 +2517,279 @@ def phase_paired_decode(torch, seed, rounds=5, steps=8):
               f"median {statistics.median(ts):.2f}")
     print(f"  on {smi()}")
     del engines, model
+    free_cuda(torch)
+
+
+def stream_agreement(torch, model, triples, noise, what):
+    """Each ``(prompt, tokens, reference tokens)``: the two streams are
+    equal, or equal up to a first divergence where the dense forward puts
+    both tokens within ``noise`` of its largest logit (a bf16 tie, past
+    which the streams no longer share a context); and every stream,
+    teacher-forced through the dense forward, is its argmax or a tie
+    within ``noise`` on at least AGREE_MIN of its tokens (phase 4's
+    rule). Returns the number of equal streams."""
+    import numpy as np
+
+    same = strict = ties = total = 0
+    for prompt, toks, ref in triples:
+        ids = torch.from_numpy(np.concatenate(
+            [prompt, np.asarray(toks, np.int32)])).long().cuda()[None]
+        p = len(prompt)
+        with torch.inference_mode():
+            logits = model(ids)[0, p - 1:-1].float()
+        best = logits.max(dim=-1)
+        tt = torch.tensor(toks, device=logits.device)
+        deficit = best.values - logits.gather(1, tt[:, None])[:, 0]
+        match = best.indices == tt
+        strict += int(match.sum())
+        ties += int((deficit[~match] <= noise).sum())
+        total += len(toks)
+        # both streams hold NEW_TOKENS tokens (checked by the caller)
+        j = next((i for i, (a, b) in enumerate(zip(toks, ref)) if a != b),
+                 None)
+        if j is None:
+            same += 1
+            continue
+        row = logits[j]
+        gaps = [(row.max() - row[t]).item() for t in (toks[j], ref[j])]
+        check(max(gaps) <= noise,
+              f"{what} (prompt {p}): first divergence at token {j} "
+              f"({toks[j]} vs {ref[j]}) is a tie: dense logit deficits "
+              f"{gaps[0]:.4f} / {gaps[1]:.4f} <= {noise:.4f}")
+    print(f"  {what}: {same}/{len(triples)} streams equal; teacher-forced "
+          f"strict argmax {strict}/{total} = {strict / total:.1%}")
+    check((strict + ties) / total >= AGREE_MIN,
+          f"{what}: teacher-forced agreement (argmax, or a tie within "
+          f"{noise:.4f}) {strict + ties}/{total} = "
+          f"{(strict + ties) / total:.1%} >= {AGREE_MIN:.0%}")
+    return same
+
+
+def serve_prefix(torch, model, prompts, cache, kv_dtype):
+    """Phase 5d's run of one engine: the first prompt alone (its prefill
+    publishes the prefix's blocks), then the other seven. Returns the
+    requests, the stats, the launch counts, the (offset, length) of every
+    prefill chunk and the pool after drain."""
+    from paddle_tpu_torch.serving import ServingConfig, ServingEngine
+
+    engine = ServingEngine(model, ServingConfig(
+        max_seq_len=2048, prefix_cache=cache, kv_cache_dtype=kv_dtype))
+    chunks = []
+    prefill = engine._prefill
+
+    def recorded(ids, chunk, offset, row):
+        chunks.append((offset, chunk))
+        return prefill(ids, chunk, offset, row)
+
+    engine._prefill = recorded
+    reset_counts()
+    reqs = [engine.submit(prompts[0], NEW_TOKENS)]
+    engine.run_until_complete()
+    reqs += [engine.submit(p, NEW_TOKENS) for p in prompts[1:]]
+    engine.run_until_complete()
+    torch.cuda.synchronize()
+    n = read_counts()
+    del engine._prefill
+    s = engine.stats()
+    drained = engine.drain()["pool"]
+    del engine
+    free_cuda(torch)
+    return reqs, s, n, chunks, drained
+
+
+def phase_prefix_cache(torch, seed, noise_bf16, kv_noise):
+    """Phase 5d: eight prompts sharing a 1024-token prefix through engines
+    with the prefix cache on and off, on bf16 and int8 pools."""
+    print("== phase 5d: shared-prefix cache, Llama-3-8B")
+    import numpy as np
+
+    from paddle_tpu_torch.models import LLAMA_PRESETS, LlamaForCausalLM
+
+    from paddle_tpu_torch.serving import ServingConfig
+
+    cfg = LLAMA_PRESETS["llama3-8b"]
+    L, V = cfg.num_hidden_layers, cfg.vocab_size
+    model = LlamaForCausalLM(cfg, device="cuda", seed=seed)
+    rng = np.random.RandomState(seed + 3)
+    prefix = rng.randint(0, V, (PREFIX_LEN,)).astype(np.int32)
+    tails = [rng.randint(0, V, (n,)).astype(np.int32)
+             for n in rng.randint(PREFIX_TAILS[0], PREFIX_TAILS[1] + 1, 8)]
+    prompts = [np.concatenate([prefix, t]) for t in tails]
+    blocks = PREFIX_LEN // ServingConfig().resolve().block_size
+    print(f"  prompts: a {PREFIX_LEN}-token prefix ({blocks} blocks) + "
+          f"tails of {[len(t) for t in tails]} tokens, {NEW_TOKENS} new "
+          f"each; the first alone, then the other 7")
+    for kv in ("", "int8"):
+        what = f"5d {'int8' if kv else 'bf16'} pool"
+        runs = {c: serve_prefix(torch, model, prompts, c, kv)
+                for c in (True, False)}
+        for cache, (reqs, s, n, chunks, drained) in runs.items():
+            tag = f"{what}, cache {'on' if cache else 'off'}"
+            check(all(r.status == "finished" and len(r.tokens) == NEW_TOKENS
+                      and all(0 <= t < V for t in r.tokens) for r in reqs),
+                  f"{tag}: 8 requests finished with {NEW_TOKENS} in-vocab "
+                  f"tokens")
+            paged, idle = (("paged_attention_int8", "paged_attention")
+                           if kv else ("paged_attention",
+                                       "paged_attention_int8"))
+            check(n["flash_attention"] == L * s["prefill_chunks"] > 0,
+                  f"{tag}: flash launches {n['flash_attention']} == L x "
+                  f"prefill chunks ({L} x {s['prefill_chunks']})")
+            check(n[paged] == L * s["decode_steps"] > 0 and n[idle] == 0,
+                  f"{tag}: {paged} launches {n[paged]} == L x decode steps "
+                  f"({L} x {s['decode_steps']}); {idle} {n[idle]} == 0")
+            check(drained["free_blocks"] == drained["num_blocks"],
+                  f"{tag}: drain: pool free {drained['free_blocks']} == "
+                  f"total {drained['num_blocks']} ({drained['cached_blocks']}"
+                  f" cached blocks among them)")
+            p = s["pool"]
+            firsts = sum(o == 0 for o, _ in chunks)
+            prefilled = sum(c for _, c in chunks)
+            if cache:
+                check(p["prefix_hit_blocks"] == 7 * blocks
+                      and p["prefix_saved_tokens"] == 7 * PREFIX_LEN,
+                      f"{tag}: prefix hits {p['prefix_hit_blocks']} blocks "
+                      f"== 7 x {blocks}, saved {p['prefix_saved_tokens']} "
+                      f"tokens == 7 x {PREFIX_LEN}")
+                check(firsts == 1 and s["prefill_carry_chunks"]
+                      == s["prefill_chunks"] - 1
+                      and prefilled == len(prompts[0])
+                      + sum(len(t) for t in tails[1:]),
+                      f"{tag}: every chunk but the first request's first "
+                      f"ran at a carried offset ({s['prefill_carry_chunks']}"
+                      f" of {s['prefill_chunks']}); {prefilled} tokens "
+                      f"prefilled, the hits' tails only")
+            else:
+                check(p["prefix_hit_blocks"] == 0 and firsts == 8
+                      and prefilled == sum(len(q) for q in prompts),
+                      f"{tag}: no hit, {prefilled} tokens prefilled, 8 "
+                      f"chunks at offset 0")
+        on, off = runs[True][0], runs[False][0]
+        ttft = [[r.ttft_ms for r in reqs[1:]] for reqs in (on, off)]
+        print(f"  {what}: TTFT ms of the 7 hit requests, cache on / off: "
+              f"mean {np.mean(ttft[0]):.1f} / {np.mean(ttft[1]):.1f}, max "
+              f"{max(ttft[0]):.1f} / {max(ttft[1]):.1f}; prefill chunks "
+              f"{runs[True][1]['prefill_chunks']} / "
+              f"{runs[False][1]['prefill_chunks']}; the first request "
+              f"{on[0].ttft_ms:.1f} / {off[0].ttft_ms:.1f} ms; on {smi()}")
+        stream_agreement(torch, model, [
+            (q, a.tokens, b.tokens) for q, a, b in zip(prompts, on, off)],
+            max(noise_bf16, kv_noise) if kv else noise_bf16,
+            f"{what}, cache on vs off")
+    del model
+    free_cuda(torch)
+
+
+def serve_spec(torch, model, prompts, kv_dtype, what, draft=None,
+               profile_seed=None):
+    """Phase 5e's run ``what`` of one engine over ``prompts``, speculative
+    when ``draft`` is given, then (``profile_seed`` given) a profiled
+    window of its iterations. Returns the requests, the stats, the launch
+    counts and the wall seconds; the pool must drain."""
+    from paddle_tpu_torch.serving import ServingConfig, ServingEngine
+
+    engine = ServingEngine(model, ServingConfig(
+        max_seq_len=2048, kv_cache_dtype=kv_dtype,
+        speculative=None if draft is None else (draft, SPEC_K)))
+    reset_counts()
+    t0 = time.perf_counter()
+    reqs = [engine.submit(p, NEW_TOKENS) for p in prompts]
+    engine.run_until_complete()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    n = read_counts()
+    s = engine.stats()
+    if profile_seed is not None:
+        per_iter = model.config.num_hidden_layers \
+            + (SPEC_K + 1) * draft.config.num_hidden_layers
+        # 4 + 4 iterations of at most k + 1 tokens after the first
+        profile_decode(torch, engine, model.config.vocab_size, profile_seed,
+                       steps=4, new=8 * (SPEC_K + 1) + 8,
+                       title=f"phase 5e: where an iteration of {what} "
+                             f"goes", launches={"paged_kernel": per_iter},
+                       unit="speculative iteration")
+    drained = engine.drain()["pool"]
+    check(drained["free_blocks"] == drained["num_blocks"],
+          f"{what} drain: pool free {drained['free_blocks']} == total "
+          f"{drained['num_blocks']}")
+    del engine
+    free_cuda(torch)
+    return reqs, s, n, wall
+
+
+def phase_speculative(torch, seed, noise_bf16, kv_noise):
+    """Phase 5e: phase 4's 8 prompts through a speculative Llama-3-8B
+    engine (k = 4): run A with an independent 2-layer drafter (bf16 and
+    int8 pools), run B drafting with the verifier itself; each against
+    plain decoding on the same settings."""
+    print(f"== phase 5e: speculative decoding, Llama-3-8B verifier, "
+          f"k = {SPEC_K}")
+    import dataclasses
+
+    import numpy as np
+
+    from paddle_tpu_torch.models import LLAMA_PRESETS, LlamaForCausalLM
+
+    cfg = LLAMA_PRESETS["llama3-8b"]
+    L, V = cfg.num_hidden_layers, cfg.vocab_size
+    model = LlamaForCausalLM(cfg, device="cuda", seed=seed)
+    draft = LlamaForCausalLM(dataclasses.replace(
+        cfg, num_hidden_layers=DRAFT_LAYERS), device="cuda", seed=seed + 1)
+    rng = np.random.RandomState(seed)
+    prompts = [rng.randint(0, V, (n,)).astype(np.int32)
+               for n in PROMPT_LENS]
+    plain = {}
+    for run, kv, dm in (("A", "", draft), ("A", "int8", draft),
+                        ("B", "", model)):
+        drafter = ("self-draft" if dm is model
+                   else f"a drafter of {DRAFT_LAYERS} layers")
+        what = f"5e run {run} ({drafter}, {'int8' if kv else 'bf16'} pool)"
+        if kv not in plain:
+            plain[kv] = serve_spec(torch, model, prompts, kv,
+                                   f"5e plain decode, {kv or 'bf16'} pool")
+        p_reqs, p_s, _, p_wall = plain[kv]
+        reqs, s, n, wall = serve_spec(torch, model, prompts, kv, what, dm,
+                                      None if kv else seed)
+        sp, Ld = s["speculative"], dm.config.num_hidden_layers
+        check(all(r.status == "finished" and len(r.tokens) == NEW_TOKENS
+                  and all(0 <= t < V for t in r.tokens) for r in reqs),
+              f"{what}: 8 requests finished with {NEW_TOKENS} in-vocab "
+              f"tokens")
+        paged, idle = (("paged_attention_int8", "paged_attention") if kv
+                       else ("paged_attention", "paged_attention_int8"))
+        verify, drafts = sp["verify_steps"], sp["draft_steps"]
+        check(verify > 0 and drafts == (SPEC_K + 1) * verify
+              and s["decode_steps"] == 0
+              and n[paged] == L * verify + Ld * drafts and n[idle] == 0,
+              f"{what}: {paged} launches {n[paged]} == L_v x verify steps "
+              f"+ L_d x draft steps = {L} x {verify} + {Ld} x {drafts} "
+              f"(draft steps == (k + 1) x verify steps, no plain decode "
+              f"step); {idle} {n[idle]} == 0")
+        check(n["flash_attention"] == (L + Ld) * s["prefill_chunks"] > 0,
+              f"{what}: flash launches {n['flash_attention']} == (L_v + "
+              f"L_d) x prefill chunks = ({L} + {Ld}) x "
+              f"{s['prefill_chunks']}")
+        rows = sp["drafted_tokens"] // SPEC_K
+        tpot = np.mean([r.decode_ms_per_token for r in reqs])
+        p_tpot = np.mean([r.decode_ms_per_token for r in p_reqs])
+        print(f"  {what}: acceptance {sp['accepted_tokens']}/"
+              f"{sp['drafted_tokens']} = {sp['accept_rate']:.3f}; "
+              f"{sp['committed_tokens']} tokens committed in {verify} verify "
+              f"steps ({sp['committed_tokens'] / verify:.2f} a step, "
+              f"{sp['committed_tokens'] / rows:.2f} a row and step); decode "
+              f"ms/token mean {tpot:.2f} against plain {p_tpot:.2f} "
+              f"({p_s['decode_steps']} plain decode steps); wall "
+              f"{wall:.3f} s against {p_wall:.3f} s; on {smi()}")
+        if run == "B":
+            check(sp["accept_rate"] >= 0.5,
+                  f"{what}: self-draft acceptance {sp['accept_rate']:.3f} "
+                  f">= 0.5")
+        stream_agreement(torch, model, [
+            (q, a.tokens, b.tokens) for q, a, b in zip(prompts, reqs,
+                                                       p_reqs)],
+            max(noise_bf16, kv_noise) if kv else noise_bf16,
+            f"{what} vs plain decode")
+    del model, draft
     free_cuda(torch)
 
 
@@ -3148,9 +3455,12 @@ def main():
         free_cuda(torch)
         launches, noise = phase_slice(torch, args.seed)
         free_cuda(torch)
-        launches.update(phase_quant_serving(torch, args.seed, noise))
+        quant, kv_noise = phase_quant_serving(torch, args.seed, noise)
+        launches.update(quant)
         free_cuda(torch)
         phase_paired_decode(torch, args.seed)
+        phase_prefix_cache(torch, args.seed, noise, kv_noise)
+        phase_speculative(torch, args.seed, noise, kv_noise)
         launches["flash_attention_bwd"] = \
             phase_train(torch, args.seed)["flash_attention_bwd"]
         phase_train_32(torch, args.seed)

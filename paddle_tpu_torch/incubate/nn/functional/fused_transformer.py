@@ -7,7 +7,8 @@ in the JAX ``[in, out]`` layout), and the layer loop is a Python loop.
 The matrix products stay ``torch.matmul``, or, with weight-only int8/int4
 weights, go through the weight-only GEMM (``ops/cuda/int8_matmul.py``);
 attention goes through the flash dispatch (prefill) and the paged decode
-kernel (decode, over bf16 or int8 pages).
+kernel (decode and the speculative verify window, over bf16 or int8
+pages).
 
 Caches are updated IN PLACE: where the JAX code threads new cache arrays
 out of a ``lax.scan`` and relies on buffer donation, these functions write
@@ -23,7 +24,7 @@ from typing import Optional
 
 import torch
 
-from ....models.kv_cache import quantize_kv
+from ....models.kv_cache import dequantize_kv, quantize_kv
 from ....nn.functional import rms_norm_f32, swiglu_f32
 from ....ops.cuda.int8_matmul import (int4_weight_matmul, int8_weight_matmul,
                                       pack_int4)
@@ -33,7 +34,8 @@ from ....ops.fused.rope import apply_rotary_position_embedding as _rope
 from ....ops.quant_ops import weight_quantize
 
 __all__ = ["FusedTransformerWeights", "fused_weights_from_llama",
-           "fused_multi_transformer", "fused_multi_transformer_paged_ragged"]
+           "fused_multi_transformer", "fused_multi_transformer_paged_ragged",
+           "fused_multi_transformer_paged_ragged_verify"]
 
 
 @dataclass
@@ -326,4 +328,122 @@ def fused_multi_transformer_paged_ragged(x, weights: FusedTransformerWeights,
         # block-major scales: the two advanced indices are not adjacent, so
         # the indexed shape is [B, L, kvh]
         scales[:, phys, :, slot] = sc.permute(2, 0, 1)
+    return h, k_pages, v_pages, k_scales, v_scales
+
+
+def _paged_verify_layer(h, w, ck, cv, ksc, vsc, *, table_r, lens_r, strict,
+                        rope_cos, rope_sin, hq, hk, epsilon):
+    """One decoder layer of a verify step over an ``S``-token window a row:
+    the paged kernel over each row's committed history with the window
+    folded into its batch (row ``b * S + i``), then the causal in-window
+    block merged through the kernel's (m, l) stats. The strictly earlier
+    window columns attend through the pool's storage precision (int8
+    pages: ``quantize_kv`` then ``dequantize_kv``), the diagonal self
+    column raw, as plain decode reads them. Returns ``(h, (k, v))``."""
+    b, s = h.shape[0], h.shape[1]
+    dh = ck.shape[-1]
+    scale = 1.0 / math.sqrt(dh)
+    dt = h.dtype
+    q, k, v = _paged_qkv_rope(h, w, hq, hk, epsilon, rope_cos, rope_sin)
+    out_hist, m, l = paged_attention(
+        q.reshape(b * s, hq, dh).contiguous(), ck, cv, table_r, lens_r,
+        scale=scale, return_stats=True, k_scales=ksc, v_scales=vsc)
+    out_hist = out_hist.reshape(b, s, hq, dh).float().transpose(1, 2)
+    m_h = m.reshape(b, s, hq).transpose(1, 2)               # [B, hq, S]
+    l_h = l.reshape(b, s, hq).transpose(1, 2)
+    if ksc is not None:
+        kw_prev = dequantize_kv(*quantize_kv(k), dt)
+        vw_prev = dequantize_kv(*quantize_kv(v), dt)
+    else:
+        kw_prev, vw_prev = k, v
+    kw_self, vw_self = k, v
+    if hk != hq:
+        kw_prev, vw_prev, kw_self, vw_self = (
+            t.repeat_interleave(hq // hk, dim=2)
+            for t in (kw_prev, vw_prev, kw_self, vw_self))
+    qf = q.float()
+    lw = torch.einsum("bqhd,bkhd->bhqk", qf, kw_prev.float()) * scale \
+        + strict                                             # [B, hq, S, S]
+    l_self = (qf * kw_self.float()).sum(dim=-1).transpose(1, 2) * scale
+    m2 = torch.maximum(torch.maximum(m_h, l_self), lw.amax(dim=-1))
+    w_h = l_h * torch.exp(m_h - m2)
+    w_self = torch.exp(l_self - m2)
+    p_w = torch.exp(lw - m2[..., None])
+    attn = (w_h[..., None] * out_hist
+            + w_self[..., None] * vw_self.float().transpose(1, 2)
+            + torch.einsum("bhqk,bkhd->bhqd", p_w, vw_prev.float())) \
+        / (w_h + w_self + p_w.sum(dim=-1))[..., None]
+    h = _paged_out_ffn(h, attn.transpose(1, 2).to(dt), w, epsilon)
+    return h, (k, v)
+
+
+def fused_multi_transformer_paged_ragged_verify(
+        x, weights: FusedTransformerWeights, k_pages, v_pages, page_table,
+        seq_lens, spans, rope_cos, rope_sin, num_heads: int,
+        num_kv_heads: int, epsilon: float = 1e-6, k_scales=None,
+        v_scales=None):
+    """One speculative-decoding verify step: ``S`` window tokens a row (the
+    last committed token and the drafted ones) through all L layers over
+    per-row block tables; :func:`fused_multi_transformer_paged_ragged` is
+    its ``S == 1`` case.
+
+    x ``[B, S, D]``; page_table ``[B, pps]`` int32; seq_lens ``[B]`` int32
+    tokens committed a row (window token ``i`` sits at position ``lens[b]
+    + i``); spans ``[B]`` int32, how many window positions commit into the
+    pool (the rest go to the null block); rope_cos/sin ``[B, S, dh]``.
+
+    Each window token reads its row's history through the paged kernel
+    (``ops/cuda/paged_attention.py``: ``B * S`` rows with the tables and
+    lens repeated ``S`` times) and the earlier window tokens through the
+    exact (m, l) merge; the pages stay read-only in the layer loop, and
+    one masked scatter after it commits ``spans[b]`` positions a row in
+    place. A rejected draft is undone by the caller truncating its lens:
+    the next window writes those positions again. Returns ``(h, k_pages,
+    v_pages)``, with ``k_scales, v_scales`` appended on int8 pages (the
+    commit quantizes with ``quantize_kv``, as the ragged decode does)."""
+    b, s, _ = x.shape
+    if (k_scales is None) != (v_scales is None):
+        raise ValueError("fused_multi_transformer_paged_ragged_verify: pass "
+                         "both k_scales and v_scales or neither")
+    quant = k_scales is not None
+    dev = x.device
+    page, pps = k_pages.shape[-2], page_table.shape[1]
+    table = page_table.to(torch.int32)
+    lens = seq_lens.to(torch.int32)
+    table_r = table.repeat_interleave(s, dim=0).contiguous()  # [B*S, pps]
+    lens_r = lens.repeat_interleave(s, dim=0).contiguous()    # [B*S]
+    win = torch.arange(s, device=dev)
+    strict = torch.where(win[None, :] < win[:, None], 0.0,
+                         -1e30).to(dev)[None, None]            # [1, 1, S, S]
+    h, ys_k, ys_v = x, [], []
+    for i in range(weights.num_layers):
+        h, (k, v) = _paged_verify_layer(
+            h, weights.layer(i), k_pages[i], v_pages[i],
+            k_scales[i] if quant else None, v_scales[i] if quant else None,
+            table_r=table_r, lens_r=lens_r, strict=strict, rope_cos=rope_cos,
+            rope_sin=rope_sin, hq=num_heads, hk=num_kv_heads,
+            epsilon=epsilon)
+        ys_k.append(k)
+        ys_v.append(v)
+    # commit: positions past a row's span go to the null block; the engine
+    # caps spans so that a committed position never passes the last block
+    lens_l = lens.long()
+    pos = lens_l[:, None] + win[None, :]                       # [B, S]
+    valid = win[None, :] < spans.to(dev).long()[:, None]
+    rows = torch.arange(b, device=dev)[:, None]
+    phys = torch.where(
+        valid, table[rows, torch.clamp(pos // page, max=pps - 1)].long(), 0)
+    slot = pos % page
+    new_k = torch.stack(ys_k).permute(0, 3, 1, 2, 4)        # [L, kvh, B, S, dh]
+    new_v = torch.stack(ys_v).permute(0, 3, 1, 2, 4)
+    if not quant:
+        k_pages[:, :, phys, slot] = new_k.to(k_pages.dtype)
+        v_pages[:, :, phys, slot] = new_v.to(v_pages.dtype)
+        return h, k_pages, v_pages
+    for pages, scales, vals in ((k_pages, k_scales, new_k),
+                                (v_pages, v_scales, new_v)):
+        qv, sc = quantize_kv(vals)                       # sc [L, kvh, B, S]
+        pages[:, :, phys, slot] = qv
+        # the indexed shape of the block-major scales is [B, S, L, kvh]
+        scales[:, phys, :, slot] = sc.permute(2, 3, 0, 1)
     return h, k_pages, v_pages, k_scales, v_scales

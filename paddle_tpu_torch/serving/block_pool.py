@@ -1,5 +1,5 @@
 """KV block pool for the continuous-batching runtime (the counterpart of
-``paddle_tpu/serving/block_pool.py`` without the prefix cache).
+``paddle_tpu/serving/block_pool.py``).
 
 The pool owns one preallocated pair of page tensors
 ``[L, kvh, num_blocks, block, dh]`` on the device (int8 on a quantized
@@ -18,32 +18,63 @@ Two admission modes:
 * optimistic (``optimistic=True``): admission binds only the prompt's
   blocks, decode growth binds lazily, and an exhausted pool raises
   :class:`BlockPoolExhausted` — the engine's signal to preempt.
+
+Shared-prefix cache (``prefix_cache=True``, optimistic mode only): every
+full prompt block is addressed by a chained sha1 over the token prefix it
+completes, salted with the block size. ``admit`` maps cached blocks into
+the new request's table (refcount + 1) and only the uncached tail is
+prefilled. Writes always land in blocks of the request's own: decode
+appends past the shared prefix and the partial last prompt block is never
+shared, so a cached block never changes while it is cached. A released
+sharer drops the refcount; at 0 the block waits on an LRU list, still
+counted as free capacity, until an allocation finds the free list empty
+and evicts it (its cache entry dropped).
+
+A speculative drafter (``draft_spec``) keeps page buffers of its own
+geometry indexed by the same block ids, so admission, sharing,
+preemption, quarantine and release move one set of ids for both models.
+
+Every mutation is exception-safe: ``_bind_block`` checks (and hosts the
+``pool.bind_oom`` point) before it changes anything, ``_take_block``
+hosts ``pool.evict_fail`` before an eviction touches the cache index, and
+``admit`` rolls a partly bound slot back to the state before it, shared
+refcounts included, before it re-raises.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Optional
+import hashlib
+from collections import OrderedDict
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+
+from ..core import faults
 
 __all__ = ["BlockPool", "BlockPoolExhausted"]
 
 
 class BlockPoolExhausted(RuntimeError):
-    """Raised in optimistic mode when no block is free: the engine's
-    preemption trigger (in reservation mode exhaustion is an accounting
-    bug and raises a plain ``RuntimeError``)."""
+    """Raised in optimistic mode when no block is free or evictable: the
+    engine's preemption trigger (in reservation mode exhaustion is an
+    accounting bug and raises a plain ``RuntimeError``)."""
 
 
 class BlockPool:
     """Preallocated paged-KV storage + host-side block/slot allocator."""
 
     def __init__(self, spec, max_seq_len: int, num_blocks: int,
-                 max_slots: int, optimistic: bool = False, device="cpu"):
+                 max_slots: int, optimistic: bool = False,
+                 prefix_cache: bool = False, draft_spec=None, device="cpu"):
         if num_blocks < 2:
             raise ValueError("BlockPool needs >= 2 blocks (block 0 is the "
                              "reserved null block)")
+        if prefix_cache and not optimistic:
+            raise ValueError(
+                "BlockPool(prefix_cache=True) requires optimistic=True — "
+                "worst-case reservation accounting cannot describe shared "
+                "blocks")
         self.spec = spec
         self.device = torch.device(device)
         self.block_size = spec.page_size
@@ -52,19 +83,50 @@ class BlockPool:
         self.num_blocks = int(num_blocks)
         self.max_slots = int(max_slots)
         self.optimistic = bool(optimistic)
+        self.prefix_cache = bool(prefix_cache)
         self.k_pages, self.v_pages = spec.alloc_pool(num_blocks, self.device)
         self.k_scales = self.v_scales = None
         if spec.quantized:
             self.k_scales, self.v_scales = spec.alloc_scales(num_blocks,
                                                              self.device)
+        self.draft_spec = draft_spec
+        self.draft_k_pages = self.draft_v_pages = None
+        self.draft_k_scales = self.draft_v_scales = None
+        if draft_spec is not None:
+            if draft_spec.page_size != spec.page_size \
+                    or draft_spec.quantized != spec.quantized:
+                raise ValueError(
+                    f"BlockPool: the draft cache (page {draft_spec.page_size}"
+                    f", cache_dtype {draft_spec.cache_dtype!r}) must share "
+                    f"the pool's block size {spec.page_size} and "
+                    f"quantization ({spec.cache_dtype!r}): one block id "
+                    f"covers the same tokens in both")
+            self.draft_k_pages, self.draft_v_pages = draft_spec.alloc_pool(
+                num_blocks, self.device)
+            if spec.quantized:
+                self.draft_k_scales, self.draft_v_scales = \
+                    draft_spec.alloc_scales(num_blocks, self.device)
         self.table = np.zeros((max_slots, self.pages_per_seq), np.int32)
         self.lens = np.zeros((max_slots,), np.int32)
         self._free_blocks: List[int] = list(range(num_blocks - 1, 0, -1))
         self._free_slots: List[int] = list(range(max_slots - 1, -1, -1))
         self._slot_blocks: List[List[int]] = [[] for _ in range(max_slots)]
         self._slot_reserved: List[int] = [0] * max_slots
+        self._slot_cached_tokens: List[int] = [0] * max_slots
         self._reserved_total = 0
         self.peak_blocks_in_use = 0
+        self.prefix_queries = 0
+        self.prefix_hit_blocks = 0
+        self.prefix_miss_blocks = 0
+        self.prefix_saved_tokens = 0
+        self.cache_evictions = 0
+        # prefix cache index: key -> block of every registered full prompt
+        # block; refcounts cover registered blocks only (the owner counts
+        # while bound); refcount-0 blocks sit in _evictable, oldest first
+        self._cached: Dict[str, int] = {}
+        self._block_key: Dict[int, str] = {}
+        self._refcount: Dict[int, int] = {}
+        self._evictable: "OrderedDict[int, None]" = OrderedDict()
 
     # -- capacity queries ----------------------------------------------------
     @property
@@ -74,7 +136,9 @@ class BlockPool:
 
     @property
     def free_blocks(self) -> int:
-        return len(self._free_blocks)
+        """Blocks an allocation could take now: the free list plus the
+        refcount-0 cached blocks."""
+        return len(self._free_blocks) + len(self._evictable)
 
     @property
     def available_blocks(self) -> int:
@@ -85,22 +149,140 @@ class BlockPool:
     def blocks_in_use(self) -> int:
         return self.usable_blocks - self.free_blocks
 
+    def _note_peak(self) -> None:
+        self.peak_blocks_in_use = max(self.peak_blocks_in_use,
+                                      self.blocks_in_use)
+
+    # -- prefix cache index ---------------------------------------------------
+    def _chain_keys(self, tokens: np.ndarray, n_blocks: int) -> List[str]:
+        """Keys of the first ``n_blocks`` full blocks of ``tokens``: key i
+        hashes the whole prefix through block i, salted with the block
+        size, so a block is shared only when everything before it matches
+        too."""
+        keys = []
+        bs = self.block_size
+        h = hashlib.sha1(f"bs={bs}".encode())
+        for i in range(n_blocks):
+            h = h.copy()
+            h.update(np.ascontiguousarray(tokens[i * bs:(i + 1) * bs],
+                                          dtype=np.int32).tobytes())
+            keys.append(h.hexdigest())
+        return keys
+
+    def _match_prefix(self, tokens: np.ndarray) -> Tuple[List[int], int]:
+        """The longest cached chain of full blocks of ``tokens``:
+        ``(blocks, cacheable)``, capped at ``(len - 1) // block_size``
+        blocks so that at least one token is prefilled (its logits give
+        the first token)."""
+        if not self.prefix_cache:
+            return [], 0
+        n_max = (len(tokens) - 1) // self.block_size
+        hits: List[int] = []
+        for key in self._chain_keys(tokens, n_max):
+            phys = self._cached.get(key)
+            if phys is None:
+                break
+            hits.append(phys)
+        return hits, n_max
+
+    def _take_block(self) -> int:
+        """One block: the free list first, else evict the LRU refcount-0
+        cached block, else :class:`BlockPoolExhausted`."""
+        if self._free_blocks:
+            return self._free_blocks.pop()
+        if self._evictable:
+            # before any mutation: a raise leaves the index consistent
+            faults.fire("pool.evict_fail")
+            phys, _ = self._evictable.popitem(last=False)
+            del self._cached[self._block_key.pop(phys)]
+            del self._refcount[phys]
+            self.cache_evictions += 1
+            return phys
+        raise BlockPoolExhausted(
+            f"block pool exhausted: 0 free of {self.usable_blocks} usable "
+            f"blocks ({len(self._cached)} cached, all referenced)")
+
+    def _map_shared(self, slot: int, logical: int, phys: int) -> None:
+        """Map a cached block into a slot's table, read-only: refcount + 1,
+        not evictable while referenced."""
+        self._refcount[phys] += 1
+        self._evictable.pop(phys, None)
+        self._slot_blocks[slot].append(phys)
+        self.table[slot, logical] = phys
+        self._note_peak()
+
+    def chain_hits(self, keys) -> int:
+        """How many leading entries of a ``_chain_keys``-style key list are
+        cached now. Read-only: no counter moves, the LRU order stays."""
+        if not self.prefix_cache:
+            return 0
+        n = 0
+        for key in keys:
+            if key not in self._cached:
+                break
+            n += 1
+        return n
+
+    def cached_prefix_len(self, slot: int) -> int:
+        """Tokens ``slot`` got from the prefix cache at admission (its
+        prefill starts after them)."""
+        return self._slot_cached_tokens[slot]
+
+    def register_prefix(self, slot: int, tokens: np.ndarray) -> int:
+        """Publish the slot's prefilled full blocks of ``tokens`` to the
+        prefix cache (once, when its prefill completes). The partial last
+        block and every decode block stay private. A key already cached
+        keeps its first block; this slot's copy stays private. Returns
+        the number of blocks registered."""
+        if not self.prefix_cache:
+            return 0
+        new = 0
+        keys = self._chain_keys(tokens, len(tokens) // self.block_size)
+        for logical, key in enumerate(keys):
+            phys = int(self.table[slot, logical])
+            if phys == 0 or phys in self._block_key or key in self._cached:
+                continue
+            self._cached[key] = phys
+            self._block_key[phys] = key
+            self._refcount[phys] = 1          # the owner, while bound
+            new += 1
+        return new
+
     # -- admission / growth / release ---------------------------------------
-    def blocked_reason(self, prompt_len: int,
-                       max_new_tokens: int) -> Optional[str]:
-        """Why :meth:`admit` would refuse now (``"no_free_slot"`` or
-        ``"pool_full"``), or None."""
+    def _admission_block(self, prompt_len: int, max_new_tokens: int,
+                         hits: List[int]) -> Optional[str]:
+        """The one admission predicate, over an already walked match:
+        :meth:`blocked_reason` and :meth:`admit` both use it."""
         if not self._free_slots:
             return "no_free_slot"
         if self.optimistic:
-            need = self.spec.blocks_for(prompt_len)
-            return "pool_full" if self.free_blocks < need else None
+            need = self.spec.blocks_for(prompt_len) - len(hits)
+            # an evictable hit is mapped, not taken: it must not also count
+            # as capacity for the tail's binds
+            takable = self.free_blocks \
+                - sum(1 for p in hits if p in self._evictable)
+            return "pool_full" if takable < need else None
         total = self.spec.blocks_for(prompt_len + max_new_tokens)
         return "pool_full" if self.available_blocks < total else None
 
-    def admit(self, prompt_len: int, max_new_tokens: int) -> Optional[int]:
+    def _probe_hits(self, tokens: Optional[np.ndarray]
+                    ) -> Tuple[List[int], int]:
+        if tokens is not None and self.prefix_cache:
+            return self._match_prefix(tokens)
+        return [], 0
+
+    def blocked_reason(self, prompt_len: int, max_new_tokens: int,
+                       tokens: Optional[np.ndarray] = None) -> Optional[str]:
+        """Why :meth:`admit` would refuse now (``"no_free_slot"`` or
+        ``"pool_full"``), or None."""
+        hits, _ = self._probe_hits(tokens)
+        return self._admission_block(prompt_len, max_new_tokens, hits)
+
+    def admit(self, prompt_len: int, max_new_tokens: int,
+              tokens: Optional[np.ndarray] = None) -> Optional[int]:
         """Bind the blocks a request needs now (and, reservation mode,
-        promise the rest). Returns its slot, or None as backpressure."""
+        promise the rest), mapping cached prefix blocks of ``tokens``.
+        Returns its slot, or None as backpressure with nothing changed."""
         total = self.spec.blocks_for(prompt_len + max_new_tokens)
         if total > self.pages_per_seq:
             raise ValueError(
@@ -108,91 +290,137 @@ class BlockPool:
                 f"most pages_per_seq={self.pages_per_seq} "
                 f"({self.max_seq_len} tokens at block_size "
                 f"{self.block_size})")
-        if self.blocked_reason(prompt_len, max_new_tokens) is not None:
+        hits, n_max = self._probe_hits(tokens)
+        if self._admission_block(prompt_len, max_new_tokens,
+                                 hits) is not None:
             return None
+        if tokens is not None and self.prefix_cache:
+            # admitted requests only: a blocked head retrying every
+            # iteration does not inflate the counters
+            self.prefix_queries += 1
+            self.prefix_hit_blocks += len(hits)
+            self.prefix_miss_blocks += n_max - len(hits)
         slot = self._free_slots.pop()
-        self._slot_reserved[slot] = total
+        # the slot's remaining block budget; reservation mode also promises
+        # it pool-wide
+        self._slot_reserved[slot] = total - len(hits)
         if not self.optimistic:
             self._reserved_total += total
-        for logical in range(self.spec.blocks_for(prompt_len)):
-            self._bind_block(slot, logical)
+        try:
+            for logical, phys in enumerate(hits):
+                self._map_shared(slot, logical, phys)
+            for logical in range(len(hits), self.spec.blocks_for(prompt_len)):
+                self._bind_block(slot, logical)
+        except BaseException:
+            # roll the slot all the way back: bound blocks freed, shared
+            # refcounts dropped, the reservation and the slot returned
+            self.release(slot)
+            raise
+        self._slot_cached_tokens[slot] = len(hits) * self.block_size
+        self.prefix_saved_tokens += self._slot_cached_tokens[slot]
         self.lens[slot] = 0   # the engine sets the real length as it prefills
         return slot
 
     def _bind_block(self, slot: int, logical: int) -> int:
+        # check and inject before any mutation
         if self._slot_reserved[slot] <= 0:
             raise RuntimeError(
                 f"block pool: slot {slot} exceeded its block budget")
-        if not self._free_blocks:
-            if self.optimistic:
-                raise BlockPoolExhausted(
-                    f"block pool exhausted: 0 free of {self.usable_blocks} "
-                    f"usable blocks")
+        faults.fire("pool.bind_oom")
+        if not self.optimistic and not self._free_blocks:
             raise RuntimeError(
                 f"block pool: free list exhausted binding logical block "
                 f"{logical} of slot {slot} — reservation accounting is "
                 f"violated ({self._reserved_total} reserved)")
-        phys = self._free_blocks.pop()
+        phys = self._take_block()
         self._slot_reserved[slot] -= 1
         if not self.optimistic:
             self._reserved_total -= 1
         self._slot_blocks[slot].append(phys)
         self.table[slot, logical] = phys
-        self.peak_blocks_in_use = max(self.peak_blocks_in_use,
-                                      self.blocks_in_use)
+        self._note_peak()
         return phys
 
-    def ensure_decode_block(self, slot: int) -> None:
-        """Bind the block the next token (position ``lens[slot]``) lands in
-        when decode crosses a block boundary. Optimistic mode raises
-        :class:`BlockPoolExhausted` when none is free."""
+    def ensure_decode_span(self, slot: int, span: int) -> None:
+        """Bind every block of positions ``[lens[slot], lens[slot] +
+        span)``: the next token's (span 1), or a speculative verify
+        window's. The engine caps the span at the request's token budget;
+        blocks a failed attempt already bound are skipped on the next.
+        Optimistic mode raises :class:`BlockPoolExhausted` when no block
+        is free."""
         pos = int(self.lens[slot])
-        logical = pos // self.block_size
-        if logical >= self.pages_per_seq:
+        first = pos // self.block_size
+        if pos % self.block_size == 0 and first >= self.pages_per_seq:
             raise RuntimeError(
                 f"block pool: slot {slot} is full ({pos} tokens) — the "
                 f"engine decoded past max_seq_len")
-        if self.table[slot, logical] == 0:
-            self._bind_block(slot, logical)
+        last = min(-(-(pos + max(int(span), 1)) // self.block_size),
+                   self.pages_per_seq) - 1
+        for logical in range(first, last + 1):
+            if self.table[slot, logical] == 0:
+                self._bind_block(slot, logical)
 
     def release(self, slot: int) -> int:
-        """Reclaim a finished or preempted request's blocks and slot.
-        Returns the number of blocks it held."""
+        """Reclaim a finished, preempted or quarantined request's slot: its
+        own blocks return to the free list, shared blocks lose a reference
+        (at 0 they turn evictable and stay cached). Returns the number of
+        blocks the slot referenced."""
         blocks = self._slot_blocks[slot]
-        n = len(blocks)
-        self._free_blocks.extend(blocks)
+        for phys in blocks:
+            if phys in self._refcount:
+                self._refcount[phys] -= 1
+                if self._refcount[phys] == 0:
+                    self._evictable[phys] = None       # LRU append
+            else:
+                self._free_blocks.append(phys)
         self._slot_blocks[slot] = []
         if not self.optimistic:
             self._reserved_total -= self._slot_reserved[slot]
         self._slot_reserved[slot] = 0
+        self._slot_cached_tokens[slot] = 0
         self.table[slot, :] = 0
         self.lens[slot] = 0
         self._free_slots.append(slot)
-        return n
+        return len(blocks)
 
     # -- device views --------------------------------------------------------
     def device_tables(self, active_slots=None):
-        """(page_table, seq_lens) as int32 tensors on the pool's device.
-        ``active_slots`` masks every other row to the null block with
-        length 0, so a slot mid-prefill cannot be written by decode."""
+        """(page_table, seq_lens) as int32 tensors on the pool's device,
+        and the same lens on the host (the speculative draft loop's
+        position math reads them). ``active_slots`` masks every other row
+        to the null block with length 0, so a slot mid-prefill cannot be
+        written by decode."""
         table, lens = self.table, self.lens
         if active_slots is not None:
             keep = np.zeros((self.max_slots,), bool)
             keep[list(active_slots)] = True
             table = np.where(keep[:, None], table, 0).astype(np.int32)
             lens = np.where(keep, lens, 0).astype(np.int32)
+        lens = np.array(lens, np.int32)
         return (torch.from_numpy(np.ascontiguousarray(table)).to(self.device),
-                torch.from_numpy(np.ascontiguousarray(lens)).to(self.device))
+                torch.from_numpy(lens.copy()).to(self.device), lens)
 
     def stats(self) -> Dict[str, float]:
         in_use = self.blocks_in_use
+        looked = self.prefix_hit_blocks + self.prefix_miss_blocks
         return {
             "num_blocks": self.usable_blocks,
             "bytes_per_block": self.spec.bytes_per_block,
+            "draft_bytes_per_block": (self.draft_spec.bytes_per_block
+                                      if self.draft_spec is not None else 0),
             "free_blocks": self.free_blocks,
             "reserved_blocks": self._reserved_total,
             "blocks_in_use": in_use,
             "peak_blocks_in_use": self.peak_blocks_in_use,
             "live_tokens": int(self.lens.sum()),
             "utilization": in_use / max(self.usable_blocks, 1),
+            "cached_blocks": len(self._cached),
+            "evictable_blocks": len(self._evictable),
+            "prefix_queries": self.prefix_queries,
+            "prefix_hit_blocks": self.prefix_hit_blocks,
+            "prefix_miss_blocks": self.prefix_miss_blocks,
+            "prefix_hit_rate": (self.prefix_hit_blocks / looked
+                                if looked else 0.0),
+            "prefix_saved_tokens": self.prefix_saved_tokens,
+            "cache_evictions": self.cache_evictions,
         }

@@ -1,6 +1,7 @@
 """Token parity of the whole slice: the port's ``ServingEngine`` on the CPU
 against the JAX ``ServingEngine`` (``interpret=True``, prefix cache off) on
-the same tiny f32 Llama. Greedy tokens must match exactly, including a
+the same tiny f32 Llama; the port's engine keeps its default prefix cache,
+which here only a preempted request's recompute hits. Greedy tokens must match exactly, including a
 prompt longer than ``prefill_token_budget`` (chunked prefill) and a pool
 small enough to force a preemption, and in the quantized modes (weight-only
 int8/int4, the int8 KV pool, and both), on a model whose products all have
@@ -133,13 +134,6 @@ def test_stream_and_dense_forward_agree(models):
     assert s["latency"]["finished"] == 1 and s["decode_steps"] == 7
 
 
-@pytest.mark.parametrize("field,value", [
-    ("speculative", (None, 2)), ("prefix_cache", True)])
-def test_unported_features_raise(field, value):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ServingConfig(**{field: value}).resolve()
-
-
 @pytest.mark.parametrize("quantize,kv_dtype,want", [
     (True, "int8", "int8"), ("int4", "", "int4"), (False, None, False),
     ("int8", "", "int8")])
@@ -160,6 +154,11 @@ def test_config_defaults_match_jax():
     c = ServingConfig().resolve()
     j = JaxServingConfig(interpret=True).resolve()
     for f in ("block_size", "max_batch", "prefill_token_budget",
-              "prefill_buckets", "preemption", "max_seq_len"):
+              "prefill_buckets", "preemption", "prefix_cache",
+              "max_seq_len"):
         assert getattr(c, f) == getattr(j, f), f
-    assert c.prefix_cache is False
+    assert c.prefix_cache is True
+    # without preemption both resolve the cache off
+    assert ServingConfig(preemption=False).resolve().prefix_cache is \
+        JaxServingConfig(preemption=False, interpret=True).resolve() \
+        .prefix_cache is False
