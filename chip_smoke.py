@@ -124,6 +124,24 @@ Phases, each of which fails the run (non-zero exit, no result line):
    a clean drain and run B's acceptance >= 0.5; prints the acceptance,
    the tokens committed per verify step and the decode ms per token
    against plain decoding;
+5f. a fleet: ``Fleet(model, ServingConfig(max_seq_len=2048), replicas=2,
+   router="affinity")`` of Llama-3-8B on one card, the replicas reading
+   one stack of fused weights (card memory after each; the second may add
+   less than 4 GiB); 16 prompts in two groups of 8, each group on its own
+   seeded 1024-token prefix with tails of 33-480 tokens, 32 new tokens
+   each, A0 and B0 alone, then the other 14: each group on the replica
+   holding its prefix (>= 14 affinity hits); after 3 fleet steps, with
+   in-flight and queued work on both, ``fleet.replica_die`` kills group
+   B's replica: one failover, rerouted + transferred == its live requests,
+   a ``replica_die`` postmortem with ring records, all 16 finished, the
+   survivor drained clean; launches over both replicas (flash = L x
+   prefill chunks, recomputes included; paged = L x decode steps); the
+   registry's TTFT / TPOT / step p50 and p99 per replica, ``/metrics`` and
+   ``/healthz`` of ``metrics.serve()`` over loopback, the requests' Chrome
+   trace under ``build/``; the card's memory back within 64 MiB once the
+   fleet is dropped; the streams against one engine's (as 5d); then two
+   engines on one stack alternate rounds of decode steps with telemetry
+   on and off: host ms a step both ways, the 8 streams identical;
 6. training: the Llama-2-7B widths (``bench.py``'s 7B proxy: vocab 32000,
    hidden 4096, intermediate 11008, 32 heads, bf16, fused loss) at 4
    layers, batch 2 x 2048 seeded tokens, 10 ``TrainStep`` steps with AdamW
@@ -211,6 +229,9 @@ PREFIX_LEN = 1024                # phase 5d: the shared prefix (64 blocks)
 PREFIX_TAILS = (33, 480)         # phase 5d: the 8 tails' length range
 SPEC_K = 4                       # phase 5e: drafted tokens an iteration
 DRAFT_LAYERS = 2                 # phase 5e run A: the independent drafter
+FLEET_KILL_STEP = 3              # phase 5f: fleet steps before the failover
+FLEET_MEM_SLACK = 64 * 2**20     # phase 5f: memory back after the fleet
+REPLICA_MEM_MAX = 4 * 2**30      # phase 5f: what a second replica may add
 TRAIN_BATCH, TRAIN_SEQ = 2, 2048
 TRAIN_STEPS, EAGER_STEPS = 10, 5
 LONG_SEQ, LONG_STEPS = 16384, 3  # phase 6e: bench.py's long-context cell
@@ -2793,6 +2814,281 @@ def phase_speculative(torch, seed, noise_bf16, kv_noise):
     free_cuda(torch)
 
 
+def fleet_prompts(seed, vocab):
+    """Phase 5f's 16 prompts in submission order: two groups of 8, each on
+    its own seeded PREFIX_LEN-token prefix with tails of PREFIX_TAILS
+    tokens; the first of each group (A0, B0), then the rest interleaved
+    (A1, B1, ...) so that no replica runs ahead of the other by more than
+    the affinity router's spill. Returns ``[(rid, prompt), ...]``."""
+    import numpy as np
+
+    rng = np.random.RandomState(seed + 5)
+    prefixes = [rng.randint(0, vocab, (PREFIX_LEN,)).astype(np.int32)
+                for _ in range(2)]
+    tails = rng.randint(PREFIX_TAILS[0], PREFIX_TAILS[1] + 1, (2, 8))
+    return [(f"{g}{i}", np.concatenate([
+        prefixes[j], rng.randint(0, vocab, (tails[j, i],)).astype(np.int32)]))
+        for i in range(8) for j, g in enumerate("AB")]
+
+
+def run_fleet(torch, model, prompts, root):
+    """Phase 5f's fleet run: two replicas behind the affinity router, the
+    first prompt of each group alone, then the other 14; after
+    FLEET_KILL_STEP fleet steps the replica holding group B dies through
+    ``fleet.replica_die``. Checks the routing, the failover, the launch
+    counts, the drain, the scrape surface; writes the Chrome trace.
+    Returns the requests by rid. Keeps no reference to the fleet."""
+    import urllib.request
+
+    import paddle_tpu_torch.serving.fleet as fleet_mod
+    from paddle_tpu_torch.core import faults, metrics
+    from paddle_tpu_torch.serving import Fleet, ServingConfig
+    from paddle_tpu_torch.tools.trace_requests import export_chrome_trace
+
+    L = model.config.num_hidden_layers
+    built, real = [], fleet_mod.ServingEngine
+
+    def recorded(*a, **kw):
+        eng = real(*a, **kw)
+        torch.cuda.synchronize()
+        built.append(torch.cuda.memory_allocated())
+        return eng
+
+    before = torch.cuda.memory_allocated()
+    fleet_mod.ServingEngine = recorded
+    try:
+        fleet = Fleet(model, ServingConfig(max_seq_len=2048), replicas=2,
+                      router="affinity")
+    finally:
+        fleet_mod.ServingEngine = real
+    reps = fleet.replicas
+    print(f"  card memory: {before / 2**30:.2f} GiB with the model, "
+          f"{built[0] / 2**30:.2f} after replica 0 (fused weights, f32 head,"
+          f" pool {reps[0].engine.pool.k_pages.shape} x2), "
+          f"{built[1] / 2**30:.2f} after replica 1")
+    check(built[1] - built[0] < REPLICA_MEM_MAX,
+          f"the second replica adds {(built[1] - built[0]) / 2**30:.2f} GiB "
+          f"< {REPLICA_MEM_MAX / 2**30:.0f} GiB (one stack of weights)")
+    check(reps[1].engine.weights.qkv_w.data_ptr()
+          == reps[0].engine.weights.qkv_w.data_ptr(),
+          "the replicas read one stack of fused weights")
+
+    reset_counts()
+    t0 = time.perf_counter()
+    reqs = {rid: fleet.submit(p, NEW_TOKENS, rid=rid)
+            for rid, p in prompts[:2]}
+    fleet.run_until_complete()
+    home = {g: fleet.placement(f"{g}0") for g in "AB"}
+    check(home["A"] != home["B"], f"A0 and B0 on replicas {home['A']} and "
+          f"{home['B']}")
+    reqs.update({rid: fleet.submit(p, NEW_TOKENS, rid=rid)
+                 for rid, p in prompts[2:]})
+    placed = {rid: fleet.placement(rid) for rid in reqs}
+    hits = metrics.snapshot()["counters"]["fleet.affinity_hits"][
+        metrics.label_key(**fleet.metrics_labels)]
+    check(all(placed[rid] == home[rid[0]] for rid in reqs) and hits >= 14,
+          f"each group on the replica holding its prefix ({placed}); "
+          f"fleet.affinity_hits {hits:g} >= 14")
+    for _ in range(FLEET_KILL_STEP):
+        fleet.step()
+    health = [rep.engine.health() for rep in reps]
+    check(all(h["active"] + h["prefilling"] and h["queued"] for h in health),
+          f"before the kill both replicas hold in-flight and queued work "
+          f"({[(h['active'], h['prefilling'], h['queued']) for h in health]}"
+          f" active, prefilling, queued)")
+    dead = reps[home["B"]]
+    h = health[home["B"]]
+    live = h["active"] + h["prefilling"] + h["queued"]
+    with faults.inject("fleet.replica_die", at=1, replica=home["B"]):
+        fleet.step()
+    fleet.run_until_complete()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    n = read_counts()
+    check(dead.dead and fleet.failovers == 1
+          and fleet.rerouted + fleet.queue_transfers == live,
+          f"failovers {fleet.failovers} == 1; rerouted {fleet.rerouted} + "
+          f"queue transfers {fleet.queue_transfers} == the dead replica's "
+          f"live requests {live}")
+    pms = [pm for pm in dead.engine.flight_recorder.postmortems
+           if pm["reason"] == "replica_die"]
+    check(len(pms) == 1 and pms[0]["records"],
+          f"the dead replica's postmortem: reason replica_die, "
+          f"{len(pms[0]['records']) if pms else 0} ring records, context "
+          f"{pms[0]['context'] if pms else None}")
+    check(all(r.status == "finished" and len(r.tokens) == NEW_TOKENS
+              for r in reqs.values()),
+          f"all 16 requests finished with {NEW_TOKENS} tokens")
+    stats = fleet.stats()
+    chunks = sum(s["prefill_chunks"] for s in stats.values())
+    steps = sum(s["decode_steps"] for s in stats.values())
+    recomputes = sum(e["event"] == "recompute" for r in reqs.values()
+                     for e in r.trace_events)
+    check(n["flash_attention"] == L * chunks > 0
+          and n["paged_attention"] == L * steps > 0,
+          f"launches over both replicas: flash {n['flash_attention']} == L x "
+          f"prefill chunks ({L} x {chunks}, {recomputes} recomputed "
+          f"requests among them), paged {n['paged_attention']} == L x "
+          f"decode steps ({L} x {steps})")
+    print(f"  served 16 requests in {wall:.3f} s ({fleet.health()['steps']} "
+          f"fleet steps); on {smi()}")
+
+    snap = metrics.snapshot()
+    for rep in reps:
+        lk = metrics.label_key(**rep.engine.metrics_labels)
+        q = {name: snap["histograms"][f"serving.{name}_ms"][lk]
+             for name in ("ttft", "tpot", "step")}
+        print(f"  replica {rep.index} ({rep.state}): " + "; ".join(
+            f"{name} p50 {q[name]['p50']:.1f} / p99 {q[name]['p99']:.1f} ms "
+            f"({q[name]['count']})" for name in q))
+    with metrics.serve() as srv:
+        text = urllib.request.urlopen(srv.url + "/metrics",
+                                      timeout=30).read().decode()
+        doc = json.loads(urllib.request.urlopen(srv.url + "/healthz",
+                                                timeout=30).read().decode())
+    families = {line.split()[2] for line in text.splitlines()
+                if line.startswith("# TYPE ")}
+    want = ("serving_ttft_ms", "serving_step_ms", "serving_finished",
+            "serving_pool_free_blocks", "serving_pool_prefix_hit_blocks",
+            "fleet_failovers", "fleet_affinity_hits", "fleet_replicas")
+    mine = [f for f in doc["fleet"]["fleets"]
+            if f["fleet"] == fleet.metrics_labels["fleet"]]
+    states = sorted(r["state"] for r in mine[0]["replicas"]) if mine else []
+    check(all(w in families for w in want) and states == ["dead", "live"],
+          f"/metrics ({len(text)} bytes, {len(families)} families) has "
+          f"{want}; /healthz ({doc['status']}) lists the fleet's replicas "
+          f"{states}")
+    path = os.path.join(root, "build", "phase5f_requests.json")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    survivor = reps[home["A"]].engine
+    trace = export_chrome_trace(
+        list(reqs.values()), path,
+        step_records=survivor.flight_recorder.records())
+    print(f"  Chrome trace of the 16 requests and the survivor's steps: "
+          f"{path} ({len(trace['traceEvents'])} events)")
+    drained = fleet.drain()
+    check(list(drained) == [home["A"]] and drained[home["A"]]["pool"][
+        "free_blocks"] == drained[home["A"]]["pool"]["num_blocks"],
+          f"the survivor drains clean ({drained[home['A']]['pool']['free_blocks']}"
+          f" free of {drained[home['A']]['pool']['num_blocks']}); the dead "
+          f"pool is left with {dead.engine.pool.free_blocks} free")
+    return reqs
+
+
+def telemetry_rounds(torch, model, seed, rounds=10, steps=8):
+    """Decode steps of two engines over one stack (8 rows each), rounds
+    alternated, each engine with telemetry on in every other round, after
+    one round each untimed: host ms a decode step with telemetry on and
+    off, paired. Returns the two engines' streams and the times."""
+    import numpy as np
+
+    from paddle_tpu_torch.core import metrics
+    from paddle_tpu_torch.serving import ServingConfig, ServingEngine
+
+    rng = np.random.RandomState(seed + 2)
+    prompts = [rng.randint(0, model.config.vocab_size, (64,))
+               for _ in range(8)]
+    new = (rounds + 1) * steps + 4
+    first = ServingEngine(model, ServingConfig(max_seq_len=2048))
+    engines = [first, ServingEngine(model, ServingConfig(max_seq_len=2048),
+                                    share_weights_with=first)]
+    runs = []
+    for eng in engines:
+        reqs = [eng.submit(p, new) for p in prompts]
+        while eng.scheduler.has_queued() or eng.health()["prefilling"]:
+            eng.step()
+        runs.append(reqs)
+    times = {True: [], False: []}
+    try:
+        for r in range(-1, rounds):
+            for i, eng in enumerate(engines):
+                on = (r + i) % 2 == 0
+                metrics.set_enabled(on)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(steps):
+                    eng.step()
+                torch.cuda.synchronize()
+                if r >= 0:
+                    times[on].append(
+                        (time.perf_counter() - t0) * 1e3 / steps)
+    finally:
+        metrics.set_enabled(True)
+    # the telemetry a decode step of 8 rows adds on the host, alone: the
+    # step's record and histogram and 8 requests' decode events
+    eng, reqs, n = engines[0], runs[0], 2000
+    t0 = time.perf_counter()
+    for _ in range(n):
+        eng._record_step(time.perf_counter(), eng.quarantined_requests,
+                         eng._contained())
+        for r in reqs:
+            r._trace("decode", iteration=0)
+    own_us = (time.perf_counter() - t0) * 1e6 / n
+    for eng in engines:
+        eng.run_until_complete()
+        drained = eng.drain()["pool"]
+        check(drained["free_blocks"] == drained["num_blocks"],
+              f"telemetry pair drain: pool free {drained['free_blocks']} "
+              f"== total {drained['num_blocks']}")
+    return [[r.tokens for r in reqs] for reqs in runs], times, own_us
+
+
+def phase_fleet(torch, seed, noise_bf16):
+    """Phase 5f: a fleet of two Llama-3-8B replicas on one card, affinity
+    routing, a checked failover; the streams against one engine's; the
+    host ms of a decode step with telemetry on and off; the memory back
+    once the fleet is dropped."""
+    print("== phase 5f: a fleet of two Llama-3-8B replicas, affinity "
+          "routing, a checked failover")
+    from paddle_tpu_torch.models import LLAMA_PRESETS, LlamaForCausalLM
+    from paddle_tpu_torch.serving import ServingConfig, ServingEngine
+
+    cfg = LLAMA_PRESETS["llama3-8b"]
+    root = os.path.dirname(os.path.abspath(__file__))
+    model = LlamaForCausalLM(cfg, device="cuda", seed=seed)
+    prompts = fleet_prompts(seed, cfg.vocab_size)
+    with torch.inference_mode():           # cuBLAS's workspace, once
+        model(torch.zeros((1, 16), dtype=torch.long, device="cuda"))
+    free_cuda(torch)
+    base = torch.cuda.memory_allocated()
+    reqs = run_fleet(torch, model, prompts, root)
+    free_cuda(torch)
+    back = torch.cuda.memory_allocated()
+    check(back - base <= FLEET_MEM_SLACK,
+          f"the fleet dropped: card memory {back / 2**30:.3f} GiB, "
+          f"{(back - base) / 2**20:+.1f} MiB from before it (<= "
+          f"{FLEET_MEM_SLACK / 2**20:.0f} MiB)")
+
+    engine = ServingEngine(model, ServingConfig(max_seq_len=2048))
+    single = {rid: engine.submit(p, NEW_TOKENS, rid=f"single-{rid}")
+              for rid, p in prompts[:2]}
+    engine.run_until_complete()
+    single.update({rid: engine.submit(p, NEW_TOKENS, rid=f"single-{rid}")
+                   for rid, p in prompts[2:]})
+    engine.run_until_complete()
+    engine.drain()
+    del engine
+    stream_agreement(torch, model, [
+        (p, reqs[rid].tokens, single[rid].tokens) for rid, p in prompts],
+        noise_bf16, "5f fleet with a failover vs one engine")
+
+    streams, times, own_us = telemetry_rounds(torch, model, seed)
+    med = {on: statistics.median(ts) for on, ts in times.items()}
+    diff = statistics.median(a - b for a, b in zip(times[True],
+                                                   times[False]))
+    print(f"  host ms a decode step, telemetry on: {fmt_ms(times[True])} "
+          f"(median {med[True]:.2f}); off: {fmt_ms(times[False])} (median "
+          f"{med[False]:.2f}); median of the rounds' on - off {diff:+.3f} "
+          f"ms; the step's record, histogram and 8 decode events alone "
+          f"{own_us:.1f} us; on {smi()}")
+    check(streams[0] == streams[1],
+          "8 streams identical with telemetry on and off")
+    del model
+    free_cuda(torch)
+    end = torch.cuda.memory_allocated()
+    print(f"  card memory after the phase: {end / 2**30:.3f} GiB")
+
+
 def train_config(layers, **over):
     """``bench.py``'s Llama-2-7B proxy widths at ``layers`` layers
     (``over``: other fields, such as the recompute policy)."""
@@ -3443,37 +3739,62 @@ def main():
     sys.path.insert(0, root)
     import torch
 
+    t_start = time.perf_counter()
+
+    def lap():
+        print(f"  [{time.perf_counter() - t_start:.0f} s since the start]")
+
     try:
         phase_environment(torch)
+        lap()
         phase_build()
+        lap()
         from paddle_tpu_torch.core.device import make_generator
 
         gen = make_generator(args.seed, "cuda")
         flush = torch.empty(64 * 2**20, dtype=torch.uint8, device="cuda")
         rows = phase_kernels(torch, gen, flush)
+        lap()
         del flush
         free_cuda(torch)
         launches, noise = phase_slice(torch, args.seed)
+        lap()
         free_cuda(torch)
         quant, kv_noise = phase_quant_serving(torch, args.seed, noise)
+        lap()
         launches.update(quant)
         free_cuda(torch)
         phase_paired_decode(torch, args.seed)
+        lap()
         phase_prefix_cache(torch, args.seed, noise, kv_noise)
+        lap()
         phase_speculative(torch, args.seed, noise, kv_noise)
+        lap()
+        phase_fleet(torch, args.seed, noise)
+        lap()
         launches["flash_attention_bwd"] = \
             phase_train(torch, args.seed)["flash_attention_bwd"]
+        lap()
         phase_train_32(torch, args.seed)
+        lap()
         phase_recompute_full(torch, args.seed)
+        lap()
         phase_packed(torch, args.seed)
+        lap()
         phase_longctx(torch, args.seed)
+        lap()
         launches["fused_adamw"] = phase_eager(torch, args.seed)["fused_adamw"]
+        lap()
         moe = phase_moe_train(torch, args.seed)
+        lap()
         launches.update({k: moe[k] for k in (
             "grouped_gemm", "grouped_gemm_tgmm", "grouped_gemm_swiglu")})
         mamba = phase_ssm_train(torch, args.seed, "mamba")
+        lap()
         rwkv = phase_ssm_train(torch, args.seed, "rwkv")
+        lap()
         mamba2 = phase_ssm_train(torch, args.seed, "mamba2")
+        lap()
         launches.update({k: mamba[k] for k in ("selective_scan",
                                                "selective_scan_bwd")})
         launches.update({k: rwkv[k] for k in ("wkv", "wkv_bwd")})

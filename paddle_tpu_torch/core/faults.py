@@ -1,5 +1,5 @@
 """Deterministic fault injection (the counterpart of
-``paddle_tpu/core/faults.py``, without its metrics-registry mirror).
+``paddle_tpu/core/faults.py``).
 
 A process-wide registry of named **fault points** sits in the serving hot
 paths (engine, block pool, scheduler). Each is armed on a deterministic
@@ -28,7 +28,9 @@ Arming, two equivalent spellings:
 Site protocol: ``fault_point(name)`` returns the firing :class:`Arm` (or
 None) and counts one hit per call while the point is armed;
 ``fire(name)`` raises :class:`FaultInjected` when it fires. Disarmed, a
-probe is a string compare and two emptiness checks.
+probe is a string compare and two emptiness checks. Every fire is also
+counted in the metrics registry's ``faults.injected`` counter, one child
+per point.
 """
 
 from __future__ import annotations
@@ -36,6 +38,8 @@ from __future__ import annotations
 import threading
 from contextlib import contextmanager
 from typing import Any, Dict, Iterator, List, Optional
+
+from . import metrics
 
 __all__ = ["FAULT_INJECT", "FaultInjected", "register_fault_point",
            "fault_points", "fault_point", "fire", "inject", "inject_spec",
@@ -235,6 +239,10 @@ def fault_point(name: str) -> Optional[Arm]:
     if arm is None or not arm._should_fire():
         return None
     _fired[full] = _fired.get(full, 0) + 1
+    # the registry's mirror of the harness's own count
+    metrics.counter("faults.injected",
+                    doc="Fault-point fires (core/faults.py), per point.",
+                    point=full).inc()
     return arm
 
 
@@ -303,18 +311,20 @@ def total_fired() -> int:
 
 
 def reset_stats() -> None:
-    """Zero the lifetime fire counts and parse :data:`FAULT_INJECT` anew
-    at the next probe. Registration and ``inject`` blocks stay."""
+    """Zero the lifetime fire counts (and their registry mirror) and parse
+    :data:`FAULT_INJECT` anew at the next probe. Registration and
+    ``inject`` blocks stay."""
     global _spec_src, _spec_arms
     _fired.clear()
+    for child in metrics.get_registry().children("faults.injected").values():
+        child.reset()
     with _LOCK:
         _spec_src = ""
         _spec_arms = {}
 
 
-# The points the serving slice hosts (the JAX catalogue's
-# ``paddle_tpu/core/faults.py:355-436``; the fleet's and the scheduler's
-# slow step come with the fleet).
+# The catalogue of the JAX package's ``paddle_tpu/core/faults.py:355-470``:
+# the serving engine's, the block pool's, the scheduler's and the fleet's.
 register_fault_point(
     "serving.decode_nan", alias="decode_nan",
     doc="Poison one active slot's decode-health value to NaN after the "
@@ -370,3 +380,24 @@ register_fault_point(
         "Request._emit): the exception is recorded on "
         "request.callback_errors and the iteration goes on for every "
         "slot.")
+register_fault_point(
+    "fleet.replica_die", alias="replica_die",
+    doc="Kill one live replica at the top of Fleet.step() (serving/"
+        "fleet.py): the dead engine dumps a flight-recorder postmortem and "
+        "hands back its requests (evacuate); in-flight requests go to "
+        "siblings through requeue_front in admission order and recompute "
+        "from resume_tokens, the never-admitted queue moves FCFS. The dead "
+        "pool is never released. Param replica= pins the victim (default: "
+        "the busiest live replica); the probe fires only with a sibling to "
+        "fail over to.")
+register_fault_point(
+    "fleet.route_misroute", alias="route_misroute",
+    doc="Perturb one routing decision (serving/fleet.py): the router's "
+        "choice is swapped for the next routable replica, as a stale gauge "
+        "would. Placement is an optimisation only: statuses, tokens and a "
+        "clean drain hold unchanged.")
+register_fault_point(
+    "scheduler.slow_step", alias="slow_step",
+    doc="Sleep at the head of Scheduler.schedule() (param seconds=, "
+        "default 0.02), a stalled iteration, so request deadlines "
+        "observably expire and are attributed.")

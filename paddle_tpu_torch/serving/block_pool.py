@@ -39,18 +39,24 @@ Every mutation is exception-safe: ``_bind_block`` checks (and hosts the
 hosts ``pool.evict_fail`` before an eviction touches the cache index, and
 ``admit`` rolls a partly bound slot back to the state before it, shared
 refcounts included, before it re-raises.
+
+Telemetry: the prefix counters and the occupancy gauges (free, evictable,
+in use, cached blocks, utilization, hit rate, bytes a block) live in the
+metrics registry under ``metrics_labels`` (the engine's label; a pool
+built alone gets ``engine=pool-<n>``). The gauges read the pool through a
+weak reference when a snapshot is taken.
 """
 
 from __future__ import annotations
 
-import hashlib
 from collections import OrderedDict
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
-from ..core import faults
+from ..core import faults, metrics
+from .router import chain_keys
 
 __all__ = ["BlockPool", "BlockPoolExhausted"]
 
@@ -66,7 +72,8 @@ class BlockPool:
 
     def __init__(self, spec, max_seq_len: int, num_blocks: int,
                  max_slots: int, optimistic: bool = False,
-                 prefix_cache: bool = False, draft_spec=None, device="cpu"):
+                 prefix_cache: bool = False, draft_spec=None, device="cpu",
+                 metrics_labels: Optional[Dict[str, str]] = None):
         if num_blocks < 2:
             raise ValueError("BlockPool needs >= 2 blocks (block 0 is the "
                              "reserved null block)")
@@ -127,6 +134,51 @@ class BlockPool:
         self._block_key: Dict[int, str] = {}
         self._refcount: Dict[int, int] = {}
         self._evictable: "OrderedDict[int, None]" = OrderedDict()
+        self.metrics_labels = dict(metrics_labels or {
+            "engine": f"pool-{metrics.next_instance_id('pool')}"})
+        lbl = self.metrics_labels
+        mc = lambda name, doc: metrics.counter(  # noqa: E731
+            name, doc=doc, owner=self, **lbl)
+        self._m_prefix_queries = mc("serving.pool.prefix_queries",
+                                    "Prefix-cache lookups at admission.")
+        self._m_prefix_hit_blocks = mc(
+            "serving.pool.prefix_hit_blocks",
+            "Full prompt blocks served from the prefix cache.")
+        self._m_prefix_miss_blocks = mc(
+            "serving.pool.prefix_miss_blocks",
+            "Full prompt blocks that had to be prefilled.")
+        self._m_prefix_saved_tokens = mc(
+            "serving.pool.prefix_saved_tokens",
+            "Prefill tokens skipped thanks to cached prefix blocks.")
+        self._m_cache_evictions = mc(
+            "serving.pool.cache_evictions",
+            "Refcount-0 cached blocks reclaimed under pool pressure.")
+        self._m_peak_blocks_in_use = metrics.gauge(
+            "serving.pool.peak_blocks_in_use",
+            doc="High-water mark of blocks in use.", owner=self, **lbl)
+        for gname, fn, doc in (
+                ("serving.pool.free_blocks", lambda p: p.free_blocks,
+                 "Blocks an allocation could obtain right now (free list "
+                 "+ evictable cached blocks) — router placement input."),
+                ("serving.pool.evictable_blocks", lambda p: len(p._evictable),
+                 "Refcount-0 cached blocks (reclaimable capacity)."),
+                ("serving.pool.blocks_in_use", lambda p: p.blocks_in_use,
+                 "Usable blocks currently bound or cache-referenced."),
+                ("serving.pool.num_blocks", lambda p: p.usable_blocks,
+                 "Usable pool capacity (excludes the null block)."),
+                ("serving.pool.cached_blocks", lambda p: len(p._cached),
+                 "Registered shared-prefix blocks."),
+                ("serving.pool.utilization",
+                 lambda p: p.blocks_in_use / max(p.usable_blocks, 1),
+                 "blocks_in_use / usable capacity."),
+                ("serving.pool.prefix_hit_rate", lambda p: p._hit_rate(),
+                 "Lifetime prefix-cache block hit rate — router "
+                 "prefix-affinity input."),
+                ("serving.pool.bytes_per_block",
+                 lambda p: p.spec.bytes_per_block,
+                 "Device bytes one pool block pins (an int8 pool counts "
+                 "its f32 scales too).")):
+            metrics.gauge(gname, doc=doc, callback=fn, owner=self, **lbl)
 
     # -- capacity queries ----------------------------------------------------
     @property
@@ -152,22 +204,20 @@ class BlockPool:
     def _note_peak(self) -> None:
         self.peak_blocks_in_use = max(self.peak_blocks_in_use,
                                       self.blocks_in_use)
+        self._m_peak_blocks_in_use.set_to_max(self.blocks_in_use)
+
+    def _hit_rate(self) -> float:
+        looked = self.prefix_hit_blocks + self.prefix_miss_blocks
+        return self.prefix_hit_blocks / looked if looked else 0.0
 
     # -- prefix cache index ---------------------------------------------------
     def _chain_keys(self, tokens: np.ndarray, n_blocks: int) -> List[str]:
         """Keys of the first ``n_blocks`` full blocks of ``tokens``: key i
         hashes the whole prefix through block i, salted with the block
         size, so a block is shared only when everything before it matches
-        too."""
-        keys = []
-        bs = self.block_size
-        h = hashlib.sha1(f"bs={bs}".encode())
-        for i in range(n_blocks):
-            h = h.copy()
-            h.update(np.ascontiguousarray(tokens[i * bs:(i + 1) * bs],
-                                          dtype=np.int32).tobytes())
-            keys.append(h.hexdigest())
-        return keys
+        too. The router's :func:`~.router.chain_keys`, so a fleet's
+        affinity probe and the pool's lookup never disagree."""
+        return chain_keys(tokens, self.block_size, n_blocks)
 
     def _match_prefix(self, tokens: np.ndarray) -> Tuple[List[int], int]:
         """The longest cached chain of full blocks of ``tokens``:
@@ -197,6 +247,7 @@ class BlockPool:
             del self._cached[self._block_key.pop(phys)]
             del self._refcount[phys]
             self.cache_evictions += 1
+            self._m_cache_evictions.inc()
             return phys
         raise BlockPoolExhausted(
             f"block pool exhausted: 0 free of {self.usable_blocks} usable "
@@ -300,6 +351,9 @@ class BlockPool:
             self.prefix_queries += 1
             self.prefix_hit_blocks += len(hits)
             self.prefix_miss_blocks += n_max - len(hits)
+            self._m_prefix_queries.inc()
+            self._m_prefix_hit_blocks.inc(len(hits))
+            self._m_prefix_miss_blocks.inc(n_max - len(hits))
         slot = self._free_slots.pop()
         # the slot's remaining block budget; reservation mode also promises
         # it pool-wide
@@ -318,6 +372,7 @@ class BlockPool:
             raise
         self._slot_cached_tokens[slot] = len(hits) * self.block_size
         self.prefix_saved_tokens += self._slot_cached_tokens[slot]
+        self._m_prefix_saved_tokens.inc(self._slot_cached_tokens[slot])
         self.lens[slot] = 0   # the engine sets the real length as it prefills
         return slot
 
@@ -402,7 +457,6 @@ class BlockPool:
 
     def stats(self) -> Dict[str, float]:
         in_use = self.blocks_in_use
-        looked = self.prefix_hit_blocks + self.prefix_miss_blocks
         return {
             "num_blocks": self.usable_blocks,
             "bytes_per_block": self.spec.bytes_per_block,
@@ -419,8 +473,7 @@ class BlockPool:
             "prefix_queries": self.prefix_queries,
             "prefix_hit_blocks": self.prefix_hit_blocks,
             "prefix_miss_blocks": self.prefix_miss_blocks,
-            "prefix_hit_rate": (self.prefix_hit_blocks / looked
-                                if looked else 0.0),
+            "prefix_hit_rate": self._hit_rate(),
             "prefix_saved_tokens": self.prefix_saved_tokens,
             "cache_evictions": self.cache_evictions,
         }

@@ -47,6 +47,19 @@ tests.
 PyTorch runs eagerly, so there is no trace cache or bucket warmup; the
 buckets only round the prefill length. Pool writes are in place.
 
+Telemetry: the engine's counters, gauges and latency histograms
+(``serving.ttft_ms``, ``serving.tpot_ms``, ``serving.step_ms``) live in
+the metrics registry of ``core/metrics.py`` under ``metrics_labels``
+(``engine=<n>``), shared by its pool and scheduler; every step appends
+one record to ``flight_recorder`` (``core/observatory.py``), which dumps a
+postmortem on a quarantine, a contained fault, a drain leak and in
+``evacuate``; requests record their lifecycle events. Telemetry never
+steers: every count the engine branches on is a plain attribute, and the
+step's health extrema come from the host array the step copies anyway.
+``share_weights_with`` builds a replica of another engine over the same
+model and config that reads that engine's fused weights and keeps only
+its own pool (a ``Fleet``'s replicas).
+
 Quantized modes, in any combination: ``quantize`` (False, True = "int8",
 "int8", "int4") stores the decoder's four weight stacks weight-only
 quantized, and every product goes through the weight-only GEMM;
@@ -60,14 +73,16 @@ from __future__ import annotations
 import dataclasses
 import itertools
 import time
+import weakref
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
-from ..core import faults
+from ..core import faults, metrics
 from ..core.device import entry_device
+from ..core.observatory import FlightRecorder
 from ..incubate.nn.functional.fused_transformer import (
     FusedTransformerWeights, fused_multi_transformer,
     fused_multi_transformer_paged_ragged,
@@ -96,7 +111,7 @@ SERVING_KV_CACHE_DTYPE = ""     # "" = store the pool in the model dtype
 SERVING_NAN_SENTINEL = True
 
 _rid_counter = itertools.count()
-_engine_counter = itertools.count()
+_ENGINES: "weakref.WeakSet" = weakref.WeakSet()
 
 
 def _default_buckets(max_seq_len: int) -> Tuple[int, ...]:
@@ -283,10 +298,12 @@ class _Stack:
 class ServingEngine:
     """Continuous-batching runtime over one ``LlamaForCausalLM``. Runs on
     ``device`` (default: the model's device); a CUDA device without a card
-    raises."""
+    raises. ``share_weights_with``: an engine over the same model and
+    config whose fused weights (and drafter's) this one reads; its page
+    buffers stay its own."""
 
     def __init__(self, model, config: Optional[ServingConfig] = None,
-                 device=None):
+                 device=None, share_weights_with=None):
         cfg = model.config
         self.config = c = (config or ServingConfig()).resolve(
             verifier_cfg=cfg)
@@ -308,16 +325,30 @@ class ServingEngine:
         draft_spec = (KVCacheSpec.from_config(
             draft.config, page_size=c.block_size,
             cache_dtype=c.kv_cache_dtype) if draft is not None else None)
+        src = share_weights_with
+        if src is not None and (src._model is not model or src.config != c
+                                or src.device != self.device):
+            raise ValueError("ServingEngine(share_weights_with=): the other "
+                             "engine must serve the same model with the same "
+                             "config on the same device")
+        self._model = model
         pps = self.spec.pages_per_seq(c.max_seq_len)
+        # one label per engine: the replica key of the metrics registry,
+        # shared by its pool and scheduler
+        self.metrics_labels = lbl = {
+            "engine": str(metrics.next_instance_id("engine"))}
         self.pool = p = BlockPool(
             self.spec, c.max_seq_len, c.num_blocks or (c.max_batch * pps + 1),
             c.max_batch, optimistic=c.preemption,
             prefix_cache=c.prefix_cache, draft_spec=draft_spec,
-            device=self.device)
-        self.scheduler = Scheduler(self.pool, c.prefill_token_budget)
-        self._target = _Stack.of(model, self.spec, c.quantize, c.max_seq_len,
-                                 self.device, (p.k_pages, p.v_pages,
-                                               p.k_scales, p.v_scales))
+            device=self.device, metrics_labels=lbl)
+        self.scheduler = Scheduler(self.pool, c.prefill_token_budget,
+                                   metrics_labels=lbl)
+        kv = (p.k_pages, p.v_pages, p.k_scales, p.v_scales)
+        self._target = (
+            dataclasses.replace(src._target, kv=kv) if src is not None else
+            _Stack.of(model, self.spec, c.quantize, c.max_seq_len,
+                      self.device, kv))
         self.weights = self._target.weights
         self._drafter = None
         if draft is not None:
@@ -328,9 +359,10 @@ class ServingEngine:
             self._drafter = (
                 dataclasses.replace(self._target, kv=draft_kv)
                 if draft is model else
+                dataclasses.replace(src._drafter, kv=draft_kv)
+                if src is not None else
                 _Stack.of(draft, draft_spec, c.quantize, c.max_seq_len,
                           self.device, draft_kv))
-        self._label = str(next(_engine_counter))
         self._sentinel = SERVING_NAN_SENTINEL
         self._active: Dict[int, Request] = {}
         # admitted, with (chunked) prefill still in flight: masked out of
@@ -359,6 +391,88 @@ class ServingEngine:
         self.spec_accepted = 0
         self.spec_rollback = 0
         self.spec_committed = 0
+        self._init_telemetry(lbl)
+        _ENGINES.add(self)
+
+    def _init_telemetry(self, lbl: Dict[str, str]) -> None:
+        """The registry instruments (each a mirror of a plain count, or a
+        histogram), the flight recorder and its per-step fields."""
+        mc = lambda name, doc: metrics.counter(  # noqa: E731
+            name, doc=doc, owner=self, **lbl)
+        mh = lambda name, doc, **kw: metrics.histogram(  # noqa: E731
+            name, doc=doc, owner=self, **kw, **lbl)
+        self._m_quarantined = mc(
+            "serving.quarantined_requests",
+            "Requests removed from the running batch abnormally (blocks "
+            "reclaimed, slot drained).")
+        self._m_contained = mc(
+            "serving.contained_faults",
+            "Faults contained at request granularity by the engine.")
+        self._m_nan_events = mc(
+            "serving.nan_events",
+            "Non-finite health values caught by the NaN sentinel.")
+        self._m_callback_errors = mc(
+            "serving.callback_errors",
+            "Exceptions raised by user on_token callbacks.")
+        self._m_preemptions = mc(
+            "serving.preemptions",
+            "Requests evicted to free KV blocks (requeued + recomputed) — "
+            "router load input.")
+        self._m_prefill_chunks = mc(
+            "serving.prefill_chunks",
+            "Prefill chunk executions (one bucket-shaped call each).")
+        self._m_decode_stalls = mc(
+            "serving.decode_stalls",
+            "Decode iterations a lowest-priority request yielded waiting "
+            "for blocks — router load input.")
+        self._m_peak_running = metrics.gauge(
+            "serving.peak_running",
+            doc="High-water mark of concurrently running requests.",
+            owner=self, **lbl)
+        self._m_ttft = mh("serving.ttft_ms",
+                          "Time to first token, ms (normal completions).")
+        self._m_tpot = mh(
+            "serving.tpot_ms",
+            "Decode ms per generated token (normal completions).")
+        self._m_step_ms = mh(
+            "serving.step_ms",
+            "Engine iteration wall-clock, ms (admit + prefill + decode): "
+            "the flight recorder's per-step timing.")
+        for gname, fn, doc in (
+                ("serving.active", lambda e: len(e._active),
+                 "Requests in the decode batch right now."),
+                ("serving.prefilling", lambda e: len(e._prefilling),
+                 "Requests mid-(chunked-)prefill right now."),
+                ("serving.iterations", lambda e: e.iterations,
+                 "Engine iterations driven.")):
+            metrics.gauge(gname, doc=doc, callback=fn, owner=self, **lbl)
+        self._m_spec_drafted = self._m_spec_accepted = None
+        self._m_spec_rollback = self._m_spec_accept_rate = None
+        if self._spec_k:
+            self._m_spec_drafted = mc(
+                "serving.spec_drafted",
+                "Tokens proposed by the drafter (k per request per "
+                "speculative iteration).")
+            self._m_spec_accepted = mc(
+                "serving.spec_accepted",
+                "Drafted tokens the verifier accepted (committed without "
+                "re-decode; excludes bonus tokens).")
+            self._m_spec_rollback = mc(
+                "serving.spec_rollback_tokens",
+                "Drafted tokens rejected at verification, rolled back by "
+                "lens truncation.")
+            self._m_spec_accept_rate = mh(
+                "serving.spec_accept_rate",
+                "Per-request per-iteration acceptance rate (accepted/k), "
+                "linear 0..1 buckets.", buckets=metrics.RATIO_BUCKETS)
+        self.flight_recorder = FlightRecorder(
+            labels=lbl, name=f"engine{lbl['engine']}")
+        self._last_quarantine: Optional[dict] = None
+        self._last_decode_batch = 0
+        self._last_prefill_tokens = 0
+        self._health_min: Optional[float] = None
+        self._health_max: Optional[float] = None
+        self._nonfinite_health = 0
 
     # -- step families --------------------------------------------------------
     def _scatter(self, st: _Stack, k, v, pos, block_row):
@@ -522,7 +636,14 @@ class ServingEngine:
     def step(self) -> bool:
         """One iteration: admit, run up to ``prefill_token_budget`` tokens
         of prefill, then one decode (or draft and verify) step over the
-        active slots. Returns True while work remains."""
+        active slots. Returns True while work remains. Every iteration
+        lands one flight-recorder record; one that quarantined or contained
+        anything dumps a postmortem."""
+        t0 = time.perf_counter()
+        self._last_decode_batch = self._last_prefill_tokens = 0
+        self._health_min = self._health_max = None
+        self._nonfinite_health = 0
+        quar0, cont0 = self.quarantined_requests, self._contained()
         self.iterations += 1
         if not self._draining:
             admitted = self.scheduler.schedule()
@@ -532,8 +653,9 @@ class ServingEngine:
             admitted = []
         for req, slot in admitted:
             self._prefilling[slot] = req
-        self.peak_running = max(self.peak_running,
-                                len(self._active) + len(self._prefilling))
+        running = len(self._active) + len(self._prefilling)
+        self.peak_running = max(self.peak_running, running)
+        self._m_peak_running.set_to_max(running)
         if self._prefilling:
             self._prefill_iteration()
         if self._active:
@@ -541,11 +663,66 @@ class ServingEngine:
                 self._speculative_iteration()
             else:
                 self._decode_iteration()
-        return (bool(self._active) or bool(self._prefilling)
+        more = (bool(self._active) or bool(self._prefilling)
                 or self.scheduler.has_queued())
+        self._record_step(t0, quar0, cont0)
+        return more
+
+    def _note_health(self, values) -> None:
+        """Fold one step's per-row health values (host floats) into the
+        iteration's finite extrema and non-finite count."""
+        for v in values:
+            v = float(v)
+            if not np.isfinite(v):
+                self._nonfinite_health += 1
+                continue
+            if self._health_min is None or v < self._health_min:
+                self._health_min = v
+            if self._health_max is None or v > self._health_max:
+                self._health_max = v
+
+    def _record_step(self, t0: float, quar0: int, cont0: int) -> None:
+        """Close an iteration: observe ``serving.step_ms``, append the
+        flight-recorder record, and dump a postmortem when the iteration
+        quarantined a request or contained a fault (with the ring off
+        too: the dump still carries the registry slice and the ledger)."""
+        step_ms = (time.perf_counter() - t0) * 1e3
+        self._m_step_ms.observe(step_ms)
+        fr = self.flight_recorder
+        quar_d = self.quarantined_requests - quar0
+        cont_d = self._contained() - cont0
+        fr.record(iteration=self.iterations, step_ms=step_ms,
+                  active=len(self._active),
+                  prefilling=len(self._prefilling),
+                  queued=self.scheduler.queue_depth,
+                  decode_batch=self._last_decode_batch,
+                  prefill_tokens=self._last_prefill_tokens,
+                  stalls=len(self._stalled),
+                  health_min=self._health_min,
+                  health_max=self._health_max,
+                  nonfinite_health=self._nonfinite_health,
+                  preemptions_total=self.preemptions,
+                  quarantined_total=self.quarantined_requests,
+                  contained_total=self._contained(),
+                  injected_total=faults.total_fired())
+        if quar_d or cont_d:
+            fr.dump("quarantine" if quar_d else "contained_fault",
+                    iteration=self.iterations,
+                    quarantined_this_step=quar_d,
+                    contained_this_step=cont_d,
+                    last_quarantine=self._last_quarantine)
 
     def _contained(self) -> int:
         return self.contained_events + self.scheduler.admission_faults
+
+    def _note_contained(self) -> None:
+        self.contained_events += 1
+        self._m_contained.inc()
+
+    def _note_nan(self) -> None:
+        self.nan_events += 1
+        self._m_nan_events.inc()
+        self._note_contained()
 
     def run_until_complete(self, max_iterations: int = 1_000_000) -> None:
         while (self.scheduler.has_queued() or self._active
@@ -591,6 +768,11 @@ class ServingEngine:
         p = self.pool.stats()
         if p["blocks_in_use"] or p["reserved_blocks"] \
                 or p["free_blocks"] != p["num_blocks"]:
+            # the leak's step history, before the crash
+            self.flight_recorder.dump(
+                "drain_leak", blocks_in_use=p["blocks_in_use"],
+                reserved_blocks=p["reserved_blocks"],
+                free_blocks=p["free_blocks"], num_blocks=p["num_blocks"])
             raise RuntimeError(
                 f"serving: drain completed but the pool did not reclaim "
                 f"fully — {p['blocks_in_use']} blocks in use, "
@@ -608,20 +790,32 @@ class ServingEngine:
         """Treat this engine as lost and hand back every live request for
         another engine to finish from ``resume_tokens``: returns
         ``(running, queued)``, the in-flight requests in admission order
-        and the never-admitted queue in FCFS order, all still alive. The
-        pool is not released (its device state is lost with the engine)
-        and the engine stays draining, so a late ``submit`` raises.
-        ``reason`` (the JAX signature's) is for the flight recorder, which
-        the port does not have yet."""
-        running = sorted(
-            list(self._active.values()) + list(self._prefilling.values()),
-            key=lambda r: -1 if r.admit_seq is None else r.admit_seq)
+        and the never-admitted queue in FCFS order, all still alive, each
+        with a ``replica_die`` trace event naming the phase it was caught
+        in. The postmortem (cause ``reason``) dumps first. The pool is not
+        released (its device state is lost with the engine) and the engine
+        stays draining, so a late ``submit`` raises."""
+        self.flight_recorder.dump(
+            "replica_die", cause=reason,
+            inflight=len(self._active) + len(self._prefilling),
+            queued=self.scheduler.queue_depth)
+        pairs = sorted([("decoding", r) for r in self._active.values()]
+                       + [("prefilling", r)
+                          for r in self._prefilling.values()],
+                       key=lambda p: -1 if p[1].admit_seq is None
+                       else p[1].admit_seq)
+        label = self.metrics_labels["engine"]
+        for phase, req in pairs:
+            req._trace("replica_die", phase=phase, engine=label)
         self._active.clear()
         self._prefilling.clear()
         self._last_prefill_tok.clear()
         self._stalled.clear()
+        queued = self.scheduler.take_queue()
+        for req in queued:
+            req._trace("replica_die", phase="queued", engine=label)
         self._draining = True
-        return running, self.scheduler.take_queue()
+        return [r for _, r in pairs], queued
 
     def stream(self, req: Request):
         """Yield ``req``'s tokens as they are produced, stepping the
@@ -694,7 +888,7 @@ class ServingEngine:
             health = float(logits.abs().amax())
         except Exception as e:
             # this request's prefill failed: it ends, the others go on
-            self.contained_events += 1
+            self._note_contained()
             self._quarantine(slot, "error",
                              f"prefill failed: {type(e).__name__}: {e}")
             return False
@@ -703,15 +897,19 @@ class ServingEngine:
         if offset > 0 and \
                 faults.fault_point("serving.chunk_prefill_nan") is not None:
             health = float("nan")
+        self._last_prefill_tokens += chunk
+        self._note_health((health,))
         req.prefill_chunks += 1
         self.prefill_chunks += 1
+        self._m_prefill_chunks.inc()
         self.prefill_carry_chunks += offset > 0
+        req._trace("prefill_chunk", offset=offset, tokens=chunk,
+                   recompute=req.preemptions > 0)
         req._prefill_pos += chunk
         self.pool.lens[slot] = req._prefill_pos
         self._last_prefill_tok[slot] = tok
         if self._sentinel and not np.isfinite(health):
-            self.nan_events += 1
-            self.contained_events += 1
+            self._note_nan()
             self._quarantine(slot, "error",
                              "non-finite logits at prefill (NaN sentinel)")
             return False
@@ -743,8 +941,10 @@ class ServingEngine:
         req = self._active.pop(slot, None) or self._prefilling.pop(slot)
         self._last_prefill_tok.pop(slot, None)
         self.pool.release(slot)
+        req._trace("preempt", generated=len(req.tokens))
         self.scheduler.requeue_front(req)
         self.preemptions += 1
+        self._m_preemptions.inc()
 
     def _grow_or_preempt(self, slot: int, span: int = 1) -> bool:
         """Bind the blocks of the slot's next ``span`` positions (span > 1:
@@ -760,18 +960,19 @@ class ServingEngine:
             except BlockPoolExhausted as e:
                 victim = self._pick_victim()
                 if victim is None:
-                    self.contained_events += 1
+                    self._note_contained()
                     self._quarantine(slot, "error",
                                      f"KV pool exhausted with no "
                                      f"preemption victim: {e}")
                     return False
                 if victim == slot:
                     self.decode_stalls += 1
+                    self._m_decode_stalls.inc()
                     self._stalled.add(slot)
                     return False
                 self._preempt(victim)
             except Exception as e:
-                self.contained_events += 1
+                self._note_contained()
                 self._quarantine(slot, "error",
                                  f"KV block bind failed mid-decode: "
                                  f"{type(e).__name__}: {e}")
@@ -821,8 +1022,7 @@ class ServingEngine:
         """Quarantine ``slot`` when its health value is not finite."""
         if not self._sentinel or np.isfinite(health):
             return False
-        self.nan_events += 1
-        self.contained_events += 1
+        self._note_nan()
         self._quarantine(slot, "error",
                          f"non-finite logits in {what} iteration "
                          f"{self.iterations} (NaN sentinel)")
@@ -844,10 +1044,13 @@ class ServingEngine:
         if self.spec.quantized and \
                 faults.fault_point("serving.kv_quant_nan") is not None:
             healths[min(ready)] = np.nan
+        self._last_decode_batch = len(ready)
+        self._note_health(healths[s] for s in ready)
         for slot, req in ready.items():
             pool.lens[slot] += 1               # the input token was committed
             if self._sentinel_trips(slot, healths[slot], "decode"):
                 continue
+            req._trace("decode", iteration=self.iterations)
             self._emit(req, int(toks[slot]))
 
     def _speculative_iteration(self) -> None:
@@ -897,6 +1100,8 @@ class ServingEngine:
         healths = host[:, -1].copy()
         if faults.fault_point("serving.verify_nan") is not None:
             healths[min(ready)] = np.nan
+        self._last_decode_batch = len(ready)
+        self._note_health(healths[s] for s in ready)
         for slot, req in ready.items():
             if self._sentinel_trips(slot, healths[slot], "speculative verify"):
                 continue
@@ -904,6 +1109,10 @@ class ServingEngine:
             a = 0            # the drafts that match the verifier's choices
             while a < k and d[a + 1] == v[a]:
                 a += 1
+            req._trace("draft", iteration=self.iterations, drafted=k)
+            req._trace("verify", span=int(spans[slot]))
+            acc_ev = req._trace("accept", accepted=a, agreed=a,
+                                bonus=int(v[a]))
             emitted = 0
             for tok in [int(d[i + 1]) for i in range(a)] + [int(v[a])]:
                 emitted += 1
@@ -913,12 +1122,21 @@ class ServingEngine:
             # an agreed draft cut off by eos or max_new_tokens is a
             # rollback, not an accept
             accepted = min(emitted, a)
+            if acc_ev is not None:
+                # the lane event agrees with the counters: accepted is
+                # what committed, agreed the verifier-matched prefix
+                acc_ev["accepted"] = accepted
+                acc_ev["emitted"] = emitted
             req.spec_drafted += k
             req.spec_accepted += accepted
             self.spec_drafted += k
             self.spec_accepted += accepted
             self.spec_rollback += k - accepted
             self.spec_committed += emitted
+            self._m_spec_drafted.inc(k)
+            self._m_spec_accepted.inc(accepted)
+            self._m_spec_rollback.inc(k - accepted)
+            self._m_spec_accept_rate.observe(accepted / k)
             if not req.finished:
                 # lens .. lens + emitted - 1 now hold the input token and
                 # the accepted drafts; the rest of the window rolls back
@@ -930,7 +1148,9 @@ class ServingEngine:
                        and tok == req.eos_token_id))
         before = len(req.callback_errors)
         req._emit(tok, is_last)
-        self.callback_errors += len(req.callback_errors) - before
+        raised = len(req.callback_errors) - before
+        self.callback_errors += raised
+        self._m_callback_errors.inc(raised)
         if is_last:
             self._finish(req)
 
@@ -941,8 +1161,13 @@ class ServingEngine:
         req = self._active.pop(slot, None) or self._prefilling.pop(slot)
         self._last_prefill_tok.pop(slot, None)
         self.pool.release(slot)
+        req._trace("quarantine", status=status, reason=error)
         req._finalize(status, error)
         self.quarantined_requests += 1
+        self._m_quarantined.inc()
+        self._last_quarantine = {"rid": req.rid, "status": status,
+                                 "reason": error, "slot": slot,
+                                 "iteration": self.iterations}
         self.scheduler.note_finished()
 
     def _finish(self, req: Request) -> None:
@@ -950,13 +1175,17 @@ class ServingEngine:
         self._active.pop(req.slot, None)
         self.scheduler.note_finished()
         self._ttft_ms.append(req.ttft_ms)
-        if req.decode_ms_per_token is not None:
-            self._decode_ms.append(req.decode_ms_per_token)
+        self._m_ttft.observe(req.ttft_ms)
+        d = req.decode_ms_per_token
+        if d is not None:
+            self._decode_ms.append(d)
+            self._m_tpot.observe(d)
 
     def stats(self) -> dict:
-        """A fresh snapshot: latency means, pool and scheduler counters,
-        faults, speculation, and the kernels' launch counts (module-wide
-        since last set to 0)."""
+        """A fresh snapshot: latency means and the registry's percentiles
+        (within one bucket of the exact ones), pool and scheduler counters,
+        faults, speculation, the flight recorder, and the kernels' launch
+        counts (module-wide since last set to 0)."""
         mean = lambda xs: sum(xs) / len(xs) if xs else None  # noqa: E731
         spec = None
         if self._spec_k:
@@ -975,7 +1204,13 @@ class ServingEngine:
             "scheduler": self.scheduler.stats(),
             "latency": {"finished": len(self._ttft_ms),
                         "mean_ttft_ms": mean(self._ttft_ms),
-                        "mean_decode_ms_per_token": mean(self._decode_ms)},
+                        "mean_decode_ms_per_token": mean(self._decode_ms),
+                        **{f"{name}_p{p}_ms": h.percentile(p)
+                           for name, h in (("ttft", self._m_ttft),
+                                           ("tpot", self._m_tpot))
+                           for p in (50, 90, 99)},
+                        "step_p50_ms": self._m_step_ms.percentile(50),
+                        "step_p99_ms": self._m_step_ms.percentile(99)},
             "faults": {"injected": faults.total_fired(),
                        "contained": self._contained(),
                        "quarantined_requests": self.quarantined_requests,
@@ -990,6 +1225,9 @@ class ServingEngine:
             "prefill_carry_chunks": self.prefill_carry_chunks,
             "decode_steps": self.decode_steps,
             "speculative": spec,
+            "flight_recorder": {"records": len(self.flight_recorder),
+                                "ring": self.flight_recorder.maxlen,
+                                "dumps": self.flight_recorder.dumps},
             "kernel_launches": {
                 "flash_attention": _flash_cuda.launches,
                 "paged_attention": _paged_cuda.launches,
@@ -1004,10 +1242,9 @@ class ServingEngine:
         }
 
     def health(self) -> dict:
-        """Liveness and drain / fault state, without a device sync (the
-        JAX keys but ``postmortems``: the flight recorder is not
-        ported)."""
-        return {"engine": self._label,
+        """Liveness and drain / fault state, without a device sync: this
+        engine's entry of the ``serving`` /healthz section."""
+        return {"engine": self.metrics_labels["engine"],
                 "draining": self._draining,
                 "iterations": self.iterations,
                 "active": len(self._active),
@@ -1015,5 +1252,18 @@ class ServingEngine:
                 "queued": self.scheduler.queue_depth,
                 "quarantined": self.quarantined_requests,
                 "contained": self._contained(),
+                "postmortems": len(self.flight_recorder.postmortems),
                 "kv_cache_dtype": self.spec.storage_dtype,
                 "speculative_k": self._spec_k}
+
+
+def _health_section() -> dict:
+    """The ``serving`` section of ``metrics.health_snapshot()``: every live
+    engine's ``health()`` and the fault harness's state."""
+    engines = [eng.health() for eng in list(_ENGINES)]
+    return {"draining": any(e["draining"] for e in engines),
+            "engines": sorted(engines, key=lambda e: int(e["engine"])),
+            "faults": faults.stats()}
+
+
+metrics.register_health_provider("serving", _health_section)

@@ -1,6 +1,5 @@
 """Iteration-level FCFS scheduler and the request lifecycle (the
-counterpart of ``paddle_tpu/serving/scheduler.py`` without the metrics
-registry and the per-request trace events).
+counterpart of ``paddle_tpu/serving/scheduler.py``).
 
 One engine iteration = admit some queued requests (prefill) + one decode
 step over every active slot. Admission is strictly FCFS: when the head
@@ -17,6 +16,13 @@ that expires while queued is attributable; cancelled and expired queued
 requests are finalized here without touching the pool; a pool fault
 during ``admit`` (the ``pool.bind_oom`` point) is contained as
 backpressure and retried next iteration.
+
+Telemetry: every request records timestamped lifecycle events
+(``Request.trace_events``: queued, admitted or recompute, the engine's
+prefill chunks and decode steps, preempt, requeue, adopt, the terminal
+status), and the scheduler mirrors its counters into the metrics
+registry under the engine's label. Both stop when telemetry is off; the
+plain attributes the engine branches on do not.
 """
 
 from __future__ import annotations
@@ -27,7 +33,7 @@ from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 
-from ..core import faults
+from ..core import faults, metrics
 
 __all__ = ["Request", "Scheduler", "TERMINAL_STATUSES"]
 
@@ -88,6 +94,20 @@ class Request:
         self.admit_seq: Optional[int] = None   # admission order (priority)
         self._prefill_pos = 0           # tokens of _prefill_seq prefilled
         self._prefill_seq: Optional[np.ndarray] = None
+        # lifecycle events for tools/trace_requests.py (telemetry only)
+        self.trace_events: List[dict] = []
+        self._trace("queued", prompt_len=self.prompt_len)
+
+    def _trace(self, event: str, **attrs) -> Optional[dict]:
+        """Append one timestamped lifecycle event (nothing while telemetry
+        is off). Returns the event, so a site that learns an attribute's
+        final value later can set it in place."""
+        if not metrics.METRICS:
+            return None
+        e = {"event": event, "ts": time.perf_counter()}
+        e.update(attrs)
+        self.trace_events.append(e)
+        return e
 
     @property
     def prompt_len(self) -> int:
@@ -164,6 +184,7 @@ class Request:
         self._transition(status)
         self.error = error
         self.t_done = time.perf_counter()
+        self._trace(status, error=error)
 
     def _emit(self, tok: int, is_last: bool) -> None:
         now = time.perf_counter()
@@ -174,6 +195,7 @@ class Request:
             self.finished = True
             self._transition("finished")
             self.t_done = now
+            self._trace("finished", generated=len(self.tokens))
         if self.on_token is not None:
             try:
                 # the point stands in for "the user callback raised"
@@ -190,9 +212,12 @@ class Request:
 
 
 class Scheduler:
-    """FCFS queue + iteration-level admission over a ``BlockPool``."""
+    """FCFS queue + iteration-level admission over a ``BlockPool``. The
+    plain counters are what the engine reads; each has a registry mirror
+    labelled ``metrics_labels`` (default: the pool's)."""
 
-    def __init__(self, pool, token_budget: int):
+    def __init__(self, pool, token_budget: int,
+                 metrics_labels: Optional[Dict[str, str]] = None):
         self.pool = pool
         self.token_budget = int(token_budget)
         self._queue: deque = deque()
@@ -207,20 +232,69 @@ class Scheduler:
         self.preemption_requeues = 0
         self.peak_queue_depth = 0
         self.rejected_reasons: Dict[str, int] = {}
+        lbl = dict(metrics_labels or getattr(pool, "metrics_labels", None)
+                   or {"engine": f"sched-{metrics.next_instance_id('sched')}"})
+        self.metrics_labels = lbl
+        mc = lambda name, doc: metrics.counter(  # noqa: E731
+            name, doc=doc, owner=self, **lbl)
+        self._m_submitted = mc("serving.submitted", "Requests submitted.")
+        self._m_admitted = mc("serving.admitted",
+                              "Admissions (re-admissions included).")
+        self._m_finished = mc("serving.finished",
+                              "Requests reaching a terminal status.")
+        self._m_backpressure = mc(
+            "serving.backpressure_events",
+            "Head-of-line admissions blocked this iteration.")
+        self._m_cancelled = mc("serving.cancelled",
+                               "Requests finalized 'cancelled'.")
+        self._m_deadline_timeouts = mc(
+            "serving.deadline_timeouts",
+            "Requests finalized 'timeout' while queued.")
+        self._m_admission_faults = mc(
+            "serving.admission_faults",
+            "Pool faults during admit contained as backpressure.")
+        self._m_preemption_requeues = mc(
+            "serving.preemption_requeues",
+            "Preempted requests put back at the queue head.")
+        self._m_peak_queue_depth = metrics.gauge(
+            "serving.peak_queue_depth",
+            doc="High-water mark of the FCFS queue.", owner=self, **lbl)
+        metrics.gauge("serving.queue_depth",
+                      doc="Requests waiting in the FCFS queue — router "
+                          "load input.",
+                      callback=lambda s: len(s._queue), owner=self, **lbl)
+        self._reason_counters: Dict[str, metrics.Counter] = {}
 
     def _note_depth(self) -> None:
         self.peak_queue_depth = max(self.peak_queue_depth, len(self._queue))
+        self._m_peak_queue_depth.set_to_max(len(self._queue))
 
     def _blocked(self, req: Request, reason: str) -> None:
         req.admission_rejected = reason
         self.backpressure_events += 1
+        self._m_backpressure.inc()
         self.rejected_reasons[reason] = \
             self.rejected_reasons.get(reason, 0) + 1
+        c = self._reason_counters.get(reason)
+        if c is None:
+            c = self._reason_counters[reason] = metrics.counter(
+                "serving.admission_rejected",
+                doc="Structured admission-block reasons, per reason.",
+                owner=self, reason=reason, **self.metrics_labels)
+        c.inc()
+
+    def _note_end(self, counter=None) -> None:
+        """One request finalized here (``counter``: its kind's count)."""
+        self.finished += 1
+        self._m_finished.inc()
+        if counter is not None:
+            counter.inc()
 
     # -- queue ----------------------------------------------------------------
     def submit(self, req: Request) -> None:
         self._queue.append(req)
         self.submitted += 1
+        self._m_submitted.inc()
         self._note_depth()
 
     def requeue_front(self, req: Request) -> None:
@@ -231,8 +305,10 @@ class Scheduler:
         req.preemptions += 1
         req._prefill_pos = 0
         req._prefill_seq = None
+        req._trace("requeue")
         self._queue.appendleft(req)
         self.preemption_requeues += 1
+        self._m_preemption_requeues.inc()
         self._note_depth()
 
     def take_queue(self) -> List[Request]:
@@ -246,6 +322,7 @@ class Scheduler:
     def adopt(self, req: Request) -> None:
         """Append a request moved from another replica's scheduler without
         counting a fresh submission."""
+        req._trace("adopt")
         self._queue.append(req)
         self._note_depth()
 
@@ -271,10 +348,10 @@ class Scheduler:
                 keep.append(req)
                 continue
             req._finalize("cancelled", reason)
+            self._note_end(self._m_cancelled)
             n += 1
         self._queue = deque(keep)
         self.cancelled += n
-        self.finished += n
         return n
 
     # -- admission ------------------------------------------------------------
@@ -285,7 +362,7 @@ class Scheduler:
         if req._cancel_requested:
             req._finalize("cancelled", "cancelled while queued")
             self.cancelled += 1
-            self.finished += 1
+            self._note_end(self._m_cancelled)
             return True
         if req.deadline_exceeded(now):
             reason = req.admission_rejected or self.pool.blocked_reason(
@@ -295,7 +372,7 @@ class Scheduler:
             req._finalize("timeout", f"deadline {req.deadline_ms:g} ms "
                                      f"expired while queued{why}")
             self.deadline_timeouts += 1
-            self.finished += 1
+            self._note_end(self._m_deadline_timeouts)
             return True
         return False
 
@@ -312,6 +389,9 @@ class Scheduler:
         ``[(request, slot), ...]``, each with its prefill starting after
         the prefix the pool's cache gave it. ``only_preempted`` (drain)
         stops at the first request that was never preempted."""
+        arm = faults.fault_point("scheduler.slow_step")
+        if arm is not None:
+            time.sleep(float(arm.params.get("seconds", 0.02)))
         plan: List[Tuple[Request, int]] = []
         used_tokens = 0
         while self._queue:
@@ -333,12 +413,13 @@ class Scheduler:
                 # ends, the rest are scheduled
                 self._queue.popleft()
                 req._finalize("error", str(e))
-                self.finished += 1
+                self._note_end()
                 continue
             except Exception as e:
                 # a pool fault: the pool rolled itself back; the head
                 # retries next iteration
                 self.admission_faults += 1
+                self._m_admission_faults.inc()
                 self._blocked(req, "pool_error")
                 req.error = f"admission fault (will retry): {e}"
                 break
@@ -356,14 +437,18 @@ class Scheduler:
             self._admit_seq += 1
             req._prefill_seq = resume
             req._prefill_pos = self.pool.cached_prefix_len(slot)
+            req._trace("recompute" if req.preemptions > 0 else "admitted",
+                       slot=slot, cached_prefix=req._prefill_pos)
             used_tokens += req.resume_len
             plan.append((req, slot))
             self.admitted += 1
+            self._m_admitted.inc()
         self._reap_queue()
         return plan
 
     def note_finished(self, n: int = 1) -> None:
         self.finished += n
+        self._m_finished.inc(n)
 
     def stats(self) -> dict:
         return {

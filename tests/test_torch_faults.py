@@ -68,7 +68,9 @@ def plain(models):
 PORT_POINTS = ("serving.decode_nan", "serving.prefill_nan",
                "serving.chunk_prefill_nan", "serving.kv_quant_nan",
                "serving.verify_nan", "serving.draft_divergence",
-               "serving.callback_raise", "pool.bind_oom", "pool.evict_fail")
+               "serving.callback_raise", "pool.bind_oom", "pool.evict_fail",
+               "fleet.replica_die", "fleet.route_misroute",
+               "scheduler.slow_step")
 
 
 def test_points_are_the_jax_ones():
@@ -194,6 +196,25 @@ def test_deadlines_expire_queued_and_running(models):
         eng.submit(p[0], NEW, deadline_ms=0)
 
 
+def test_slow_step_expires_a_queued_deadline_as_jax(models):
+    """``scheduler.slow_step`` sleeps at the head of admission: a request
+    whose deadline passes meanwhile ends ``timeout`` before it is ever
+    admitted, in the port as in JAX."""
+    jm, tm = models
+    got = []
+    for f, eng in ((jax_faults, JaxServingEngine(jm, JaxServingConfig(
+            interpret=True, **BASE))),
+            (faults, ServingEngine(tm, ServingConfig(**BASE)))):
+        req = eng.submit(_prompts()[0], NEW, deadline_ms=20)
+        with f.inject("scheduler.slow_step", at=1, seconds=0.05):
+            eng.step()
+        got.append((req.status, req.error, req.tokens,
+                    eng.scheduler.stats()["deadline_timeouts"]))
+        eng.drain()
+    assert got[0] == got[1]
+    assert got[1][0] == "timeout" and "expired while queued" in got[1][1]
+
+
 @pytest.mark.parametrize("how", ["callback", "serving.callback_raise"])
 def test_raising_callback_is_contained(models, plain, how):
     def on_token(req, tok, last):
@@ -273,6 +294,6 @@ def test_drain_keeps_queue_on_request(models):
     jkeys = {"engine", "draining", "iterations", "active", "prefilling",
              "queued", "quarantined", "contained", "postmortems",
              "kv_cache_dtype", "speculative_k"}
-    assert set(h) == jkeys - {"postmortems"}
+    assert set(h) == jkeys
     eng.run_until_complete()
     assert all(r.status == "finished" for r in reqs)
