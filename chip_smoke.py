@@ -43,7 +43,11 @@ Phases, each of which fails the run (non-zero exit, no result line):
    edges (b = 2, sq = 200, sk = 333; q_offset = 37 with kv_len = 300; GQA
    32/8 and 16/4 at d = 64, causal and non-causal), the backward twice at
    the training shape (bitwise equal), and each timed flash shape's ratio
-   to SDPA and its wrapper's host µs per call; the flash forward (out,
+   to SDPA and its wrapper's host µs per call; at decode shapes, 1-8
+   query rows against a cache whose columns past kv_len are zeros
+   (Llama-3-8B b 4, sq 1, sk 544, kv_len 513 and 543, GQA 32/8, d 128;
+   llama-350m b 8, sq 1-8, sk 256, 16/16 heads, d 64), each timed beside
+   SDPA given ``k[:, :kv_len]``; the flash forward (out,
    lse) and backward (dq, dk, dv) with an additive f32 mask [b, 1, S, S]
    (finite biases, -inf blocks, rows that see nothing), a bool mask [b, S,
    S] and packed segment ids (3-6 segments a row), causal, at b2 S2048
@@ -142,6 +146,29 @@ Phases, each of which fails the run (non-zero exit, no result line):
    fleet is dropped; the streams against one engine's (as 5d); then two
    engines on one stack alternate rounds of decode steps with telemetry
    on and off: host ms a step both ways, the 8 streams identical;
+5g. decoding: (a) Llama-3-8B at full width and depth, 4 prompts of 512
+   seeded tokens, 32 new tokens, greedy, through ``generate`` (layer by
+   layer over the model's KV cache: the flash forward at sq = 1 a decode
+   step), ``fused_generate`` dense and paged, and a ``ServingDecoder``
+   stepped by hand (a prefill span, then 31 steps); checks the launch
+   counts exactly (flash 32 x 32 / 32 / 32 / 32, paged 0 / 0 / 32 x 31 /
+   0, no weight-only GEMM), the ``ServingDecoder``'s tokens bit for bit
+   those of ``fused_generate``, and every first divergence of ``generate``
+   and the paged route from the dense fused route a tie within phase 4's
+   noise (as 5d); prints each decoder's host ms a token, peak memory and
+   a decode step's host ms, device busy ms, idle share and device ms by
+   group under ``torch.profiler`` (the difference between 9 new tokens
+   and 1, over 8); (b) ``bench.py:503-590``'s bench_decode on llama-350m
+   (24 layers, bf16, batch 8, prompt 128): ``fused_generate`` in bf16,
+   int8, int4 and bf16 paged, the launch counts of a 128-token run
+   exactly (weight-only 4 x 24 x 127, paged 24 x 127, flash 24), the
+   per-token slope (t(128) - t(32)) / 96 as the median of 3 pairs with the
+   variants interleaved in each round, tokens/s = 8 / slope, the paged
+   streams against the dense ones (ties within this model's bf16 noise),
+   and a ``ServingDecoder(paged=True, quantize="int8")`` stepped over the
+   pages of an int8 dense decoder's prefill, bit for bit
+   ``fused_generate(paged=True, quantize="int8")``; the card's memory back
+   within 64 MiB of before the phase;
 6. training: the Llama-2-7B widths (``bench.py``'s 7B proxy: vocab 32000,
    hidden 4096, intermediate 11008, 32 heads, bf16, fused loss) at 4
    layers, batch 2 x 2048 seeded tokens, 10 ``TrainStep`` steps with AdamW
@@ -232,6 +259,16 @@ DRAFT_LAYERS = 2                 # phase 5e run A: the independent drafter
 FLEET_KILL_STEP = 3              # phase 5f: fleet steps before the failover
 FLEET_MEM_SLACK = 64 * 2**20     # phase 5f: memory back after the fleet
 REPLICA_MEM_MAX = 4 * 2**30      # phase 5f: what a second replica may add
+DECODE_BATCH, DECODE_PROMPT = 4, 512   # phase 5g (a): Llama-3-8B decoders
+DECODE_MEM_SLACK = 64 * 2**20    # phase 5g: memory back after the phase
+# phase 5g (b): bench.py:503-590's bench_decode on llama-350m: batch 8,
+# prompt 128, the per-token slope between 32 and 128 new tokens, the
+# median of 3 interleaved pairs
+BENCH_BATCH, BENCH_PROMPT, BENCH_LO, BENCH_HI, BENCH_PAIRS = 8, 128, 32, 128, 3
+# device ms of a decode step by kernel group (profile_decode, phase 5g)
+DECODE_GROUPS = {"flash": ("flash_fwd",), "paged": ("paged_kernel",),
+                 "weight-only": ("wo_gemm",),
+                 "matmul": ("gemm", "gemv", "nvjet", "cutlass", "xmma")}
 TRAIN_BATCH, TRAIN_SEQ = 2, 2048
 TRAIN_STEPS, EAGER_STEPS = 10, 5
 LONG_SEQ, LONG_STEPS = 16384, 3  # phase 6e: bench.py's long-context cell
@@ -296,6 +333,16 @@ def bound(flops, nbytes, flop_per_s=BF16_FLOP_PER_S):
             "operations" if t_ops >= t_bytes else "bytes")
 
 
+def ulp_noise(torch, model, ids, gen, rows=slice(None)):
+    """Phase 4's bf16 noise on ``ids [1, s]``: the dense forward's f32
+    logits at ``rows``, the same with every input embedding moved one ulp
+    (:func:`perturbed_logits`), and the largest change between them."""
+    with torch.inference_mode():
+        logits = model(ids)[0, rows]
+        moved = perturbed_logits(torch, model, ids, gen)[rows]
+    return logits, moved, (logits - moved).abs().max().item()
+
+
 def perturbed_logits(torch, model, ids, gen):
     """The dense forward with every input embedding moved by about one bf16
     ulp (relative Gaussian noise of 2^-8): how far bf16 rounding alone
@@ -351,6 +398,7 @@ def phase_build():
 def phase_kernels(torch, gen, flush):
     print("== phase 3: kernels against their plain versions")
     import torch.nn.functional as F
+    from torch.nn.attention.bias import causal_lower_right
 
     from paddle_tpu_torch.ops.fused.flash_attention import (
         flash_attention, flash_attn_reference)
@@ -398,10 +446,11 @@ def phase_kernels(torch, gen, flush):
             lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
                 qt, kt, vt, is_causal=True, enable_gqa=True)
         else:
-            mask = (torch.arange(sk, device=dev)[None, :]
-                    <= torch.arange(sq, device=dev)[:, None] + off)
+            # the carry case is bottom-right causal (off = sk - sq): SDPA
+            # runs that mask on its fused backends
             lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
-                qt, kt, vt, attn_mask=mask, enable_gqa=True)
+                qt, kt, vt, attn_mask=causal_lower_right(sq, sk),
+                enable_gqa=True)
         lib_ms = time_ms(torch, lib, flush=flush)
         pairs = sum(min(sk, off + r + 1) for r in range(sq))
         flops = 4 * d * hq * pairs
@@ -417,7 +466,8 @@ def phase_kernels(torch, gen, flush):
             flash_row = dict(ms=ms, plain_ms=plain, bound_ms=b_ms,
                              bound_by=b_by, library_ms=lib_ms)
         del q, k, v, out, ref
-    flash_row["max_abs_err"] = flash_err
+    flash_row["max_abs_err"] = max(flash_err,
+                                   check_flash_decode(torch, gen, flush))
     rows["flash_attention"] = flash_row
 
     print_paged_ptxas()
@@ -447,6 +497,67 @@ def phase_kernels(torch, gen, flush):
     return rows
 
 
+# phase 3: the flash forward at decode shapes (1-8 query rows against a
+# cache whose columns past kv_len hold large values the kernel must never
+# read): Llama-3-8B's generate step (b 4, a 544-slot cache) and llama-350m's
+# d 64 heads (b 8, 256 slots)
+FLASH_DECODE_CASES = (
+    [("Llama-3-8B decode kv_len 513", 4, 1, 544, 513, 32, 8, 128),
+     ("Llama-3-8B decode kv_len 543", 4, 1, 544, 543, 32, 8, 128)]
+    + [(f"llama-350m sq={sq}", 8, sq, 256, 130 + sq, 16, 16, 64)
+       for sq in range(1, 9)])
+
+
+def check_flash_decode(torch, gen, flush):
+    """The flash forward at FLASH_DECODE_CASES against its plain version
+    (bottom-right causal: q_offset = kv_len - sq). The k columns past
+    kv_len are scaled by 8 and the v columns moved by 100, so a kernel that
+    read one would miss by far more than OUT_ATOL. Each case is timed
+    beside SDPA given ``k[:, :kv_len]`` and ``causal_lower_right`` (the
+    same function on SDPA's fused backends); the bound counts the pairs
+    the rows see and the k / v columns below kv_len read once. Returns the
+    largest max |kernel - plain|."""
+    import torch.nn.functional as F
+    from torch.nn.attention.bias import causal_lower_right
+
+    from paddle_tpu_torch.ops.fused.flash_attention import (
+        flash_attention, flash_attn_reference)
+
+    dev, worst, card = "cuda", 0.0, smi()
+    for label, b, sq, sk, kv_len, hq, hk, d in FLASH_DECODE_CASES:
+        q = torch.randn(b, sq, hq, d, generator=gen, device=dev).bfloat16()
+        k = torch.randn(b, sk, hk, d, generator=gen, device=dev).bfloat16()
+        v = torch.randn(b, sk, hk, d, generator=gen, device=dev).bfloat16()
+        k[:, kv_len:] *= 8
+        v[:, kv_len:] += 100
+        run = lambda: flash_attention(q, k, v, causal=True,  # noqa: E731
+                                      kv_len=kv_len)
+        out = run()
+        ref = flash_attn_reference(q, k, v, causal=True, kv_len=kv_len)
+        err = (out.float() - ref.float()).abs().max().item()
+        check(math.isfinite(err) and err <= OUT_ATOL,
+              f"flash {label} (k, v past kv_len scaled / moved): max "
+              f"|kernel - plain| = {err:.3e} <= {OUT_ATOL}")
+        worst = max(worst, err)
+        ms = time_ms(torch, run, flush=flush)
+        plain = time_ms(torch, lambda: flash_attn_reference(
+            q, k, v, causal=True, kv_len=kv_len), reps=3, flush=flush)
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k[:, :kv_len],
+                                                  v[:, :kv_len]))
+        lib_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=causal_lower_right(sq, kv_len),
+            enable_gqa=True), flush=flush)
+        pairs = sum(kv_len - sq + r + 1 for r in range(sq))
+        b_ms, b_by = bound(4 * d * hq * pairs * b,
+                           2 * (2 * b * sq * hq * d + 2 * b * kv_len * hk * d))
+        print(f"  flash {label}: {ms:.4f} ms (bound {b_ms:.4f} ms by "
+              f"{b_by}, {b_ms / ms:.1%} of it), plain {plain:.3f} ms, sdpa "
+              f"(causal_lower_right) {lib_ms:.4f} ms ({ms / lib_ms:.2f}x "
+              f"sdpa); on {card}")
+        del q, k, v, out, ref
+    return worst
+
+
 PAGED_LENS = [0, 1, 16, 17, 1000, 2048, 700, 1532]
 # the paged kernel's edges: (what, lens, kv heads, group, d)
 PAGED_EDGES = (
@@ -454,21 +565,37 @@ PAGED_EDGES = (
     ("group 8", PAGED_LENS, 4, 8, 128), ("d 64", PAGED_LENS, 8, 4, 64),
     ("batch 1 at 2048 tokens", [2048], 8, 4, 128),
     ("an all-empty batch", [0] * 8, 8, 4, 128),
-    ("64 rows", "64 rows", 8, 4, 128))
+    ("64 rows", "64 rows", 8, 4, 128),
+    ("16 kv heads, group 1, d 64 (llama-350m)",
+     [128, 129, 143, 144, 160, 200, 254, 255], 16, 1, 64))
+# the contiguous table of fused_generate(paged=True) and ServingDecoder
+# (row b on blocks b * pps ..., row 0 on block 0, every row equally long):
+# (what, rows, tokens a row, kv heads, group, d, pages a row) at the first
+# and the last decode step of phase 5g's Llama-3-8B (prompt 512, 32 new
+# tokens) and llama-350m (prompt 128, 128 new tokens) runs
+PAGED_CONTIGUOUS = (
+    ("Llama-3-8B decode", 4, 512, 8, 4, 128, 34),
+    ("Llama-3-8B decode", 4, 542, 8, 4, 128, 34),
+    ("llama-350m decode", 8, 128, 16, 1, 64, 16),
+    ("llama-350m decode", 8, 254, 16, 1, 64, 16))
 
 
 def paged_inputs(torch, gen, lens=PAGED_LENS, kvh=8, group=4, d=128,
-                 quant=False, blocks=1025, page=16, pps=128):
+                 quant=False, blocks=1025, page=16, pps=128,
+                 contiguous=False):
     """The serving path's decode table and one layer's pool: rows of
     ``lens`` tokens on distinct shuffled blocks (block 0 never used), null
-    table tails; q [B, kvh group, d] and the pool [kvh, blocks, page, d] in
-    bf16, or int8 with its block-major scales [blocks, kvh, page]. Returns
-    the positional arguments and the keyword arguments of
-    ``paged_attention``."""
+    table tails; or, ``contiguous``, the pool of exactly ``B * pps`` blocks
+    under ``contiguous_page_table``. q [B, kvh group, d] and the pool [kvh,
+    blocks, page, d] in bf16, or int8 with its block-major scales [blocks,
+    kvh, page]. Returns the positional arguments and the keyword arguments
+    of ``paged_attention``."""
+    from paddle_tpu_torch.incubate.nn.functional import contiguous_page_table
     from paddle_tpu_torch.models.kv_cache import quantize_kv
 
     dev, B = "cuda", len(lens)
-    blocks = max(blocks, sum(-(-n // page) for n in lens) + 1)
+    blocks = B * pps if contiguous \
+        else max(blocks, sum(-(-n // page) for n in lens) + 1)
     k, v = (torch.randn(kvh, blocks, page, d, generator=gen, device=dev)
             for _ in range(2))
     kw = dict(return_stats=True)
@@ -479,13 +606,16 @@ def paged_inputs(torch, gen, lens=PAGED_LENS, kvh=8, group=4, d=128,
     else:
         k, v = k.bfloat16(), v.bfloat16()
     q = torch.randn(B, kvh * group, d, generator=gen, device=dev).bfloat16()
-    perm = torch.randperm(blocks - 1, generator=gen, device=dev) + 1
-    table = torch.zeros(B, pps, dtype=torch.int32, device=dev)
-    at = 0
-    for i, n in enumerate(lens):
-        used = -(-n // page)
-        table[i, :used] = perm[at:at + used].int()
-        at += used
+    if contiguous:
+        table = contiguous_page_table(B, pps, device=dev)
+    else:
+        perm = torch.randperm(blocks - 1, generator=gen, device=dev) + 1
+        table = torch.zeros(B, pps, dtype=torch.int32, device=dev)
+        at = 0
+        for i, n in enumerate(lens):
+            used = -(-n // page)
+            table[i, :used] = perm[at:at + used].int()
+            at += used
     lens = torch.tensor(lens, dtype=torch.int32, device=dev)
     return (q, k, v, table, lens), kw
 
@@ -521,8 +651,9 @@ def check_paged(torch, gen, flush, quant):
     [8, 1025, 16, 128], int8 with its block-major scales [1025, 8, 16],
     lens PAGED_LENS) and at ``PAGED_EDGES`` (groups of 1, 2 and 8, d = 64,
     one row of 2048 tokens, a batch with no token, 64 rows of 0 to 2048
-    tokens), the path's shape twice (bitwise equal); timed there, split by
-    kernel, with the wrapper's host µs a call."""
+    tokens, llama-350m's 16 heads of 64), bf16 pages also on
+    ``PAGED_CONTIGUOUS``; the path's shape twice (bitwise equal); timed
+    there, split by kernel, with the wrapper's host µs a call."""
     from paddle_tpu_torch.ops.cuda.paged_attention import (
         paged_attention, paged_attention_reference)
 
@@ -536,6 +667,14 @@ def check_paged(torch, gen, flush, quant):
         args, kw = paged_inputs(torch, gen, lens, kvh, group, d, quant)
         err = max(err, check_paged_once(torch, f"paged {kind}, {what}",
                                         args, kw))
+        del args, kw
+    for what, B, n, kvh, group, d, pps in () if quant else PAGED_CONTIGUOUS:
+        args, kw = paged_inputs(torch, gen, [n] * B, kvh, group, d, pps=pps,
+                                contiguous=True)
+        err = max(err, check_paged_once(
+            torch, f"paged {kind}, contiguous table, {what}: {B} rows of "
+                   f"{n} tokens, {kvh} kv heads, group {group}, d {d}",
+            args, kw))
         del args, kw
     torch.cuda.empty_cache()
     args, kw = paged_inputs(torch, gen, quant=quant)
@@ -573,6 +712,11 @@ def check_paged(torch, gen, flush, quant):
 # Llama-3-8B's four decode products of one layer: (name, K, N)
 WO_SHAPES = (("qkv", 4096, 6144), ("out", 4096, 4096),
              ("ffn1", 4096, 28672), ("ffn2", 14336, 4096))
+# llama-350m's (phase 5g's bench_decode workload), checked at its decode
+# rows (m = 8) and its prefill's (m = 8 x 128, the dequantize-then-matmul
+# route)
+WO_SHAPES_350M = (("qkv", 1024, 3072), ("out", 1024, 1024),
+                  ("ffn1", 1024, 5632), ("ffn2", 2816, 1024))
 
 
 def library_int8pack(torch, x, w, scale, int4):
@@ -607,7 +751,9 @@ def check_weight_only(torch, gen, flush, int4):
     ``torch._weight_{int8,int4}pack_mm`` and the wrapper's host µs a call;
     the kernels' edges (``WO_EDGE_M`` at K = 14336, N = 384; m in {1, 8, 64,
     65, 256} at N = 128 and the smallest K the rule admits, bf16 and f32
-    out; f32 out at ``out`` for m = 8 and 256); ffn2 at m = 8 twice, bitwise
+    out; f32 out at ``out`` for m = 8 and 256); llama-350m's four products
+    (``WO_SHAPES_350M``) at m = 8 and 1024, each call's launches checked
+    against the dispatch rule; ffn2 at m = 8 twice, bitwise
     equal. The kernels line's numbers sum one layer's four m = 8 products.
     Then the host cost of one decode step's 128 wrapper calls."""
     from paddle_tpu_torch.ops.cuda import int8_matmul as wo
@@ -633,14 +779,24 @@ def check_weight_only(torch, gen, flush, int4):
     def held(label, x, w, scale, out_dtype=torch.bfloat16):
         m, K = x.shape
         N = w.shape[1]
+        count = "int4_launches" if int4 else "launches"
+        before = getattr(wo, count)
         out = fn(x, w, scale, out_dtype)
+        launched = getattr(wo, count) - before
         ref = plain_fn(x, w, scale, out_dtype)
         torch.cuda.synchronize()
         err = (out.float() - ref.float()).abs().max().item()
         peak = ref.float().abs().max().item()
-        p = wo._plan(m, K, N, int4, dev)   # the grid the wrapper launched
-        grid = (f"{'wgmma' if p.kind else 'decode'} kernel, {p.ctas} CTAs "
-                f"x {p.units / p.ctas:.2f} of {p.units} units")
+        takes = wo.kernel_takes(m, K, N, int4)
+        check(launched == int(takes),
+              f"{kind} GEMM {label} m={m} K={K} N={N}: {launched} launches "
+              f"== {int(takes)}")
+        if takes:
+            p = wo._plan(m, K, N, int4, dev)   # the grid the wrapper launched
+            grid = (f"{'wgmma' if p.kind else 'decode'} kernel, {p.ctas} "
+                    f"CTAs x {p.units / p.ctas:.2f} of {p.units} units")
+        else:
+            grid = "the dequantize-then-matmul route"
         check(out.dtype == out_dtype and math.isfinite(err)
               and err <= WO_RTOL * peak,
               f"{kind} GEMM {label} m={m} K={K} N={N} "
@@ -692,6 +848,9 @@ def check_weight_only(torch, gen, flush, int4):
             held("edge, one column tile", x, w, scale, out_dtype)
     for m in (8, 256):
         held("out", *operands(m, 4096, 4096), torch.float32)
+    for m in (8, 8 * 128):
+        for name, K, N in WO_SHAPES_350M:
+            held(f"llama-350m {name}", *operands(m, K, N))
     x, w, scale = operands(8, 14336, 4096)
     first, second = fn(x, w, scale), fn(x, w, scale)
     torch.cuda.synchronize()
@@ -2131,10 +2290,9 @@ def phase_slice(torch, seed):
         ids = torch.from_numpy(np.concatenate(
             [r.prompt, np.asarray(r.tokens, np.int32)])).long().cuda()[None]
         p = r.prompt_len
-        with torch.inference_mode():
-            logits = model(ids)[0, p - 1:-1]
-            moved = perturbed_logits(torch, model, ids, gen)[p - 1:-1]
-        noise = max(noise, (logits - moved).abs().max().item())
+        logits, moved, moved_by = ulp_noise(torch, model, ids, gen,
+                                            slice(p - 1, -1))
+        noise = max(noise, moved_by)
         toks = torch.tensor(r.tokens, device=logits.device)
         best = logits.max(dim=-1)
         deficit = best.values - logits.gather(1, toks[:, None])[:, 0]
@@ -2170,6 +2328,29 @@ def phase_slice(torch, seed):
     profile_decode(torch, engine, cfg.vocab_size, seed,
                    launches={"paged_kernel": L})
     return {"flash_attention": flash_n, "paged_attention": paged_n}, noise
+
+
+def device_kernels(prof, per=1):
+    """Every kernel a ``torch.profiler`` run recorded on the device: ({name:
+    device ms / ``per``}, {name: launches})."""
+    kernels, calls = {}, {}
+    for e in prof.key_averages():
+        t = getattr(e, "self_device_time_total", 0.0)
+        if t > 0 and e.device_type.name == "CUDA":
+            kernels[e.key] = kernels.get(e.key, 0.0) + t / 1e3 / per
+            calls[e.key] = calls.get(e.key, 0) + e.count
+    return kernels, calls
+
+
+def decode_groups(kernels):
+    """``kernels``' device ms summed by DECODE_GROUPS (the first group one
+    of whose keys a name holds), the rest under "other"."""
+    out = dict.fromkeys(list(DECODE_GROUPS) + ["other"], 0.0)
+    for name, ms in kernels.items():
+        low = name.lower()
+        out[next((g for g, keys in DECODE_GROUPS.items()
+                  if any(k in low for k in keys)), "other")] += ms
+    return out
 
 
 def profile_decode(torch, engine, vocab, seed, steps=8,
@@ -2213,12 +2394,7 @@ def profile_decode(torch, engine, vocab, seed, steps=8,
           f"profiled batch of {len(reqs)} finished")
     print(f"  {unit}s commit {per_row:.2f} tokens a row; host ms per row "
           f"token {step_ms / per_row:.2f}")
-    kernels, calls = {}, {}
-    for e in prof.key_averages():
-        t = getattr(e, "self_device_time_total", 0.0)
-        if t > 0 and e.device_type.name == "CUDA":
-            kernels[e.key] = kernels.get(e.key, 0.0) + t / 1e3 / steps
-            calls[e.key] = calls.get(e.key, 0) + e.count
+    kernels, calls = device_kernels(prof, steps)
     busy = sum(kernels.values())
     if busy == 0:
         print(f"  {unit}, batch {len(reqs)}: {step_ms:.2f} ms on the "
@@ -2240,15 +2416,7 @@ def profile_decode(torch, engine, vocab, seed, steps=8,
     for part in absent:
         check(launched(part) == 0,
               f"profiled decode steps: no {part} kernel ({launched(part)})")
-    groups = {"paged_attention": ("paged_kernel",),
-              "weight_only_gemm": ("wo_gemm",),
-              "matmul": ("gemm", "gemv", "nvjet", "cutlass", "xmma")}
-    by_group = dict.fromkeys(list(groups) + ["other"], 0.0)
-    for name, ms in kernels.items():
-        low = name.lower()
-        group = next((g for g, keys in groups.items()
-                      if any(k in low for k in keys)), "other")
-        by_group[group] += ms
+    by_group = decode_groups(kernels)
     print(f"  {unit}, batch {len(reqs)}: {step_ms:.2f} ms on the host "
           f"clock ({prof_ms:.2f} ms under the profiler); device busy "
           f"{busy:.2f} ms per step: idle share {1 - busy / step_ms:.1%} of "
@@ -3089,6 +3257,297 @@ def phase_fleet(torch, seed, noise_bf16):
     print(f"  card memory after the phase: {end / 2**30:.3f} GiB")
 
 
+def profiled(torch, fn):
+    """``fn()`` under ``torch.profiler`` (device activity only: the host's
+    operator events are not read, and recording them slows the host loop):
+    host ms (synchronised), device busy ms and device ms by DECODE_GROUPS
+    (+ "other")."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    groups = decode_groups(device_kernels(prof)[0])
+    return wall, sum(groups.values()), groups
+
+
+def decode_step_profile(torch, what, run, steps=8):
+    """One decode step of ``run(n)`` (a decoder making n new tokens): the
+    profiled difference between ``steps + 1`` new tokens and 1 (the
+    prefill alone), over ``steps``: host ms, device busy ms, idle share and
+    device ms by group."""
+    t0 = time.perf_counter()
+    w1, b1, g1 = profiled(torch, lambda: run(1))
+    wn, bn, gn = profiled(torch, lambda: run(steps + 1))
+    wall, busy = (wn - w1) / steps, (bn - b1) / steps
+    took = f"the two profiled runs {time.perf_counter() - t0:.1f} s"
+    if bn == 0:
+        print(f"  {what}: a decode step {wall:.2f} ms on the host clock "
+              f"under the profiler; the profiler recorded no device time "
+              f"(busy and idle share not measured); {took}")
+        return wall, None
+    by = ", ".join(f"{g} {(gn[g] - g1[g]) / steps:.3f}" for g in gn)
+    print(f"  {what}: a decode step {wall:.2f} ms host under the profiler, "
+          f"device busy {busy:.3f} ms, idle share {1 - busy / wall:.1%}; "
+          f"device ms by group: {by}; {took}; on {smi()}")
+    return wall, busy
+
+
+def run_decoder(torch, what, fn, n_new, expect):
+    """``fn()`` timed on the host clock with the launch counts set to 0
+    before and read after; ``expect`` ({count: launches}) must match
+    exactly. Returns the tokens, the counts, host ms per new token and
+    the peak memory (GiB)."""
+    free_cuda(torch)
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    for name, want in expect.items():
+        check(counts[name] == want,
+              f"{what}: {name} launches {counts[name]} == {want}")
+    print(f"  {what}: {wall:.1f} ms for {n_new} new tokens a row "
+          f"({wall / n_new:.2f} ms a token), peak {peak:.2f} GiB, on "
+          f"{smi()}")
+    return out, counts, wall / n_new, peak
+
+
+def step_decoder(torch, decoder, ids, n_new, ck, cv, pack=None,
+                 paged_decoder=None):
+    """Greedy tokens ``[B, P + n_new]`` from ``decoder`` stepped by hand: a
+    prefill span at index 0, then ``n_new - 1`` decode steps (through
+    ``paged_decoder`` over ``pack(ck, cv)``'s pages when given)."""
+    P = ids.shape[1]
+    logits, ck, cv = decoder(ids, ck, cv, 0)
+    toks = [logits.argmax(dim=-1)]
+    step = decoder
+    if paged_decoder is not None:
+        ck, cv = pack(ck, cv)
+        step = paged_decoder
+    for i in range(n_new - 1):
+        logits, ck, cv = step(toks[-1][:, None], ck, cv, P + i)
+        toks.append(logits.argmax(dim=-1))
+    return torch.cat([ids, torch.stack(toks, dim=1)], dim=1)
+
+
+def phase_decoding(torch, seed, noise_bf16):
+    """Phase 5g: the static-batch decoders (``generate``, ``fused_generate``
+    dense and paged, ``ServingDecoder``) on Llama-3-8B, then bench.py's
+    bench_decode workload on llama-350m. Returns the launch counts."""
+    print("== phase 5g: decoding: generate, fused_generate and "
+          "ServingDecoder")
+    import numpy as np
+
+    from paddle_tpu_torch.core.device import make_generator
+    from paddle_tpu_torch.incubate.nn.functional import (
+        fused_weights_from_llama, paged_cache_from_dense)
+    from paddle_tpu_torch.models import (LLAMA_PRESETS, KVCacheSpec,
+                                         LlamaForCausalLM, ServingDecoder,
+                                         fused_generate, generate)
+    from paddle_tpu_torch.models.generation import release_fused_weights
+
+    free_cuda(torch)
+    base = torch.cuda.memory_allocated()
+    t_phase = time.perf_counter()
+    launches = {}
+    # (a) Llama-3-8B, full width and depth, four decoders
+    cfg = LLAMA_PRESETS["llama3-8b"]
+    L, B, P, N = cfg.num_hidden_layers, DECODE_BATCH, DECODE_PROMPT, NEW_TOKENS
+    T = P + N
+    model = LlamaForCausalLM(cfg, device="cuda", seed=seed)
+    rng = np.random.RandomState(seed + 9)
+    ids = torch.from_numpy(rng.randint(0, cfg.vocab_size, (B, P))).cuda()
+    runs = {
+        "generate": (lambda n: generate(model, ids, max_new_tokens=n),
+                     {"flash_attention": L * N, "paged_attention": 0}),
+        "fused_generate dense": (
+            lambda n: fused_generate(model, ids, max_new_tokens=n),
+            {"flash_attention": L, "paged_attention": 0}),
+        "fused_generate paged": (
+            lambda n: fused_generate(model, ids, max_new_tokens=n,
+                                     paged=True),
+            {"flash_attention": L, "paged_attention": L * (N - 1)}),
+    }
+    streams, per_token, peaks, steps = {}, {}, {}, {}
+    for what, (fn, expect) in runs.items():
+        expect = dict(expect, int8_matmul=0, int4_matmul=0, flash_dense=0)
+        if what == "fused_generate dense":
+            fn(1)                 # stacks the weights (cached on the model)
+        out, counts, per_token[what], peaks[what] = run_decoder(
+            torch, f"5g {what}", lambda: fn(N), N, expect)
+        launches[what] = {k: counts[k] for k in expect}
+        check(tuple(out.shape) == (B, T) and bool(torch.equal(out[:, :P], ids))
+              and bool(((out >= 0) & (out < cfg.vocab_size)).all()),
+              f"5g {what}: [{B}, {T}] in-vocab ids, the prompt kept")
+        streams[what] = out[:, P:].tolist()
+        steps[what] = decode_step_profile(torch, f"5g {what}", fn)
+    release_fused_weights(model)
+    free_cuda(torch)
+    # what fused_generate's cached stack saves a call: one stacking each
+    stack_ms = {}
+    for q in (False, "int8", "int4"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        w = fused_weights_from_llama(model, quantize=q)
+        torch.cuda.synchronize()
+        stack_ms[q or "bf16"] = (time.perf_counter() - t0) * 1e3
+        del w
+        free_cuda(torch)
+    call_ms = per_token["fused_generate dense"] * N
+    shares = ", ".join(f"{q} {ms:.1f} ms ({ms / call_ms:.1%})"
+                       for q, ms in stack_ms.items())
+    print(f"  5g stacking Llama-3-8B's fused weights, one call each: "
+          f"{shares} of a {N}-token fused_generate dense call "
+          f"({call_ms:.1f} ms); on {smi()}")
+    torch.cuda.reset_peak_memory_stats()
+    dec = ServingDecoder(model, max_len=T)
+    spec = KVCacheSpec.from_config(cfg)
+    out, counts, per_token["ServingDecoder"], peaks["ServingDecoder"] = \
+        run_decoder(torch, "5g ServingDecoder (a prefill span, then "
+                    f"{N - 1} steps)", lambda: step_decoder(
+                        torch, dec, ids, N, *spec.alloc_dense(B, T, "cuda")),
+                    N, {"flash_attention": L, "paged_attention": 0})
+    launches["ServingDecoder"] = {k: counts[k] for k in (
+        "flash_attention", "paged_attention")}
+    check(out[:, P:].tolist() == streams["fused_generate dense"],
+          "5g ServingDecoder stepped by hand == fused_generate dense, bit "
+          "for bit (every token of the 4 streams)")
+    ck, cv = spec.alloc_dense(B, T, "cuda")
+    dec(ids, ck, cv, 0)
+    tok = out[:, P:P + 1]
+
+    def dec_steps(n):
+        for i in range(n - 1):
+            dec(tok, ck, cv, P + i)
+    steps["ServingDecoder"] = decode_step_profile(
+        torch, "5g ServingDecoder", dec_steps)
+    del dec, ck, cv
+    free_cuda(torch)
+    print(f"  [5g (a), the decoders: {time.perf_counter() - t_phase:.0f} s]")
+    prompts = [r.cpu().numpy().astype(np.int32) for r in ids]
+    ref = streams["fused_generate dense"]
+    for what in ("generate", "fused_generate paged"):
+        stream_agreement(torch, model, [
+            (p, streams[what][i], ref[i]) for i, p in enumerate(prompts)],
+            noise_bf16, f"5g {what} vs fused_generate dense")
+    del model
+    free_cuda(torch)
+
+    print(f"  [5g (a): {time.perf_counter() - t_phase:.0f} s]")
+    # (b) bench_decode's workload on llama-350m
+    cfg = LLAMA_PRESETS["llama-350m"]
+    L, B, P = cfg.num_hidden_layers, BENCH_BATCH, BENCH_PROMPT
+    model = LlamaForCausalLM(cfg, device="cuda", seed=seed)
+    ids = torch.from_numpy(np.random.RandomState(seed + 10).randint(
+        0, cfg.vocab_size, (B, P))).cuda()
+    variants = {"bf16": dict(), "int8": dict(quantize="int8"),
+                "int4": dict(quantize="int4"), "bf16 paged": dict(paged=True)}
+    from paddle_tpu_torch.ops.cuda.int8_matmul import MAX_ROWS
+
+    # the weight-only kernel takes the decode steps' products (m = B), and
+    # the prefill's only at m = B * P <= 256 (above, its dequantize-then-
+    # matmul route)
+    hi_steps = BENCH_HI - 1
+    wo_calls = 4 * L * (hi_steps + (B * P <= MAX_ROWS))
+    expects = {"bf16": {"int8_matmul": 0, "int4_matmul": 0,
+                        "paged_attention": 0},
+               "int8": {"int8_matmul": wo_calls, "int4_matmul": 0,
+                        "paged_attention": 0},
+               "int4": {"int8_matmul": 0, "int4_matmul": wo_calls,
+                        "paged_attention": 0},
+               "bf16 paged": {"int8_matmul": 0, "int4_matmul": 0,
+                              "paged_attention": L * hi_steps}}
+
+    def one(n, kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fused_generate(model, ids, max_new_tokens=n, **kw)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0, out
+
+    for kw in variants.values():
+        one(2, kw)            # stacks the weights, warms the decode path
+    # round 0's 128-token runs carry the launch counts and the streams
+    outs, slopes = {}, {name: [] for name in variants}
+    for r in range(BENCH_PAIRS):
+        for name, kw in variants.items():
+            reset_counts()
+            hi, out = one(BENCH_HI, kw)
+            if r == 0:
+                counts = read_counts()
+                expect = dict(expects[name], flash_attention=L)
+                for key, want in expect.items():
+                    check(counts[key] == want,
+                          f"5g llama-350m {name} n={BENCH_HI}: {key} "
+                          f"launches {counts[key]} == {want}")
+                launches[f"llama-350m {name}"] = {k: counts[k]
+                                                  for k in expect}
+                outs[name] = out
+            lo = one(BENCH_LO, kw)[0]
+            slopes[name].append((hi - lo) / (BENCH_HI - BENCH_LO))
+    card = smi()
+    for name, ss in slopes.items():
+        ms = statistics.median(ss) * 1e3
+        print(f"  5g llama-350m {name}: slope {ms:.3f} ms a token (pairs "
+              f"{fmt_ms([x * 1e3 for x in ss])}), {B / ms * 1e3:.1f} "
+              f"tokens/s at batch {B}; on {card}")
+    check(all(statistics.median(ss) > 0 for ss in slopes.values()),
+          "5g llama-350m: every slope positive")
+    gen = make_generator(seed, "cuda")
+    noise = max(ulp_noise(torch, model, r[None], gen)[2]
+                for r in outs["bf16"][:2])
+    print(f"  bf16 noise of llama-350m (phase 4's rule, on 2 rows): "
+          f"{noise:.4f}")
+    stream_agreement(torch, model, [
+        (p.cpu().numpy(), outs["bf16 paged"][i, P:].tolist(),
+         outs["bf16"][i, P:].tolist()) for i, p in enumerate(ids[:2])],
+        noise, "5g llama-350m bf16 paged vs dense")
+    T = P + BENCH_LO
+    dense = ServingDecoder(model, quantize="int8", max_len=T)
+    paged = ServingDecoder(model, quantize="int8", paged=True, max_len=T)
+    spec = KVCacheSpec.from_config(cfg)
+    pps = spec.pages_per_seq(T)
+    reset_counts()
+    got = step_decoder(
+        torch, dense, ids, BENCH_LO, *spec.alloc_dense(B, T, "cuda"),
+        pack=lambda k, v: paged_cache_from_dense(k, v, spec.page_size, pps),
+        paged_decoder=paged)
+    counts = read_counts()
+    lo_calls = 4 * L * (BENCH_LO - 1 + (B * P <= MAX_ROWS))
+    check(counts["paged_attention"] == L * (BENCH_LO - 1)
+          and counts["int8_matmul"] == lo_calls,
+          f"5g llama-350m ServingDecoder(paged=True, quantize='int8'): paged "
+          f"{counts['paged_attention']}, int8 GEMM {counts['int8_matmul']} "
+          f"launches == {L} x {BENCH_LO - 1}, {lo_calls}")
+    want = fused_generate(model, ids, max_new_tokens=BENCH_LO,
+                          quantize="int8", paged=True)
+    check(bool(torch.equal(got, want)),
+          "5g llama-350m ServingDecoder(paged=True, quantize='int8') == "
+          "fused_generate(paged=True, quantize='int8'), bit for bit")
+    del model, dense, paged, got, want, outs
+    free_cuda(torch)
+    back = torch.cuda.memory_allocated()
+    check(back - base <= DECODE_MEM_SLACK,
+          f"5g: card memory {back / 2**30:.3f} GiB, "
+          f"{(back - base) / 2**20:+.1f} MiB from before the phase (<= "
+          f"{DECODE_MEM_SLACK / 2**20:.0f} MiB)")
+    print("  5g per token (host ms): " + ", ".join(
+        f"{k} {v:.2f}" for k, v in per_token.items())
+        + "; peak GiB: " + ", ".join(f"{k} {v:.2f}" for k, v in peaks.items())
+        + f"; on {smi()}")
+    print("  5g decoding launches: " + json.dumps(launches))
+    print(f"  [5g: {time.perf_counter() - t_phase:.0f} s]")
+    return launches
+
+
 def train_config(layers, **over):
     """``bench.py``'s Llama-2-7B proxy widths at ``layers`` layers
     (``over``: other fields, such as the recompute policy)."""
@@ -3771,6 +4230,8 @@ def main():
         phase_speculative(torch, args.seed, noise, kv_noise)
         lap()
         phase_fleet(torch, args.seed, noise)
+        lap()
+        phase_decoding(torch, args.seed, noise)
         lap()
         launches["flash_attention_bwd"] = \
             phase_train(torch, args.seed)["flash_attention_bwd"]

@@ -337,8 +337,11 @@ struct BwdSmem {
   T S[P][N + PD], dS[P][N + PD];       // the state entering the chunk, dL/dS at its end
   T W[CH][CH + PD], dCB[CH][CH + PD];
   float dt[CH], cum[CH], decay[CH], tail[CH], dcum[CH], dloga[CH], dtail[CH], rowx[CH];
+  float cumdt[CH];                     // inclusive prefix sums of dt: d cum / dA
+  float dstate[CH];                    // dstate_t: the decay and tail terms' dA
   float part[5][4][CH];                // per-warp-column (or -row) partial sums
   float red[2][WARPS];                 // per-warp sums of S o dS and x o dy
+  float pair[WARPS];                   // per-warp sums of dL o L (cumdt_j - cumdt_i)
 };
 
 template <typename T, int P, int N>
@@ -419,6 +422,7 @@ ssd_bwd_kernel(const T* __restrict__ x, const T* __restrict__ dt, const float* _
     }
     __syncthreads();
     if (warp == 0) warp_scan<CH, false>(s.dt, a, s.cum, lane);
+    if (warp == 1) warp_scan<CH, false>(s.dt, 1.f, s.cumdt, lane);
     __syncthreads();
     const float last = s.cum[CH - 1], wce = expf(last);
     if (tid < CH) {
@@ -426,7 +430,10 @@ ssd_bwd_kernel(const T* __restrict__ x, const T* __restrict__ dt, const float* _
       s.tail[tid] = expf(last - s.cum[tid]);
     }
     // --- W = (C B^T) o L and dCB = (dy x^T o dt_i) o L, with dL o L summed
-    // over rows (part 0) and columns (part 1)
+    // over rows (part 0) and columns (part 1), and each pair's share of dA,
+    // dL o L times d(cum_j - cum_i) / dA = cumdt_j - cumdt_i (pair): summed
+    // pair by pair, not as the rows' and columns' sums weighted by cumdt,
+    // which cancel to a small dA and leave it their rounding
     {
       float cb[NTC][4], dw[NTC][4];
       zero(cb);
@@ -434,7 +441,7 @@ ssd_bwd_kernel(const T* __restrict__ x, const T* __restrict__ dt, const float* _
       const int n0 = wn * (CH / WN);
       mma_tile<N, NTC, false, false>(cb, &s.C[0][0], LN, &s.B[0][0], LN, m0, n0, lane);
       mma_tile<P, NTC, false, false>(dw, &s.dy[0][0], LP, &s.x[0][0], LP, m0, n0, lane);
-      float rsum[2] = {0.f, 0.f}, csum[NTC][2];
+      float rsum[2] = {0.f, 0.f}, csum[NTC][2], pair = 0.f;
 #pragma unroll
       for (int nt = 0; nt < NTC; ++nt) {
         csum[nt][0] = csum[nt][1] = 0.f;
@@ -452,8 +459,11 @@ ssd_bwd_kernel(const T* __restrict__ x, const T* __restrict__ dt, const float* _
           s.dCB[j][i] = from_f<T>(dcb);
           rsum[e / 2] += dll;
           csum[nt][e % 2] += dll;
+          pair += dll * (s.cumdt[j] - s.cumdt[i]);
         }
       }
+      pair = warp_sum(pair);
+      if (lane == 0) s.pair[warp] = pair;
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
         rsum[r] += __shfl_xor_sync(FULL, rsum[r], 1);
@@ -589,6 +599,10 @@ ssd_bwd_kernel(const T* __restrict__ x, const T* __restrict__ dt, const float* _
 #pragma unroll
       for (int w = 0; w < WM; ++w) cols += s.part[1][w][tid];
       s.dcum[tid] = rows - cols + dDecay * s.decay[tid] - dtail * s.tail[tid];
+      // cum_t reaches y through decay_t (d / dA = cumdt_t) and S_out
+      // through tail_t (cumdt_last - cumdt_t): each term with its own weight
+      s.dstate[tid] = dDecay * s.decay[tid] * s.cumdt[tid]
+                      + dtail * s.tail[tid] * (s.cumdt[CH - 1] - s.cumdt[tid]);
       s.dtail[tid] = dtail;
       s.rowx[tid] = rowx;
     }
@@ -608,14 +622,21 @@ ssd_bwd_kernel(const T* __restrict__ x, const T* __restrict__ dt, const float* _
       __syncwarp();
       warp_scan<CH, true>(s.dcum, 1.f, s.dloga, lane);
       __syncwarp();
-      float dA = 0.f;
+      // dA = sum_i dloga_i dt_i = sum_t dcum_t cumdt_t, summed by where
+      // cum reaches the loss (pairs, decay and tail terms, the state's
+      // decay wce) so that no two large sums cancel, in double
+      double dA = 0.0;
       for (int i = lane; i < CH; i += 32) {
-        dA += s.dloga[i] * s.dt[i];
+        dA += s.dstate[i];
         if (i < len) ddt[(row0 + i) * H + hi] = from_f<T>(a * s.dloga[i] + s.rowx[i]);
       }
-      dA = warp_sum(dA);
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1) dA += __shfl_xor_sync(FULL, dA, o);
       if (lane == 0) {
-        dA_part[(size_t(bi) * nc + c) * H + hi] = dA;
+#pragma unroll
+        for (int w = 0; w < WARPS; ++w) dA += s.pair[w];
+        dA += double(dwce) * wce * s.cumdt[CH - 1];
+        dA_part[(size_t(bi) * nc + c) * H + hi] = float(dA);
         dD_part[(size_t(bi) * nc + c) * H + hi] = dD;
       }
     }

@@ -8,7 +8,8 @@ The matrix products stay ``torch.matmul``, or, with weight-only int8/int4
 weights, go through the weight-only GEMM (``ops/cuda/int8_matmul.py``);
 attention goes through the flash dispatch (prefill) and the paged decode
 kernel (decode and the speculative verify window, over bf16 or int8
-pages).
+pages; ``fused_multi_transformer_paged``: decode over the contiguous
+layout, where sequence b owns pages ``[b * pps, (b + 1) * pps)``).
 
 Caches are updated IN PLACE: where the JAX code threads new cache arrays
 out of a ``lax.scan`` and relies on buffer donation, these functions write
@@ -34,8 +35,10 @@ from ....ops.fused.rope import apply_rotary_position_embedding as _rope
 from ....ops.quant_ops import weight_quantize
 
 __all__ = ["FusedTransformerWeights", "fused_weights_from_llama",
-           "fused_multi_transformer", "fused_multi_transformer_paged_ragged",
-           "fused_multi_transformer_paged_ragged_verify"]
+           "fused_multi_transformer", "fused_multi_transformer_paged",
+           "fused_multi_transformer_paged_ragged",
+           "fused_multi_transformer_paged_ragged_verify",
+           "paged_cache_from_dense", "contiguous_page_table"]
 
 
 @dataclass
@@ -268,6 +271,74 @@ def _paged_decode_layer(h, w, ck, cv, ksc, vsc, *, table, lens, rope_cos,
             + w_new[..., None] * vn.float()) / (w_old + w_new)[..., None]
     h = _paged_out_ffn(h, attn[:, None].to(h.dtype), w, epsilon)
     return h, (k[:, 0], v[:, 0])
+
+
+def contiguous_page_table(batch: int, pps: int, device=None) -> torch.Tensor:
+    """The static contiguous page table ``[batch, pps]`` int32: ``table[b]
+    = b * pps + arange(pps)`` (``fused_transformer.py:332-335``)."""
+    return (torch.arange(batch, dtype=torch.int32, device=device)[:, None]
+            * pps + torch.arange(pps, dtype=torch.int32, device=device))
+
+
+def paged_cache_from_dense(k_dense, v_dense, page_size: int, pps: int):
+    """Pack dense caches ``[L, B, S, kvh, dh]`` into page buffers ``[L, kvh,
+    B * pps, page, dh]`` of the contiguous layout
+    (``fused_transformer.py:309-329``): all S slots verbatim (callers pass
+    caches that are zero past the valid prefix, as fresh prefill caches
+    are), the pages past them zero. New tensors; the dense ones are left
+    as they are."""
+    L, B, S, kvh, dh = k_dense.shape
+    if S > pps * page_size:
+        raise ValueError(f"paged_cache_from_dense: {S} slots do not fit "
+                         f"{pps} pages of {page_size}")
+
+    def pack(c):
+        full = c.new_zeros((L, kvh, B, pps * page_size, dh))
+        full[:, :, :, :S] = c.permute(0, 3, 1, 2, 4)
+        return full.view(L, kvh, B * pps, page_size, dh)
+
+    return pack(k_dense), pack(v_dense)
+
+
+def fused_multi_transformer_paged(x, weights: FusedTransformerWeights,
+                                  k_pages, v_pages, cache_index: int,
+                                  rope_cos, rope_sin, num_heads: int,
+                                  num_kv_heads: int, epsilon: float = 1e-6):
+    """One decode step (s == 1) through all L layers over the contiguous
+    paged layout (``fused_transformer.py:468-517``): k_pages/v_pages
+    ``[L, kvh, B * pps, page, dh]``, every row ``cache_index`` tokens
+    long; rope_cos/sin ``[1, dh]``. Each layer is the ragged path's layer
+    (the paged kernel with stats over the contiguous table, then the
+    exact merge of the step's own k/v), the pages read-only inside the
+    loop; after it one write commits the step at slot ``cache_index %
+    page`` of page ``cache_index // page`` of every row, in place.
+    Returns ``(h, k_pages, v_pages)``."""
+    b, s, _ = x.shape
+    if s != 1:
+        raise ValueError("fused_multi_transformer_paged is decode-only "
+                         f"(s == 1), got s={s}")
+    L, kvh, n_pages, page, dh = k_pages.shape
+    pps = n_pages // b
+    idx = int(cache_index)
+    if n_pages != b * pps or not 0 <= idx < pps * page:
+        raise ValueError(f"fused_multi_transformer_paged: {n_pages} pages "
+                         f"for {b} rows, index {idx}: not a contiguous "
+                         f"layout with room for the step")
+    table = contiguous_page_table(b, pps, device=x.device)
+    lens = torch.full((b,), idx, dtype=torch.int32, device=x.device)
+    h, ys_k, ys_v = x, [], []
+    for i in range(weights.num_layers):
+        h, (k, v) = _paged_decode_layer(
+            h, weights.layer(i), k_pages[i], v_pages[i], None, None,
+            table=table, lens=lens, rope_cos=rope_cos, rope_sin=rope_sin,
+            hq=num_heads, hk=num_kv_heads, epsilon=epsilon)
+        ys_k.append(k)
+        ys_v.append(v)
+    for pages, ys in ((k_pages, ys_k), (v_pages, ys_v)):
+        rows = pages.view(L, kvh, b, pps, page, dh)
+        rows[:, :, :, idx // page, idx % page] = \
+            torch.stack(ys).transpose(1, 2).to(pages.dtype)
+    return h, k_pages, v_pages
 
 
 def fused_multi_transformer_paged_ragged(x, weights: FusedTransformerWeights,

@@ -1,14 +1,18 @@
 from .convert import load_paddle_tpu_state
-from .generation import lm_head_tail
+from .generation import (GenerationMixin, fused_generate, generate,
+                         lm_head_tail, sample_logits)
 from .kv_cache import KVCacheSpec, check_request_fits
-from .llama import LLAMA_PRESETS, LlamaConfig, LlamaForCausalLM
+from .llama import LLAMA_PRESETS, KVCache, LlamaConfig, LlamaForCausalLM
 from .mamba import MambaConfig, MambaForCausalLM
 from .mamba2 import Mamba2Config, Mamba2ForCausalLM
 from .moe_llm import MoELlamaConfig, MoELlamaForCausalLM
 from .rwkv import RwkvConfig, RwkvForCausalLM
+from .serving import ServingDecoder
 
-__all__ = ["LLAMA_PRESETS", "LlamaConfig", "LlamaForCausalLM",
+__all__ = ["LLAMA_PRESETS", "LlamaConfig", "LlamaForCausalLM", "KVCache",
            "KVCacheSpec", "check_request_fits", "lm_head_tail",
-           "load_paddle_tpu_state", "MoELlamaConfig", "MoELlamaForCausalLM",
-           "MambaConfig", "MambaForCausalLM", "Mamba2Config",
-           "Mamba2ForCausalLM", "RwkvConfig", "RwkvForCausalLM"]
+           "sample_logits", "generate", "fused_generate", "GenerationMixin",
+           "ServingDecoder", "load_paddle_tpu_state", "MoELlamaConfig",
+           "MoELlamaForCausalLM", "MambaConfig", "MambaForCausalLM",
+           "Mamba2Config", "Mamba2ForCausalLM", "RwkvConfig",
+           "RwkvForCausalLM"]

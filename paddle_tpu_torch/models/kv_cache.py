@@ -117,6 +117,14 @@ class KVCacheSpec:
         return (self.num_layers, batch, max_len, self.num_kv_heads,
                 self.head_dim)
 
+    def paged_contiguous_shape(self, batch: int, max_len: int):
+        """Contiguous paged layout (``fused_generate(paged=True)``,
+        ``ServingDecoder(paged=True)``): ``[L, kvh, B * pps, page, dh]``,
+        sequence b owning pages ``[b * pps, (b + 1) * pps)``."""
+        return (self.num_layers, self.num_kv_heads,
+                batch * self.pages_per_seq(max_len), self.page_size,
+                self.head_dim)
+
     def pool_shape(self, num_blocks: int):
         return (self.num_layers, self.num_kv_heads, num_blocks,
                 self.page_size, self.head_dim)

@@ -11,7 +11,9 @@ final RMS norm and LM head in f32), which is what the serving engine
 computes too; with labels it returns the training loss as the JAX model
 does. ``recompute`` rematerialises each decoder layer in training
 (``framework/recompute.py``); ``tie_word_embeddings`` makes the embedding
-matrix the LM head.
+matrix the LM head. With ``kv_caches`` (one :class:`KVCache` a layer) the
+model decodes incrementally over a static-shape cache, as the JAX model
+does for ``generate``.
 """
 
 from __future__ import annotations
@@ -31,12 +33,12 @@ from ..nn.functional import RMSNorm, swiglu
 from ..ops.fused.cross_entropy import fused_linear_cross_entropy
 from ..ops.fused.flash_attention import flash_attention
 from ..ops.fused.rope import apply_rotary_position_embedding, build_rope_cache
-from .generation import lm_head_tail
+from .generation import GenerationMixin, lm_head_tail
 
 IGNORE_INDEX = -100
 
 __all__ = ["LlamaConfig", "LLAMA_PRESETS", "LlamaForCausalLM", "LlamaModel",
-           "causal_lm_loss"]
+           "KVCache", "causal_lm_loss"]
 
 
 @dataclass
@@ -146,13 +148,23 @@ class LlamaAttention(nn.Module):
         self.v_proj = nn.Linear(h, self.num_kv_heads * hd, bias=False, **dd)
         self.o_proj = nn.Linear(self.num_heads * hd, h, bias=False, **dd)
 
-    def forward(self, x, cos, sin, attn_mask=None, segment_ids=None):
+    def forward(self, x, cos, sin, attn_mask=None, kv_cache=None,
+                cache_index=None, segment_ids=None):
+        """With ``kv_cache`` the step's k and v are written into the cache
+        at ``cache_index`` and q attends over the whole cache up to
+        ``kv_len = cache_index + s`` (bottom-right causal: row r sees
+        columns ``<= cache_index + r``); returns ``(out, kv_cache)``."""
         b, s = x.shape[0], x.shape[1]
         q = self.q_proj(x).view(b, s, self.num_heads, self.head_dim)
         k = self.k_proj(x).view(b, s, self.num_kv_heads, self.head_dim)
         v = self.v_proj(x).view(b, s, self.num_kv_heads, self.head_dim)
         q = apply_rotary_position_embedding(q, cos, sin)
         k = apply_rotary_position_embedding(k, cos, sin)
+        if kv_cache is not None:
+            k, v, kv_cache = kv_cache.update(k, v, cache_index)
+            out = flash_attention(q, k, v, causal=True, attn_mask=attn_mask,
+                                  kv_len=int(cache_index) + s)
+            return self.o_proj(out.reshape(b, s, -1)), kv_cache
         out = flash_attention(q, k, v, causal=True, attn_mask=attn_mask,
                               q_segment_ids=segment_ids,
                               kv_segment_ids=segment_ids)
@@ -180,10 +192,17 @@ class LlamaDecoderLayer(nn.Module):
                                                 cfg.rms_norm_eps, **dd)
         self.mlp = LlamaMLP(cfg, **dd)
 
-    def forward(self, x, cos, sin, attn_mask=None, segment_ids=None):
-        x = x + self.self_attn(self.input_layernorm(x), cos, sin,
-                               attn_mask=attn_mask, segment_ids=segment_ids)
-        return x + self.mlp(self.post_attention_layernorm(x))
+    def forward(self, x, cos, sin, attn_mask=None, kv_cache=None,
+                cache_index=None, segment_ids=None):
+        """Returns ``(x, kv_cache)`` with ``kv_cache``, else ``x``."""
+        h = self.self_attn(self.input_layernorm(x), cos, sin,
+                           attn_mask=attn_mask, kv_cache=kv_cache,
+                           cache_index=cache_index, segment_ids=segment_ids)
+        if kv_cache is not None:
+            h, kv_cache = h
+        x = x + h
+        x = x + self.mlp(self.post_attention_layernorm(x))
+        return x if kv_cache is None else (x, kv_cache)
 
 
 class LlamaModel(nn.Module):
@@ -203,37 +222,60 @@ class LlamaModel(nn.Module):
         self.register_buffer("rope_cos", cos, persistent=False)
         self.register_buffer("rope_sin", sin, persistent=False)
 
-    def forward(self, input_ids, attn_mask=None, segment_ids=None,
+    def forward(self, input_ids, attn_mask=None, position_offset=0,
+                kv_caches=None, cache_index=None, segment_ids=None,
                 position_ids=None):
         """``segment_ids [b, s]`` masks attention across packed sequences
         and ``position_ids [b, s]`` gives each token its rope row (restarting
         at each packed sequence); ``attn_mask`` as ``flash_attention``
         takes it. In training with ``config.recompute`` each layer is
-        recomputed in the backward under ``config.recompute_policy``."""
+        recomputed in the backward under ``config.recompute_policy``.
+
+        Incremental decode (``paddle_tpu/models/llama.py:235-291``): the
+        tokens take rope rows from ``position_offset``; with ``kv_caches``
+        (a :class:`KVCache` a layer) each layer writes its k and v at
+        ``cache_index`` and attends over its cache, and the call returns
+        ``(hidden, new_caches)``. An int offset past the rope table
+        raises, as does ``segment_ids`` with ``kv_caches``."""
         s = input_ids.shape[1]
-        if position_ids is None and s > self.rope_cos.shape[0]:
-            raise ValueError(f"sequence {s} exceeds max_position_embeddings "
-                             f"{self.rope_cos.shape[0]}")
+        n_rows = self.rope_cos.shape[0]
+        if kv_caches is not None and segment_ids is not None:
+            raise ValueError(
+                "segment_ids (packed varlen) is a training-path feature; "
+                "the kv-cache decode path does not thread segment masks")
+        if position_ids is None and isinstance(position_offset, int) \
+                and position_offset + s > n_rows:
+            raise ValueError(f"position_offset {position_offset} + seq {s} "
+                             f"exceeds max_position_embeddings {n_rows}")
         x = self.embed_tokens(input_ids)
         if position_ids is not None:
             cos, sin = self.rope_cos[position_ids], self.rope_sin[position_ids]
         else:
-            cos, sin = self.rope_cos[:s], self.rope_sin[:s]
+            # a tensor offset is clamped into the table, as the JAX
+            # dynamic slice does
+            off = min(max(int(position_offset), 0), max(n_rows - s, 0))
+            cos, sin = self.rope_cos[off:off + s], self.rope_sin[off:off + s]
         cfg = self.config
-        for layer in self.layers:
-            if cfg.recompute and self.training:
+        new_caches = None if kv_caches is None else []
+        for i, layer in enumerate(self.layers):
+            if kv_caches is not None:
+                x, c = layer(x, cos, sin, attn_mask=attn_mask,
+                             kv_cache=kv_caches[i], cache_index=cache_index)
+                new_caches.append(c)
+            elif cfg.recompute and self.training:
                 x = recompute(layer, x, cos, sin, attn_mask=attn_mask,
                               segment_ids=segment_ids,
                               policy=cfg.recompute_policy)
             else:
                 x = layer(x, cos, sin, attn_mask=attn_mask,
                           segment_ids=segment_ids)
-        return x
+        return x if kv_caches is None else (x, new_caches)
 
 
-class LlamaForCausalLM(nn.Module):
-    """Causal LM over :class:`LlamaModel`. Its parameters are trainable, as
-    the JAX model's are; the serving engine runs it under
+class LlamaForCausalLM(nn.Module, GenerationMixin):
+    """Causal LM over :class:`LlamaModel`; ``.generate`` through
+    :class:`GenerationMixin`. Its parameters are trainable, as the JAX
+    model's are; the serving engine runs it under
     ``torch.inference_mode()``. Weights are drawn on ``device`` (default
     ``cuda``) from a ``torch.Generator`` seeded with ``seed``: normal with
     the config's ``initializer_range`` (the output projections scaled by
@@ -273,6 +315,13 @@ class LlamaForCausalLM(nn.Module):
             else:
                 nn.init.normal_(p, 0.0, std, generator=gen)
 
+    def logits(self, hidden: torch.Tensor) -> torch.Tensor:
+        """The LM head over NORMED hidden states (``model.norm`` of what
+        :meth:`LlamaModel.forward` returns), in the model dtype: ``lm_head``
+        or the tied embedding matrix, as ``paddle_tpu/models/llama.py:
+        323-332``."""
+        return F.linear(hidden, self.head_weight)
+
     def forward(self, input_ids: torch.Tensor,
                 labels: Optional[torch.Tensor] = None, attn_mask=None,
                 segment_ids=None, position_ids=None):
@@ -298,3 +347,36 @@ class LlamaForCausalLM(nn.Module):
         return causal_lm_loss(self.model.norm(h), self.head_weight, labels,
                               self.config.fused_loss)
 
+
+class KVCache:
+    """Static-shape KV cache of one layer for incremental decode
+    (``paddle_tpu/models/llama.py:360-383``): ``k``, ``v`` are ``[batch,
+    max_seq, kv_heads, head_dim]`` (a layer's slice of a stacked ``[L, B,
+    T, kvh, dh]`` cache is one, contiguous and 16-byte aligned as the flash
+    kernel's TMA maps need). :meth:`update` writes IN PLACE, where the JAX
+    cache returns new arrays."""
+
+    def __init__(self, k: torch.Tensor, v: torch.Tensor, length: int = 0):
+        self.k, self.v = k, v
+        self.length = length
+
+    @classmethod
+    def empty(cls, batch, max_seq, kv_heads, head_dim, dtype=torch.bfloat16,
+              device=None) -> "KVCache":
+        """Zeros on ``device`` (default ``cuda``; ``"cpu"`` when asked)."""
+        shape = (batch, max_seq, kv_heads, head_dim)
+        dev = resolve_device(device)
+        return cls(torch.zeros(shape, dtype=dtype, device=dev),
+                   torch.zeros(shape, dtype=dtype, device=dev), 0)
+
+    def update(self, k_new: torch.Tensor, v_new: torch.Tensor, index):
+        """Write ``k_new``, ``v_new [b, s, kvh, dh]`` at positions
+        ``[index, index + s)``; returns ``(k, v, cache)`` with the cache's
+        ``length`` advanced by ``s``."""
+        idx, s = int(index), k_new.shape[1]
+        if idx < 0 or idx + s > self.k.shape[1]:
+            raise ValueError(f"KVCache.update: {s} tokens at index {idx} "
+                             f"overflow a cache of {self.k.shape[1]}")
+        self.k[:, idx:idx + s] = k_new
+        self.v[:, idx:idx + s] = v_new
+        return self.k, self.v, KVCache(self.k, self.v, self.length + s)

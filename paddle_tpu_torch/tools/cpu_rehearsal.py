@@ -22,7 +22,8 @@ the empty rows exact. Exits 1 if a case fails.
 The cases are the WKV forward and backward (``wkv``), the SSD forward and
 backward (``ssd``), the selective scan's forward and backward
 (``selective_scan``) and the paged decode on bf16 and int8 pages
-(``paged_attention``) at their edges, cut to sizes the CPU runs in
+(``paged_attention``, also on the contiguous layout of
+``fused_multi_transformer_paged``) at their edges, cut to sizes the CPU runs in
 seconds: lengths around the sub-chunks and chunks, d = 64 and 128 (the
 scan's d = 100 and 72, off its 64-channel blocks and, in bf16, off its
 16-byte rows; n = 5 and 16), a strong decay, logw >= 0 (dlogw exactly
@@ -249,22 +250,32 @@ def scan_case(b, l, d, n, dt, strong=False, seed=0):
 
 
 def paged_case(group, d, quant, lens=(0, 1, 15, 16, 17, 100, 257), kvh=2,
-               page=16, seed=0):
+               page=16, seed=0, contiguous=False):
     """The paged decode on bf16 (or int8) pages against its plain version:
-    rows of ``lens`` tokens on shuffled blocks, null table tails."""
+    rows of ``lens`` tokens on shuffled blocks, null table tails; or, with
+    ``contiguous``, the contiguous layout of ``fused_multi_transformer_paged``
+    (row b owns blocks ``[b * pps, (b + 1) * pps)``, row 0 block 0, every
+    page a block of some row)."""
+    from ..incubate.nn.functional.fused_transformer import (
+        contiguous_page_table)
     from ..models.kv_cache import quantize_kv
     from ..ops.cuda import paged_attention as pa
 
     g = torch.Generator().manual_seed(seed)
     B = len(lens)
     used = [-(-n // page) for n in lens]
-    pps, blocks = max(used) + 2, sum(used) + 3
-    perm = torch.randperm(blocks - 1, generator=g) + 1
-    table = torch.zeros(B, pps, dtype=torch.int32)
-    at = 0
-    for i, n in enumerate(used):
-        table[i, :n] = perm[at:at + n].int()
-        at += n
+    if contiguous:
+        pps = max(used) + 1
+        blocks = B * pps
+        table = contiguous_page_table(B, pps)
+    else:
+        pps, blocks = max(used) + 2, sum(used) + 3
+        perm = torch.randperm(blocks - 1, generator=g) + 1
+        table = torch.zeros(B, pps, dtype=torch.int32)
+        at = 0
+        for i, n in enumerate(used):
+            table[i, :n] = perm[at:at + n].int()
+            at += n
     k, v = (torch.randn(kvh, blocks, page, d, generator=g) for _ in range(2))
     kw = dict(return_stats=True)
     if quant:
@@ -288,7 +299,7 @@ def paged_case(group, d, quant, lens=(0, 1, 15, 16, 17, 100, 257), kvh=2,
                    and (out[empty] == 0).all())
           and all(torch.equal(a, r) for a, r in zip(again, (out, m, l))))
     what = (f"paged {'int8' if quant else 'bf16'} pages B{B} group {group} "
-            f"d{d} page {page}")
+            f"d{d} page {page}" + (" contiguous" if contiguous else ""))
     print(f"  {'ok ' if ok else 'BAD'} {what}: out {err:.1e} (<= {OUT_ATOL})"
           f", m {stats[0]:.1e}, l {stats[1]:.1e} (<= {STATS_RTOL}), empty "
           f"rows exact, run twice bitwise", flush=True)
@@ -319,7 +330,10 @@ CASES = {
         paged_case(2, 128, False, page=32),
         paged_case(4, 64, True, page=32, seed=1),
         paged_case(4, 128, True, lens=tuple(range(0, 480, 20)), seed=2),
-        paged_case(1, 64, False, lens=(8400, 8222, 8400, 8194), seed=3)],
+        paged_case(1, 64, False, lens=(8400, 8222, 8400, 8194), seed=3),
+        paged_case(4, 128, False, lens=(100,) * 4, seed=4, contiguous=True),
+        paged_case(1, 64, False, lens=(33,) * 8, seed=5, contiguous=True),
+        paged_case(4, 128, True, lens=(17,) * 3, seed=6, contiguous=True)],
 }
 
 

@@ -95,6 +95,15 @@ inline float __shfl_xor_sync(unsigned, float v, int o) {
   w.bar.arrive_and_wait();
   return r;
 }
+inline double __shfl_xor_sync(unsigned m, double v, int o) {
+  uint64_t u;
+  std::memcpy(&u, &v, 8);
+  const uint64_t lo = __float_as_uint(__shfl_xor_sync(m, __uint_as_float(uint32_t(u)), o));
+  const uint64_t hi = __float_as_uint(__shfl_xor_sync(m, __uint_as_float(uint32_t(u >> 32)), o));
+  u = hi << 32 | lo;
+  std::memcpy(&v, &u, 8);
+  return v;
+}
 inline float __shfl_up_sync(unsigned, float v, int o) {
   auto& w = stub_warp();
   const int lane = threadIdx.x % 32;

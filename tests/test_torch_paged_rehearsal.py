@@ -25,7 +25,8 @@ def test_paged_kernel_agrees_with_plain_version_on_the_cpu():
     null table tails, groups of 1, 2, 4 and 8 query heads, d = 64 and 128,
     bf16 and int8 pages, pages of 16 and 32 tokens, 24 rows, and shares
     longer than the addresses a CTA looks up at once, over the stand-in
-    card's 8 CTAs."""
+    card's 8 CTAs; and the contiguous layout of the fused paged decode
+    (row b on blocks b * pps onwards, row 0 on block 0, equal lengths)."""
     if shutil.which("g++") is None:
         pytest.skip("needs g++ to build the CUDA source against the "
                     "stand-in headers")
@@ -34,4 +35,4 @@ def test_paged_kernel_agrees_with_plain_version_on_the_cpu():
          "paged_attention"], cwd=ROOT, capture_output=True, text=True,
         timeout=900)
     assert proc.returncode == 0, proc.stdout[-4000:] + proc.stderr[-4000:]
-    assert "12 cases agree, 0 disagree" in proc.stdout
+    assert "15 cases agree, 0 disagree" in proc.stdout
