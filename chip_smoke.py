@@ -14,7 +14,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
    the card at its path's shapes (bf16 out: max abs <= 2e-2; paged m, l
    and flash lse: |diff| <= 1e-3 * max(|ref|, 1); flash backward dq, dk,
    dv: max |diff| <= 2e-2 * max |ref|; fused AdamW p, m, v: max |diff| <=
-   1e-6 * max(|ref|, 1); int8 / int4 weight-only GEMMs: max |diff| <=
+   1e-6 * max(|ref|, 1) with GradScaler's found-inf flag at 0 and with no
+   flag, and bit for bit unchanged with the flag at 1, each timed; int8 / int4 weight-only GEMMs: max |diff| <=
    1e-2 * max |plain|, the bf16 output's rounding, at Llama-3-8B's four
    products for m = 8, 32, 64 and 256 (each timed) and at the kernels'
    edges (m from 1 to 256 around every 8-row tile and the decode / wgmma
@@ -223,7 +224,25 @@ Phases, each of which fails the run (non-zero exit, no result line):
    head) at full width and depth, batch 8 x 1024 seeded tokens, as phase
    9, with 24 SSD forward and 24 SSD backward launches per step; its
    profiled step is grouped into SSD forward, SSD backward, conv, cuBLAS,
-   copies, the AdamW span and the rest.
+   copies, the AdamW span and the rest;
+12. the Paddle training loop on the Llama-2-7B widths at 4 layers (phase
+   6's config), batch 2 x 2048 from a ``DataLoader`` over 8 seeded numpy
+   rows (shuffled, two forked process workers, ``places="cuda"``):
+   (a) an f32 model under ``auto_cast(level="O1")`` with AdamW, 10 steps:
+   falling losses, 4 x 10 flash forward and backward launches (the
+   white-listed cast fed the bf16 kernels); (b) ``amp.decorate(level=
+   "O2")`` with ``AdamW(multi_precision=True, grad_clip=
+   ClipGradByGlobalNorm(1.0))`` over ``LinearWarmup(CosineAnnealingDecay(
+   3e-4, 20), 5, 0, 3e-4)`` and ``GradScaler(init_loss_scaling=2**15)``,
+   20 steps: falling losses, the scheduler's own learning rates, bf16
+   parameters each the cast of its f32 master, every master moved; (d)
+   the model, optimizer and scaler state after (b)'s step 10 loaded into
+   fresh ones, which run steps 11-20 on the same batches: the same losses
+   and final parameters bit for bit; (c) ``FusedAdamW`` under the same
+   scaler for 6 steps with one gradient set to inf at step 3: 6 fused
+   AdamW launches, the flat master, m and v bit for bit across step 3,
+   the scale halved, step 4 updating; each sub-run's host ms a step, peak
+   memory and the optimizer's share of a profiled step's device time.
 
 The last lines are the kernels' JSON, the card's name and power limit, and
 ``{"ok": true, "device": {...}}``.
@@ -1227,30 +1246,50 @@ def check_flash_masks(torch, gen, flush):
 
 def check_fused_adamw(torch, gen):
     """The fused AdamW kernel against its plain version at the slice's
-    parameter count and at an unaligned n = 1000."""
+    parameter count and at an unaligned n = 1000, with GradScaler's
+    found-inf flag: at 1 the launch must leave p, m and v bit for bit as
+    they were, at 0 (and with no flag) it must match the plain version.
+    The row's time is the launch with the flag at 0, the scaler's path."""
     from paddle_tpu_torch.ops.cuda.fused_adamw import (fused_adamw,
                                                        fused_adamw_reference)
 
     dev, hyper, step = "cuda", (3e-4, 0.9, 0.95, 1e-8, 0.1), 10
+    flag0 = torch.zeros((), dtype=torch.int32, device=dev)
+    flag1 = torch.ones((), dtype=torch.int32, device=dev)
     row, err_max = None, 0.0
     for n in (train_config(4).num_params(), 1000):
         p = torch.randn(n, generator=gen, device=dev)
         g = torch.randn(n, generator=gen, device=dev) * 1e-2
         m = torch.randn(n, generator=gen, device=dev) * 1e-3
         v = torch.rand(n, generator=gen, device=dev) * 1e-5
-        refs = fused_adamw_reference(p, g, m, v, *hyper, step)
-        fused_adamw(p, g, m, v, *hyper, step)
+        before = [t.clone() for t in (p, m, v)]
+        fused_adamw(p, g, m, v, *hyper, step, found_inf=flag1)
         torch.cuda.synchronize()
-        for name, a, r in zip(("p", "m", "v"), (p, m, v), refs):
-            err = (a - r).abs().max().item()
-            tol = ADAMW_TOL * max(r.abs().max().item(), 1.0)
-            check(math.isfinite(err) and err <= tol,
-                  f"fused_adamw n={n} {name}: max |kernel - plain| = "
-                  f"{err:.3e} <= {tol:.3e}")
-            err_max = max(err_max, err)
-        del refs
+        check(all(torch.equal(a, b) for a, b in zip((p, m, v), before)),
+              f"fused_adamw n={n} found_inf=1: p, m, v bit for bit as they "
+              f"were")
+        del before
+        for flag in (flag0, None):
+            refs = fused_adamw_reference(p, g, m, v, *hyper, step)
+            q, mq, vq = p.clone(), m.clone(), v.clone()
+            fused_adamw(q, g, mq, vq, *hyper, step, found_inf=flag)
+            torch.cuda.synchronize()
+            for name, a, r in zip(("p", "m", "v"), (q, mq, vq), refs):
+                err = (a - r).abs().max().item()
+                tol = ADAMW_TOL * max(r.abs().max().item(), 1.0)
+                check(math.isfinite(err) and err <= tol,
+                      f"fused_adamw n={n} found_inf="
+                      f"{'0' if flag is not None else 'None'} {name}: max "
+                      f"|kernel - plain| = {err:.3e} <= {tol:.3e}")
+                err_max = max(err_max, err)
+            del refs, q, mq, vq
         if row is None:
-            ms = time_ms(torch, lambda: fused_adamw(p, g, m, v, *hyper, step))
+            ms = time_ms(torch, lambda: fused_adamw(p, g, m, v, *hyper, step,
+                                                    found_inf=flag0))
+            ms_none = time_ms(torch, lambda: fused_adamw(p, g, m, v, *hyper,
+                                                         step))
+            ms_skip = time_ms(torch, lambda: fused_adamw(
+                p, g, m, v, *hyper, step, found_inf=flag1))
             plain = time_ms(torch, lambda: fused_adamw_reference(
                 p, g, m, v, *hyper, step), reps=3)
             param = torch.nn.Parameter(p)
@@ -1261,8 +1300,10 @@ def check_fused_adamw(torch, gen):
             lib = time_ms(torch, opt.step)
             del opt, param
             b_ms, b_by = bound(15 * n, 28 * n)
-            print(f"  fused_adamw n={n}: {ms:.4f} ms (bound {b_ms:.4f} ms by "
-                  f"{b_by}, {b_ms / ms:.1%} of it), plain {plain:.3f} ms, "
+            print(f"  fused_adamw n={n}: {ms:.4f} ms at found_inf=0 (bound "
+                  f"{b_ms:.4f} ms by {b_by}, {b_ms / ms:.1%} of it), "
+                  f"{ms_none:.4f} ms with no flag, {ms_skip:.4f} ms at "
+                  f"found_inf=1 (skipped), plain {plain:.3f} ms, "
                   f"torch.optim.AdamW(fused=True) {lib:.4f} ms")
             row = dict(ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
                        library_ms=lib)
@@ -4186,6 +4227,353 @@ def phase_ssm_train(torch, seed, family):
     return n
 
 
+# phase 12: the Paddle training loop
+LOOP_ROWS = 8                    # dataset rows: 4 batches an epoch
+LOOP_O1_STEPS, LOOP_O2_STEPS, LOOP_SKIP_STEPS = 10, 20, 6
+LOOP_RESUME_AT, LOOP_INF_STEP = 10, 3
+
+
+class LoopRows:
+    """Seeded token rows of TRAIN_SEQ, a map-style numpy dataset (the
+    DataLoader's process workers read it in forked children)."""
+
+    def __init__(self, seed):
+        import numpy as np
+
+        self.rows = np.random.RandomState(seed).randint(
+            0, 32000, (LOOP_ROWS, TRAIN_SEQ))
+
+    def __len__(self):
+        return len(self.rows)
+
+    def __getitem__(self, i):
+        return self.rows[i]
+
+
+def loop_batches(seed):
+    """Batches of TRAIN_BATCH rows from a shuffled DataLoader with two
+    process workers, moved to the card (``places``), epoch after epoch,
+    from ``np.random.seed(seed)``."""
+    import numpy as np
+
+    from paddle_tpu_torch.io import DataLoader
+
+    loader = DataLoader(LoopRows(seed), batch_size=TRAIN_BATCH,
+                        shuffle=True, num_workers=2, drop_last=True,
+                        places="cuda")
+    np.random.seed(seed)
+    while True:
+        yield from loader
+
+
+def loop_step(torch, model, opt, ids, level, scaler=None, sched=None,
+              span=None):
+    """One step of the Paddle loop: the forward under ``auto_cast(level)``,
+    the (scaled) backward, the (scaler's) optimizer step inside ``span``,
+    the scaler's update, ``clear_grad`` and the scheduler's step. Returns
+    the loss (a device scalar)."""
+    import contextlib
+
+    from paddle_tpu_torch import amp
+
+    with amp.auto_cast(level=level, dtype="bfloat16"):
+        loss, _ = model(ids, labels=ids)
+    (loss if scaler is None else scaler.scale(loss)).backward()
+    with span or contextlib.nullcontext():
+        if scaler is None:
+            opt.step()
+        else:
+            scaler.step(opt)
+    if scaler is not None:
+        scaler.update()
+    opt.clear_grad()
+    if sched is not None:
+        sched.step()
+    return loss.detach()
+
+
+def profile_loop_step(torch, run, what):
+    """One loop step under ``torch.profiler``: the device's busy ms, the
+    optimizer's kernel ms (the device activity inside the device span of
+    ``ptt::optimizer``: unscale, clip and update) and its share of the
+    busy time, and the span itself (gaps included: the eager optimizer
+    launches one parameter at a time)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run(record_function("ptt::optimizer")).item()
+        host = (time.perf_counter() - t0) * 1e3
+    span, device = None, []
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        r = e.time_range
+        if e.name == "ptt::optimizer":
+            if span is None or r.end - r.start > span[1] - span[0]:
+                span = (r.start, r.end)
+        else:
+            device.append((r.start, r.end))
+    busy = sum(b - a for a, b in device) / 1e3
+    if busy == 0 or span is None:
+        print(f"  {what}: profiled step {host:.1f} ms on the host clock; no "
+              f"device time recorded (optimizer share not measured)")
+        return
+    opt_ms = sum(b - a for a, b in device
+                 if a >= span[0] and b <= span[1]) / 1e3
+    print(f"  {what}: profiled step {host:.1f} ms on the host clock, device "
+          f"busy {busy:.1f} ms; the optimizer's kernels {opt_ms:.2f} ms = "
+          f"{opt_ms / busy:.1%} of it, in a device span of "
+          f"{(span[1] - span[0]) / 1e3:.2f} ms")
+
+
+def loop_report(torch, times, what):
+    steady = times[2:] or times
+    print(f"  {what}: host ms per step {[round(t, 1) for t in times]} "
+          f"(mean after 2: {sum(steady) / len(steady):.1f}); peak "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
+
+
+def loop_o1(torch, seed):
+    """(a) An f32 model under auto_cast O1 with AdamW."""
+    import dataclasses
+
+    from paddle_tpu_torch.models import LlamaForCausalLM
+    from paddle_tpu_torch.optimizer import AdamW
+
+    L = 4
+    cfg = dataclasses.replace(train_config(L), dtype="float32")
+    torch.cuda.reset_peak_memory_stats()
+    model = LlamaForCausalLM(cfg, seed=seed)
+    opt = AdamW(learning_rate=3e-4, weight_decay=0.1,
+                parameters=model.parameters())
+    data = loop_batches(seed)
+    torch.cuda.synchronize()
+    reset_counts()
+    losses, times = [], []
+    for _ in range(LOOP_O1_STEPS):
+        t0 = time.perf_counter()
+        losses.append(loop_step(torch, model, opt, next(data), "O1").item())
+        times.append((time.perf_counter() - t0) * 1e3)
+    n = read_counts()
+    check_losses(losses, f"(a) O1, f32 model, AdamW x {LOOP_O1_STEPS}")
+    check_flash_counts(n, L, LOOP_O1_STEPS, "(a) O1")
+    check(all(p.dtype == torch.float32 for p in model.parameters()),
+          "(a) O1: the parameters stay f32 (the white-listed cast fed the "
+          "bf16 flash kernels)")
+    loop_report(torch, times, "(a) O1")
+    profile_loop_step(torch, lambda span: loop_step(
+        torch, model, opt, next(data), "O1", span=span), "(a) O1")
+    del model, opt, data
+    free_cuda(torch)
+
+
+def o2_setup(torch, seed):
+    """A model, AdamW with master weights, a clip object and a warmup over
+    a cosine decay, through ``amp.decorate`` at O2, and a GradScaler."""
+    import dataclasses
+
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.models import LlamaForCausalLM
+    from paddle_tpu_torch.nn import ClipGradByGlobalNorm
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.optimizer.lr import (CosineAnnealingDecay,
+                                               LinearWarmup)
+
+    cfg = dataclasses.replace(train_config(4), dtype="float32")
+    model = LlamaForCausalLM(cfg, seed=seed)
+    sched = LinearWarmup(CosineAnnealingDecay(3e-4, 20), 5, 0, 3e-4)
+    opt = AdamW(learning_rate=sched, multi_precision=True, weight_decay=0.1,
+                grad_clip=ClipGradByGlobalNorm(1.0),
+                parameters=model.parameters())
+    model, opt = amp.decorate(model, opt, level="O2")
+    return model, opt, sched, amp.GradScaler(init_loss_scaling=2.0 ** 15)
+
+
+def to_cpu(x):
+    if hasattr(x, "detach"):
+        return x.detach().to("cpu", copy=True)
+    if isinstance(x, dict):
+        return {k: to_cpu(v) for k, v in x.items()}
+    return x
+
+
+def loop_o2(torch, seed):
+    """(b) O2 for LOOP_O2_STEPS, its state saved after LOOP_RESUME_AT;
+    (d) a fresh model, optimizer, scheduler and scaler loaded from it run
+    the rest on the same batches."""
+    from paddle_tpu_torch.optimizer.lr import (CosineAnnealingDecay,
+                                               LinearWarmup)
+
+    L = 4
+    torch.cuda.reset_peak_memory_stats()
+    model, opt, sched, scaler = o2_setup(torch, seed)
+    start = [p.detach().float() for p in model.parameters()]
+    data = loop_batches(seed + 1)
+    torch.cuda.synchronize()
+    reset_counts()
+    losses, times, lrs, saved = [], [], [], None
+    for i in range(LOOP_O2_STEPS):
+        lrs.append(opt.get_lr())
+        t0 = time.perf_counter()
+        losses.append(loop_step(torch, model, opt, next(data), "O2", scaler,
+                                sched).item())
+        times.append((time.perf_counter() - t0) * 1e3)
+        if i + 1 == LOOP_RESUME_AT:
+            t0 = time.perf_counter()
+            saved = (to_cpu(model.state_dict()), to_cpu(opt.state_dict()),
+                     scaler.state_dict())
+            save_s = time.perf_counter() - t0
+    n = read_counts()
+    check_losses(losses, f"(b) O2, AdamW(multi_precision) + clip + "
+                         f"LinearWarmup(cosine) + GradScaler x "
+                         f"{LOOP_O2_STEPS}")
+    check_flash_counts(n, L, LOOP_O2_STEPS, "(b) O2")
+    ref = LinearWarmup(CosineAnnealingDecay(3e-4, 20), 5, 0, 3e-4)
+    want = []
+    for _ in range(LOOP_O2_STEPS):
+        want.append(ref())
+        ref.step()
+    check(lrs == want, f"(b) the learning rates are the scheduler's own: "
+                       f"{[f'{x:.3e}' for x in lrs[:7]]} ...")
+    sd = opt.state_dict()
+    params = list(model.parameters())
+    masters = [sd[f"p{i}.master"] for i in range(len(params))]
+    check(all(p.dtype == torch.bfloat16 for p in params)
+          and all(m.dtype == torch.float32 for m in masters)
+          and all(torch.equal(p.detach(), m.to(torch.bfloat16))
+                  for p, m in zip(params, masters)),
+          f"(b) {len(params)} bf16 parameters, each the cast of its f32 "
+          f"master")
+    moved = sum(not torch.equal(m, s) for m, s in zip(masters, start))
+    check(moved == len(masters), f"(b) masters that moved: {moved} of "
+                                 f"{len(masters)}")
+    check(scaler.get_loss_scaling() == 2.0 ** 15,
+          f"(b) no inf in {LOOP_O2_STEPS} steps: the scale stays "
+          f"{scaler.get_loss_scaling():.0f}")
+    loop_report(torch, times, "(b) O2")
+    print(f"  (b) state after step {LOOP_RESUME_AT} copied to the host in "
+          f"{save_s:.2f} s")
+    final = [p.detach().clone() for p in model.parameters()]
+    profile_loop_step(torch, lambda span: loop_step(
+        torch, model, opt, next(data), "O2", scaler, sched, span=span),
+        "(b) O2")
+    del model, opt, sched, scaler, data, start, masters, sd, params
+    free_cuda(torch)
+
+    # (d) resume
+    model, opt, sched, scaler = o2_setup(torch, seed + 7)
+    model.load_state_dict(saved[0])
+    opt.set_state_dict(saved[1])
+    scaler.load_state_dict(saved[2])
+    del saved
+    data = loop_batches(seed + 1)
+    for _ in range(LOOP_RESUME_AT):
+        next(data)
+    reset_counts()
+    resumed = []
+    for _ in range(LOOP_RESUME_AT, LOOP_O2_STEPS):
+        resumed.append(loop_step(torch, model, opt, next(data), "O2",
+                                 scaler, sched).item())
+    n = read_counts()
+    check_flash_counts(n, L, LOOP_O2_STEPS - LOOP_RESUME_AT, "(d) resume")
+    same = [torch.equal(p.detach(), q)
+            for p, q in zip(model.parameters(), final)]
+    print(f"  (d) resumed losses {[round(x, 4) for x in resumed]}")
+    check(resumed == losses[LOOP_RESUME_AT:] and all(same),
+          f"(d) resumed at step {LOOP_RESUME_AT}: steps "
+          f"{LOOP_RESUME_AT + 1}-{LOOP_O2_STEPS} give the same losses "
+          f"({sum(a == b for a, b in zip(resumed, losses[LOOP_RESUME_AT:]))}"
+          f" of {len(resumed)}) and final parameters ({sum(same)} of "
+          f"{len(same)}) bit for bit")
+    del model, opt, sched, scaler, data, final
+    free_cuda(torch)
+
+
+def loop_fused_skip(torch, seed):
+    """(c) FusedAdamW under the scaler: one gradient set to inf at step
+    LOOP_INF_STEP; the kernel skips on the device."""
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.models import LlamaForCausalLM
+    from paddle_tpu_torch.optimizer import FusedAdamW
+
+    torch.cuda.reset_peak_memory_stats()
+    model = LlamaForCausalLM(train_config(4), seed=seed)
+    opt = FusedAdamW(learning_rate=3e-4, weight_decay=0.1,
+                     parameters=model.parameters())
+    scaler = amp.GradScaler(init_loss_scaling=2.0 ** 15)
+    data = loop_batches(seed + 2)
+    torch.cuda.synchronize()
+    reset_counts()
+    losses, times, scales, before = [], [], [], None
+    for i in range(1, LOOP_SKIP_STEPS + 1):
+        ids = next(data)
+        t0 = time.perf_counter()
+        with amp.auto_cast(level="O2"):
+            loss, _ = model(ids, labels=ids)
+        scaler.scale(loss).backward()
+        if i == LOOP_INF_STEP:
+            with torch.no_grad():
+                model.lm_head.weight.grad[7, 11] = float("inf")
+            before = [t.clone() for t in (opt._flat, opt._m, opt._v)]
+        elif i == LOOP_INF_STEP + 1:
+            before = [opt._flat.clone()]
+        scaler.step(opt)
+        scaler.update()
+        opt.clear_grad()
+        losses.append(loss.item())
+        times.append((time.perf_counter() - t0) * 1e3)
+        scales.append(scaler.get_loss_scaling())
+        if i == LOOP_INF_STEP:
+            same = [torch.equal(a, b)
+                    for a, b in zip(before, (opt._flat, opt._m, opt._v))]
+            check(all(same), f"(c) step {i} with an inf gradient: the flat "
+                             f"master, m and v bit for bit as before "
+                             f"({sum(same)} of 3)")
+            check(scales[-1] == scales[-2] / 2,
+                  f"(c) the scale halves: {scales[-2]:.0f} -> "
+                  f"{scales[-1]:.0f}")
+        elif i == LOOP_INF_STEP + 1:
+            check(not torch.equal(before[0], opt._flat),
+                  f"(c) step {i} updates the flat master again")
+        before = None
+    n = read_counts()
+    print(f"  (c) losses {[round(x, 4) for x in losses]}, scales {scales}")
+    check(n["fused_adamw"] == LOOP_SKIP_STEPS
+          and n["flash_attention"] == 4 * LOOP_SKIP_STEPS
+          and n["flash_attention_bwd"] == 4 * LOOP_SKIP_STEPS,
+          f"(c) launches over {LOOP_SKIP_STEPS} steps: fused_adamw "
+          f"{n['fused_adamw']} (one a step, the skipped one included), "
+          f"flash fwd {n['flash_attention']} and bwd "
+          f"{n['flash_attention_bwd']} ({4 * LOOP_SKIP_STEPS} each)")
+    loop_report(torch, times, "(c) FusedAdamW + GradScaler")
+
+    def step(span):
+        ids = next(data)
+        with amp.auto_cast(level="O2"):
+            loss, _ = model(ids, labels=ids)
+        scaler.scale(loss).backward()
+        with span:
+            scaler.step(opt)
+        scaler.update()
+        opt.clear_grad()
+        return loss.detach()
+
+    profile_loop_step(torch, step, "(c) FusedAdamW")
+    del model, opt, scaler, data
+    free_cuda(torch)
+
+
+def phase_paddle_loop(torch, seed):
+    print("== phase 12: the Paddle training loop on the Llama-2-7B widths "
+          "(4 layers): DataLoader -> auto_cast -> GradScaler -> optimizer")
+    loop_o1(torch, seed)
+    loop_o2(torch, seed)
+    loop_fused_skip(torch, seed)
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4260,6 +4648,8 @@ def main():
                                                "selective_scan_bwd")})
         launches.update({k: rwkv[k] for k in ("wkv", "wkv_bwd")})
         launches.update({k: mamba2[k] for k in ("ssd", "ssd_bwd")})
+        phase_paddle_loop(torch, args.seed)
+        lap()
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

@@ -3,9 +3,11 @@
 The JAX package ``paddle_tpu`` is the reference; this package serves the
 Llama continuous-batching path (bf16, or int8/int4 weights and an int8 KV
 pool), trains Llama (``jit.TrainStep`` with ``optimizer.AdamW``, or the
-eager loop with ``optimizer.FusedAdamW``), trains the MoE-Llama
-(``models.MoELlamaForCausalLM`` over ``parallel.MoELayer``) and trains the
-state-space and linear-attention models Mamba-1
+eager Paddle loop: ``io.DataLoader``, ``amp.auto_cast`` and
+``amp.GradScaler``, the ``optimizer`` family with LR schedulers, clip
+objects and master weights, or ``optimizer.FusedAdamW``), trains the
+MoE-Llama (``models.MoELlamaForCausalLM`` over ``parallel.MoELayer``) and
+trains the state-space and linear-attention models Mamba-1
 (``models.MambaForCausalLM``), Mamba-2 (``models.Mamba2ForCausalLM``) and
 RWKV-5 (``models.RwkvForCausalLM``), with PyTorch for the plain tensor code
 and hand-written CUDA C++ kernels (``csrc/``) for the kernels those paths

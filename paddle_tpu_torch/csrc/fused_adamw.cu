@@ -9,6 +9,14 @@
 // with bc1 = 1 - b1^t and bc2 = 1 - b2^t computed on the host in f32.
 // p, m and v are updated in place; g is read. Any n: no padding to a tile.
 //
+// GradScaler's skip: `found_inf` is a device pointer to one int, or null.
+// When it points at a non-zero value the step is skipped: each block reads
+// the flag once, from the device, and returns before it writes p, m or v.
+// The host never syncs for it, so the scaler's flag stays on the device
+// from unscale_ to the step (the JAX package keeps the old buffers with a
+// select after its kernel, paddle_tpu/optimizer/fused.py:88-94; a select
+// after this in-place kernel would first need a copy of p, m and v).
+//
 // What bounds it on the H100: bytes. Each parameter reads p, g, m and v
 // and writes p, m and v, 28 bytes, for about 15 flops: n = 1.07e9 needs
 // 9 ms at 3.35 TB/s. The design streams 16-byte vectors (four floats of
@@ -35,7 +43,13 @@ __device__ __forceinline__ void adamw(float& p, float g, float& m, float& v, con
 
 __global__ void __launch_bounds__(256)
 fused_adamw_kernel(float* __restrict__ p, const float* __restrict__ g, float* __restrict__ m,
-                   float* __restrict__ v, long n, Scalars s) {
+                   float* __restrict__ v, long n, Scalars s, const int* __restrict__ found_inf) {
+  if (found_inf != nullptr) {
+    __shared__ int skip;
+    if (threadIdx.x == 0) skip = *found_inf;
+    __syncthreads();
+    if (skip) return;
+  }
   const long stride = long(gridDim.x) * blockDim.x;
   const long start = long(blockIdx.x) * blockDim.x + threadIdx.x;
   const long n4 = n / 4;
@@ -65,10 +79,12 @@ const char* ptt_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// p, g, m, v: [n] f32 on the card, 16-byte aligned. One launch on `stream`;
-// returns cudaGetLastError() (0 on success).
+// p, g, m, v: [n] f32 on the card, 16-byte aligned; found_inf: one int on
+// the card, or null (never skip). One launch on `stream`; returns
+// cudaGetLastError() (0 on success).
 int ptt_fused_adamw(void* p, const void* g, void* m, void* v, long n, float lr, float b1,
-                    float b2, float eps, float wd, float bc1, float bc2, void* stream) {
+                    float b2, float eps, float wd, float bc1, float bc2, const void* found_inf,
+                    void* stream) {
   if (n < 0) return int(cudaErrorInvalidValue);
   if (n == 0) return 0;
   int sms = 0, dev = 0;
@@ -79,7 +95,8 @@ int ptt_fused_adamw(void* p, const void* g, void* m, void* v, long n, float lr, 
   const long blocks = vec_blocks < 1 ? 1 : (vec_blocks < 8L * sms ? vec_blocks : 8L * sms);
   fused_adamw_kernel<<<unsigned(blocks), 256, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<float*>(p), static_cast<const float*>(g), static_cast<float*>(m),
-      static_cast<float*>(v), n, Scalars{lr, b1, b2, eps, wd, bc1, bc2});
+      static_cast<float*>(v), n, Scalars{lr, b1, b2, eps, wd, bc1, bc2},
+      static_cast<const int*>(found_inf));
   return int(cudaGetLastError());
 }
 

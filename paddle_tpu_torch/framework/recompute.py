@@ -11,7 +11,9 @@ backward recomputes only the elementwise chains between them: the norms,
 rope, swiglu and the residual adds. That is the JAX policy
 ``save_from_both_policies(save_only_these_names("flash_out", "flash_lse"),
 checkpoint_dots)``; here it is a selective-checkpoint policy over the
-dispatcher's operators.
+dispatcher's operators. A region run under ``amp.auto_cast`` runs again
+under the same settings (the JAX package casts while it traces the
+forward, so its recomputed region is cast alike).
 """
 
 from __future__ import annotations
@@ -22,6 +24,8 @@ from typing import Any, Callable
 import torch
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
+
+from .. import amp
 
 # the flash forward's module registers the paddle_tpu_torch::flash_fwd operator
 from ..ops.fused import flash_attention  # noqa: F401
@@ -62,6 +66,9 @@ def recompute(function: Callable, *args, policy=None, **kwargs) -> Any:
     ``policy`` saves (:func:`resolve_policy`); the rest is recomputed
     during the backward pass, under the RNG state of the forward. The
     parameters of a module ``function`` get their gradients as usual."""
+    saved = amp.settings()
+    if saved is not None:
+        function = functools.partial(amp.under, saved, function)
     fn = resolve_policy(policy)
     if fn is None:
         return checkpoint(function, *args, use_reentrant=False, **kwargs)

@@ -1,4 +1,4 @@
-from .convert import load_paddle_tpu_state
+from .convert import load_paddle_tpu_optimizer_state, load_paddle_tpu_state
 from .generation import (GenerationMixin, fused_generate, generate,
                          lm_head_tail, sample_logits)
 from .kv_cache import KVCacheSpec, check_request_fits
@@ -12,7 +12,8 @@ from .serving import ServingDecoder
 __all__ = ["LLAMA_PRESETS", "LlamaConfig", "LlamaForCausalLM", "KVCache",
            "KVCacheSpec", "check_request_fits", "lm_head_tail",
            "sample_logits", "generate", "fused_generate", "GenerationMixin",
-           "ServingDecoder", "load_paddle_tpu_state", "MoELlamaConfig",
+           "ServingDecoder", "load_paddle_tpu_state",
+           "load_paddle_tpu_optimizer_state", "MoELlamaConfig",
            "MoELlamaForCausalLM", "MambaConfig", "MambaForCausalLM",
            "Mamba2Config", "Mamba2ForCausalLM", "RwkvConfig",
            "RwkvForCausalLM"]

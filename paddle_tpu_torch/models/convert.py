@@ -1,4 +1,5 @@
-"""Load a ``paddle_tpu`` model's ``state_dict`` into the port's module."""
+"""Load a ``paddle_tpu`` model's ``state_dict`` into the port's module, and
+a ``paddle_tpu`` optimizer's ``state_dict`` into the port's optimizer."""
 
 from __future__ import annotations
 
@@ -7,7 +8,9 @@ from typing import Mapping
 import numpy as np
 import torch
 
-__all__ = ["load_paddle_tpu_state"]
+from ..core.dtype import as_tensor
+
+__all__ = ["load_paddle_tpu_state", "load_paddle_tpu_optimizer_state"]
 
 # buffers the JAX model lists in its state_dict that the port recomputes
 _DERIVED = ("model.rope_cos", "model.rope_sin")
@@ -37,7 +40,7 @@ def load_paddle_tpu_state(model: torch.nn.Module,
     linear = _linear_weights(model)
     with torch.no_grad():
         for name, p in params.items():
-            value = torch.tensor(np.asarray(state[name]))
+            value = as_tensor(state[name])
             if name in linear:
                 value = value.t()
             if tuple(value.shape) != tuple(p.shape):
@@ -45,3 +48,38 @@ def load_paddle_tpu_state(model: torch.nn.Module,
                                  f"{tuple(value.shape)}, the port expects "
                                  f"{tuple(p.shape)}")
             p.copy_(value.to(dtype=p.dtype, device=p.device))
+
+
+def load_paddle_tpu_optimizer_state(optimizer, model: torch.nn.Module,
+                                    state: Mapping, names) -> None:
+    """Load a JAX optimizer's ``state_dict()`` (numpy arrays; keys
+    ``_step_count``, ``p{i}.<state>``, ``p{i}.master`` and
+    ``LR_Scheduler``) into the port's ``optimizer`` over ``model``.
+
+    ``names[i]`` is the name of the JAX optimizer's parameter ``i`` (the
+    JAX model's ``named_parameters()`` in the order its optimizer was given
+    them); each entry goes to the port's parameter of that name, under the
+    index it has in ``optimizer``'s parameters. The per-element state of a
+    ``torch.nn.Linear`` weight (moments, ``moment2_max``, velocities, the
+    master: every 2-D entry) is transposed from JAX's ``[in, out]``, as
+    :func:`load_paddle_tpu_state` transposes the weight. The step count
+    and the scheduler's state are carried as they are."""
+    params = dict(model.named_parameters())
+    index = {id(p): j for j, p in enumerate(optimizer._parameter_list)}
+    linear = _linear_weights(model)
+    out = {k: state[k] for k in ("_step_count", "LR_Scheduler") if k in state}
+    for key, value in state.items():
+        if key in out:
+            continue
+        head, _, entry = key.partition(".")
+        i = int(head[1:])
+        name = names[i]
+        if name not in params or id(params[name]) not in index:
+            raise KeyError(f"load_paddle_tpu_optimizer_state: JAX parameter "
+                           f"{i} ({name!r}) is not a parameter of the port's "
+                           f"optimizer")
+        value = np.asarray(value)
+        if name in linear and value.ndim == 2:
+            value = value.T
+        out[f"p{index[id(params[name])]}.{entry}"] = value
+    optimizer.set_state_dict(out)

@@ -26,6 +26,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..amp import amp_op
 from ..core.device import make_generator, resolve_device
 from ..core.dtype import to_torch_dtype
 from ..framework.recompute import recompute
@@ -128,12 +129,20 @@ def causal_lm_loss(h: torch.Tensor, head: torch.Tensor, labels: torch.Tensor,
         return fused_linear_cross_entropy(
             h[:, :-1], head, labels[:, 1:], ignore_index=IGNORE_INDEX), None
     logits = F.linear(h, head)
+    return _shifted_cross_entropy(logits, labels), logits
+
+
+@amp_op("cross_entropy")
+def _shifted_cross_entropy(logits, labels):
+    """The mean f32 cross-entropy of ``logits [b, s, V]`` at position t
+    against label t + 1 (``-100`` ignored): JAX's one ``cross_entropy``
+    op."""
     shift_labels = labels[:, 1:].reshape(-1)
     per_token = F.cross_entropy(
         logits[:, :-1].reshape(-1, logits.shape[-1]).float(), shift_labels,
         ignore_index=IGNORE_INDEX, reduction="none")
     count = (shift_labels != IGNORE_INDEX).sum().clamp_min(1)
-    return per_token.sum() / count, logits
+    return per_token.sum() / count
 
 
 class LlamaAttention(nn.Module):

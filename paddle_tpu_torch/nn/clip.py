@@ -1,0 +1,95 @@
+"""Gradient clipping (the counterpart of ``paddle_tpu/nn/clip.py``).
+
+A clip object maps a list of ``(param, grad)`` pairs to a new list; an
+optimizer built with ``grad_clip=`` applies it in ``step()`` before the
+update. Each clipped gradient is a new tensor in the gradient's dtype, the
+arithmetic in f32 as the JAX package does it. A parameter whose
+``need_clip`` attribute is False keeps its gradient.
+
+The JAX ``ClipGradByGlobalNorm`` reduces its squared norm across the
+model-parallel axes when a distributed environment is active; the port has
+no mesh yet, so its norm is the local one (ROADMAP A8).
+"""
+
+from __future__ import annotations
+
+import torch
+
+__all__ = ["ClipGradBase", "ClipGradByValue", "ClipGradByNorm",
+           "ClipGradByGlobalNorm", "clip_grads_"]
+
+
+def _skips(p, g) -> bool:
+    return g is None or not getattr(p, "need_clip", True)
+
+
+class ClipGradBase:
+    def __call__(self, params_grads):
+        raise NotImplementedError
+
+
+class ClipGradByValue(ClipGradBase):
+    """Each element into ``[min, max]`` (``min`` defaults to ``-max``)."""
+
+    def __init__(self, max, min=None):  # noqa: A002
+        self.max = float(max)
+        self.min = float(min) if min is not None else -self.max
+
+    def __call__(self, params_grads):
+        return [(p, g) if _skips(p, g) else (p, g.clamp(self.min, self.max))
+                for p, g in params_grads]
+
+
+class ClipGradByNorm(ClipGradBase):
+    """Each gradient scaled by ``min(clip_norm / max(||g||, 1e-12), 1)``."""
+
+    def __init__(self, clip_norm):
+        self.clip_norm = float(clip_norm)
+
+    def __call__(self, params_grads):
+        out = []
+        for p, g in params_grads:
+            if _skips(p, g):
+                out.append((p, g))
+                continue
+            g32 = g.float()
+            nrm = torch.sqrt(torch.sum(torch.square(g32)))
+            scale = torch.clamp_max(
+                self.clip_norm / torch.clamp_min(nrm, 1e-12), 1.0)
+            out.append((p, (g32 * scale).to(g.dtype)))
+        return out
+
+
+class ClipGradByGlobalNorm(ClipGradBase):
+    """Every clipped gradient scaled by ``clip_norm / max(global_norm,
+    clip_norm)``; the global norm from the f32 sums of squares of the
+    gradients that take part. No host sync."""
+
+    def __init__(self, clip_norm, group_name="default_group",
+                 auto_skip_clip=False):
+        self.clip_norm = float(clip_norm)
+        self.group_name = group_name
+        self.auto_skip_clip = auto_skip_clip
+
+    def _global_norm_sq(self, grads):
+        # the JAX hook reduces this across model-parallel axes (ROADMAP A8)
+        return torch.sum(torch.stack(
+            [torch.sum(torch.square(g.float())) for g in grads]))
+
+    def __call__(self, params_grads):
+        clippable = [g for p, g in params_grads if not _skips(p, g)]
+        if not clippable:
+            return params_grads
+        gnorm = torch.sqrt(self._global_norm_sq(clippable))
+        scale = self.clip_norm / torch.clamp_min(gnorm, self.clip_norm)
+        return [(p, g) if _skips(p, g) else (p, (g.float() * scale).to(g.dtype))
+                for p, g in params_grads]
+
+
+def clip_grads_(parameters, clip) -> None:
+    """Apply a clip object to ``param.grad`` in place."""
+    pg = [(p, p.grad) for p in parameters if p.grad is not None]
+    with torch.no_grad():
+        for p, g in clip(pg):
+            if g is not None:
+                p.grad = g

@@ -22,10 +22,13 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..amp import amp_op
+
 __all__ = ["rms_norm", "swiglu", "RMSNorm", "rms_norm_f32", "swiglu_f32",
            "layer_norm", "group_norm", "LayerNorm", "GroupNorm"]
 
 
+@amp_op("rms_norm")
 def rms_norm(x: torch.Tensor, weight: torch.Tensor,
              eps: float) -> torch.Tensor:
     """``(x * rsqrt(mean(x²) + eps))`` in f32, cast to ``x.dtype``, then
@@ -35,6 +38,7 @@ def rms_norm(x: torch.Tensor, weight: torch.Tensor,
     return (xf * torch.rsqrt(var + eps)).to(x.dtype) * weight
 
 
+@amp_op("swiglu")
 def swiglu(gate: torch.Tensor, up: torch.Tensor) -> torch.Tensor:
     """``silu(gate) * up`` as ``jax.nn.silu`` spells it, in the input
     dtype."""
@@ -66,6 +70,7 @@ class RMSNorm(nn.Module):
         return rms_norm(x, self.weight, self.eps)
 
 
+@amp_op("layer_norm")
 def layer_norm(x: torch.Tensor, weight=None, bias=None,
                eps: float = 1e-5) -> torch.Tensor:
     """Over the last axis: ``(x - mean) * rsqrt(var + eps)`` in f32, cast to
@@ -81,6 +86,7 @@ def layer_norm(x: torch.Tensor, weight=None, bias=None,
     return y
 
 
+@amp_op("group_norm")
 def group_norm(x: torch.Tensor, num_groups: int, weight=None, bias=None,
                eps: float = 1e-5) -> torch.Tensor:
     """x ``[N, C, ...]`` in ``num_groups`` groups of channels: statistics

@@ -5,6 +5,10 @@ Replaces the TPU kernel ``paddle_tpu/ops/pallas/fused_adamw.py``
 ``fused_adamw_flat`` (``pl.pallas_call`` at :100). Bounded on the H100 by
 bytes: 28 per parameter (p, g, m, v read; p, m, v written). CPU tensors take
 the plain version; CUDA tensors launch the kernel or raise.
+
+``found_inf`` (GradScaler's flag, a scalar tensor on the buffers' device, or
+None) skips the step when it is non-zero: the kernel reads it on the device
+and writes nothing, so the caller never syncs for it.
 """
 
 from __future__ import annotations
@@ -47,10 +51,13 @@ def _scalars(lr, beta1, beta2, eps, weight_decay, step) -> _Scalars:
 
 
 def fused_adamw_reference(p, g, m, v, lr, beta1, beta2, eps, weight_decay,
-                          step):
+                          step, found_inf=None):
     """The plain version: returns new ``(p, m, v)`` f32 from flat ``p, m, v``
     f32 and ``g`` of any float dtype, with the TPU kernel's operations in
-    its order (every scalar and intermediate f32)."""
+    its order (every scalar and intermediate f32); returns ``(p, m, v)``
+    themselves when ``found_inf`` is set (read on the host)."""
+    if found_inf is not None and bool(found_inf):
+        return p, m, v
     s = _scalars(lr, beta1, beta2, eps, weight_decay, step)
     f = np.float32
     one_b1, one_b2 = float(f(1) - f(s.b1)), float(f(1) - f(s.b2))
@@ -68,18 +75,23 @@ def _lib():
     lib = _build.load("fused_adamw")
     if lib.ptt_fused_adamw.argtypes is None:
         lib.ptt_fused_adamw.argtypes = [_ptr] * 4 + [ctypes.c_long] \
-            + [_f32] * 7 + [_ptr]
+            + [_f32] * 7 + [_ptr, _ptr]
         lib.ptt_fused_adamw.restype = ctypes.c_int
     return lib
 
 
-def fused_adamw(p, g, m, v, lr, beta1, beta2, eps, weight_decay, step):
+def fused_adamw(p, g, m, v, lr, beta1, beta2, eps, weight_decay, step,
+                found_inf=None):
     """One AdamW step IN PLACE on the flat f32 buffers ``p``, ``m`` and
-    ``v`` (``g`` is read). On CUDA tensors (all four contiguous f32 ``[N]``
-    on one device, 16-byte aligned) one kernel launch; on CPU tensors the
+    ``v`` (``g`` is read), skipped when ``found_inf`` (a one-element tensor
+    on their device, or None) is non-zero. On CUDA tensors (all four
+    contiguous f32 ``[N]`` on one device, 16-byte aligned) one kernel
+    launch, counted whether or not the flag skips it; on CPU tensors the
     plain version, copied back. Returns ``(p, m, v)``."""
     global launches
     if p.device.type == "cpu":
+        if found_inf is not None and bool(found_inf):
+            return p, m, v
         for dst, src in zip((p, m, v), fused_adamw_reference(
                 p, g, m, v, lr, beta1, beta2, eps, weight_decay, step)):
             dst.copy_(src)
@@ -95,11 +107,20 @@ def fused_adamw(p, g, m, v, lr, beta1, beta2, eps, weight_decay, step):
                              f"16-byte aligned f32 [{n}] tensor on "
                              f"{p.device}, got {t.dtype} {tuple(t.shape)} on "
                              f"{t.device}")
+    flag = None
+    if found_inf is not None:
+        if found_inf.device != p.device or found_inf.numel() != 1:
+            raise ValueError(f"fused_adamw: found_inf must be one element on "
+                             f"{p.device}, got {tuple(found_inf.shape)} on "
+                             f"{found_inf.device}")
+        flag = found_inf.reshape(1).to(torch.int32).contiguous()
     s = _scalars(lr, beta1, beta2, eps, weight_decay, step)
     lib = _lib()
     stream = torch.cuda.current_stream(p.device).cuda_stream
     rc = lib.ptt_fused_adamw(p.data_ptr(), g.data_ptr(), m.data_ptr(),
-                             v.data_ptr(), n, *s, stream)
+                             v.data_ptr(), n, *s,
+                             None if flag is None else flag.data_ptr(),
+                             stream)
     _build.check(lib, rc, "fused_adamw")
     launches += 1
     return p, m, v

@@ -12,6 +12,8 @@ from __future__ import annotations
 
 import torch
 
+from ...amp import amp_op
+
 __all__ = ["fused_linear_cross_entropy"]
 
 
@@ -67,6 +69,7 @@ class _LinearCrossEntropy(torch.autograd.Function):
             None
 
 
+@amp_op("fused_linear_cross_entropy")
 def fused_linear_cross_entropy(hidden, weight, labels, chunk: int = 1024,
                                ignore_index: int = -100) -> torch.Tensor:
     """Mean token cross-entropy of ``softmax(hidden @ weightᵀ)`` against

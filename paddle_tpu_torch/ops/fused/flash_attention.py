@@ -26,6 +26,8 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from ...amp import amp_op
+
 __all__ = ["flash_attention", "flash_attn_reference",
            "flash_attn_bwd_reference", "EMPTY_ROW_LSE"]
 
@@ -259,6 +261,7 @@ torch.library.register_autograd("paddle_tpu_torch::flash_fwd",
                                 setup_context=_flash_fwd_setup)
 
 
+@amp_op("flash_attention")
 def flash_attention(q, k, v, causal: bool = False,
                     scale: Optional[float] = None,
                     kv_len: Optional[int] = None,

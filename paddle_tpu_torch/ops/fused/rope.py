@@ -5,6 +5,8 @@ from __future__ import annotations
 
 import torch
 
+from ...amp import amp_op
+
 __all__ = ["build_rope_cache", "apply_rotary_position_embedding"]
 
 
@@ -24,6 +26,7 @@ def _rotate_half(x):
     return torch.cat([-x2, x1], dim=-1)
 
 
+@amp_op("apply_rope")
 def apply_rotary_position_embedding(x, cos, sin):
     """x ``[b, s, heads, head_dim]``; cos/sin ``[s, head_dim]`` or
     ``[b, s, head_dim]`` (per-row positions)."""

@@ -7,7 +7,14 @@ moments beside it and a ``(param, offset, size)`` view per parameter.
 launch of the fused AdamW kernel (``ops/cuda/fused_adamw.py``; its plain
 version on CPU tensors), which updates the flat master and moments IN
 PLACE, then copies each view back into its parameter in the parameter's
-dtype.
+dtype. The flat buffer is the f32 master of every parameter, whatever its
+dtype. A ``GradScaler``'s found-inf flag reaches the kernel on the device:
+a step with an inf writes nothing (JAX keeps the old buffers with a select
+after its kernel, ``paddle_tpu/optimizer/fused.py:88-94``).
+
+``state_dict()`` holds ``_step_count`` and, once a step has run, the flat
+buffers ``flat``, ``m`` and ``v`` (the optimizer's own tensors, updated in
+place by the next step: copy them to keep them), the JAX keys.
 """
 
 from __future__ import annotations
@@ -16,6 +23,7 @@ from typing import List
 
 import torch
 
+from ..core.dtype import as_tensor
 from ..ops.cuda.fused_adamw import fused_adamw
 from .optimizer import Optimizer
 
@@ -31,6 +39,10 @@ class FusedAdamW(Optimizer):
         self._beta1, self._beta2, self._epsilon = beta1, beta2, epsilon
         self._views = None  # [(param, offset, size)]
         self._flat = self._m = self._v = None
+
+    def _write_back(self) -> None:
+        for p, off, n in self._views:
+            p.copy_(self._flat[off:off + n].view(p.shape))
 
     def _build_flat(self, params: List[torch.Tensor]) -> None:
         views, off = [], 0
@@ -71,9 +83,30 @@ class FusedAdamW(Optimizer):
         grads = torch.empty_like(self._flat)
         for (_, g), (_, off, n) in zip(params_grads, self._views):
             grads[off:off + n].copy_(g.reshape(-1))
+        found_inf = self._skip_flag()
         fused_adamw(self._flat, grads, self._m, self._v, self.get_lr(),
                     self._beta1, self._beta2, self._epsilon,
-                    self._weight_decay, self._step_count + 1)
+                    self._weight_decay, self._step_count + 1,
+                    found_inf=found_inf)
         del grads
-        for p, off, n in self._views:
-            p.copy_(self._flat[off:off + n].view(p.shape))
+        self._write_back()
+
+    # -- checkpoints: the state lives in the flat buffers ----------------------
+    def state_dict(self):
+        sd = {"_step_count": self._step_count}
+        if self._flat is not None:
+            sd.update(flat=self._flat, m=self._m, v=self._v)
+        return sd
+
+    @torch.no_grad()
+    def set_state_dict(self, state) -> None:
+        """Load :meth:`state_dict`'s keys (tensors or numpy arrays): the
+        flat buffers are laid out over the trainable parameters again and
+        each parameter gets its view."""
+        self._step_count = int(state.get("_step_count", 0))
+        if "flat" not in state:
+            return
+        self._build_flat(self._trainable())
+        for name in ("flat", "m", "v"):
+            getattr(self, "_" + name).copy_(as_tensor(state[name]).reshape(-1))
+        self._write_back()

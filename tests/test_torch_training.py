@@ -263,11 +263,24 @@ def test_train_step_rejects_fused_adamw():
 
 
 def test_optimizer_options_not_ported_raise():
+    """The options ROADMAP A5 ported (a clip object, master weights, an
+    LRScheduler) build and step; a learning rate that is neither a number
+    nor a scheduler raises."""
+    from paddle_tpu_torch.nn import ClipGradByGlobalNorm
+    from paddle_tpu_torch.optimizer.lr import StepDecay
+
     _, tm = make_pair(27)
-    for kw in (dict(grad_clip=object()), dict(multi_precision=True),
-               dict(learning_rate=lambda: 1e-3)):
-        with pytest.raises(NotImplementedError, match="ROADMAP A5"):
-            AdamW(parameters=tm.parameters(), **kw)
+    for kw in (dict(grad_clip=ClipGradByGlobalNorm(1.0)),
+               dict(multi_precision=True),
+               dict(learning_rate=StepDecay(1e-3, 2))):
+        opt = AdamW(parameters=tm.parameters(), **kw)
+        ids = torch.from_numpy(batch(27)[0])
+        tm(ids, labels=ids)[0].backward()
+        opt.step()
+        opt.clear_grad()
+        assert opt._step_count == 1
+    with pytest.raises(TypeError, match="LRScheduler"):
+        AdamW(parameters=tm.parameters(), learning_rate=lambda: 1e-3)
     # recompute is ported (ROADMAP A2): the model builds and trains
     model = LlamaForCausalLM(LlamaConfig(**TINY, recompute=True),
                              device="cpu")
