@@ -57,7 +57,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
    timed beside the unmasked kernels and SDPA given the same mask, its
    bound counting the pairs it lets through and the mask read once, and
    the host µs of a call through the ``paddle_tpu_torch::flash_fwd``
-   operator; the selective scan's
+   operator; the flash forward (out, lse) and backward at ViT-L16's
+   attention (b 64, 197 tokens, 16 heads of 64, non-causal), each timed
+   beside its bound and SDPA's; the selective scan's
    forward (y and the chunk states) and backward (du, ddelta, dA, dB, dC)
    at b16 l1024 d1536 n16 and at the chunk-parallel backward's edges
    (lengths 1, 63, 64, 65, 150 and 1001, d = 100 and 200, n = 5, a strong
@@ -242,7 +244,35 @@ Phases, each of which fails the run (non-zero exit, no result line):
    scaler for 6 steps with one gradient set to inf at step 3: 6 fused
    AdamW launches, the flat master, m and v bit for bit across step 3,
    the scale halved, step 4 updating; each sub-run's host ms a step, peak
-   memory and the optimizer's share of a profiled step's device time.
+   memory and the optimizer's share of a profiled step's device time;
+13. ViT and the high-level API: ``bench.py:258-290``'s ViT-L16 (image 224,
+   patch 16, hidden 1024, 24 layers, 16 heads, 1000 classes, bf16; random
+   weights from a seeded generator on the card) through
+   ``Model(vit).prepare(AdamW(3e-4, grad_clip=ClipGradByGlobalNorm(1.0)),
+   CrossEntropyLoss(), Accuracy(topk=(1, 5)))``; (a) ``fit`` under
+   ``auto_cast(level="O2")`` on 4 batches of 64 seeded f32 images (each
+   its class's prototype plus noise, 10 classes), 2 epochs, a held-out
+   batch evaluated after each, ``EarlyStopping`` and ``save_dir``: falling
+   losses, top-1 rising from epoch 1 to 2, flash launches 24 x (8 steps + 2
+   eval batches) forward and 24 x 8 backward and no other kernel of the
+   port, the checkpoints ``0``, ``1``, ``final`` and ``best_model``; the
+   step's host ms, images/s, the model-FLOP share (``bench.py:278-280``)
+   and peak memory, and a profiled step (device ms by group, the
+   optimizer's span, the idle share); (b) ``evaluate`` and ``predict(
+   stack_outputs=True)``: shapes, finite; (c) ``save`` then ``load`` into a
+   fresh Model: predictions bit for bit, and epoch 2 resumed from the
+   epoch-1 checkpoint (numpy's RNG set to the epoch's start): the losses
+   and every parameter bit for bit (the patch conv on cuDNN's deterministic
+   algorithms); (d) ``amp.debugging``: operator statistics over one eval
+   batch (conv2d 1, linear 6 L + 1, flash_attention L, layer_norm 2 L + 1
+   calls, no NaN / Inf; its cost against the plain batch), the tensor
+   checker raising ``FloatingPointError`` on conv2d with an inf in the
+   patch bias and continuing in ``CHECK_NAN_INF``, ``check_numerics``;
+   (e) ``MoELayer(gate, [8 expert modules])`` at phase 8's widths, 8 x 2048
+   tokens, a forward and backward against ``MLPExperts`` with the same
+   weights on the capacity route (out, dx, the gate's and experts'
+   gradients within 2e-2 of max |reference|), launching no kernel of the
+   port.
 
 The last lines are the kernels' JSON, the card's name and power limit, and
 ``{"ok": true, "device": {...}}``.
@@ -499,8 +529,10 @@ def phase_kernels(torch, gen, flush):
     rows["flash_attention_bwd"] = check_flash_backward(torch, gen, flush)
     torch.cuda.empty_cache()
     fwd_err, bwd_err = check_flash_masks(torch, gen, flush)
-    for name, err in (("flash_attention", fwd_err),
-                      ("flash_attention_bwd", bwd_err)):
+    vit_fwd, vit_bwd = check_flash_vit(torch, gen, flush)
+    torch.cuda.empty_cache()
+    for name, err in (("flash_attention", max(fwd_err, vit_fwd)),
+                      ("flash_attention_bwd", max(bwd_err, vit_bwd))):
         rows[name]["max_abs_err"] = max(rows[name]["max_abs_err"], err)
     rows["fused_adamw"] = check_fused_adamw(torch, gen)
     torch.cuda.empty_cache()
@@ -1075,6 +1107,82 @@ def check_flash_backward(torch, gen, flush):
         del q, k, v, do, out, lse
     row["max_abs_err"] = err_max
     return row
+
+
+# phase 3: the flash kernels at ViT-L16's attention (phase 13): b 64, 197
+# tokens (196 patches and the class token), 16 heads of 64, non-causal
+VIT_FLASH = (64, 197, 16, 64)
+
+
+def check_flash_vit(torch, gen, flush):
+    """The flash forward (out, lse) and backward at ViT-L16's shape against
+    their plain versions, each timed beside its bound and SDPA's forward
+    or backward. Returns the largest |kernel - plain| of each."""
+    import torch.nn.functional as F
+
+    from paddle_tpu_torch.ops.cuda.flash_attention import (
+        flash_attention_bwd_cuda, flash_attention_cuda)
+    from paddle_tpu_torch.ops.fused.flash_attention import (
+        flash_attn_bwd_reference, flash_attn_reference)
+
+    b, s, h, d = VIT_FLASH
+    scale = d ** -0.5
+    q, k, v, do = (torch.randn(b, s, h, d, generator=gen,
+                               device="cuda").bfloat16() for _ in range(4))
+    fwd = lambda: flash_attention_cuda(  # noqa: E731
+        q, k, v, False, scale, 0, s, return_lse=True)
+    out, lse = fwd()
+    rout, rlse = flash_attn_reference(q, k, v, False, scale, s, 0,
+                                      return_lse=True)
+    bwd = lambda: flash_attention_bwd_cuda(  # noqa: E731
+        q, k, v, out, lse, do, False, scale, 0, s)
+    plain_bwd = lambda: flash_attn_bwd_reference(  # noqa: E731
+        q, k, v, out, lse, do, False, scale, s, 0)
+    torch.cuda.synchronize()
+    label = f"ViT-L16 b={b} S={s} heads {h} d={d} non-causal"
+    fwd_err = (out.float() - rout.float()).abs().max().item()
+    check(math.isfinite(fwd_err) and fwd_err <= OUT_ATOL,
+          f"flash fwd {label}: max |kernel - plain| = {fwd_err:.3e} <= "
+          f"{OUT_ATOL}")
+    rel = ((lse - rlse).abs() / rlse.abs().clamp_min(1.0)).max().item()
+    check(rel <= STATS_RTOL, f"flash fwd {label} lse: max |diff| / "
+                             f"max(|ref|, 1) = {rel:.3e} <= {STATS_RTOL}")
+    bwd_err = 0.0
+    for name, g, r in zip(("dq", "dk", "dv"), bwd(), plain_bwd()):
+        diff = (g.float() - r.float()).abs().max().item()
+        peak = r.float().abs().max().item()
+        check(math.isfinite(diff) and diff <= BWD_RTOL * peak,
+              f"flash bwd {label} {name}: max |kernel - plain| = {diff:.3e} "
+              f"= {diff / peak:.3e} of max |plain| <= {BWD_RTOL}")
+        bwd_err = max(bwd_err, diff)
+    del rout, rlse
+    fwd_ms = time_ms(torch, fwd, flush=flush)
+    fwd_plain = time_ms(torch, lambda: flash_attn_reference(
+        q, k, v, False, scale, s, 0, return_lse=True), reps=3, flush=flush)
+    bwd_ms = time_ms(torch, bwd, flush=flush)
+    bwd_plain = time_ms(torch, plain_bwd, reps=3, flush=flush)
+    qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
+                  for t in (q, k, v))
+    with torch.no_grad():
+        fwd_lib = time_ms(torch, lambda: F.scaled_dot_product_attention(
+            qt, kt, vt), flush=flush)
+    sdpa_out = F.scaled_dot_product_attention(qt, kt, vt)
+    dot = do.transpose(1, 2)
+    bwd_lib = time_ms(torch, lambda: torch.autograd.grad(
+        sdpa_out, (qt, kt, vt), dot, retain_graph=True), flush=flush)
+    pairs = b * s * s
+    act = 2 * b * s * h * d                     # one bf16 [b, s, h, d]
+    f_ms, f_by = bound(4 * d * h * pairs, 4 * act + 4 * b * h * s)
+    b_ms, b_by = bound(10 * d * h * pairs, 8 * act + 4 * b * h * s)
+    print(f"  flash fwd {label} (with lse): {fwd_ms:.4f} ms (bound "
+          f"{f_ms:.4f} ms by {f_by}, {f_ms / fwd_ms:.1%} of it), plain "
+          f"{fwd_plain:.3f} ms, sdpa forward {fwd_lib:.4f} ms "
+          f"({fwd_ms / fwd_lib:.2f}x sdpa); bwd {bwd_ms:.4f} ms (bound "
+          f"{b_ms:.4f} ms by {b_by}, {b_ms / bwd_ms:.1%} of it), plain "
+          f"{bwd_plain:.3f} ms, sdpa backward {bwd_lib:.4f} ms "
+          f"({bwd_ms / bwd_lib:.2f}x sdpa)")
+    del q, k, v, do, out, lse, qt, kt, vt, sdpa_out
+    return fwd_err, bwd_err
 
 
 # masked flash cases of phase 3: (label, b, S, hq, hk, d), causal, each with
@@ -1849,12 +1957,29 @@ def scan_inputs(torch, gen, b, l, d, n, dt, strong):
     return (u, delta.to(dt), A, B, C), dy
 
 
+def cancel_bc(B, C):
+    """C with its last state set so that every step's B . C is about 1e-4 of
+    its terms (computed in float64): y_t's and du_t's share from step t's
+    own input is that sum times delta_t u_t (dy_t)."""
+    C = C.clone()
+    part = (B[..., :-1].double() * C[..., :-1].double()).sum(-1)
+    C[..., -1] = (-part / B[..., -1].double() * (1 - 1e-4)).to(C.dtype)
+    return C
+
+
 def check_selective_scan(torch, gen, flush):
     """The scan's forward and backward kernels against their plain version
     at phase 9's shape (b16 l1024 d1536 n16; A from the S4D init, delta =
-    softplus of seeded normals) in f32 I/O within SSM_F32_RTOL and in the
-    path's bf16 within SSM_BF16_RTOL, the forward's chunk states too; and at
-    the backward's edges (``SCAN_CASES``, each in f32 and bf16): one step, a
+    softplus of seeded normals) in f32 I/O within SSM_F32_RTOL of the plain
+    version evaluated in float64 (y sums n products that can cancel: at one
+    step every channel's y is delta u times one sum C . B, and a draw whose
+    sum nearly cancels puts an f32 sum of the rounded terms, the plain
+    version's, far from float64 against max |y|; the kernels take that
+    share from an exact dot; each f32 case prints the kernel's and the
+    plain f32 version's y error against float64) and in the path's bf16
+    within SSM_BF16_RTOL, the forward's chunk states too; and at
+    the backward's edges (``SCAN_CASES``, each in f32 and bf16; the f32 step
+    also with every B . C cancelling, ``cancel_bc``): one step, a
     chunk less one, one, one more, lengths off every tile, d = 100 and 200
     (off the 64-channel tile and the 128 channels of a partial; d = 100 in
     bf16 also off the forward's 16-byte rows), n = 5, and a strong decay
@@ -1873,26 +1998,45 @@ def check_selective_scan(torch, gen, flush):
              for dt in (torch.float32, torch.bfloat16)]
     cases += [(SSM_B, SSM_L, 1536, 16, False, torch.float32),
               (SSM_B, SSM_L, 1536, 16, False, torch.bfloat16)]
-    for b, l, d, n, strong, dt in cases:
+
+    def held(what, ins, dy, dt):
         tol = SSM_F32_RTOL if dt == torch.float32 else SSM_BF16_RTOL
-        what = (f"selective scan b{b} l{l} d{d} n{n} {str(dt)[6:]}"
-                + (" strong decay" if strong else ""))
-        ins, dy = scan_inputs(torch, gen, b, l, d, n, dt, strong)
         y, bounds = ss.selective_scan_fwd(*ins)
         grads = ss.selective_scan_bwd(*ins, bounds, dy)
         torch.cuda.synchronize()
+        ref_dt = torch.float64 if dt == torch.float32 else torch.float32
         with torch.no_grad():
             y_ref, b_ref = ss.selective_scan_reference(
-                *(t.float() for t in ins), ss.KERNEL_CHUNK, True)
+                *(t.to(ref_dt) for t in ins), ss.KERNEL_CHUNK, True, ref_dt)
+            if dt == torch.float32:
+                y_f32 = ss.selective_scan_reference(*ins)
+                peak = y_ref.abs().max().item()
+                k64, p64 = ((t.double() - y_ref).abs().max().item() / peak
+                            for t in (y, y_f32))
+                print(f"  {what} y against float64: kernel {k64:.3e}, plain "
+                      f"f32 {p64:.3e} of max |y|; kernel against plain f32 "
+                      f"{rel_err(y, y_f32)[1]:.3e}")
+                del y_f32
         errs[0] = max(errs[0], check_pair(
             what, (y.float(), bounds), (y_ref.to(dt), b_ref),
             ("y", "chunk states"), tol))
         _, g_ref = plain_vjp(torch, lambda *a: ss.selective_scan_reference(
-            *a, ss.KERNEL_CHUNK), ins, dy)
+            *a, ss.KERNEL_CHUNK, dtype=ref_dt), ins, dy, ref_dt)
         errs[1] = max(errs[1], check_pair(
             what, grads, [g.to(t.dtype) for g, t in zip(g_ref, ins)],
             names, tol))
         del y, grads, y_ref, b_ref, g_ref
+
+    for b, l, d, n, strong, dt in cases:
+        what = (f"selective scan b{b} l{l} d{d} n{n} {str(dt)[6:]}"
+                + (" strong decay" if strong else ""))
+        ins, dy = scan_inputs(torch, gen, b, l, d, n, dt, strong)
+        held(what, ins, dy, dt)
+        if l == 1 and dt == torch.float32:
+            # the same draw with every step's B . C cancelling
+            u, delta, A, B, C = ins
+            held(what + " B . C cancels", (u, delta, A, B, cancel_bc(B, C)),
+                 dy, dt)
     # timing at the path's shape and dtype (the last case)
     torch.cuda.empty_cache()
     ms = time_ms(torch, lambda: ss.selective_scan_fwd(*ins), flush=flush)
@@ -4574,6 +4718,483 @@ def phase_paddle_loop(torch, seed):
     loop_fused_skip(torch, seed)
 
 
+# ------------------------------------------------------------- phase 13
+VIT_PRESET = "vit-l16"           # bench.py:258-290's bench_vit, bf16
+VIT_BATCH, VIT_TRAIN_BATCHES, VIT_EVAL_BATCHES, VIT_EPOCHS = 64, 4, 1, 2
+VIT_LR = 3e-4
+VIT_NOISE = 0.5                  # image = its class prototype + noise
+VIT_MOE_TOL = 2e-2               # (e): max |diff| / max |reference|, bf16
+
+
+class VitImages:
+    """Seeded f32 images ``[3, size, size]``, each its class's prototype (10
+    seeded prototypes) plus Gaussian noise: the label is decided by the
+    image. A map-style numpy dataset, made in bulk."""
+
+    def __init__(self, n, size, seed):
+        import numpy as np
+
+        rng = np.random.RandomState(seed)
+        protos = rng.standard_normal((10, 3, size, size)).astype(np.float32)
+        self.y = rng.randint(0, 10, n).astype(np.int64)
+        self.x = protos[self.y]
+        self.x += VIT_NOISE * rng.standard_normal(self.x.shape).astype(
+            np.float32)
+
+    def __getitem__(self, i):
+        return self.x[i], self.y[i]
+
+    def __len__(self):
+        return len(self.x)
+
+
+def vit_config():
+    import dataclasses
+
+    from paddle_tpu_torch.models import VIT_PRESETS
+
+    return dataclasses.replace(VIT_PRESETS[VIT_PRESET], dtype="bfloat16")
+
+
+def vit_model(torch, seed):
+    """The bf16 ViT, an AdamW with a global-norm clip, the loss and top-1 /
+    top-5 accuracy through ``Model.prepare``."""
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.metric import Accuracy
+    from paddle_tpu_torch.models import VisionTransformer
+    from paddle_tpu_torch.nn import ClipGradByGlobalNorm, CrossEntropyLoss
+    from paddle_tpu_torch.optimizer import AdamW
+
+    net = VisionTransformer(vit_config(), seed=seed)
+    model = ptt.Model(net)
+    model.prepare(AdamW(learning_rate=VIT_LR, parameters=net.parameters(),
+                        grad_clip=ClipGradByGlobalNorm(1.0)),
+                  CrossEntropyLoss(), Accuracy(topk=(1, 5)))
+    return model
+
+
+def vit_recorder(torch):
+    """A callback recording each train step's logs and host ms (the step
+    ends in ``float(loss)``, a synchronisation) and numpy's RNG state at
+    each epoch's start (the sampler draws the epoch's order from it)."""
+    import numpy as np
+
+    from paddle_tpu_torch.hapi import Callback
+
+    class Record(Callback):
+        def __init__(self):
+            super().__init__()
+            self.logs, self.ms, self.evals, self.rng = [], [], [], {}
+
+        def on_epoch_begin(self, epoch, logs=None):
+            self.rng[epoch] = np.random.get_state()
+
+        def on_train_batch_begin(self, step, logs=None):
+            self.t0 = time.perf_counter()
+
+        def on_train_batch_end(self, step, logs=None):
+            self.ms.append((time.perf_counter() - self.t0) * 1e3)
+            self.logs.append(dict(logs))
+
+        def on_eval_end(self, logs=None):
+            self.evals.append(dict(logs))
+
+    return Record()
+
+
+def vit_flops_per_image(cfg, n_params):
+    """``bench.py:278-280``: 6 N per token plus the attention term."""
+    tokens = cfg.num_patches + 1
+    return 6 * n_params * tokens \
+        + 12 * cfg.num_hidden_layers * tokens * tokens * cfg.hidden_size
+
+
+def vit_fit(torch, seed, save_dir):
+    """(a) ``Model.fit`` under ``auto_cast(level="O2")``: 2 epochs of 4
+    batches, an eval batch after each, ``EarlyStopping`` and the
+    checkpoints. Returns the model, the recorder and the datasets."""
+    import numpy as np
+
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.hapi import EarlyStopping
+
+    cfg = vit_config()
+    L = cfg.num_hidden_layers
+    train = VitImages(VIT_BATCH * VIT_TRAIN_BATCHES, cfg.image_size, seed)
+    held = VitImages(VIT_BATCH * VIT_EVAL_BATCHES, cfg.image_size, seed + 1)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = vit_model(torch, seed)
+    n_params = sum(p.numel() for p in model.parameters())
+    check(n_params == cfg.num_params(),
+          f"{VIT_PRESET}: {n_params / 1e6:.1f} M parameters, as the config "
+          f"counts them")
+    torch.cuda.synchronize()
+    print(f"  {VIT_PRESET} bf16: image {cfg.image_size}, patch "
+          f"{cfg.patch_size}, hidden {cfg.hidden_size}, {L} layers, "
+          f"{cfg.num_attention_heads} heads, {cfg.num_classes} classes; "
+          f"built in {time.perf_counter() - t0:.1f} s; {len(train)} training "
+          f"and {len(held)} held-out images")
+    rec = vit_recorder(torch)
+    stop = EarlyStopping("eval_loss", patience=1, verbose=0)
+    np.random.seed(seed)
+    reset_counts()
+    t0 = time.perf_counter()
+    with amp.auto_cast(level="O2"):
+        history = model.fit(train, held, batch_size=VIT_BATCH,
+                            epochs=VIT_EPOCHS, save_dir=save_dir, verbose=0,
+                            callbacks=[rec, stop])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    n = read_counts()
+    steps = VIT_TRAIN_BATCHES * VIT_EPOCHS
+    losses = [s["loss"] for s in rec.logs]
+    top1 = [s["acc_top1"] for s in rec.logs]
+    print(f"  losses {[round(x, 4) for x in losses]}; [top-1, top-5] "
+          f"(running over each epoch) "
+          f"{[[round(v, 3) for v in x] for x in top1]}; history "
+          f"{json.dumps(history)}")
+    check(len(losses) == steps and all(math.isfinite(x) for x in losses)
+          and losses[-1] < losses[0] - 0.5,
+          f"(a) {steps} steps, losses finite, last {losses[-1]:.4f} < first "
+          f"{losses[0]:.4f} - 0.5")
+    # Accuracy(topk=(1, 5)) logs [top-1, top-5], running over the epoch
+    first_epoch, last_epoch = top1[VIT_TRAIN_BATCHES - 1][0], top1[-1][0]
+    check(last_epoch > first_epoch,
+          f"(a) top-1 rises: epoch 2 {last_epoch:.3f} > epoch 1 "
+          f"{first_epoch:.3f}; held-out [top-1, top-5] by epoch "
+          f"{history['eval_acc_top1']}")
+    evals = VIT_EVAL_BATCHES * VIT_EPOCHS
+    check(n["flash_attention"] == L * (steps + evals)
+          and n["flash_attention_bwd"] == L * steps
+          and n["flash_dense"] == 0 and n["fused_adamw"] == 0
+          and n["paged_attention"] == 0 and n["grouped_gemm"] == 0,
+          f"(a) launches: flash fwd {n['flash_attention']} = {L} x ({steps} "
+          f"steps + {evals} eval batches), flash bwd "
+          f"{n['flash_attention_bwd']} = {L} x {steps}, plain-route flash "
+          f"{n['flash_dense']}, no other kernel of the port")
+    files = sorted(os.listdir(save_dir))
+    want = sorted(f"{s}.{e}" for s in ("0", "1", "final", "best_model")
+                  for e in ("pdparams", "pdopt"))
+    check(files == want, f"(a) checkpoints {files}")
+    step_ms = statistics.mean(rec.ms[2:])
+    ips = VIT_BATCH / (step_ms / 1e3)
+    flops = vit_flops_per_image(cfg, n_params)
+    print(f"  (a) step host ms {[round(t, 1) for t in rec.ms]} (mean of "
+          f"steps 3-{steps}: {step_ms:.1f}): {ips:.0f} images/s, model-FLOP "
+          f"share {flops * ips / BF16_FLOP_PER_S:.1%} of 989 TFLOP/s "
+          f"({flops * VIT_BATCH / 1e12:.1f} TFLOP a step, bound "
+          f"{flops * VIT_BATCH / BF16_FLOP_PER_S * 1e3:.1f} ms); fit "
+          f"{wall:.1f} s with evaluation and checkpoints; peak device "
+          f"memory {torch.cuda.max_memory_allocated() / 2**30:.1f} GiB on "
+          f"{smi()}")
+    return model, rec, train, held, step_ms
+
+
+VIT_GROUPS = {"conv": ("conv", "fprop", "dgrad", "wgrad"), **TRAIN_GROUPS}
+
+
+def vit_profile(torch, model, train, step_ms):
+    """One ``Model.train_batch`` under ``torch.profiler``, the optimizer's
+    ``step`` (clip and AdamW) inside a ``ptt::optimizer`` span: device ms
+    by kernel group, the optimizer's kernels and span, the idle share of
+    the unprofiled step."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from paddle_tpu_torch import amp
+
+    x, y = train.x[:VIT_BATCH], train.y[:VIT_BATCH]
+    opt = model._optimizer
+    plain_step = opt.step
+
+    def traced():
+        with record_function("ptt::optimizer"):
+            plain_step()
+
+    opt.step = traced
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            with amp.auto_cast(level="O2"):
+                model.train_batch(x, y)
+            host = (time.perf_counter() - t0) * 1e3
+    finally:
+        del opt.step
+    span, kernels = None, []
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        r = e.time_range
+        if e.name == "ptt::optimizer":
+            if span is None or r.end - r.start > span[1] - span[0]:
+                span = (r.start, r.end)
+        else:
+            kernels.append((e.name, r.start, r.end))
+    busy = sum(b - a for _, a, b in kernels) / 1e3
+    if busy == 0:
+        print(f"  (a) profiled step {host:.1f} ms on the host clock; no "
+              f"device time recorded (breakdown not measured)")
+        return
+    by_group = dict.fromkeys(VIT_GROUPS, 0.0)
+    by_group["other"] = 0.0
+    for name, a, b in kernels:
+        low = name.lower()
+        group = next((g for g, keys in VIT_GROUPS.items()
+                      if any(k in low for k in keys)), "other")
+        by_group[group] += (b - a) / 1e3
+    opt_ms = 0.0 if span is None else sum(
+        b - a for _, a, b in kernels if a >= span[0] and b <= span[1]) / 1e3
+    span_ms = 0.0 if span is None else (span[1] - span[0]) / 1e3
+    print(f"  (a) profiled step {host:.1f} ms on the host clock, device busy "
+          f"{busy:.1f} ms: idle share {1 - busy / step_ms:.1%} of the "
+          f"{step_ms:.1f} ms unprofiled step; the optimizer's kernels "
+          f"{opt_ms:.2f} ms ({opt_ms / busy:.1%} of busy) in a device span of "
+          f"{span_ms:.2f} ms; by group: " + ", ".join(
+              f"{g} {ms:.2f}" for g, ms in by_group.items()))
+
+
+def vit_evaluate(torch, model, held):
+    """(b) ``evaluate`` and ``predict(stack_outputs=True)``."""
+    import numpy as np
+
+    from paddle_tpu_torch import amp
+
+    cfg = vit_config()
+    with amp.auto_cast(level="O2"):
+        ev = model.evaluate(held, batch_size=VIT_BATCH, verbose=0)
+        out = model.predict(held, batch_size=VIT_BATCH, stack_outputs=True)
+    check(set(ev) == {"eval_loss", "eval_acc_top1"}
+          and math.isfinite(ev["eval_loss"]),
+          f"(b) evaluate: {json.dumps(ev)}")
+    check(len(out) == 1 and out[0].shape == (len(held), cfg.num_classes)
+          and out[0].dtype == np.float32 and bool(np.isfinite(out[0]).all()),
+          f"(b) predict: one output {out[0].shape} {out[0].dtype}, finite")
+    return out[0]
+
+
+def vit_resume(torch, seed, model, rec, train, held, save_dir, preds):
+    """(c) ``save`` -> ``load`` into a fresh Model: the same predictions bit
+    for bit; epoch 2 from the epoch-1 checkpoint: the unbroken run's
+    losses and parameters bit for bit."""
+    import numpy as np
+
+    from paddle_tpu_torch import amp
+
+    path = os.path.join(save_dir, "saved")
+    model.save(path)
+    fresh = vit_model(torch, seed + 7)
+    fresh.load(path)
+    with amp.auto_cast(level="O2"):
+        again = fresh.predict(held, batch_size=VIT_BATCH,
+                              stack_outputs=True)[0]
+    check(np.array_equal(again, preds),
+          "(c) save -> load into a fresh Model: predictions bit for bit")
+    del fresh
+    free_cuda(torch)
+    resumed = vit_model(torch, seed + 8)
+    resumed.load(os.path.join(save_dir, "0"))
+    check(resumed._optimizer._step_count == VIT_TRAIN_BATCHES,
+          f"(c) the epoch-1 checkpoint's optimizer resumes at step "
+          f"{resumed._optimizer._step_count}")
+    rec2 = vit_recorder(torch)
+    np.random.set_state(rec.rng[1])
+    with amp.auto_cast(level="O2"):
+        resumed.fit(train, batch_size=VIT_BATCH, epochs=1, verbose=0,
+                    callbacks=[rec2])
+    got = [s["loss"] for s in rec2.logs]
+    want = [s["loss"] for s in rec.logs[VIT_TRAIN_BATCHES:]]
+    check(got == want, f"(c) epoch 2 resumed: losses {got} bit for bit")
+    same = all(torch.equal(a, b) for a, b in zip(
+        model.network.parameters(), resumed.network.parameters()))
+    check(same, "(c) epoch 2 resumed: every parameter bit for bit")
+    del resumed
+    free_cuda(torch)
+
+
+def vit_debugging(torch, model, held):
+    """(d) Operator statistics over one eval batch, the tensor checker on
+    an injected inf (abort, then continue), ``check_numerics``."""
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.amp import debugging as dbg
+
+    cfg = vit_config()
+    L = cfg.num_hidden_layers
+    x, y = held.x[:VIT_BATCH], held.y[:VIT_BATCH]
+    t0 = time.perf_counter()
+    dbg.enable_operator_stats_collection()
+    try:
+        with amp.auto_cast(level="O2"):
+            model.eval_batch(x, y)
+    finally:
+        stats = dbg.disable_operator_stats_collection(print_table=False)
+    torch.cuda.synchronize()
+    stats_ms = (time.perf_counter() - t0) * 1e3
+    want = {"conv2d": 1, "linear": 6 * L + 1, "flash_attention": L,
+            "layer_norm": 2 * L + 1}
+    calls = {k: stats.get(k, {}).get("calls") for k in want}
+    bad = {k: (r["nan"], r["inf"]) for k, r in stats.items()
+           if r["nan"] or r["inf"]}
+    check(calls == want and not bad,
+          f"(d) stats over one eval batch: calls {calls}, NaN / Inf in "
+          f"none of {len(stats)} ops ({sum(r['calls'] for r in stats.values())}"
+          f" calls, {stats_ms:.0f} ms with a host sync an op)")
+    t0 = time.perf_counter()
+    with amp.auto_cast(level="O2"):
+        model.eval_batch(x, y)
+    torch.cuda.synchronize()
+    print(f"  (d) the same eval batch without the stats: "
+          f"{(time.perf_counter() - t0) * 1e3:.0f} ms")
+    bias = model.network.patch_embed.proj.bias
+    keep = bias.detach().clone()
+    with torch.no_grad():
+        bias[0] = float("inf")
+    try:
+        dbg.enable_tensor_checker(dbg.TensorCheckerConfig(enable=True))
+        try:
+            with amp.auto_cast(level="O2"):
+                model.eval_batch(x, y)
+            raised = None
+        except FloatingPointError as e:
+            raised = str(e)
+        finally:
+            dbg.disable_tensor_checker()
+        check(raised is not None and "Operator conv2d " in raised,
+              f"(d) checker, abort mode, inf in the patch bias: raises "
+              f"{raised!r}")
+        # continue mode, checking conv2d only (one report, not one an op)
+        dbg.enable_tensor_checker(dbg.TensorCheckerConfig(
+            enable=True, debug_mode=dbg.DebugMode.CHECK_NAN_INF,
+            checked_op_list=["conv2d"]))
+        try:
+            with amp.auto_cast(level="O2"):
+                out = model.predict_batch(x)[0]
+        finally:
+            dbg.disable_tensor_checker()
+        check(out.shape == (VIT_BATCH, cfg.num_classes),
+              "(d) checker, CHECK_NAN_INF: the forward runs through")
+    finally:
+        with torch.no_grad():
+            bias.copy_(keep)
+    t = torch.tensor([0.0, 1.0, float("nan"), float("inf"), 0.0, 2.0],
+                     device="cuda")
+    counts = [int(c) for c in dbg.check_numerics(
+        t, "vit", "t", debug_mode=dbg.DebugMode.CHECK_NAN_INF)]
+    check(counts == [1, 1, 2], f"(d) check_numerics: NaN, Inf, zeros "
+                               f"{counts}")
+    check(torch._C._len_torch_function_stack() == 0,
+          "(d) no mode left on torch's stack")
+
+
+def swiglu_expert(torch, w1, b1, w2, b2):
+    """A module for one expert of a swiglu ``MLPExperts``: its slot's w1,
+    b1, w2 and b2 as parameters of its own."""
+    class Expert(torch.nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.w1, self.b1 = torch.nn.Parameter(w1), torch.nn.Parameter(b1)
+            self.w2, self.b2 = torch.nn.Parameter(w2), torch.nn.Parameter(b2)
+
+        def forward(self, x):
+            g, u = (x @ self.w1 + self.b1).chunk(2, dim=-1)
+            return (torch.nn.functional.silu(g) * u) @ self.w2 + self.b2
+
+    return Expert()
+
+
+def vit_moe_list(torch, seed):
+    """(e) ``MoELayer(gate, [8 expert modules])`` at the MoE-Llama's widths,
+    one forward and backward, against ``MLPExperts`` with the same weights
+    on the capacity route."""
+    from paddle_tpu_torch.parallel import GShardGate, MLPExperts, MoELayer
+
+    cfg = moe_config()
+    d, h, E = cfg.hidden_size, cfg.intermediate_size, cfg.moe_num_experts
+    gate = GShardGate(d, E, capacity_factor=cfg.moe_capacity_factor,
+                      dtype=torch.bfloat16, seed=seed)
+    experts = MLPExperts(E, d, h, activation="swiglu", dtype=torch.bfloat16,
+                         seed=seed + 1)
+    dense = MoELayer(gate, experts, dispatch="capacity")
+    listed = MoELayer(gate, [swiglu_expert(torch, *(
+        getattr(experts, n)[e].detach().clone()
+        for n in ("w1", "b1", "w2", "b2"))) for e in range(E)])
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn(MOE_BATCH, MOE_SEQ, d, generator=gen,
+                    device="cuda").bfloat16()
+    dy = torch.randn(x.shape, generator=gen, device="cuda").bfloat16()
+    results = []
+    reset_counts()
+    # each layer twice, the second timed: the first call of each warms
+    # cuBLAS; the gradients of the second are kept
+    for layer in (dense, listed):
+        for _ in range(2):
+            for p in layer.parameters():
+                p.grad = None
+            xi = x.detach().requires_grad_()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            y = layer(xi)
+            y.backward(dy)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+        results.append((y.detach(), xi.grad, gate.weight.grad.clone(), ms))
+    n = read_counts()
+    (y0, dx0, dg0, ms0), (y1, dx1, dg1, ms1) = results
+    errs = {}
+    for name, a, b in (("out", y1, y0), ("dx", dx1, dx0),
+                       ("dgate", dg1, dg0)):
+        errs[name] = ((a.float() - b.float()).abs().max()
+                      / b.float().abs().max()).item()
+    for e, mod in enumerate(listed.experts.children()):
+        for name in ("w1", "b2"):
+            g, ref = getattr(mod, name).grad, getattr(experts, name).grad[e]
+            errs[f"d{name}[{e}]"] = ((g.float() - ref.float()).abs().max()
+                                     / ref.float().abs().max()).item()
+    worst = max(errs, key=errs.get)
+    check(all(math.isfinite(v) and v <= VIT_MOE_TOL for v in errs.values())
+          and sum(n.values()) == 0,
+          f"(e) list of {E} experts vs MLPExperts (capacity route), "
+          f"{MOE_BATCH} x {MOE_SEQ} tokens at d {d}, h {h}: worst "
+          f"{worst} {errs[worst]:.2e} of max |reference| <= {VIT_MOE_TOL} "
+          f"(out {errs['out']:.2e}, dx {errs['dx']:.2e}); no kernel of the "
+          f"port launched; forward + backward {ms1:.0f} ms (stacked "
+          f"{ms0:.0f} ms)")
+    del dense, listed, experts, gate, x, dy, results
+    free_cuda(torch)
+
+
+def phase_vit(torch, seed):
+    print("== phase 13: VisionTransformer ViT-L16 through Model.fit "
+          "(hapi, metrics, callbacks, save / load, amp.debugging) and the "
+          "MoE list of experts")
+    import shutil
+    import tempfile
+
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+    os.makedirs(root, exist_ok=True)
+    save_dir = tempfile.mkdtemp(prefix="phase13_", dir=root)
+    cudnn = (torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.benchmark)
+    # the resume in (c) is checked bit for bit: the patch conv's backward
+    # takes cuDNN's deterministic algorithms
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    try:
+        model, rec, train, held, step_ms = vit_fit(torch, seed, save_dir)
+        preds = vit_evaluate(torch, model, held)
+        vit_resume(torch, seed, model, rec, train, held, save_dir, preds)
+        vit_debugging(torch, model, held)
+        vit_profile(torch, model, train, step_ms)
+        del model
+        free_cuda(torch)
+        vit_moe_list(torch, seed)
+    finally:
+        (torch.backends.cudnn.deterministic,
+         torch.backends.cudnn.benchmark) = cudnn
+        shutil.rmtree(save_dir, ignore_errors=True)
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4649,6 +5270,8 @@ def main():
         launches.update({k: rwkv[k] for k in ("wkv", "wkv_bwd")})
         launches.update({k: mamba2[k] for k in ("ssd", "ssd_bwd")})
         phase_paddle_loop(torch, args.seed)
+        lap()
+        phase_vit(torch, args.seed)
         lap()
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)

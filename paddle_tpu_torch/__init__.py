@@ -9,7 +9,10 @@ objects and master weights, or ``optimizer.FusedAdamW``), trains the
 MoE-Llama (``models.MoELlamaForCausalLM`` over ``parallel.MoELayer``) and
 trains the state-space and linear-attention models Mamba-1
 (``models.MambaForCausalLM``), Mamba-2 (``models.Mamba2ForCausalLM``) and
-RWKV-5 (``models.RwkvForCausalLM``), with PyTorch for the plain tensor code
+RWKV-5 (``models.RwkvForCausalLM``), and trains and evaluates the
+VisionTransformer (``models.VisionTransformer``) through the high-level
+``Model`` (``fit`` / ``evaluate`` / ``predict`` with ``hapi.callbacks`` and
+``metric``; checkpoints by ``save`` / ``load``), with PyTorch for the plain tensor code
 and hand-written CUDA C++ kernels (``csrc/``) for the kernels those paths
 run: the flash forward and backward, the paged decode, the weight-only
 GEMMs, the fused AdamW update, the grouped GEMMs of the experts, and the
@@ -23,5 +26,7 @@ card they raise instead of running on the CPU.
 """
 
 from .core.device import make_generator, resolve_device
+from .framework.io import load, save
+from .hapi import Model
 
-__all__ = ["make_generator", "resolve_device"]
+__all__ = ["make_generator", "resolve_device", "save", "load", "Model"]

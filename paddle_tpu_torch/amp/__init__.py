@@ -17,9 +17,22 @@ same op names and the same rule (:func:`cast_inputs`):
   callables it does not map are left alone;
 * :func:`amp_op`, the decorator of the port's functions that stand for
   one JAX op (``rms_norm``, ``swiglu``, ``apply_rope``,
-  ``flash_attention``, ``fused_linear_cross_entropy``, ``cross_entropy``):
-  it casts their inputs by name and runs their bodies with the mode off,
-  so the port does not cast operations the JAX package never sees.
+  ``flash_attention``, ``fused_linear_cross_entropy``, ``cross_entropy``,
+  the losses, ``gelu``, and the bodies JAX's state-space and MoE models
+  dispatch whole: ``mamba_conv_proj``, ``selective_scan``,
+  ``mamba2_conv_proj``, ``ssd_chunked``, ``mamba2_gate_out``,
+  ``token_shift``, ``rwkv_log_decay``, ``rwkv_linear_attention``,
+  ``moe_layer``): it casts their inputs (tensors in lists, tuples and
+  dicts) by name and runs their bodies with the mode off, so the port does
+  not cast operations the JAX package never sees. :func:`nested_ops` turns
+  the mode on again inside a body for what JAX dispatches nested in it.
+  ``amp.debugging`` sees the same ops by the same names: a second mode for
+  :data:`TORCH_OPS`, and hooks run after each ``amp_op``.
+
+What the JAX package runs as raw array code outside any op (an
+optimizer's update, a clip object, the scaler's unscale) the port runs
+under :func:`uncast`, whatever ``auto_cast`` is around it: a step under
+O2 keeps its float32 arithmetic, as JAX's does.
 
 Each cast is a ``.to(dtype)`` in the autograd graph, so a float32 leaf gets
 a float32 gradient.
@@ -50,7 +63,8 @@ from ..core.dtype import to_torch_dtype
 
 __all__ = [
     "auto_cast", "autocast", "GradScaler", "AmpScaler", "decorate",
-    "amp_state", "amp_op", "cast_inputs", "settings", "under",
+    "amp_state", "amp_op", "nested_ops", "uncast", "cast_inputs", "settings",
+    "under",
     "WHITE_LIST", "BLACK_LIST", "TORCH_OPS",
 ]
 
@@ -79,6 +93,9 @@ class _AmpState:
         self.custom_white = set()
         self.custom_black = set()
         self.in_op = False  # inside an amp_op body: nothing more is cast
+        # callables (op_name, outputs) run after each amp_op, with torch
+        # functions disabled (amp.debugging's checker and stats)
+        self.op_hooks = []
 
 
 _state = _AmpState()
@@ -105,6 +122,8 @@ def _cast_tree(x, src, dst):
         return x.to(dst) if x.dtype == src else x
     if isinstance(x, (list, tuple)):
         return type(x)(_cast_tree(v, src, dst) for v in x)
+    if isinstance(x, dict):
+        return {k: _cast_tree(v, src, dst) for k, v in x.items()}
     return x
 
 
@@ -126,18 +145,53 @@ def amp_op(op_name: str):
     def wrap(fn):
         @functools.wraps(fn)
         def inner(*args, **kwargs):
-            if not _state.enabled or _state.in_op:
+            if _state.in_op or not (_state.enabled or _state.op_hooks):
                 return fn(*args, **kwargs)
             args, kwargs = cast_inputs(op_name, args, kwargs)
             _state.in_op = True
             try:
                 with torch._C.DisableTorchFunction():
-                    return fn(*args, **kwargs)
+                    out = fn(*args, **kwargs)
+                    for hook in list(_state.op_hooks):
+                        hook(op_name, out)
+                    return out
             finally:
                 _state.in_op = False
         inner.amp_op_name = op_name
         return inner
     return wrap
+
+
+@contextlib.contextmanager
+def nested_ops():
+    """Inside an :func:`amp_op` body, run a region whose ops JAX dispatches
+    on their own (the modules of a list of experts inside ``moe_layer``)
+    with the autocast mode on again; elsewhere a no-op."""
+    if not _state.in_op:
+        yield
+        return
+    _state.in_op = False
+    try:
+        with torch._C._EnableTorchFunction():
+            yield
+    finally:
+        _state.in_op = True
+
+
+@contextlib.contextmanager
+def uncast():
+    """Run a region as the JAX package runs raw array code, which its
+    dispatcher never sees (an optimizer's update, a clip, the scaler's
+    unscale): no cast, no :func:`amp_op` hook, and torch's function modes
+    off, their Python call on each torch op too. Also a decorator. A
+    closure it calls back into runs under :func:`nested_ops`."""
+    was = _state.in_op
+    _state.in_op = True
+    try:
+        with torch._C.DisableTorchFunction():
+            yield
+    finally:
+        _state.in_op = was
 
 
 def _torch_ops():
@@ -321,6 +375,7 @@ class GradScaler:
         return loss * self._scale
 
     @torch.no_grad()
+    @uncast()
     def unscale_(self, optimizer) -> None:
         """Divide every gradient of ``optimizer``'s parameters by the scale,
         in place in its dtype, and set the found-inf flag (on the device)
@@ -341,6 +396,7 @@ class GradScaler:
         self._found_inf = bad.to(torch.int32)
         self._unscaled.add(id(optimizer))
 
+    @uncast()
     def step(self, optimizer) -> None:
         if not self._enable:
             optimizer.step()

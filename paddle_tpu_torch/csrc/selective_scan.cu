@@ -26,8 +26,13 @@
 //   memory by 16-byte cp.async, zero-filled past l and past the row, while
 //   the previous chunk is walked (two stages). Each thread widens the bf16
 //   B and C vectors it copied to f32 once they land, so no lane converts
-//   them at every step. The walk reads shared memory only, and a chunk
-//   needs one barrier. Steps past l walk on zeros (delta 0: the state stays
+//   them at every step, and sums B_t . C_t in double for each step. The
+//   walk reads shared memory only, and a chunk needs one barrier.
+// - y_t = C_t . (exp(delta_t A) h_{t-1}) + delta_t u_t (B_t . C_t): the
+//   carried state's share summed by the lanes in f32, the step's own share
+//   from the exact dot. Where B_t . C_t cancels (at t = 0, h_{-1} = 0, it is
+//   all of y) an f32 sum of the rounded terms h_t C_t would lie far from
+//   y_t against max |y|; the plain f32 version's does. Steps past l walk on zeros (delta 0: the state stays
 //   as it is) and are not stored.
 // - Out: each chunk's y is staged in shared memory and stored by rows (16
 //   bytes a thread) while the next chunk is walked; the state entering each
@@ -100,6 +105,7 @@ struct FwdSmem {
   FwdStage<T> in[2];        // chunk c in in[c % 2] while chunk c + 1 lands in the other
   T y[2][CHUNK][FWD_TD];    // chunk c's y in y[c % 2], stored during chunk c + 1
   FwdBC bc[2];              // chunk c's B and C in bc[c % 2] (bf16 I/O)
+  float bcdot[2][CHUNK];    // chunk c's B_t . C_t in bcdot[c % 2]
 };
 
 // Chunk rows [0, len) from row0 into `st` by 16-byte cp.async: channels
@@ -146,6 +152,27 @@ __device__ __forceinline__ void widen_bc(FwdBC& dst, const FwdStage<bf16>& st) {
   }
 }
 __device__ __forceinline__ void widen_bc(FwdBC&, const FwdStage<float>&) {}
+
+// B_t . C_t for each step of a chunk, from the vectors this thread staged
+// (stage_chunk's order) once they have landed: the products exact in
+// double, the row's parts (adjacent lanes) added by shuffles, rounded to
+// f32 once. y_t's share from step t's own input is delta_t u_t (B_t . C_t),
+// and that sum over the states can cancel: an f32 sum of rounded terms
+// would then lie far from y_t against max |y|.
+template <typename T>
+__device__ __forceinline__ void dot_bc(float* dst, const FwdStage<T>& st) {
+  constexpr int V = 16 / int(sizeof(T)), VB = N / V;
+  for (int i = threadIdx.x; i < CHUNK * VB; i += FWD_THREADS) {
+    const int t = i / VB, k = (i % VB) * V;
+    double sum = 0.0;
+#pragma unroll
+    for (int j = 0; j < V; ++j)
+      sum = fma(double(to_f(st.B[t][k + j])), double(to_f(st.C[t][k + j])), sum);
+#pragma unroll
+    for (int o = 1; o < VB; o <<= 1) sum += __shfl_xor_sync(0xffffffffu, sum, o);
+    if (i % VB == 0) dst[t] = float(sum);
+  }
+}
 
 // the f32 B and C rows the walk of a chunk reads: f32 I/O's as staged
 __device__ __forceinline__ const FwdBC& walk_bc(const FwdBC& bc, const FwdStage<bf16>&) {
@@ -207,6 +234,7 @@ scan_fwd_kernel(const T* __restrict__ u, const T* __restrict__ delta, const floa
   stage_chunk(s.in[0], u, delta, B, C, size_t(bi) * L, min(CHUNK, L), ld, ch0);
   ptt::cp_async_wait<0>();
   widen_bc(s.bc[0], s.in[0]);
+  dot_bc(s.bcdot[0], s.in[0]);
   for (int c = 0; c < nc; ++c) {
     const size_t row0 = size_t(bi) * L + c * CHUNK;
     if (active) {                          // the state entering chunk c
@@ -224,6 +252,7 @@ scan_fwd_kernel(const T* __restrict__ u, const T* __restrict__ delta, const floa
     // staged as zeros (delta 0: h stays as it is; C 0: y 0, not stored)
     const FwdStage<T>& st = s.in[c & 1];
     const FwdBC& bc = walk_bc(s.bc[c & 1], st);
+    const float* bcdot = s.bcdot[c & 1];
     T (*yc)[FWD_TD] = s.y[c & 1];
 #pragma unroll 4
     for (int t = 0; t < CHUNK; ++t) {
@@ -231,19 +260,23 @@ scan_fwd_kernel(const T* __restrict__ u, const T* __restrict__ delta, const floa
       float bv[FWD_NS], cv[FWD_NS];
       load_states(bv, &bc.B[t][q * FWD_NS]);
       load_states(cv, &bc.C[t][q * FWD_NS]);
+      // y_t = C_t . (exp(dt A) h_{t-1}) + dtu (B_t . C_t): the carried
+      // state's share here, the step's own from the chunk's exact dots
       float acc = 0.f;
 #pragma unroll
       for (int i = 0; i < FWD_NS; ++i) {
-        h[i] = fmaf(ex2_approx(dt * a[i]), h[i], dtu * bv[i]);
-        acc = fmaf(cv[i], h[i], acc);
+        const float carried = ex2_approx(dt * a[i]) * h[i];
+        h[i] = fmaf(dtu, bv[i], carried);
+        acc = fmaf(cv[i], carried, acc);
       }
 #pragma unroll
       for (int o = 1; o < FWD_LPC; o <<= 1) acc += __shfl_xor_sync(0xffffffffu, acc, o);
-      if (q == 0) yc[t][cl] = from_f<T>(acc);
+      if (q == 0) yc[t][cl] = from_f<T>(fmaf(dtu, bcdot[t], acc));
     }
     if (c + 1 < nc) {      // chunk c + 1 landed: its B and C widened for its walk
       ptt::cp_async_wait<0>();
       widen_bc(s.bc[(c + 1) & 1], s.in[(c + 1) & 1]);
+      dot_bc(s.bcdot[(c + 1) & 1], s.in[(c + 1) & 1]);
     }
   }
   __syncthreads();
@@ -439,7 +472,19 @@ struct BwdSmem {
   float start[BNSUB][NS][BWD_THREADS];  // state entering each sub-chunk
   float red[BWD_WARPS][BSUB][32];       // per-warp sums of dB and dC
   float acc[CHUNK][2 * N];              // the block's dB (0..N) and dC (N..2N)
+  float bcdot[CHUNK];                   // B_t . C_t
 };
+
+// B_t . C_t of row `row` of [b l, n] B and C, the products exact in double,
+// rounded to f32 once (see dot_bc)
+template <typename T>
+__device__ __forceinline__ float row_dot(const T* __restrict__ B, const T* __restrict__ C,
+                                         size_t row, int n) {
+  double sum = 0.0;
+  for (int k = 0; k < n; ++k)
+    sum = fma(double(to_f(B[row * n + k])), double(to_f(C[row * n + k])), sum);
+  return float(sum);
+}
 
 template <typename T>
 __global__ void __launch_bounds__(BWD_THREADS, 2)
@@ -458,6 +503,8 @@ scan_bwd_kernel(const T* __restrict__ u, const T* __restrict__ delta, const floa
   const size_t cbase = (size_t(bi) * nc + c) * n;
   stage_rows(s.B, B, row0, len, n);
   stage_rows(s.C, C, row0, len, n);
+  for (int t = tid; t < CHUNK; t += BWD_THREADS)
+    s.bcdot[t] = t < len ? row_dot(B, C, row0 + t, n) : 0.f;
   for (int i = tid; i < CHUNK * 2 * N; i += BWD_THREADS) (&s.acc[0][0])[i] = 0.f;
   const int nsub = (len + BSUB - 1) / BSUB;
   for (int tt = 0; tt < TILES; ++tt) {
@@ -533,7 +580,7 @@ scan_bwd_kernel(const T* __restrict__ u, const T* __restrict__ delta, const floa
           const float hp = j > 0 ? hist[j - 1][i] : h0[i];
           const float common = dh * hp * dah[j][i];
           s1 = fmaf(common, a[i], s1);
-          s2 = fmaf(dh, s.B[t][k], s2);
+          s2 = fmaf(g[i], s.B[t][k], s2);       // the carried gradient's share
           dA[i] = fmaf(common, dt, dA[i]);
           vals[i] = dh * dtu;                 // dB_t (this channel's share)
           vals[NS + i] = hist[j][i] * dyv;    // dC_t
@@ -545,6 +592,9 @@ scan_bwd_kernel(const T* __restrict__ u, const T* __restrict__ delta, const floa
           s1 += __shfl_xor_sync(0xffffffffu, s1, o);
           s2 += __shfl_xor_sync(0xffffffffu, s2, o);
         }
+        // B_t . dh_t = dy_t (B_t . C_t) + B_t . g: the step's own share from
+        // the exact dot, as y_t's in the forward
+        s2 = fmaf(dyv, s.bcdot[t], s2);
         // u_t and delta_t are spent (in registers since the sub-chunk began;
         // the other lanes of the channel took theirs before the shuffles
         // above): du and ddelta take their places, written out by rows

@@ -8,6 +8,7 @@ from .mamba2 import Mamba2Config, Mamba2ForCausalLM
 from .moe_llm import MoELlamaConfig, MoELlamaForCausalLM
 from .rwkv import RwkvConfig, RwkvForCausalLM
 from .serving import ServingDecoder
+from .vit import VIT_PRESETS, ViTConfig, VisionTransformer
 
 __all__ = ["LLAMA_PRESETS", "LlamaConfig", "LlamaForCausalLM", "KVCache",
            "KVCacheSpec", "check_request_fits", "lm_head_tail",
@@ -16,4 +17,5 @@ __all__ = ["LLAMA_PRESETS", "LlamaConfig", "LlamaForCausalLM", "KVCache",
            "load_paddle_tpu_optimizer_state", "MoELlamaConfig",
            "MoELlamaForCausalLM", "MambaConfig", "MambaForCausalLM",
            "Mamba2Config", "Mamba2ForCausalLM", "RwkvConfig",
-           "RwkvForCausalLM"]
+           "RwkvForCausalLM", "ViTConfig", "VisionTransformer",
+           "VIT_PRESETS"]

@@ -19,6 +19,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..amp import amp_op
 from ..core.device import make_generator, resolve_device
 from ..core.dtype import to_torch_dtype
 from ..nn.functional import RMSNorm
@@ -26,7 +27,8 @@ from ..ops.cuda import selective_scan as _scan
 from ..ops.cuda._build import device_of
 from .llama import causal_lm_loss
 
-__all__ = ["MambaConfig", "MambaForCausalLM", "MambaBlock", "selective_scan"]
+__all__ = ["MambaConfig", "MambaForCausalLM", "MambaBlock", "selective_scan",
+           "conv_proj"]
 
 
 @dataclass
@@ -64,6 +66,7 @@ class _ScanFn(torch.autograd.Function):
         return _scan.selective_scan_bwd(*ctx.saved_tensors, dy.contiguous())
 
 
+@amp_op("selective_scan")
 def selective_scan(u, delta, A, B, C, D, chunk: int = 64):
     """``y_t = C_t . h_t + D u_t`` with ``h_t = exp(delta_t A) h_{t-1} +
     delta_t B_t u_t``; u, delta ``[b, l, d]``, A ``[d, n]``, B, C ``[b, l,
@@ -100,17 +103,28 @@ class MambaBlock(nn.Module):
 
     def forward(self, x):
         cfg = self.config
-        d, k = cfg.inner_size, cfg.conv_kernel
         xs, z = self.in_proj(x).chunk(2, dim=-1)
-        xpad = F.pad(xs.transpose(1, 2), (k - 1, 0))          # [b, d, l+k-1]
-        xc = F.conv1d(xpad, self.conv_weight, groups=d).transpose(1, 2)
-        xc = F.silu(xc + self.conv_bias)
-        dt, Bm, Cm = self.x_proj(xc).split(
-            [cfg.dt_rank, cfg.state_size, cfg.state_size], dim=-1)
-        delta = F.softplus(self.dt_proj(dt))
-        A = -torch.exp(self.A_log)
+        xc, delta, A, Bm, Cm = conv_proj(
+            xs, self.conv_weight, self.conv_bias, self.x_proj.weight,
+            self.dt_proj.weight, self.dt_proj.bias, self.A_log, cfg)
         y = selective_scan(xc, delta, A, Bm, Cm, self.D, cfg.scan_chunk)
         return self.out_proj(y * F.silu(z))
+
+
+@amp_op("mamba_conv_proj")
+def conv_proj(xs, conv_weight, conv_bias, x_proj_weight, dt_proj_weight,
+              dt_proj_bias, A_log, cfg: MambaConfig):
+    """Causal depthwise conv -> silu -> x_proj (dt, B, C) -> softplus
+    dt_proj, and ``A = -exp(A_log)``: one op of JAX's block, so under
+    ``auto_cast`` its inputs are cast together and nothing inside is."""
+    d, k = cfg.inner_size, cfg.conv_kernel
+    xpad = F.pad(xs.transpose(1, 2), (k - 1, 0))              # [b, d, l+k-1]
+    xc = F.conv1d(xpad, conv_weight, groups=d).transpose(1, 2)
+    xc = F.silu(xc + conv_bias)
+    dt, Bm, Cm = F.linear(xc, x_proj_weight).split(
+        [cfg.dt_rank, cfg.state_size, cfg.state_size], dim=-1)
+    delta = F.softplus(F.linear(dt, dt_proj_weight, dt_proj_bias))
+    return xc, delta, -torch.exp(A_log), Bm, Cm
 
 
 class _MambaLayer(nn.Module):

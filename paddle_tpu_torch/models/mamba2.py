@@ -22,13 +22,15 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..amp import amp_op
 from ..core.device import make_generator, resolve_device
 from ..core.dtype import to_torch_dtype
 from ..nn.functional import RMSNorm, rms_norm
 from ..ops.fused.ssd import ssd_chunked
 from .llama import causal_lm_loss
 
-__all__ = ["Mamba2Config", "Mamba2ForCausalLM", "Mamba2Block"]
+__all__ = ["Mamba2Config", "Mamba2ForCausalLM", "Mamba2Block", "conv_proj",
+           "gate_out"]
 
 
 @dataclass
@@ -78,24 +80,45 @@ class Mamba2Block(nn.Module):
 
     def forward(self, x):
         cfg = self.config
-        b, l, _ = x.shape
-        d_in, ds, H, k = (cfg.inner_size, cfg.state_size, cfg.num_heads,
-                          cfg.conv_kernel)
-        z, xbc, dt = self.in_proj(x).split([d_in, d_in + 2 * ds, H], dim=-1)
-        xpad = F.pad(xbc.transpose(1, 2), (k - 1, 0))        # [b, conv, l+k-1]
-        xc = F.conv1d(xpad, self.conv_weight, groups=d_in + 2 * ds)
-        # one copy to token-major [b, l, conv] before the bias and silu
-        # (elementwise ops keep their input's stride order): x, B and C are
-        # then views with one stride between tokens, read in place by the
-        # kernels
-        xc = F.silu(xc.transpose(1, 2).contiguous() + self.conv_bias)
-        xs, Bm, Cm = xc.split([d_in, ds, ds], dim=-1)
-        xs = xs.unflatten(-1, (H, cfg.head_dim))
-        delta = F.softplus(dt + self.dt_bias)                 # [b, l, H]
-        A = -torch.exp(self.A_log)
+        z, xs, delta, A, Bm, Cm = conv_proj(
+            x, self.in_proj.weight, self.conv_weight, self.conv_bias,
+            self.dt_bias, self.A_log, cfg)
         y = ssd_chunked(xs, delta, A, Bm, Cm, self.D, cfg.ssd_chunk)
-        y = y.reshape(b, l, d_in) * F.silu(z)
-        return self.out_proj(rms_norm(y, self.norm.weight, cfg.rms_norm_eps))
+        return gate_out(y, z, self.norm.weight, self.out_proj.weight, cfg)
+
+
+@amp_op("mamba2_conv_proj")
+def conv_proj(x, in_proj_weight, conv_weight, conv_bias, dt_bias, A_log,
+              cfg: Mamba2Config):
+    """in_proj -> causal depthwise conv over (x, B, C) -> silu, ``delta =
+    softplus(dt + dt_bias)`` and ``A = -exp(A_log)``: one op of JAX's
+    block, so under ``auto_cast`` its inputs are cast together and nothing
+    inside is. Returns ``z, x [b, l, H, dh], delta, A, B, C``."""
+    b, l, _ = x.shape
+    d_in, ds, H, k = (cfg.inner_size, cfg.state_size, cfg.num_heads,
+                      cfg.conv_kernel)
+    z, xbc, dt = F.linear(x, in_proj_weight).split([d_in, d_in + 2 * ds, H],
+                                                   dim=-1)
+    xpad = F.pad(xbc.transpose(1, 2), (k - 1, 0))            # [b, conv, l+k-1]
+    xc = F.conv1d(xpad, conv_weight, groups=d_in + 2 * ds)
+    # one copy to token-major [b, l, conv] before the bias and silu
+    # (elementwise ops keep their input's stride order): x, B and C are
+    # then views with one stride between tokens, read in place by the
+    # kernels
+    xc = F.silu(xc.transpose(1, 2).contiguous() + conv_bias)
+    xs, Bm, Cm = xc.split([d_in, ds, ds], dim=-1)
+    delta = F.softplus(dt + dt_bias)                          # [b, l, H]
+    return (z, xs.unflatten(-1, (H, cfg.head_dim)), delta, -torch.exp(A_log),
+            Bm, Cm)
+
+
+@amp_op("mamba2_gate_out")
+def gate_out(y, z, norm_weight, out_proj_weight, cfg: Mamba2Config):
+    """``out_proj(rms_norm(y * silu(z)))``: one op of JAX's block."""
+    b, l = z.shape[0], z.shape[1]
+    y = y.reshape(b, l, cfg.inner_size) * F.silu(z)
+    y = rms_norm(y, norm_weight, cfg.rms_norm_eps)
+    return F.linear(y.to(z.dtype), out_proj_weight)
 
 
 class _Mamba2Layer(nn.Module):

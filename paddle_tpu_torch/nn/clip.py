@@ -15,6 +15,8 @@ from __future__ import annotations
 
 import torch
 
+from ..amp import uncast
+
 __all__ = ["ClipGradBase", "ClipGradByValue", "ClipGradByNorm",
            "ClipGradByGlobalNorm", "clip_grads_"]
 
@@ -24,7 +26,15 @@ def _skips(p, g) -> bool:
 
 
 class ClipGradBase:
+    """``clip(params_grads)`` returns the clipped ``[(param, grad)]``, with
+    nothing cast under ``auto_cast`` (:func:`~paddle_tpu_torch.amp.uncast`),
+    as JAX's raw array code is not."""
+
     def __call__(self, params_grads):
+        with uncast():
+            return self._clip(params_grads)
+
+    def _clip(self, params_grads):
         raise NotImplementedError
 
 
@@ -35,7 +45,7 @@ class ClipGradByValue(ClipGradBase):
         self.max = float(max)
         self.min = float(min) if min is not None else -self.max
 
-    def __call__(self, params_grads):
+    def _clip(self, params_grads):
         return [(p, g) if _skips(p, g) else (p, g.clamp(self.min, self.max))
                 for p, g in params_grads]
 
@@ -46,7 +56,7 @@ class ClipGradByNorm(ClipGradBase):
     def __init__(self, clip_norm):
         self.clip_norm = float(clip_norm)
 
-    def __call__(self, params_grads):
+    def _clip(self, params_grads):
         out = []
         for p, g in params_grads:
             if _skips(p, g):
@@ -76,7 +86,7 @@ class ClipGradByGlobalNorm(ClipGradBase):
         return torch.sum(torch.stack(
             [torch.sum(torch.square(g.float())) for g in grads]))
 
-    def __call__(self, params_grads):
+    def _clip(self, params_grads):
         clippable = [g for p, g in params_grads if not _skips(p, g)]
         if not clippable:
             return params_grads

@@ -10,10 +10,17 @@ bit for bit what the JAX model computes on the CPU.
 package (``incubate/nn/functional/fused_transformer.py``): the math runs in
 f32 and the result is cast back once.
 
-``layer_norm`` and ``group_norm`` (the RWKV layers) round as
+``layer_norm`` and ``group_norm`` (the RWKV and ViT layers) round as
 ``paddle_tpu/nn/functional.py:356-373`` and ``:426-445`` do: statistics in
 f32, the normalised value cast to the input dtype before the affine
 multiply and add (``torch.nn.LayerNorm`` rounds elsewhere in bf16).
+
+``gelu`` (exact erf unless ``approximate``), ``scaled_dot_product_attention``
+(``[b, s, h, d]`` into the port's ``flash_attention``, non-causal unless
+``is_causal``) and the losses (``paddle_tpu/nn/functional.py:741-912``,
+each one op under ``amp.amp_op`` by its JAX name: ``cross_entropy`` and the
+binary cross-entropies in f32) are the functionals of ``nn/loss.py`` and
+``nn/transformer.py``.
 """
 
 from __future__ import annotations
@@ -25,7 +32,12 @@ from torch import nn
 from ..amp import amp_op
 
 __all__ = ["rms_norm", "swiglu", "RMSNorm", "rms_norm_f32", "swiglu_f32",
-           "layer_norm", "group_norm", "LayerNorm", "GroupNorm"]
+           "layer_norm", "group_norm", "LayerNorm", "GroupNorm", "gelu",
+           "relu", "scaled_dot_product_attention", "cross_entropy",
+           "mse_loss", "l1_loss", "nll_loss", "binary_cross_entropy",
+           "binary_cross_entropy_with_logits", "smooth_l1_loss", "kl_div",
+           "margin_ranking_loss", "cosine_embedding_loss",
+           "hinge_embedding_loss", "triplet_margin_loss"]
 
 
 @amp_op("rms_norm")
@@ -143,3 +155,214 @@ class GroupNorm(nn.Module):
     def forward(self, x):
         return group_norm(x, self.num_groups, self.weight, self.bias,
                           self.eps)
+
+
+# ---------------------------------------------------------------------------
+# activations and attention
+# ---------------------------------------------------------------------------
+@amp_op("gelu")
+def gelu(x: torch.Tensor, approximate: bool = False) -> torch.Tensor:
+    """GELU, exact (erf) unless ``approximate`` (tanh), as ``jax.nn.gelu``
+    with the JAX package's default ``approximate=False``."""
+    return F.gelu(x, approximate="tanh" if approximate else "none")
+
+
+@amp_op("relu")
+def relu(x: torch.Tensor) -> torch.Tensor:
+    return F.relu(x)
+
+
+def scaled_dot_product_attention(query, key, value, attn_mask=None,
+                                 dropout_p: float = 0.0,
+                                 is_causal: bool = False,
+                                 training: bool = True) -> torch.Tensor:
+    """Attention of ``[b, s, h, d]`` query, key and value through
+    ``flash_attention`` (the kernels on CUDA tensors), non-causal unless
+    ``is_causal``. Dropout inside attention is not ported: ``dropout_p > 0``
+    in training raises on every device, never falling back to a plain
+    version."""
+    from ..ops.fused.flash_attention import flash_attention
+
+    if training and dropout_p > 0.0:
+        raise NotImplementedError(
+            "scaled_dot_product_attention: dropout inside attention is not "
+            "ported (ROADMAP B #1); use dropout_p=0 or eval mode")
+    return flash_attention(query, key, value, causal=is_causal,
+                           attn_mask=attn_mask)
+
+
+# ---------------------------------------------------------------------------
+# losses
+# ---------------------------------------------------------------------------
+def _reduce(loss, reduction):
+    if reduction == "mean":
+        return loss.mean()
+    if reduction == "sum":
+        return loss.sum()
+    return loss
+
+
+@amp_op("cross_entropy")
+def cross_entropy(input, label, weight=None, ignore_index: int = -100,
+                  reduction: str = "mean", soft_label: bool = False,
+                  axis: int = -1, use_softmax: bool = True,
+                  label_smoothing: float = 0.0) -> torch.Tensor:
+    """Cross-entropy of ``input`` logits (in f32) against integer labels
+    (``ignore_index`` masked; a trailing 1 axis squeezed) or, with
+    ``soft_label`` or a float label of the input's rank, a distribution;
+    optional per-class ``weight`` and ``label_smoothing``."""
+    axis = axis % input.dim()
+    logits = input.float()
+    logp = (torch.log_softmax(logits, dim=axis) if use_softmax
+            else torch.log(torch.clamp_min(logits, 1e-30)))
+    n = input.shape[axis]
+    valid = None
+    if soft_label or (label.is_floating_point()
+                      and label.dim() == input.dim()):
+        tgt = label.float()
+        if label_smoothing > 0.0:
+            tgt = tgt * (1.0 - label_smoothing) + label_smoothing / n
+        loss = -(tgt * logp).sum(dim=axis)
+    else:
+        lbl = label
+        if lbl.dim() == input.dim() and lbl.shape[axis] == 1:
+            lbl = lbl.squeeze(axis)
+        valid = lbl != ignore_index
+        safe = torch.where(valid, lbl, 0).long()
+        picked = logp.gather(axis, safe.unsqueeze(axis)).squeeze(axis)
+        if label_smoothing > 0.0:
+            loss = -(1.0 - label_smoothing) * picked \
+                - label_smoothing * logp.mean(dim=axis)
+        else:
+            loss = -picked
+        if weight is not None:
+            w = torch.as_tensor(weight, device=input.device).float()[safe]
+            loss = loss * w
+        loss = torch.where(valid, loss, 0.0)
+    if reduction == "mean":
+        if valid is None:
+            return loss.mean()
+        if weight is not None:
+            denom = torch.clamp_min(torch.where(valid, w, 0.0).sum(), 1e-12)
+        else:
+            denom = torch.clamp_min(valid.float().sum(), 1.0)
+        return loss.sum() / denom
+    return _reduce(loss, reduction)
+
+
+@amp_op("mse_loss")
+def mse_loss(input, label, reduction: str = "mean"):
+    return _reduce(torch.square(input - label), reduction)
+
+
+@amp_op("l1_loss")
+def l1_loss(input, label, reduction: str = "mean"):
+    return _reduce(torch.abs(input - label), reduction)
+
+
+@amp_op("nll_loss")
+def nll_loss(input, label, weight=None, ignore_index: int = -100,
+             reduction: str = "mean"):
+    """Negative log-likelihood of log-probabilities ``input`` (classes on
+    the last axis, or on axis 1 when the label has the input's rank)."""
+    valid = label != ignore_index
+    safe = torch.where(valid, label, 0).long()
+    if input.dim() == label.dim() + 1:
+        picked = -input.gather(-1, safe[..., None])[..., 0]
+    else:
+        picked = -input.gather(1, safe)
+    if weight is not None:
+        picked = picked * weight[safe]
+    picked = torch.where(valid, picked, 0.0)
+    if reduction == "mean":
+        if weight is not None:
+            denom = torch.where(valid, weight[safe], 0.0).sum()
+        else:
+            denom = torch.clamp_min(valid.float().sum(), 1.0)
+        return picked.sum() / denom
+    return _reduce(picked, reduction)
+
+
+@amp_op("binary_cross_entropy")
+def binary_cross_entropy(input, label, weight=None, reduction: str = "mean"):
+    x = torch.clamp(input.float(), 1e-12, 1.0 - 1e-7)
+    loss = -(label * torch.log(x) + (1.0 - label) * torch.log1p(-x))
+    if weight is not None:
+        loss = loss * weight
+    return _reduce(loss, reduction)
+
+
+@amp_op("binary_cross_entropy_with_logits")
+def binary_cross_entropy_with_logits(logit, label, weight=None,
+                                     reduction: str = "mean",
+                                     pos_weight=None):
+    x = logit.float()
+    lbl = label.float()
+    # stable: max(x, 0) - x z + log(1 + exp(-|x|))
+    loss = torch.clamp_min(x, 0.0) - x * lbl + torch.log1p(
+        torch.exp(-torch.abs(x)))
+    if pos_weight is not None:
+        loss = loss * ((pos_weight - 1.0) * lbl + 1.0)
+    if weight is not None:
+        loss = loss * weight
+    return _reduce(loss, reduction)
+
+
+@amp_op("smooth_l1_loss")
+def smooth_l1_loss(input, label, reduction: str = "mean",
+                   delta: float = 1.0):
+    d = torch.abs(input - label)
+    loss = torch.where(d < delta, 0.5 * d * d / delta, d - 0.5 * delta)
+    return _reduce(loss, reduction)
+
+
+@amp_op("kl_div")
+def kl_div(input, label, reduction: str = "mean", log_target: bool = False):
+    if log_target:
+        loss = torch.exp(label) * (label - input)
+    else:
+        loss = label * (torch.log(torch.clamp_min(label, 1e-30)) - input)
+    if reduction == "batchmean":
+        return loss.sum() / input.shape[0]
+    return _reduce(loss, reduction)
+
+
+@amp_op("margin_ranking_loss")
+def margin_ranking_loss(input, other, label, margin: float = 0.0,
+                        reduction: str = "mean"):
+    return _reduce(torch.clamp_min(-label * (input - other) + margin, 0.0),
+                   reduction)
+
+
+@amp_op("cosine_embedding_loss")
+def cosine_embedding_loss(input1, input2, label, margin: float = 0.0,
+                          reduction: str = "mean"):
+    cos = (input1 * input2).sum(dim=-1) / torch.clamp_min(
+        torch.linalg.norm(input1, dim=-1) * torch.linalg.norm(input2,
+                                                              dim=-1), 1e-12)
+    loss = torch.where(label == 1, 1.0 - cos, torch.clamp_min(cos - margin,
+                                                              0.0))
+    return _reduce(loss, reduction)
+
+
+@amp_op("hinge_embedding_loss")
+def hinge_embedding_loss(input, label, margin: float = 1.0,
+                         reduction: str = "mean"):
+    loss = torch.where(label == 1, input, torch.clamp_min(margin - input,
+                                                          0.0))
+    return _reduce(loss, reduction)
+
+
+@amp_op("triplet_margin_loss")
+def triplet_margin_loss(input, positive, negative, margin: float = 1.0,
+                        p: float = 2.0, epsilon: float = 1e-6,
+                        swap: bool = False, reduction: str = "mean"):
+    def dist(a, b):
+        return torch.pow(torch.pow(torch.abs(a - b) + epsilon, p).sum(dim=-1),
+                         1.0 / p)
+
+    dp = dist(input, positive)
+    dn = dist(input, negative)
+    if swap:
+        dn = torch.minimum(dn, dist(positive, negative))
+    return _reduce(torch.clamp_min(dp - dn + margin, 0.0), reduction)

@@ -59,21 +59,22 @@ def _chunk_scan(h0, u, delta, A, B, C):
 
 
 def selective_scan_reference(u, delta, A, B, C, chunk=KERNEL_CHUNK,
-                             return_bounds=False):
+                             return_bounds=False, dtype=torch.float32):
     """The plain version: the chunked XLA path of
     ``paddle_tpu/models/mamba.py:93-129`` in f32 (each chunk recomputed in
     the backward, as its ``jax.checkpoint`` does), y cast to u's dtype.
-    Differentiable. With ``return_bounds`` also the f32 state entering each
-    chunk, ``[b, ceil(l / chunk), n, d]``."""
+    Differentiable. With ``return_bounds`` also the state entering each
+    chunk, ``[b, ceil(l / chunk), n, d]``. ``dtype`` is the type it computes
+    in: float64 gives a reference for the f32 kernels."""
     b, l, d = u.shape
     chunk = min(chunk, l)
     pad = (-l) % chunk
-    f = [t.float() for t in (u, delta, B, C)]
+    f = [t.to(dtype) for t in (u, delta, B, C)]
     if pad:
         f = [torch.nn.functional.pad(t, (0, 0, 0, pad)) for t in f]
     uf, df, Bf, Cf = f
-    Af = A.float()
-    h = torch.zeros(b, d, A.shape[-1], dtype=torch.float32, device=u.device)
+    Af = A.to(dtype)
+    h = torch.zeros(b, d, A.shape[-1], dtype=dtype, device=u.device)
     ys, bounds = [], []
     grad = torch.is_grad_enabled()
     for c0 in range(0, l + pad, chunk):

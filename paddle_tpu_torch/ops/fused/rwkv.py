@@ -14,6 +14,7 @@ from __future__ import annotations
 
 import torch
 
+from ...amp import amp_op
 from ..cuda import wkv as _wkv
 from ..cuda._build import device_of
 
@@ -21,6 +22,7 @@ __all__ = ["rwkv_linear_attention", "rwkv_linear_attention_reference",
            "rwkv_log_decay", "token_shift"]
 
 
+@amp_op("rwkv_log_decay")
 def rwkv_log_decay(a: torch.Tensor) -> torch.Tensor:
     """``log w = max(-exp(a), -1e10)`` in a's dtype: the log form goes to
     the recurrence as it is (``w = exp(-exp(a))`` would underflow for strong
@@ -28,6 +30,7 @@ def rwkv_log_decay(a: torch.Tensor) -> torch.Tensor:
     return torch.clamp_min(-torch.exp(a), -1e10)
 
 
+@amp_op("token_shift")
 def token_shift(x: torch.Tensor) -> torch.Tensor:
     """Position t sees position t - 1 (zeros at t = 0); x ``[b, l, D]``."""
     return torch.nn.functional.pad(x, (0, 0, 1, 0))[:, :-1]
@@ -60,6 +63,7 @@ class _WKV(torch.autograd.Function):
         return _wkv.wkv_bwd(*ctx.saved_tensors, dy.contiguous())
 
 
+@amp_op("rwkv_linear_attention")
 def rwkv_linear_attention(r, k, v, logw, u, chunk: int = 32,
                           subchunk: int = 16):
     """WKV of r/k/v ``[b, l, h, d]`` with ``logw`` (the log decay, clamped to

@@ -14,6 +14,7 @@ from __future__ import annotations
 
 import torch
 
+from ...amp import amp_op
 from ..cuda import ssd as _ssd
 from ..cuda._build import device_of
 from ..cuda.ssd import ssd_chunked_reference, ssd_reference
@@ -33,6 +34,7 @@ class _SSDFn(torch.autograd.Function):
         return _ssd.ssd_bwd(*ctx.saved_tensors, dy)
 
 
+@amp_op("ssd_chunked")
 def ssd_chunked(x, dt, A, B, C, D, chunk: int = 64):
     """Chunked SSD of x ``[b, l, h, dh]``, dt ``[b, l, h]``, A ``[h]`` (< 0),
     B, C ``[b, l, ds]`` and D ``[h]``; returns ``[b, l, h, dh]`` in x's

@@ -17,9 +17,19 @@ from typing import Callable, List, Optional
 
 import torch
 
+from ..amp import nested_ops, uncast
 from .optimizer import Optimizer
 
 __all__ = ["LBFGS"]
+
+
+def _as_caller(closure):
+    """``closure`` run with the caller's ``auto_cast`` on again inside the
+    step's :func:`~paddle_tpu_torch.amp.uncast` region."""
+    def run():
+        with nested_ops():
+            return closure()
+    return run
 
 
 def _f(x) -> float:
@@ -123,11 +133,15 @@ class LBFGS(Optimizer):
         return loss, grad, t
 
     # -- step ------------------------------------------------------------------
+    @uncast()
     def step(self, closure: Optional[Callable] = None):
         """One L-BFGS step. With a ``closure`` (which re-evaluates the loss
         and the gradients), up to ``max_iter`` inner iterations; returns the
         last loss. Without one, a single quasi-Newton step from the current
-        ``.grad``s; returns None."""
+        ``.grad``s; returns None. Its own arithmetic casts nothing under
+        ``auto_cast``; the closure runs under the caller's."""
+        if closure is not None:
+            closure = _as_caller(closure)
         if closure is None:
             flat_grad = self._gather_flat()
             # the previous displacement with the gradient change it caused,

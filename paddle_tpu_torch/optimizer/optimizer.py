@@ -28,6 +28,7 @@ from typing import Any, Dict, List, Optional, Sequence
 
 import torch
 
+from ..amp import uncast
 from ..core.device import entry_device
 from ..core.dtype import as_tensor
 from .lr import LRScheduler
@@ -110,10 +111,12 @@ class Optimizer:
         return [p for p in self._parameter_list
                 if p.requires_grad and getattr(p, "trainable", True)]
 
+    @uncast()
     def step(self) -> None:
         """Update every trainable parameter that has a ``.grad``: the clip
         object first, then the update (skipped on the device when a
-        ``GradScaler`` found an inf)."""
+        ``GradScaler`` found an inf). Nothing in it is cast under
+        ``auto_cast`` (:func:`~paddle_tpu_torch.amp.uncast`)."""
         params_grads = [(p, p.grad) for p in self._trainable()
                         if p.grad is not None]
         if not params_grads:
@@ -216,6 +219,7 @@ class Optimizer:
         return [self._init_state(p) for p in params]
 
     @torch.no_grad()
+    @uncast()
     def apply_gradients(self, params: Sequence[torch.Tensor],
                         grads: Sequence[torch.Tensor],
                         state: Sequence[Dict[str, Any]], lr=None,
@@ -232,6 +236,7 @@ class Optimizer:
         return new_params, new_state
 
     @torch.no_grad()
+    @uncast()
     def apply_gradients_(self, params: Sequence[torch.Tensor],
                          grads: List[Optional[torch.Tensor]],
                          state: List[Dict[str, Any]], lr=None,

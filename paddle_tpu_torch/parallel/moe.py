@@ -22,10 +22,17 @@ dropped pair.
 ``"auto"`` takes the grouped route when every expert width is one the
 kernels take (JAX's tileable rule, :334-340, and a multiple of 8), decided
 from shapes on both devices: on the CPU the grouped route runs the kernels'
-plain versions. The expert-parallel all-to-alls (``global_scatter``,
-``global_gather``) and the ``ep`` sharding rules wait for the port of
-``parallel/`` (ROADMAP A8); a list of expert modules (``_StackedLayers``) is
-not ported (ROADMAP A6).
+plain versions. A list of expert modules (``_StackedLayers``, :259-282) has
+no grouped products and always takes the capacity route, as JAX's
+``_use_grouped`` decides for experts without ``apply_sorted``.
+
+Under ``auto_cast`` the routing, the dispatch and the experts are one op,
+``moe_layer``, as in JAX (one ``dispatch_fn``, :414): its inputs (x, the
+gate's weight and the experts' parameters) are cast by that name and
+nothing inside is, except the modules of a list of experts, whose ops JAX
+dispatches nested in ``moe_layer`` (``amp.nested_ops``). The expert-parallel
+all-to-alls (``global_scatter``, ``global_gather``) and the ``ep`` sharding
+rules wait for the port of ``parallel/`` (ROADMAP A8).
 """
 
 from __future__ import annotations
@@ -37,6 +44,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..amp import amp_op, nested_ops
 from ..core.device import make_generator, resolve_device
 from ..core.dtype import to_torch_dtype
 from ..ops.fused.grouped_gemm import grouped_matmul, grouped_matmul_swiglu
@@ -206,29 +214,59 @@ class MLPExperts(nn.Module):
             return F.relu(h)
         return F.gelu(h, approximate="tanh")
 
-    def apply_raw(self, xe: torch.Tensor) -> torch.Tensor:
+    def apply_raw(self, xe: torch.Tensor, params=None) -> torch.Tensor:
         """The capacity grid: ``xe [E, C, d]`` -> ``[E, C, d]`` by batched
-        products."""
-        h = self._act(torch.bmm(xe, self.w1) + self.b1)
-        return torch.bmm(h, self.w2) + self.b2
+        products. ``params``: ``{w1, b1, w2, b2}`` to use in place of the
+        module's own (their cast copies under ``auto_cast``)."""
+        p = dict(self.named_parameters()) if params is None else params
+        h = self._act(torch.bmm(xe, p["w1"]) + p["b1"])
+        return torch.bmm(h, p["w2"]) + p["b2"]
 
-    def apply_sorted(self, xs: torch.Tensor,
-                     group_sizes: torch.Tensor) -> torch.Tensor:
+    def apply_sorted(self, xs: torch.Tensor, group_sizes: torch.Tensor,
+                     params: dict) -> torch.Tensor:
         """Grouped-GEMM expert FFN on expert-sorted rows: ``xs [T, d]`` with
         the rows of expert e contiguous (``group_sizes [E]`` int32 kept-row
         counts; trailing rows are dropped pairs and come back zero, bias
         included). Swiglu runs the fused gate + up + swiglu product; other
-        activations a product, the activation, and the second product."""
+        activations a product, the activation, and the second product.
+        ``params``: ``{w1, b1, w2, b2}``, as :meth:`apply_raw` takes them."""
+        w1, b1 = params["w1"], params["b1"][:, 0, :]
         if self.activation == "swiglu":
-            h = grouped_matmul_swiglu(xs, self.w1, group_sizes,
-                                      self.b1[:, 0, :])
+            h = grouped_matmul_swiglu(xs, w1, group_sizes, b1)
         else:
-            h = grouped_matmul(xs, self.w1, group_sizes, self.b1[:, 0, :])
-            h = self._act(h).to(xs.dtype)
-        return grouped_matmul(h, self.w2, group_sizes, self.b2[:, 0, :])
+            h = self._act(grouped_matmul(xs, w1, group_sizes, b1)).to(
+                xs.dtype)
+        return grouped_matmul(h, params["w2"], group_sizes,
+                              params["b2"][:, 0, :])
 
     def forward(self, xe):
         return self.apply_raw(xe)
+
+
+class _StackedLayers(nn.Module):
+    """A list of expert modules, expert ``e`` applied to slot ``e`` of the
+    capacity grid (``paddle_tpu/parallel/moe.py:259-282``). Submodules are
+    named ``"0"``, ``"1"``, ... as JAX names them."""
+
+    def __init__(self, experts):
+        super().__init__()
+        for i, e in enumerate(experts):
+            self.add_module(str(i), e)
+        self.num_experts = len(experts)
+
+    def apply_raw(self, xe: torch.Tensor, params: dict) -> torch.Tensor:
+        """``xe [E, C, d]`` -> ``[E, C, d]``: ``self[e](xe[e])`` for each
+        e, with ``params`` (``{"e.name": tensor}``) in place of the
+        modules' own."""
+        outs = []
+        with nested_ops():
+            for i in range(self.num_experts):
+                mod = getattr(self, str(i))
+                pre = f"{i}."
+                sub = {k[len(pre):]: v for k, v in params.items()
+                       if k.startswith(pre)}
+                outs.append(torch.func.functional_call(mod, sub, (xe[i],)))
+        return torch.stack(outs)
 
 
 # ---------------------------------------------------------------------------
@@ -241,20 +279,19 @@ def _kernel_width(d: int) -> bool:
 
 class MoELayer(nn.Module):
     """Mixture-of-experts layer: ``out = combine(experts(dispatch(x)))``.
-    ``aux_loss`` (and ``gate.get_loss()``) holds the latest forward's
-    load-balancing term; ``expert_load`` the kept rows per expert of the
-    latest grouped forward (an int32 device tensor, None after a capacity
-    forward). ``dispatch``: ``"auto"``, ``"grouped"`` or ``"capacity"``."""
+    ``experts``: an ``MLPExperts`` or a list of expert modules (each maps
+    ``[C, d]`` to ``[C, d]``). ``aux_loss`` (and ``gate.get_loss()``) holds
+    the latest forward's load-balancing term; ``expert_load`` the kept rows
+    per expert of the latest grouped forward (an int32 device tensor, None
+    after a capacity forward). ``dispatch``: ``"auto"``, ``"grouped"`` or
+    ``"capacity"``."""
 
-    def __init__(self, gate: _BaseGate, experts: MLPExperts,
-                 dispatch: str = "auto"):
+    def __init__(self, gate: _BaseGate, experts, dispatch: str = "auto"):
         super().__init__()
         if dispatch not in ("auto", "grouped", "capacity"):
             raise ValueError(f"unknown MoE dispatch mode {dispatch!r}")
         if isinstance(experts, (list, tuple)):
-            raise NotImplementedError(
-                "MoELayer: a list of expert modules (_StackedLayers) is not "
-                "ported yet (ROADMAP A6); pass MLPExperts")
+            experts = _StackedLayers(experts)
         self.gate = gate
         self.experts = experts
         self.dispatch = dispatch
@@ -262,6 +299,8 @@ class MoELayer(nn.Module):
         self.expert_load = None
 
     def use_grouped(self) -> bool:
+        if not hasattr(self.experts, "apply_sorted"):
+            return False
         if self.dispatch != "auto":
             return self.dispatch == "grouped"
         w1, w2 = self.experts.w1, self.experts.w2
@@ -269,19 +308,28 @@ class MoELayer(nn.Module):
             w1.shape[1], w1.shape[2], w2.shape[1], w2.shape[2]))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.route_and_combine(x, self.gate.weight,
+                                      dict(self.experts.named_parameters()))
+
+    @amp_op("moe_layer")
+    def route_and_combine(self, x: torch.Tensor, gate_w: torch.Tensor,
+                          eparams: dict) -> torch.Tensor:
+        """The layer on x with the gate weight ``gate_w`` and the experts'
+        parameters ``eparams`` (by name): JAX's ``moe_layer`` op."""
         shape = x.shape
         flat = x.reshape(-1, shape[-1])
-        expert_idx, slot_i, gate_p, aux = self.gate._route_sparse(flat)
+        expert_idx, slot_i, gate_p, aux = self.gate._route_sparse(flat,
+                                                                  gate_w)
         if self.use_grouped():
-            out = self._grouped(flat, expert_idx, slot_i, gate_p)
+            out = self._grouped(flat, expert_idx, slot_i, gate_p, eparams)
         else:
-            out = self._capacity(flat, expert_idx, slot_i, gate_p)
+            out = self._capacity(flat, expert_idx, slot_i, gate_p, eparams)
             self.expert_load = None
         self.gate._aux = aux
         self.aux_loss = aux
         return out.reshape(shape).to(x.dtype)
 
-    def _grouped(self, flat, expert_idx, slot_i, gate_p):
+    def _grouped(self, flat, expert_idx, slot_i, gate_p, eparams):
         N, D = flat.shape
         E = self.gate.num_experts
         C = self.gate.capacity(N)
@@ -300,13 +348,13 @@ class MoELayer(nn.Module):
         src = torch.zeros(T, dtype=torch.long,
                           device=flat.device).scatter_(0, dest, token_id)
         xs = flat.index_select(0, src)                          # [T, D]
-        ys = self.experts.apply_sorted(xs, sizes)
+        ys = self.experts.apply_sorted(xs, sizes, eparams)
         y = ys.index_select(0, dest)                            # unpermute
         y = y * gate_p.to(y.dtype)[:, None]                     # kept-weighted
         self.expert_load = sizes.detach()
         return y.reshape(K, N, D).sum(dim=0)
 
-    def _capacity(self, flat, expert_idx, slot_i, gate_p):
+    def _capacity(self, flat, expert_idx, slot_i, gate_p, eparams):
         N, D = flat.shape
         E = self.gate.num_experts
         C = self.gate.capacity(N)
@@ -321,7 +369,7 @@ class MoELayer(nn.Module):
             0, torch.where(kept, lin, E * C), token_id)[:E * C]
         flat_pad = torch.cat([flat, flat.new_zeros(1, D)])
         xe = flat_pad.index_select(0, slot_token).reshape(E, C, D)
-        ye = self.experts.apply_raw(xe).reshape(E * C, D)
+        ye = self.experts.apply_raw(xe, eparams).reshape(E * C, D)
         picked = ye.index_select(0, lin)
         picked = picked * (gate_p * kept).to(flat.dtype)[:, None]
         return picked.reshape(K, N, D).sum(dim=0)

@@ -15,7 +15,8 @@ the shuffles as warp collectives). The libraries take the place of the nvcc
 builds in ``ops/cuda/_build`` with ``device_of`` answering "cuda", so the
 wrappers launch the kernels on CPU tensors. Every case prints each output's
 max |kernel - plain| / max |plain| against 1e-4 (f32 I/O) or 1e-2 (bf16),
-the gates of ``chip_smoke.py``, and that every output is finite; the
+the gates of ``chip_smoke.py`` (the scan's f32 cases against float64,
+as there), and that every output is finite; the
 paged decode's out within 2e-2 and m, l within 1e-3 of max(|plain|, 1),
 the empty rows exact. Exits 1 if a case fails.
 
@@ -26,7 +27,8 @@ backward (``ssd``), the selective scan's forward and backward
 ``fused_multi_transformer_paged``) at their edges, cut to sizes the CPU runs in
 seconds: lengths around the sub-chunks and chunks, d = 64 and 128 (the
 scan's d = 100 and 72, off its 64-channel blocks and, in bf16, off its
-16-byte rows; n = 5 and 16), a strong decay, logw >= 0 (dlogw exactly
+16-byte rows; n = 5 and 16; B . C cancelling at every step), a strong
+decay, logw >= 0 (dlogw exactly
 0); rows of 0 to 257 tokens around the kernel's 16-token halves on
 shuffled blocks with null table tails, groups of 1, 2, 4 and 8 query
 heads, pages of 16 and 32 tokens, 24 rows at once, shares of the stand-in
@@ -215,10 +217,12 @@ def ssd_case(b, l, h, dh, ds, dt_io, strong=False, seed=0):
                    ("dx", "ddt", "dA", "dB", "dC", "dD"), tol) and ok
 
 
-def scan_case(b, l, d, n, dt, strong=False, seed=0):
+def scan_case(b, l, d, n, dt, strong=False, seed=0, cancel=False):
     """The selective scan's forward (y, the chunk states) and backward
-    against the plain version, inputs as ``chip_smoke.py``'s
-    ``scan_inputs`` draws them."""
+    against the plain version (evaluated in float64 for f32 I/O, as
+    ``chip_smoke.py`` holds them), inputs as its ``scan_inputs`` draws
+    them. ``cancel``: C's last state set so that every step's B . C
+    cancels to about 1e-4 of its terms (``chip_smoke.cancel_bc``)."""
     import torch.nn.functional as F
 
     from ..ops.cuda import selective_scan as ss
@@ -232,21 +236,35 @@ def scan_case(b, l, d, n, dt, strong=False, seed=0):
         delta[:, l // 3:l // 2 + 1] = 20.0
     B, C = torch.randn(b, l, n, generator=g), torch.randn(b, l, n, generator=g)
     dy = torch.randn(b, l, d, generator=g).to(dt)
+    if cancel:
+        C = _cancel_bc(B, C)
     ins = (u.to(dt), delta.to(dt), A, B.to(dt), C.to(dt))
     y, bounds = ss.selective_scan_fwd(*ins)
     grads = ss.selective_scan_bwd(*ins, bounds, dy)
-    xs = [t.detach().float().requires_grad_() for t in ins]
-    y_ref, b_ref = ss.selective_scan_reference(*xs, ss.KERNEL_CHUNK, True)
-    g_ref = torch.autograd.grad(y_ref, xs, dy.float())
+    ref_dt = torch.float64 if dt == torch.float32 else torch.float32
+    xs = [t.detach().to(ref_dt).requires_grad_() for t in ins]
+    y_ref, b_ref = ss.selective_scan_reference(*xs, ss.KERNEL_CHUNK, True,
+                                               ref_dt)
+    g_ref = torch.autograd.grad(y_ref, xs, dy.to(ref_dt))
     tol = F32_RTOL if dt == torch.float32 else BF16_RTOL
     what = (f"selective scan b{b} l{l} d{d} n{n} {str(dt)[6:]}"
-            + (" strong decay" if strong else ""))
+            + (" strong decay" if strong else "")
+            + (" B . C cancels" if cancel else ""))
     ok = _report(what + " forward", (y, bounds),
                  (y_ref.detach().to(dt), b_ref.detach()),
                  ("y", "chunk states"), tol)
     return _report(what + " backward", grads,
                    [a.to(t.dtype) for a, t in zip(g_ref, ins)],
                    ("du", "ddelta", "dA", "dB", "dC"), tol) and ok
+
+
+def _cancel_bc(B, C):
+    """C with its last state set so that each step's B . C is about 1e-4 of
+    its terms (computed in float64)."""
+    C = C.clone()
+    part = (B[..., :-1].double() * C[..., :-1].double()).sum(-1)
+    C[..., -1] = (-part / B[..., -1].double() * (1 - 1e-4)).to(C.dtype)
+    return C
 
 
 def paged_case(group, d, quant, lens=(0, 1, 15, 16, 17, 100, 257), kvh=2,
@@ -323,7 +341,9 @@ CASES = {
         scan_case(1, 64, 100, 16, f32), scan_case(2, 65, 100, 5, bf16,
                                                   strong=True),
         scan_case(1, 150, 72, 5, f32, strong=True),
-        scan_case(1, 130, 100, 16, bf16)],
+        scan_case(1, 130, 100, 16, bf16), scan_case(1, 1, 100, 5, f32,
+                                                    cancel=True),
+        scan_case(2, 70, 100, 16, f32, cancel=True)],
     "paged_attention": lambda f32, bf16: [
         paged_case(g, d, quant) for quant in (False, True)
         for g, d in ((1, 64), (4, 128), (8, 64), (8, 128))] + [

@@ -291,15 +291,46 @@ VARIANTS = {
                   "      static_cast<float*>(bounds), L, D, ld, n, mu, md, mb, "
                   "mc);\n  return int(cudaGetLastError());\n}\n\ntemplate "
                   "<typename T>\nint launch_bwd(")]),
+    "fwd_carried_mul": ("scan forward: the state's update as one FMA on "
+                        "its chain (exp(dt A) h + dtu B), the carried share "
+                        "exp(dt A) h a product beside it",
+                        [(SCAN, "        const float carried = ex2_approx(dt "
+                          "* a[i]) * h[i];\n        h[i] = fmaf(dtu, bv[i], "
+                          "carried);", "        const float e = ex2_approx(dt"
+                          " * a[i]), carried = e * h[i];\n        h[i] = "
+                          "fmaf(e, h[i], dtu * bv[i]);")]),
+    "fwd_y_sum": ("scan forward: y as the f32 sum of C h over the states, "
+                  "no B . C dot (the forward before the exact dot)",
+                  [(SCAN, "        const float carried = ex2_approx(dt * "
+                    "a[i]) * h[i];\n        h[i] = fmaf(dtu, bv[i], carried);"
+                    "\n        acc = fmaf(cv[i], carried, acc);", "        h[i]"
+                    " = fmaf(ex2_approx(dt * a[i]), h[i], dtu * bv[i]);\n     "
+                    "   acc = fmaf(cv[i], h[i], acc);"),
+                   (SCAN, "yc[t][cl] = from_f<T>(fmaf(dtu, bcdot[t], acc));",
+                    "yc[t][cl] = from_f<T>(acc);"),
+                   (SCAN, "  dot_bc(s.bcdot[0], s.in[0]);\n", ""),
+                   (SCAN, "      dot_bc(s.bcdot[(c + 1) & 1], s.in[(c + 1) & "
+                    "1]);\n", "")]),
+    "fwd_dot_f32": ("scan forward: B . C summed in f32, not double",
+                    [(SCAN, "    double sum = 0.0;\n#pragma unroll\n    for "
+                      "(int j = 0; j < V; ++j)\n      sum = fma(double(to_f("
+                      "st.B[t][k + j])), double(to_f(st.C[t][k + j])), sum);",
+                      "    float sum = 0.f;\n#pragma unroll\n    for (int j = "
+                      "0; j < V; ++j)\n      sum = fmaf(to_f(st.B[t][k + j]), "
+                      "to_f(st.C[t][k + j]), sum);")]),
+    "fwd_no_dot": ("scan forward: B . C not summed (y wrong; diagnostic)",
+                   [(SCAN, "  dot_bc(s.bcdot[0], s.in[0]);\n", ""),
+                    (SCAN, "      dot_bc(s.bcdot[(c + 1) & 1], s.in[(c + 1) & "
+                     "1]);\n", "")]),
     "fwd_unroll8": ("scan forward: the walk unrolled 8 steps deep",
                     [(SCAN, "#pragma unroll 4\n    for (int t = 0; t < CHUNK; "
                       "++t) {", "#pragma unroll 8\n    for (int t = 0; t < "
                       "CHUNK; ++t) {")]),
     "fwd_no_exp": ("scan forward: exp(delta A) replaced by an FMA "
                    "(diagnostic)",
-                   [(SCAN, "h[i] = fmaf(ex2_approx(dt * a[i]), h[i], dtu * "
-                     "bv[i]);", "h[i] = fmaf(fmaf(dt, a[i], 1.f), h[i], dtu * "
-                     "bv[i]);")]),
+                   [(SCAN, "const float carried = ex2_approx(dt * a[i]) * "
+                     "h[i];", "const float carried = fmaf(dt, a[i], 1.f) * "
+                     "h[i];")]),
     "fwd_no_load": ("scan forward: only the first chunk is staged, the "
                     "walk never waits on a load (diagnostic)",
                     [(SCAN, "    if (c + 1 < nc)\n      stage_chunk(",
@@ -423,7 +454,7 @@ VARIANTS = {
                       "ds_out + sidx, 0, D, 0, 0);")]),
 }
 #: variants that take work out on purpose: their outputs are not checked
-DIAGNOSTIC = {"fwd_no_exp", "fwd_no_load", "no_scatter", "ssd_no_mma", "ssd_fwd_no_load", "wkv_no_mma",
+DIAGNOSTIC = {"fwd_no_exp", "fwd_no_load", "fwd_no_dot", "no_scatter", "ssd_no_mma", "ssd_fwd_no_load", "wkv_no_mma",
               "wkv_no_cube", "wkv_no_acube", "wkv_no_gcube", "wkv_no_scale",
               "wkv_no_load"}
 

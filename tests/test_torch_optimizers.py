@@ -585,3 +585,53 @@ def test_fused_adamw_optimizer_skip_and_state_dict():
     for p, q in zip(fresh, tp):
         assert torch.equal(p, q)
     assert torch.equal(to2._m, to._m) and torch.equal(to2._v, to._v)
+
+
+O2_CASES = [("AdamW", "float32", "clip"), ("AdamW", "bfloat16", "clip"),
+            ("AdamW", "bfloat16", "scaler"), ("Momentum", "bfloat16", "clip"),
+            ("Lamb", "float32", "scaler")]
+
+
+@pytest.mark.parametrize("case,dtype,how", O2_CASES)
+def test_step_under_auto_cast_o2_matches_jax(case, dtype, how):
+    """``opt.step()`` (with a global-norm clip) or ``GradScaler.step`` inside
+    ``auto_cast(level="O2")``: JAX's update, clip and unscale are raw array
+    code its dispatcher never casts, so 20 steps match JAX's at the
+    tolerances above (bf16 parameters with masters, as ``decorate`` sets
+    them), as outside ``auto_cast``."""
+    import paddle_tpu.amp as jamp
+    from paddle_tpu_torch import amp as tamp
+
+    xy, jp, tp, jo, to = make(case, dtype=dtype)
+    if how == "clip":
+        jo._grad_clip = jnn.ClipGradByGlobalNorm(0.05)
+        to._grad_clip = tnn.ClipGradByGlobalNorm(0.05)
+    if dtype == "bfloat16":
+        jo._multi_precision = to._multi_precision = True
+    js = jamp.GradScaler(init_loss_scaling=2.0 ** 10)
+    ts = tamp.GradScaler(init_loss_scaling=2.0 ** 10)
+    for _ in range(STEPS):
+        set_grads(xy, jp, tp)
+        with jamp.auto_cast(level="O2"), tamp.auto_cast(level="O2"):
+            if how == "scaler":
+                for p in jp:
+                    p.grad = JTensor(p.grad._data * 2.0 ** 10)
+                for p in tp:
+                    p.grad.mul_(2.0 ** 10)
+                js.step(jo)
+                ts.step(to)
+                js.update()
+                ts.update()
+            else:
+                jo.step()
+                to.step()
+        jo._learning_rate.step()
+        to._learning_rate.step()
+    for j, t in zip(jp, tp):
+        if dtype == "float32":
+            np.testing.assert_allclose(to_np(t), to_np(j), rtol=RTOL,
+                                       atol=ATOL, err_msg=f"{case} {how}")
+        else:
+            np.testing.assert_allclose(to_np(t), to_np(j), rtol=2 ** -7,
+                                       atol=1e-6, err_msg=f"{case} {how}")
+    assert_state_close(jo, to, f"{case} {how} under O2")
