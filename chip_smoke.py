@@ -59,7 +59,17 @@ Phases, each of which fails the run (non-zero exit, no result line):
    the host µs of a call through the ``paddle_tpu_torch::flash_fwd``
    operator; the flash forward (out, lse) and backward at ViT-L16's
    attention (b 64, 197 tokens, 16 heads of 64, non-causal), each timed
-   beside its bound and SDPA's; the selective scan's
+   beside its bound and SDPA's; the flash forward (out, lse) and backward
+   at the UNet's attention (bench_unet's batch 32: level 1 self-attention
+   at 256 tokens and cross-attention at 256 x 77, 12 heads of 32; level 2
+   at 64 and 64 x 77, heads of 64) and ViT-H14's (b 32, 257 tokens, 16
+   heads of 80), each timed beside its bound and SDPA's (the backward run
+   twice, bitwise equal), and at the mma.sync kernels' edges at d 16, 32
+   and 80 (sq 200 / sk 333 with GQA 16/4, causal and non-causal with
+   kv_len 300, q_offset 37; sk 1, whose dq and dk are 0 exactly and are
+   held against max |dv|; sq 1 / sk 77; rows that see nothing) and at d
+   48, 96, 112 (sq 100 / sk 77, GQA 8/2), with the mma.sync kernels'
+   ptxas lines, local-memory accesses and shared memory; the selective scan's
    forward (y and the chunk states) and backward (du, ddelta, dA, dB, dC)
    at b16 l1024 d1536 n16 and at the chunk-parallel backward's edges
    (lengths 1, 63, 64, 65, 150 and 1001, d = 100 and 200, n = 5, a strong
@@ -272,7 +282,23 @@ Phases, each of which fails the run (non-zero exit, no result line):
    tokens, a forward and backward against ``MLPExperts`` with the same
    weights on the capacity route (out, dx, the gate's and experts'
    gradients within 2e-2 of max |reference|), launching no kernel of the
-   port.
+   port; (f) ViT-H14 (patch 14, 32 x 1280, 16 heads of 80, 632 M
+   parameters, bf16) at full width and depth through ``TrainStep`` with
+   AdamW (lr 3e-4) and clip 1.0 as ``bench_vit`` trains ViT-L16, batch 32,
+   6 steps: finite losses, 32 x steps forward and backward launches of
+   the mma.sync flash kernels and no other kernel of the port, the step's
+   host ms, images/s, model-FLOP share and peak memory;
+14. the UNet: ``bench.py:424-446``'s bench_unet, sdxl-small (channels 192,
+   384, 768, 12 heads, 2 transformer layers, 275,657,476 parameters, bf16)
+   at full width and depth, batch 32 of 4 x 32 x 32 latents, t in [0,
+   1000), a 77 x 768 context, ``TrainStep(model, loss_fn, AdamW(lr=
+   1e-4))`` with the MSE to a fixed noise, 8 steps: the parameter count,
+   finite losses, per step 44 flash forward and 44 backward launches (20
+   at d 32 on the mma.sync kernels, 24 at d 64 on the wgmma ones) and no
+   other kernel of the port; the step's host ms, images/s, peak memory,
+   the model-FLOP share of 989 TFLOP/s (3 x the forward's operations,
+   counted from the layers' shapes) and a profiled step (idle share,
+   device ms by group).
 
 The last lines are the kernels' JSON, the card's name and power limit, and
 ``{"ok": true, "device": {...}}``.
@@ -529,10 +555,13 @@ def phase_kernels(torch, gen, flush):
     rows["flash_attention_bwd"] = check_flash_backward(torch, gen, flush)
     torch.cuda.empty_cache()
     fwd_err, bwd_err = check_flash_masks(torch, gen, flush)
-    vit_fwd, vit_bwd = check_flash_vit(torch, gen, flush)
     torch.cuda.empty_cache()
-    for name, err in (("flash_attention", max(fwd_err, vit_fwd)),
-                      ("flash_attention_bwd", max(bwd_err, vit_bwd))):
+    print_mma_flash_ptxas()
+    mma_rows, hd_fwd, hd_bwd = check_flash_head_dims(torch, gen, flush)
+    rows.update(mma_rows)
+    torch.cuda.empty_cache()
+    for name, err in (("flash_attention", max(fwd_err, hd_fwd)),
+                      ("flash_attention_bwd", max(bwd_err, hd_bwd))):
         rows[name]["max_abs_err"] = max(rows[name]["max_abs_err"], err)
     rows["fused_adamw"] = check_fused_adamw(torch, gen)
     torch.cuda.empty_cache()
@@ -1109,80 +1138,183 @@ def check_flash_backward(torch, gen, flush):
     return row
 
 
-# phase 3: the flash kernels at ViT-L16's attention (phase 13): b 64, 197
-# tokens (196 patches and the class token), 16 heads of 64, non-causal
-VIT_FLASH = (64, 197, 16, 64)
+# phase 3: the flash kernels at the UNet's, ViT-H14's and ViT-L16's shapes
+# (phases 14 and 13) and at the mma.sync kernels' edges: (label, b, sq, sk,
+# hq, hk, d, causal, q_offset (None: bottom-right), kv_len (None: sk),
+# timed). sdxl-small at bench_unet's batch 32: level 1 runs 16 x 16 = 256
+# tokens at d 32, level 2 and the middle 8 x 8 = 64 tokens at d 64 (the
+# wgmma kernels), every cross-attention 77 text tokens; ViT-L16 (bench_vit,
+# b 64) 197 tokens (196 patches and the class token) at d 64
+HEADDIM_CASES = (
+    ("UNet level 1 self b=32 S=256 heads 12 d=32", 32, 256, 256, 12, 12, 32,
+     False, None, None, True),
+    ("UNet level 1 cross b=32 sq=256 sk=77 heads 12 d=32", 32, 256, 77, 12,
+     12, 32, False, None, None, True),
+    ("UNet level 2 self b=32 S=64 heads 12 d=64", 32, 64, 64, 12, 12, 64,
+     False, None, None, True),
+    ("UNet level 2 cross b=32 sq=64 sk=77 heads 12 d=64", 32, 64, 77, 12, 12,
+     64, False, None, None, True),
+    ("ViT-H14 b=32 S=257 heads 16 d=80", 32, 257, 257, 16, 16, 80, False,
+     None, None, True),
+    ("ViT-L16 b=64 S=197 heads 16 d=64", 64, 197, 197, 16, 16, 64, False,
+     None, None, True),
+) + tuple(
+    case for d in (16, 32, 80) for case in (
+        (f"d={d} b=2 sq=200 sk=333 GQA 16/4 causal", 2, 200, 333, 16, 4, d,
+         True, None, None, False),
+        (f"d={d} b=2 sq=200 sk=333 GQA 16/4 non-causal kv_len=300", 2, 200,
+         333, 16, 4, d, False, 0, 300, False),
+        (f"d={d} b=2 sq=200 sk=333 causal q_offset=37 kv_len=300", 2, 200,
+         333, 8, 8, d, True, 37, 300, False),
+        (f"d={d} b=4 sq=130 sk=1", 4, 130, 1, 8, 8, d, False, None, None,
+         False),
+        (f"d={d} b=4 sq=1 sk=77", 4, 1, 77, 8, 8, d, False, None, None,
+         False),
+        (f"d={d} b=2 sq=80 sk=64 causal, rows 0-15 see nothing", 2, 80, 64,
+         8, 8, d, True, -16, None, False))
+) + tuple(
+    (f"d={d} b=2 sq=100 sk=77 GQA 8/2 non-causal", 2, 100, 77, 8, 2, d,
+     False, None, None, False) for d in (48, 96, 112))
 
 
-def check_flash_vit(torch, gen, flush):
-    """The flash forward (out, lse) and backward at ViT-L16's shape against
-    their plain versions, each timed beside its bound and SDPA's forward
-    or backward. Returns the largest |kernel - plain| of each."""
+def check_flash_head_dims(torch, gen, flush):
+    """The flash forward (out, lse) and backward (dq, dk, dv) against their
+    plain versions at ``HEADDIM_CASES``, with phase 3's tolerances; the timed
+    cases' backward run twice (bitwise equal) and each timed beside its
+    bound and SDPA's forward or backward. Where one column is seen (sk = 1)
+    P is 1 and dS = P (dP - delta) is 0 exactly: dq and dk are then rounding
+    noise on both sides, and are held to the tolerance against max |dv|.
+    Returns ``(rows, fwd_err, bwd_err)``: the rows of the mma.sync kernels
+    (timed at UNet level 1's self-attention) and the largest |kernel -
+    plain| of the wgmma kernels' forward and backward here."""
     import torch.nn.functional as F
 
     from paddle_tpu_torch.ops.cuda.flash_attention import (
-        flash_attention_bwd_cuda, flash_attention_cuda)
+        WGMMA_HEAD_DIMS, flash_attention_bwd_cuda, flash_attention_cuda)
     from paddle_tpu_torch.ops.fused.flash_attention import (
         flash_attn_bwd_reference, flash_attn_reference)
 
-    b, s, h, d = VIT_FLASH
-    scale = d ** -0.5
-    q, k, v, do = (torch.randn(b, s, h, d, generator=gen,
-                               device="cuda").bfloat16() for _ in range(4))
-    fwd = lambda: flash_attention_cuda(  # noqa: E731
-        q, k, v, False, scale, 0, s, return_lse=True)
-    out, lse = fwd()
-    rout, rlse = flash_attn_reference(q, k, v, False, scale, s, 0,
-                                      return_lse=True)
-    bwd = lambda: flash_attention_bwd_cuda(  # noqa: E731
-        q, k, v, out, lse, do, False, scale, 0, s)
-    plain_bwd = lambda: flash_attn_bwd_reference(  # noqa: E731
-        q, k, v, out, lse, do, False, scale, s, 0)
-    torch.cuda.synchronize()
-    label = f"ViT-L16 b={b} S={s} heads {h} d={d} non-causal"
-    fwd_err = (out.float() - rout.float()).abs().max().item()
-    check(math.isfinite(fwd_err) and fwd_err <= OUT_ATOL,
-          f"flash fwd {label}: max |kernel - plain| = {fwd_err:.3e} <= "
-          f"{OUT_ATOL}")
-    rel = ((lse - rlse).abs() / rlse.abs().clamp_min(1.0)).max().item()
-    check(rel <= STATS_RTOL, f"flash fwd {label} lse: max |diff| / "
-                             f"max(|ref|, 1) = {rel:.3e} <= {STATS_RTOL}")
-    bwd_err = 0.0
-    for name, g, r in zip(("dq", "dk", "dv"), bwd(), plain_bwd()):
-        diff = (g.float() - r.float()).abs().max().item()
-        peak = r.float().abs().max().item()
-        check(math.isfinite(diff) and diff <= BWD_RTOL * peak,
-              f"flash bwd {label} {name}: max |kernel - plain| = {diff:.3e} "
-              f"= {diff / peak:.3e} of max |plain| <= {BWD_RTOL}")
-        bwd_err = max(bwd_err, diff)
-    del rout, rlse
-    fwd_ms = time_ms(torch, fwd, flush=flush)
-    fwd_plain = time_ms(torch, lambda: flash_attn_reference(
-        q, k, v, False, scale, s, 0, return_lse=True), reps=3, flush=flush)
-    bwd_ms = time_ms(torch, bwd, flush=flush)
-    bwd_plain = time_ms(torch, plain_bwd, reps=3, flush=flush)
-    qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
-                  for t in (q, k, v))
-    with torch.no_grad():
-        fwd_lib = time_ms(torch, lambda: F.scaled_dot_product_attention(
-            qt, kt, vt), flush=flush)
-    sdpa_out = F.scaled_dot_product_attention(qt, kt, vt)
-    dot = do.transpose(1, 2)
-    bwd_lib = time_ms(torch, lambda: torch.autograd.grad(
-        sdpa_out, (qt, kt, vt), dot, retain_graph=True), flush=flush)
-    pairs = b * s * s
-    act = 2 * b * s * h * d                     # one bf16 [b, s, h, d]
-    f_ms, f_by = bound(4 * d * h * pairs, 4 * act + 4 * b * h * s)
-    b_ms, b_by = bound(10 * d * h * pairs, 8 * act + 4 * b * h * s)
-    print(f"  flash fwd {label} (with lse): {fwd_ms:.4f} ms (bound "
-          f"{f_ms:.4f} ms by {f_by}, {f_ms / fwd_ms:.1%} of it), plain "
-          f"{fwd_plain:.3f} ms, sdpa forward {fwd_lib:.4f} ms "
-          f"({fwd_ms / fwd_lib:.2f}x sdpa); bwd {bwd_ms:.4f} ms (bound "
-          f"{b_ms:.4f} ms by {b_by}, {b_ms / bwd_ms:.1%} of it), plain "
-          f"{bwd_plain:.3f} ms, sdpa backward {bwd_lib:.4f} ms "
-          f"({bwd_ms / bwd_lib:.2f}x sdpa)")
-    del q, k, v, do, out, lse, qt, kt, vt, sdpa_out
-    return fwd_err, bwd_err
+    dev = "cuda"
+    errs = {True: [0.0, 0.0], False: [0.0, 0.0]}   # wgmma?: [fwd, bwd]
+    rows = {}
+    for (label, b, sq, sk, hq, hk, d, causal, off, kv_len,
+         timed) in HEADDIM_CASES:
+        scale = d ** -0.5
+        kv_len = sk if kv_len is None else kv_len
+        off = kv_len - sq if off is None else off
+        q, do = (torch.randn(b, sq, hq, d, generator=gen, device=dev)
+                 .bfloat16() for _ in range(2))
+        k, v = (torch.randn(b, sk, hk, d, generator=gen, device=dev)
+                .bfloat16() for _ in range(2))
+        fwd = lambda: flash_attention_cuda(  # noqa: E731
+            q, k, v, causal, scale, off, kv_len, return_lse=True)
+        bwd = lambda: flash_attention_bwd_cuda(  # noqa: E731
+            q, k, v, out, lse, do, causal, scale, off, kv_len)
+        plain_bwd = lambda: flash_attn_bwd_reference(  # noqa: E731
+            q, k, v, out, lse, do, causal, scale, kv_len, off)
+        out, lse = fwd()
+        rout, rlse = flash_attn_reference(q, k, v, causal, scale, kv_len, off,
+                                          return_lse=True)
+        torch.cuda.synchronize()
+        err = (out.float() - rout.float()).abs().max().item()
+        check(math.isfinite(err) and err <= OUT_ATOL,
+              f"flash fwd {label}: max |kernel - plain| = {err:.3e} <= "
+              f"{OUT_ATOL}")
+        rel = ((lse - rlse).abs() / rlse.abs().clamp_min(1.0)).max().item()
+        check(rel <= STATS_RTOL, f"flash fwd {label} lse: max |diff| / "
+                                 f"max(|ref|, 1) = {rel:.3e} <= {STATS_RTOL}")
+        del rout, rlse
+        wg = d in WGMMA_HEAD_DIMS
+        errs[wg][0] = max(errs[wg][0], err)
+        grads, refs = bwd(), plain_bwd()
+        torch.cuda.synchronize()
+        dv_peak = refs[2].float().abs().max().item()
+        for name, g, r in zip(("dq", "dk", "dv"), grads, refs):
+            diff = (g.float() - r.float()).abs().max().item()
+            peak = r.float().abs().max().item()
+            if kv_len == 1 and name != "dv":
+                peak, what = dv_peak, "max |dv| (dS = 0 exactly)"
+            else:
+                what = "max |plain|"
+            check(math.isfinite(diff) and diff <= BWD_RTOL * peak,
+                  f"flash bwd {label} {name}: max |kernel - plain| = "
+                  f"{diff:.3e} = {diff / peak:.3e} of {what} <= {BWD_RTOL}")
+            errs[wg][1] = max(errs[wg][1], diff)
+        del refs
+        if not timed:
+            del q, k, v, do, out, lse, grads
+            continue
+        again = bwd()
+        torch.cuda.synchronize()
+        check(all(torch.equal(a, g) for a, g in zip(again, grads)),
+              f"flash bwd {label}: a second run is bitwise equal")
+        del again, grads
+        fwd_ms = time_ms(torch, fwd, flush=flush)
+        fwd_plain = time_ms(torch, lambda: flash_attn_reference(
+            q, k, v, causal, scale, kv_len, off, return_lse=True), reps=3,
+            flush=flush)
+        bwd_ms = time_ms(torch, bwd, flush=flush)
+        bwd_plain = time_ms(torch, plain_bwd, reps=3, flush=flush)
+        qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
+                      for t in (q, k, v))
+        with torch.no_grad():
+            fwd_lib = time_ms(torch, lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=causal), flush=flush)
+        sdpa_out = F.scaled_dot_product_attention(qt, kt, vt,
+                                                  is_causal=causal)
+        dot = do.transpose(1, 2)
+        bwd_lib = time_ms(torch, lambda: torch.autograd.grad(
+            sdpa_out, (qt, kt, vt), dot, retain_graph=True), flush=flush)
+        pairs = b * sq * sk
+        q_bytes, kv_bytes = 2 * b * sq * hq * d, 2 * b * sk * hk * d
+        lse_bytes = 4 * b * hq * sq
+        # forward: q, k, v in, out and lse back; backward: q, out, dout, k,
+        # v and lse in, dq, dk and dv back
+        f_ms, f_by = bound(4 * d * hq * pairs,
+                           2 * q_bytes + 2 * kv_bytes + lse_bytes)
+        b_ms, b_by = bound(10 * d * hq * pairs,
+                           4 * q_bytes + 4 * kv_bytes + lse_bytes)
+        print(f"  flash fwd {label} (with lse): {fwd_ms:.4f} ms (bound "
+              f"{f_ms:.4f} ms by {f_by}, {f_ms / fwd_ms:.1%} of it), plain "
+              f"{fwd_plain:.3f} ms, sdpa forward {fwd_lib:.4f} ms "
+              f"({fwd_ms / fwd_lib:.2f}x sdpa); bwd {bwd_ms:.4f} ms (bound "
+              f"{b_ms:.4f} ms by {b_by}, {b_ms / bwd_ms:.1%} of it), plain "
+              f"{bwd_plain:.3f} ms, sdpa backward {bwd_lib:.4f} ms "
+              f"({bwd_ms / bwd_lib:.2f}x sdpa)")
+        if not rows:   # the first timed case: UNet level 1 at d = 32
+            rows = {"flash_attention_mma": dict(
+                        ms=fwd_ms, plain_ms=fwd_plain, bound_ms=f_ms,
+                        bound_by=f_by, library_ms=fwd_lib),
+                    "flash_attention_mma_bwd": dict(
+                        ms=bwd_ms, plain_ms=bwd_plain, bound_ms=b_ms,
+                        bound_by=b_by, library_ms=bwd_lib)}
+        del q, k, v, do, out, lse, qt, kt, vt, sdpa_out
+    rows["flash_attention_mma"]["max_abs_err"] = errs[False][0]
+    rows["flash_attention_mma_bwd"]["max_abs_err"] = errs[False][1]
+    return rows, errs[True][0], errs[True][1]
+
+
+def print_mma_flash_ptxas():
+    """ptxas's line and the SASS's local accesses of each mma.sync flash
+    kernel (per head dim, masked or not), and their dynamic shared
+    memory."""
+    import re
+
+    from paddle_tpu_torch.ops.cuda import _build
+    from paddle_tpu_torch.ops.cuda.flash_attention import MMA_HEAD_DIMS
+
+    pattern = re.compile(r"(flash_mma_(?:fwd|dkdv|dq|delta)_kernel)"
+                         r"ILi(\d+)E(?:Lb([01])E)?")
+
+    def label(m):
+        masked = "" if m.group(3) is None else f", masked {m.group(3)}"
+        return f"{m.group(1)}<{m.group(2)}{masked}>"
+
+    print_ptxas(("flash_attention_mma",), pattern, label)
+    smem = _build.load("flash_attention_mma").ptt_flash_mma_smem_bytes
+    print("  mma.sync flash kernels' dynamic shared memory (forward, dK/dV, "
+          "dQ): " + ", ".join(f"d={d} {smem(d, 0)} / {smem(d, 1)} / "
+                              f"{smem(d, 2)}" for d in MMA_HEAD_DIMS))
 
 
 # masked flash cases of phase 3: (label, b, S, hq, hk, d), causal, each with
@@ -3777,6 +3909,7 @@ def reset_counts():
     from paddle_tpu_torch.ops.fused import flash_attention as fd
 
     fa.launches = fa.bwd_launches = pa.launches = fw.launches = 0
+    fa.mma_launches = fa.mma_bwd_launches = 0
     fd.dense_calls = 0
     pa.int8_launches = wo.launches = wo.int4_launches = 0
     gg.launches = gg.tgmm_launches = gg.swiglu_launches = 0
@@ -3802,6 +3935,8 @@ def read_counts():
             "wkv": wk.launches, "wkv_bwd": wk.bwd_launches,
             "flash_attention": fa.launches,
             "flash_attention_bwd": fa.bwd_launches,
+            "flash_attention_mma": fa.mma_launches,
+            "flash_attention_mma_bwd": fa.mma_bwd_launches,
             "paged_attention": pa.launches,
             "paged_attention_int8": pa.int8_launches,
             "int8_matmul": wo.launches, "int4_matmul": wo.int4_launches,
@@ -5164,6 +5299,73 @@ def vit_moe_list(torch, seed):
     free_cuda(torch)
 
 
+VIT_H14_BATCH, VIT_H14_STEPS = 32, 6
+
+
+def vit_h14_train(torch, seed):
+    """(f) ViT-H14 (image 224, patch 14, hidden 1280, 32 layers, 16 heads
+    of 80, 1000 classes, bf16) at full width and depth through
+    ``TrainStep`` with AdamW (lr 3e-4) and clip 1.0 as ``bench.py:258-290``
+    trains ViT-L16, batch 32 of seeded images and labels: finite losses,
+    32 x steps forward and backward launches of the mma.sync flash kernels
+    (head dim 80) and no other kernel of the port; the step's host ms,
+    images/s and model-FLOP share (``bench.py:278-280``'s formula)."""
+    import dataclasses
+
+    from paddle_tpu_torch.core.device import make_generator
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.models import VIT_PRESETS, VisionTransformer
+    from paddle_tpu_torch.optimizer import AdamW
+
+    cfg = dataclasses.replace(VIT_PRESETS["vit-h14"], dtype="bfloat16")
+    L, b = cfg.num_hidden_layers, VIT_H14_BATCH
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    net = VisionTransformer(cfg, seed=seed)
+    n_params = sum(p.numel() for p in net.parameters())
+    step = TrainStep(net, None, AdamW(learning_rate=VIT_LR,
+                                      parameters=net.parameters()),
+                     clip_norm=1.0)
+    gen = make_generator(seed + 13, "cuda")
+    x = torch.randn(b, 3, cfg.image_size, cfg.image_size, generator=gen,
+                    device="cuda").bfloat16()
+    y = torch.randint(0, cfg.num_classes, (b,), generator=gen, device="cuda")
+    torch.cuda.synchronize()
+    d = cfg.hidden_size // cfg.num_attention_heads
+    print(f"  (f) ViT-H14: {n_params / 1e6:.1f} M params, {L} layers, "
+          f"{cfg.num_patches + 1} tokens, heads of {d}, built in "
+          f"{time.perf_counter() - t0:.1f} s; batch {b}")
+    reset_counts()
+    losses, times = [], []
+    for _ in range(VIT_H14_STEPS):
+        t0 = time.perf_counter()
+        losses.append(step(x, y).item())
+        times.append((time.perf_counter() - t0) * 1e3)
+    n = read_counts()
+    print(f"  (f) losses {[round(v, 4) for v in losses]}, step host ms "
+          f"{[round(t, 1) for t in times]}")
+    check(all(math.isfinite(v) for v in losses),
+          f"(f) ViT-H14 TrainStep x {VIT_H14_STEPS}: losses finite")
+    others = {k: v for k, v in n.items() if v and k not in (
+        "flash_attention_mma", "flash_attention_mma_bwd")}
+    check(n["flash_attention_mma"] == L * VIT_H14_STEPS
+          and n["flash_attention_mma_bwd"] == L * VIT_H14_STEPS
+          and not others,
+          f"(f) launches: mma.sync flash fwd {n['flash_attention_mma']}, bwd "
+          f"{n['flash_attention_mma_bwd']} ({L} x {VIT_H14_STEPS} each), "
+          f"other kernels of the port {others or 0}")
+    step_ms = statistics.mean(times[2:])
+    ips = b / (step_ms / 1e3)
+    flops = vit_flops_per_image(cfg, n_params)
+    print(f"  (f) step host ms {step_ms:.1f} (mean of steps 3-"
+          f"{VIT_H14_STEPS}): {ips:.1f} images/s, model-FLOP share "
+          f"{flops * ips / BF16_FLOP_PER_S:.1%} of 989 TFLOP/s; peak device "
+          f"memory {torch.cuda.max_memory_allocated() / 2**30:.1f} GiB on "
+          f"{smi()}")
+    del net, step, x, y
+    free_cuda(torch)
+
+
 def phase_vit(torch, seed):
     print("== phase 13: VisionTransformer ViT-L16 through Model.fit "
           "(hapi, metrics, callbacks, save / load, amp.debugging) and the "
@@ -5189,10 +5391,158 @@ def phase_vit(torch, seed):
         del model
         free_cuda(torch)
         vit_moe_list(torch, seed)
+        free_cuda(torch)
+        vit_h14_train(torch, seed)
     finally:
         (torch.backends.cudnn.deterministic,
          torch.backends.cudnn.benchmark) = cudnn
         shutil.rmtree(save_dir, ignore_errors=True)
+
+
+# ------------------------------------------------------------- phase 14
+# bench.py:424-446's bench_unet: sdxl-small, bf16, batch 32, 4 x 32 x 32
+# latents, t in [0, 1000), a 77 x 768 text context, AdamW lr 1e-4, the MSE
+# to a fixed noise
+UNET_PRESET, UNET_BATCH, UNET_CTX, UNET_STEPS = "sdxl-small", 32, 77, 8
+UNET_PARAMS = 275_657_476        # UNET_PRESETS["sdxl-small"] in JAX
+# per step: 22 transformer blocks x 2 attentions, 20 at level 1 (d 32, the
+# mma.sync kernels) and 24 at level 2 and the middle (d 64, wgmma)
+UNET_MMA_PER_STEP, UNET_WGMMA_PER_STEP = 20, 24
+UNET_GROUPS = {"conv": ("conv", "fprop", "dgrad", "wgrad"),
+               "flash": ("flash_",), "matmul": TRAIN_GROUPS["matmul"]}
+
+
+def unet_forward_flops(torch, model, batch):
+    """Operations of one forward at ``batch``'s shapes, counted from the
+    layers' shapes (forward hooks on one no-grad pass): each convolution 2
+    b H_out W_out c_out (c_in / groups) kh kw, each linear 2 rows in out,
+    each transformer block's two attentions 4 b s (s + T) C (4 sq sk d a
+    head, C = heads d, T the context's tokens). Norms and elementwise work
+    are not counted."""
+    from paddle_tpu_torch.models.unet import CrossAttnBlock
+    from paddle_tpu_torch.nn import Conv2D
+
+    total = [0]
+
+    def conv(mod, inp, out):
+        total[0] += 2 * out.numel() * mod.weight[0].numel()
+
+    def linear(mod, inp, out):
+        total[0] += 2 * out.numel() * mod.in_features
+
+    def attn(mod, inp, out):
+        x, ctx = inp
+        b, s, c = x.shape
+        total[0] += 4 * b * s * (s + ctx.shape[1]) * c
+
+    hooks = []
+    for mod in model.modules():
+        if isinstance(mod, Conv2D):
+            hooks.append(mod.register_forward_hook(conv))
+        elif isinstance(mod, torch.nn.Linear):
+            hooks.append(mod.register_forward_hook(linear))
+        elif isinstance(mod, CrossAttnBlock):
+            hooks.append(mod.register_forward_hook(attn))
+    try:
+        with torch.no_grad():
+            model(*batch)
+    finally:
+        for h in hooks:
+            h.remove()
+    return total[0]
+
+
+def phase_unet(torch, seed):
+    """Phase 14: ``bench_unet`` as written, on the port: sdxl-small at full
+    width and depth (275,657,476 parameters), bf16, through ``TrainStep(
+    model, loss_fn, AdamW(lr=1e-4))`` with the fixed-noise MSE loss, batch
+    32. Checks the parameter count, finite losses, and per step 44 flash
+    forward and 44 backward launches: 20 on the mma.sync kernels (level 1,
+    d 32) and 24 on the wgmma ones (d 64), no plain-route flash call and no
+    other kernel of the port. Prints the step's host ms (mean of steps 3
+    on), images/s, the losses, peak memory, the model-FLOP share of 989
+    TFLOP/s (3 x the forward's counted operations,
+    :func:`unet_forward_flops`) and a profiled step (idle share, device ms
+    by group: conv, flash, matmul, the AdamW span, the rest). Returns the
+    launch counts."""
+    import dataclasses
+
+    from paddle_tpu_torch.core.device import make_generator
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.models import UNET_PRESETS, UNet2DConditionModel
+    from paddle_tpu_torch.optimizer import AdamW
+
+    print(f"== phase 14: the SDXL-style UNet ({UNET_PRESET}) trained as "
+          f"bench_unet trains it, TrainStep + AdamW")
+    cfg = dataclasses.replace(UNET_PRESETS[UNET_PRESET], dtype="bfloat16")
+    b, hw = UNET_BATCH, cfg.sample_size
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = UNet2DConditionModel(cfg, seed=seed)
+    n_params = sum(p.numel() for p in model.parameters())
+    gen = make_generator(seed + 14, "cuda")
+    noise = torch.randn(b, cfg.in_channels, hw, hw, generator=gen,
+                        device="cuda").bfloat16()
+
+    def loss_fn(pred, sample, t, ctx):
+        # the fixed noise target, closed over (bench.py:436-441)
+        return ((pred.float() - noise.float()) ** 2).mean()
+
+    step = TrainStep(model, loss_fn, AdamW(learning_rate=1e-4,
+                                           parameters=model.parameters()))
+    x = torch.randn(b, cfg.in_channels, hw, hw, generator=gen,
+                    device="cuda").bfloat16()
+    t = torch.randint(0, 1000, (b,), generator=gen, device="cuda")
+    ctx = torch.randn(b, UNET_CTX, cfg.cross_attention_dim, generator=gen,
+                      device="cuda").bfloat16()
+    torch.cuda.synchronize()
+    print(f"  model: {n_params:,} params in "
+          f"{len(list(model.parameters()))} tensors, channels "
+          f"{cfg.block_out_channels}, {cfg.num_attention_heads} heads, "
+          f"built in {time.perf_counter() - t0:.1f} s; batch {b} x "
+          f"{cfg.in_channels} x {hw} x {hw}, context {UNET_CTX} x "
+          f"{cfg.cross_attention_dim}")
+    check(n_params == UNET_PARAMS,
+          f"parameters {n_params:,} == {UNET_PARAMS:,} (the JAX model's)")
+    flops = 3 * unet_forward_flops(torch, model, (x, t, ctx))
+    reset_counts()
+    losses, times = [], []
+    for _ in range(UNET_STEPS):
+        t0 = time.perf_counter()
+        losses.append(step(x, t, ctx).item())
+        times.append((time.perf_counter() - t0) * 1e3)
+    n = read_counts()
+    print(f"  losses {[round(v, 5) for v in losses]}, step host ms "
+          f"{[round(v, 1) for v in times]}")
+    check(all(math.isfinite(v) for v in losses),
+          f"TrainStep x {UNET_STEPS}: losses finite")
+    flash = ("flash_attention", "flash_attention_bwd", "flash_attention_mma",
+             "flash_attention_mma_bwd")
+    others = {k: v for k, v in n.items() if v and k not in flash}
+    check(n["flash_attention_mma"] == UNET_MMA_PER_STEP * UNET_STEPS
+          and n["flash_attention_mma_bwd"] == UNET_MMA_PER_STEP * UNET_STEPS
+          and n["flash_attention"] == UNET_WGMMA_PER_STEP * UNET_STEPS
+          and n["flash_attention_bwd"] == UNET_WGMMA_PER_STEP * UNET_STEPS
+          and not others,
+          f"launches over {UNET_STEPS} steps: flash fwd "
+          f"{n['flash_attention_mma']} mma.sync (d 32) + "
+          f"{n['flash_attention']} wgmma (d 64), bwd "
+          f"{n['flash_attention_mma_bwd']} + {n['flash_attention_bwd']} "
+          f"({UNET_MMA_PER_STEP} + {UNET_WGMMA_PER_STEP} = 44 a step each), "
+          f"plain-route flash and other kernels of the port {others or 0}")
+    step_ms = statistics.mean(times[2:])
+    ips = b / (step_ms / 1e3)
+    print(f"  step host ms {step_ms:.1f} (mean of steps 3-{UNET_STEPS}): "
+          f"{ips:.1f} images/s, model-FLOP share "
+          f"{flops / (step_ms / 1e3) / BF16_FLOP_PER_S:.1%} of 989 TFLOP/s "
+          f"({flops / 1e12:.2f} TFLOP a step counted, bound "
+          f"{flops / BF16_FLOP_PER_S * 1e3:.1f} ms); peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB on {smi()}")
+    profile_train_step(torch, step, None, step_ms, UNET_GROUPS, top=12,
+                       batch=(x, t, ctx))
+    del model, step
+    free_cuda(torch)
+    return n
 
 
 def main():
@@ -5273,6 +5623,10 @@ def main():
         lap()
         phase_vit(torch, args.seed)
         lap()
+        unet = phase_unet(torch, args.seed)
+        lap()
+        launches.update({k: unet[k] for k in ("flash_attention_mma",
+                                              "flash_attention_mma_bwd")})
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -5280,12 +5634,19 @@ def main():
     # paged and int8 GEMM's on quantized run A, the int4 GEMM's on run B,
     # the flash backward's on the TrainStep run, fused AdamW's on the eager
     # run, the grouped GEMMs' on the MoE TrainStep run, the scan's on the
-    # Mamba run, the WKV's on the RWKV run and the SSD's on the Mamba-2 run
+    # Mamba run, the WKV's on the RWKV run, the SSD's on the Mamba-2 run and
+    # the mma.sync flash kernels' on the UNet TrainStep run
     meta = {
         "flash_attention": ("paddle_tpu_torch/csrc/flash_attention.cu",
                             "paddle_tpu/ops/pallas/flash_attention.py:266"),
         "flash_attention_bwd": (
             "paddle_tpu_torch/csrc/flash_attention_bwd.cu",
+            "paddle_tpu/ops/pallas/flash_attention.py:453"),
+        "flash_attention_mma": (
+            "paddle_tpu_torch/csrc/flash_attention_mma.cu",
+            "paddle_tpu/ops/pallas/flash_attention.py:266"),
+        "flash_attention_mma_bwd": (
+            "paddle_tpu_torch/csrc/flash_attention_mma.cu",
             "paddle_tpu/ops/pallas/flash_attention.py:453"),
         "paged_attention": ("paddle_tpu_torch/csrc/paged_attention.cu",
                             "paddle_tpu/ops/pallas/paged_attention.py:580"),

@@ -47,7 +47,10 @@
 //     (both maps act on the columns one by one, so the slices of one head
 //     are blocks of their own), carried in f32 and stored in the I/O type
 //     (the chunk kernel's products take them in it) into [b, nc, h, d, d]
-//     scratch each;
+//     scratch each; with bf16 I/O the scaled operand's rounding remainder
+//     joins the product and each state leaves with its remainder too
+//     (scratch of the same shape), so the states reach the chunk kernel to
+//     ~2^-17 of their size;
 //  2. wkv_bwd_chunk_kernel, one block per (chunk, head, b), follows
 //     `_bwd_kernel`'s chain from S_in and dS_out: the readout dr += w^j o
 //     (dy S_inᵀ), the state update dk += w^(CH-1-s) o (v dS_outᵀ), dv += (k o
@@ -59,11 +62,16 @@
 // exponent (`_decay_tables`' p* tables): a (r~ o dr~) and b (k~ o dk~) with a,
 // b < CH, j (readout), CH-1-s (update), CH w^CH (S_in o dS_out) summed over
 // the columns, (j-1-s) on the cube. No term subtracts two sums over the
-// sequence. dlogw and du come out per (b,
-// chunk), [b, nc, h, d] f32, summed by the caller in a fixed order: no
-// atomics, the same result on every run. The backward's scratch is 2 b nc
-// h d² in the I/O type (50 MB in bf16 at the path's shapes), the
-// forward's half of it.
+// sequence. With bf16 I/O every product whose terms feed dlogw takes its
+// bf16 operands with their remainders (rt, dA, kt, S_in, dS_out: a second
+// product on the remainder, kt's and the states' in their own buffer once
+// the first is done): those sums cancel on slowly decaying channels, and
+// one bf16 rounding of a state or of kt left dlogw up to 1% of max |dlogw|
+// from float64 (PERF.md). dlogw and du come out per (b, chunk), [b, nc,
+// h, d] f32, summed by the caller in a fixed order: no atomics, the same
+// result on every run. The backward's scratch is 2 b nc h d² in the I/O
+// type, 4 with bf16 I/O (the remainders: 100 MB at the path's shapes);
+// the forward's b nc h d².
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -100,8 +108,8 @@ __device__ __forceinline__ void split(float v, T& hi, T& lo) {
 }
 
 // dst row q (stride LDD) = src row r o w^n, (r, n) = map(q), for q < rows,
-// with LO its remainder into dst_lo: 16 bytes a thread and step; pw(n, x)
-// gives w^n of the channels x and x + 1
+// with LO its remainder into dst_lo (a null dst: the remainder alone): 16
+// bytes a thread and step; pw(n, x) gives w^n of the channels x and x + 1
 template <int D, int LDD, int LDS, int NTH, bool LO, typename T, typename Map, typename Pow>
 __device__ __forceinline__ void scale_rows(T* dst, T* dst_lo, const T* src, int rows, Map map,
                                            Pow pw) {
@@ -121,7 +129,7 @@ __device__ __forceinline__ void scale_rows(T* dst, T* dst_lo, const T* src, int 
       split<LO>(to_f(e[c]) * w2.x, o[c], ol[c]);
       split<LO>(to_f(e[c + 1]) * w2.y, o[c + 1], ol[c + 1]);
     }
-    *reinterpret_cast<uint4*>(dst + q * LDD + x) = out;
+    if (dst != nullptr) *reinterpret_cast<uint4*>(dst + q * LDD + x) = out;
     if (LO) *reinterpret_cast<uint4*>(dst_lo + q * LDD + x) = out_lo;
   }
 }
@@ -153,10 +161,11 @@ __device__ __forceinline__ void decay_add(float (&acc)[NT][4], float (&dlw)[NT][
   }
 }
 
-template <typename T, int D>
+template <typename T, int D, bool EXACT>
 struct CarrySmem {
   static constexpr int CH = Chunk<D>::CH, PD = Pad<T>::V;
   T a[CH][D + PD];                     // k o w^(CH-1-j) (forward) or r o w^j (backward)
+  T a_lo[EXACT ? CH : 1][D + PD];      // EXACT: a's rounding remainder
   T b[CH][SLICE + PD];                 // the block's columns of v or dy
   float scale[CH][D];                  // w^(CH-1-j) or w^j
   float wc[D];                         // w^CH
@@ -166,12 +175,14 @@ struct CarrySmem {
 // head blockIdx.y % H of batch row blockIdx.y / H, [b, nc, h, d, d] in the
 // I/O type: fwd, S_in of every chunk from k and v; else dS_out from r and
 // dy, the chunks taken from the last. Each chunk's operands are loaded
-// while the previous chunk's product runs.
-template <typename T, int D>
+// while the previous chunk's product runs. EXACT (bf16 for the backward):
+// the scaled operand's rounding remainder joins the product, and the state
+// leaves as its bf16 rounding in out and the remainder in out_lo.
+template <typename T, int D, bool EXACT>
 __device__ __forceinline__ void carry(const T* __restrict__ src_a, const T* __restrict__ src_b,
                                       const float* __restrict__ logw, T* __restrict__ out,
-                                      bool fwd, int L, int H) {
-  using S = CarrySmem<T, D>;
+                                      T* __restrict__ out_lo, bool fwd, int L, int H) {
+  using S = CarrySmem<T, D, EXACT>;
   constexpr int CH = S::CH, PD = S::PD, NTH = CARRY_THREADS;
   constexpr int MT = D / 64, NT = SLICE / 8;  // a warp: D / 4 rows, the slice's columns
   using RA = RowVecs<CH, D, T, NTH>;
@@ -204,15 +215,19 @@ __device__ __forceinline__ void carry(const T* __restrict__ src_a, const T* __re
   };
   auto body = [&](uint4 (&a)[RA::IT], uint4 (&b)[RB::IT], int step) {
     const int c = chunk_of(step);
-    T* dst = out + ((size_t(bi) * nc + c) * H + hi) * D * D + col0;
+    const size_t at = ((size_t(bi) * nc + c) * H + hi) * D * D + col0;
 #pragma unroll
     for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
       for (int nt = 0; nt < NT; ++nt)
 #pragma unroll
-        for (int e = 0; e < 4; e += 2)
-          store_pair(dst + (m0 + 16 * mt + g + 4 * e) * D + 8 * nt + c2, acc[mt][nt][e],
-                     acc[mt][nt][e + 1]);
+        for (int e = 0; e < 4; e += 2) {
+          const size_t o = at + (m0 + 16 * mt + g + 4 * e) * D + 8 * nt + c2;
+          const float x = acc[mt][nt][e], y = acc[mt][nt][e + 1];
+          store_pair(out + o, x, y);
+          if (EXACT)
+            store_pair(out_lo + o, x - to_f(from_f<T>(x)), y - to_f(from_f<T>(y)));
+        }
     __syncthreads();                   // the previous chunk is done with the tiles
 #pragma unroll
     for (int it = 0; it < RA::IT; ++it) {
@@ -220,17 +235,19 @@ __device__ __forceinline__ void carry(const T* __restrict__ src_a, const T* __re
       if (!RA::EXACT && i >= RA::TOTAL) continue;
       const int j = i / RA::VPR, x0 = (i % RA::VPR) * RA::E;
       const T* e = reinterpret_cast<const T*>(&a[it]);
-      uint4 o;
+      uint4 o, ol;
       T* oe = reinterpret_cast<T*>(&o);
+      T* oel = reinterpret_cast<T*>(&ol);
 #pragma unroll
       for (int q = 0; q < RA::E; q += 4) {
         const float4 w = *reinterpret_cast<const float4*>(&s.scale[j][x0 + q]);
-        oe[q] = from_f<T>(to_f(e[q]) * w.x);
-        oe[q + 1] = from_f<T>(to_f(e[q + 1]) * w.y);
-        oe[q + 2] = from_f<T>(to_f(e[q + 2]) * w.z);
-        oe[q + 3] = from_f<T>(to_f(e[q + 3]) * w.w);
+        split<EXACT>(to_f(e[q]) * w.x, oe[q], oel[q]);
+        split<EXACT>(to_f(e[q + 1]) * w.y, oe[q + 1], oel[q + 1]);
+        split<EXACT>(to_f(e[q + 2]) * w.z, oe[q + 2], oel[q + 2]);
+        split<EXACT>(to_f(e[q + 3]) * w.w, oe[q + 3], oel[q + 3]);
       }
       *reinterpret_cast<uint4*>(&s.a[j][x0]) = o;
+      if (EXACT) *reinterpret_cast<uint4*>(&s.a_lo[j][x0]) = ol;
     }
     store_rows<CH, SLICE, NTH>(&s.b[0][0], SLICE + PD, b);
     if (step + 2 < nc) fetch(a, b, chunk_of(step + 2));
@@ -243,6 +260,9 @@ __device__ __forceinline__ void carry(const T* __restrict__ src_a, const T* __re
         for (int e = 0; e < 4; ++e) acc[mt][nt][e] *= s.wc[m0 + 16 * mt + g + 8 * (e / 2)];
       mma_tile<CH, NT, true, true>(acc[mt], &s.a[0][0], D + PD, &s.b[0][0], SLICE + PD,
                                    m0 + 16 * mt, 0, lane);
+      if (EXACT)
+        mma_tile<CH, NT, true, true>(acc[mt], &s.a_lo[0][0], D + PD, &s.b[0][0], SLICE + PD,
+                                     m0 + 16 * mt, 0, lane);
     }
   };
   fetch(va[0], vb[0], chunk_of(0));
@@ -258,38 +278,44 @@ template <typename T, int D>
 __global__ void __launch_bounds__(CARRY_THREADS)
 wkv_fwd_carry_kernel(const T* __restrict__ k, const T* __restrict__ v,
                      const float* __restrict__ logw, T* __restrict__ s_in, int L, int H) {
-  carry<T, D>(k, v, logw, s_in, true, L, H);
+  carry<T, D, false>(k, v, logw, s_in, nullptr, true, L, H);
 }
 
 // The backward's S_in (blockIdx.z = 0) and dS_out (1), grid (D / SLICE, b h,
-// 2).
+// 2); with bf16 I/O also their remainders (s_in_lo, ds_out_lo).
 template <typename T, int D>
 __global__ void __launch_bounds__(CARRY_THREADS)
 wkv_bwd_carry_kernel(const T* __restrict__ r, const T* __restrict__ k, const T* __restrict__ v,
                      const T* __restrict__ dy, const float* __restrict__ logw,
-                     T* __restrict__ s_in, T* __restrict__ ds_out, int L, int H) {
+                     T* __restrict__ s_in, T* __restrict__ ds_out, T* __restrict__ s_in_lo,
+                     T* __restrict__ ds_out_lo, int L, int H) {
   const bool fwd = blockIdx.z == 0;
-  carry<T, D>(fwd ? k : r, fwd ? v : dy, logw, fwd ? s_in : ds_out, fwd, L, H);
+  carry<T, D, (sizeof(T) == 2)>(fwd ? k : r, fwd ? v : dy, logw, fwd ? s_in : ds_out,
+                                fwd ? s_in_lo : ds_out_lo, fwd, L, H);
 }
 
 // s.rt = r_j o w^(j - t0) (with LO its remainder into rtl) and the rows of
 // s.kt, k_s o w^(SUB J - 1 - s) for s < SUB J, from row SUB J (J - 1) / 2,
 // for each sub-chunk J > 0: the factors of A off the diagonal sub-blocks.
 // table(n, x) and power(n, x) give w^n of the channels x, x + 1.
+// row q of s.kt: k_r o w^n, r < SUB J, n = SUB J - 1 - r, J the sub-chunk
+// whose rows start at SUB J (J - 1) / 2
+struct KtRow {
+  __device__ __forceinline__ void operator()(int q, int& r, int& n) const {
+    int J = 1;
+    while (q >= SUB * J * (J + 1) / 2) ++J;
+    r = q - SUB * J * (J - 1) / 2;
+    n = SUB * J - 1 - r;
+  }
+};
+
 template <int CH, int D, int LD, bool LO, typename Sm, typename T, typename Table,
           typename Power>
 __device__ __forceinline__ void factor_rows(Sm& s, T* rtl, Table table, Power power) {
   scale_rows<D, LD, LD, THREADS, LO>(&s.rt[0][0], rtl, &s.r[0][0], CH,
                                      [](int q, int& r, int& n) { r = q; n = q % SUB; }, table);
   scale_rows<D, LD, LD, THREADS, false>(&s.kt[0][0], static_cast<T*>(nullptr), &s.k[0][0],
-                                        Sm::KT,
-                                        [](int q, int& r, int& n) {
-                                          int J = 1;
-                                          while (q >= SUB * J * (J + 1) / 2) ++J;
-                                          r = q - SUB * J * (J - 1) / 2;
-                                          n = SUB * J - 1 - r;
-                                        },
-                                        power);
+                                        Sm::KT, KtRow{}, power);
 }
 
 // A[j][s] of the chunk's pairs s < j into X (rows of LX), zero on and above
@@ -374,7 +400,8 @@ __global__ void __launch_bounds__(THREADS, 2)
 wkv_bwd_chunk_kernel(const T* __restrict__ r, const T* __restrict__ k, const T* __restrict__ v,
                      const T* __restrict__ dy, const float* __restrict__ logw,
                      const float* __restrict__ bonus, const T* __restrict__ s_in,
-                     const T* __restrict__ ds_out, T* __restrict__ dr, T* __restrict__ dk,
+                     const T* __restrict__ ds_out, const T* __restrict__ s_in_lo,
+                     const T* __restrict__ ds_out_lo, T* __restrict__ dr, T* __restrict__ dk,
                      T* __restrict__ dv, float* __restrict__ dlogw_part,
                      float* __restrict__ du_part, int L, int H) {
   using S = ChunkSmem<T, D>;
@@ -481,10 +508,23 @@ wkv_bwd_chunk_kernel(const T* __restrict__ r, const T* __restrict__ k, const T* 
 #pragma unroll
   for (int nt = 0; nt < NT; ++nt)
     lw2c[nt] = *reinterpret_cast<const float2*>(&s.lw2[n0 + 8 * nt + c2]);
+  // with bf16 I/O the state's remainder (S - bf16(S)) takes the state
+  // buffer for a second product wherever the state feeds dlogw
+  const auto state_remainder = [&](const T* lo) {
+    uint4 vl[RowVecs<D, D, T>::IT];
+    load_rows<D, D>(vl, lo + sidx, 0, D, 0, D);
+    __syncthreads();                   // every warp is done with the state's rounding
+    store_rows<D, D>(&s.S[0][0], LD, vl);
+    __syncthreads();
+  };
   {                                    // the readout: dr += w^j o (dy S_inᵀ)
     float t[NT][4];
     zero(t);
     mma_tile<D, NT, false, false>(t, &s.dy[0][0], LD, &s.S[0][0], LD, m0, n0, lane);
+    if constexpr (LO) {
+      state_remainder(s_in_lo);
+      mma_tile<D, NT, false, false>(t, &s.dy[0][0], LD, &s.S[0][0], LD, m0, n0, lane);
+    }
     decay_add<NT, LD>(acc, dlw, t, lw2c, &s.r[0][0], m0, n0, g, c2,
                            [](int j) { return j; });
   }
@@ -503,17 +543,28 @@ wkv_bwd_chunk_kernel(const T* __restrict__ r, const T* __restrict__ k, const T* 
   }
   intra_a<CH, D, LD, LX>(s, &s.X[0][0], warp, lane);
   __syncthreads();
-  if (wm > 0) {                        // dr~ of sub-chunk wm against every earlier step
+  {                                    // dr~ of sub-chunk wm against every earlier step
     float t[NT][4];
     zero(t);
     const T* kt = &s.kt[SUB * wm * (wm - 1) / 2][0];
-    for (int kk = 0; kk < SUB * wm; kk += SUB) {
-      mma_tile<SUB, NT, false, true>(t, &s.dA[0][kk], LC, kt + kk * LD, LD, m0, n0, lane);
-      if (LO)
-        mma_tile<SUB, NT, false, true>(t, &s.dAl[0][kk], LC, kt + kk * LD, LD, m0, n0, lane);
+    if (wm > 0)
+      for (int kk = 0; kk < SUB * wm; kk += SUB) {
+        mma_tile<SUB, NT, false, true>(t, &s.dA[0][kk], LC, kt + kk * LD, LD, m0, n0, lane);
+        if (LO)
+          mma_tile<SUB, NT, false, true>(t, &s.dAl[0][kk], LC, kt + kk * LD, LD, m0, n0, lane);
+      }
+    if constexpr (LO) {                // and kt's remainder, in kt's buffer (A is made)
+      __syncthreads();
+      scale_rows<D, LD, LD, THREADS, true>(static_cast<T*>(nullptr), &s.kt[0][0], &s.k[0][0],
+                                           S::KT, KtRow{}, power);
+      __syncthreads();
+      if (wm > 0)
+        for (int kk = 0; kk < SUB * wm; kk += SUB)
+          mma_tile<SUB, NT, false, true>(t, &s.dA[0][kk], LC, kt + kk * LD, LD, m0, n0, lane);
     }
-    decay_add<NT, LD>(acc, dlw, t, lw2c, &s.r[0][0], m0, n0, g, c2,
-                           [m0](int j) { return j - m0; });
+    if (wm > 0)
+      decay_add<NT, LD>(acc, dlw, t, lw2c, &s.r[0][0], m0, n0, g, c2,
+                             [m0](int j) { return j - m0; });
   }
   // the decay of this thread's columns, for the cube's Horner sums
   float2 wcol[NT];
@@ -572,7 +623,8 @@ wkv_bwd_chunk_kernel(const T* __restrict__ r, const T* __restrict__ k, const T* 
   write(dr);
   // dv = Aᵀ dy, while the state buffer turns from S_in into dS_out (each
   // thread rewrites the elements it reads) and sum_v S_in o dS_out is taken
-  // by rows
+  // by rows (with bf16 I/O the buffer holds S_in's remainder: the sum takes
+  // both halves of each state, their two roundings from device memory)
   using RS = RowVecs<D, D, T>;         // the state as 16-byte vectors, RS::VPR lanes a row
   uint4 vd[RS::IT];
   load_rows<D, D>(vd, ds_out + sidx, 0, D, 0, D);   // in flight under the product
@@ -583,6 +635,11 @@ wkv_bwd_chunk_kernel(const T* __restrict__ r, const T* __restrict__ k, const T* 
     const int i = it * THREADS + tid, row = i / RS::VPR;
     uint4* p = reinterpret_cast<uint4*>(&s.S[row][(i % RS::VPR) * RS::E]);
     float dot = dot16<T>(*p, vd[it]);
+    if constexpr (LO) {
+      const size_t o = sidx + size_t(row) * D + (i % RS::VPR) * RS::E;
+      const uint4 sh = *reinterpret_cast<const uint4*>(s_in + o);
+      dot += dot16<T>(sh, vd[it]) + dot16<T>(sh, *reinterpret_cast<const uint4*>(ds_out_lo + o));
+    }
     *p = vd[it];
 #pragma unroll
     for (int o = 1; o < RS::VPR; o <<= 1) dot += __shfl_xor_sync(FULL, dot, o);
@@ -611,6 +668,10 @@ wkv_bwd_chunk_kernel(const T* __restrict__ r, const T* __restrict__ k, const T* 
     float t[NT][4];
     zero(t);
     mma_tile<D, NT, false, false>(t, &s.v[0][0], LD, &s.S[0][0], LD, m0, n0, lane);
+    if constexpr (LO) {
+      state_remainder(ds_out_lo);
+      mma_tile<D, NT, false, false>(t, &s.v[0][0], LD, &s.S[0][0], LD, m0, n0, lane);
+    }
     decay_add<NT, LD>(acc, dlw, t, lw2c, &s.k[0][0], m0, n0, g, c2,
                            [](int sj) { return CH - 1 - sj; });
   }
@@ -790,7 +851,7 @@ template <int D, typename T>
 int launch_fwd(const void* r, const void* k, const void* v, const void* logw, const void* bonus,
                void* y, void* s_in, int batch, int L, int H, cudaStream_t st) {
   static std::atomic<uint64_t> done_carry{0}, done{0};
-  const int smem_carry = int(sizeof(CarrySmem<T, D>));
+  const int smem_carry = int(sizeof(CarrySmem<T, D, false>));
   const int smem = int(sizeof(FwdSmem<T, D>));
   cudaError_t err = ptt::allow_smem(wkv_fwd_carry_kernel<T, D>, smem_carry, done_carry);
   if (err == cudaSuccess) err = ptt::allow_smem(wkv_fwd_chunk_kernel<T, D>, smem, done);
@@ -811,7 +872,7 @@ int launch_fwd(const void* r, const void* k, const void* v, const void* logw, co
 
 struct BwdArgs {
   const void *r, *k, *v, *logw, *bonus, *dy;
-  void *dr, *dk, *dv, *dlogw_part, *du_part, *s_in, *ds_out;
+  void *dr, *dk, *dv, *dlogw_part, *du_part, *s_in, *ds_out, *s_in_lo, *ds_out_lo;
   int batch, L, H;
   cudaStream_t st;
 };
@@ -819,7 +880,7 @@ struct BwdArgs {
 template <int D, typename T>
 int launch_bwd(const BwdArgs& a) {
   static std::atomic<uint64_t> done_carry{0}, done{0};
-  const int smem_carry = int(sizeof(CarrySmem<T, D>));
+  const int smem_carry = int(sizeof(CarrySmem<T, D, (sizeof(T) == 2)>));
   const int smem = int(sizeof(ChunkSmem<T, D>));
   cudaError_t err = ptt::allow_smem(wkv_bwd_carry_kernel<T, D>, smem_carry, done_carry);
   if (err == cudaSuccess) err = ptt::allow_smem(wkv_bwd_chunk_kernel<T, D>, smem, done);
@@ -831,12 +892,16 @@ int launch_bwd(const BwdArgs& a) {
   const auto* lw = static_cast<const float*>(a.logw);
   auto* s_in = static_cast<T*>(a.s_in);
   auto* ds_out = static_cast<T*>(a.ds_out);
+  auto* s_in_lo = static_cast<T*>(a.s_in_lo);
+  auto* ds_out_lo = static_cast<T*>(a.ds_out_lo);
   const int nc = (a.L + Chunk<D>::CH - 1) / Chunk<D>::CH;
   wkv_bwd_carry_kernel<T, D><<<dim3(D / SLICE, a.batch * a.H, 2), CARRY_THREADS, smem_carry,
-                               a.st>>>(r, k, v, dy, lw, s_in, ds_out, a.L, a.H);
+                               a.st>>>(r, k, v, dy, lw, s_in, ds_out, s_in_lo, ds_out_lo, a.L,
+                                       a.H);
   if ((err = cudaGetLastError()) != cudaSuccess) return int(err);
   wkv_bwd_chunk_kernel<T, D><<<dim3(nc, a.H, a.batch), THREADS, smem, a.st>>>(
-      r, k, v, dy, lw, static_cast<const float*>(a.bonus), s_in, ds_out, static_cast<T*>(a.dr),
+      r, k, v, dy, lw, static_cast<const float*>(a.bonus), s_in, ds_out, s_in_lo, ds_out_lo,
+      static_cast<T*>(a.dr),
       static_cast<T*>(a.dk), static_cast<T*>(a.dv), static_cast<float*>(a.dlogw_part),
       static_cast<float*>(a.du_part), a.L, a.H);
   return int(cudaGetLastError());
@@ -879,14 +944,17 @@ int ptt_wkv_bwd_chunk(int D) { return D == 64 ? Chunk<64>::CH : Chunk<128>::CH; 
 // launches (the carries, then the chunks): dr, dk, dv [batch, L, H, D] (that
 // type); dlogw_part and du_part [batch, nc, H, D] f32, per-chunk partials
 // that the caller sums over (batch, nc); scratch s_in and ds_out [batch, nc,
-// H, D, D] in the I/O type, nc = ceil(L / ptt_wkv_bwd_chunk(D)).
+// H, D, D] in the I/O type, nc = ceil(L / ptt_wkv_bwd_chunk(D)), and with
+// bf16 I/O s_in_lo and ds_out_lo of the same shape (each state's rounding
+// remainder; null with f32 I/O).
 int ptt_wkv_bwd(const void* r, const void* k, const void* v, const void* logw, const void* bonus,
                 const void* dy, void* dr, void* dk, void* dv, void* dlogw_part, void* du_part,
-                void* s_in, void* ds_out, int batch, int L, int H, int D, int bf16_io,
-                void* stream) {
-  if (bad_shape(batch, L, H, D)) return int(cudaErrorInvalidValue);
+                void* s_in, void* ds_out, void* s_in_lo, void* ds_out_lo, int batch, int L,
+                int H, int D, int bf16_io, void* stream) {
+  if (bad_shape(batch, L, H, D) || (bf16_io && (s_in_lo == nullptr || ds_out_lo == nullptr)))
+    return int(cudaErrorInvalidValue);
   const BwdArgs a{r, k, v, logw, bonus, dy, dr, dk, dv, dlogw_part, du_part, s_in, ds_out,
-                  batch, L, H, static_cast<cudaStream_t>(stream)};
+                  s_in_lo, ds_out_lo, batch, L, H, static_cast<cudaStream_t>(stream)};
   if (D == 64) return bf16_io ? launch_bwd<64, bf16>(a) : launch_bwd<64, float>(a);
   return bf16_io ? launch_bwd<128, bf16>(a) : launch_bwd<128, float>(a);
 }

@@ -33,6 +33,13 @@ import numpy as np
 __all__ = ["ProcessPoolIterator", "WorkerInfo", "get_worker_info"]
 
 
+class _WorkerError:
+    """A batch's worker traceback, held until that batch's turn."""
+
+    def __init__(self, text: str):
+        self.text = text
+
+
 class WorkerInfo:
     """``paddle.io.get_worker_info`` parity object (reader.py worker_info):
     available inside dataset/transform code running in a worker process."""
@@ -281,11 +288,7 @@ class ProcessPoolIterator:
                         raise RuntimeError(
                             "All DataLoader workers died without reporting "
                             "an error (killed? see worker logs)")
-                    if kind == "error":
-                        self.close()
-                        raise RuntimeError("DataLoader worker failed:\n"
-                                           + pickle.loads(payload))
-                    self._pending[bidx] = self._load(kind, slot, payload)
+                    self._take(kind, bidx, slot, payload)
                     continue
                 waited += tick
                 if (waited >= 30.0
@@ -300,15 +303,29 @@ class ProcessPoolIterator:
                         f"DataLoader worker timed out after {self._timeout}s "
                         "(the DataLoader's timeout)")
                 continue
-            if kind == "error":
-                self.close()
-                raise RuntimeError(
-                    "DataLoader worker failed:\n" + pickle.loads(payload))
-            self._pending[bidx] = self._load(kind, slot, payload)
+            self._take(kind, bidx, slot, payload)
             self._feed_one()
         data = self._pending.pop(self._next_emit)
         self._next_emit += 1
+        if isinstance(data, _WorkerError):
+            self.close()
+            raise RuntimeError("DataLoader worker failed:\n" + data.text)
         return self._wrap(data)
+
+    def _take(self, kind, bidx, slot, payload):
+        """File a worker's result under its batch index. A batch's error
+        waits there for its turn, as Paddle's and PyTorch's loaders re-raise
+        in batch order: a later batch's error that overtakes an earlier
+        batch's data must not cut the epoch short. An error outside any
+        batch (``worker_init_fn``) raises at once."""
+        if kind == "error":
+            if bidx < 0:
+                self.close()
+                raise RuntimeError(
+                    "DataLoader worker failed:\n" + pickle.loads(payload))
+            self._pending[bidx] = _WorkerError(pickle.loads(payload))
+        else:
+            self._pending[bidx] = self._load(kind, slot, payload)
 
     def _load(self, kind, slot, payload):
         """Reassemble a worker result: shm-slab arrays or pickle fallback."""

@@ -8,6 +8,8 @@ from .mamba2 import Mamba2Config, Mamba2ForCausalLM
 from .moe_llm import MoELlamaConfig, MoELlamaForCausalLM
 from .rwkv import RwkvConfig, RwkvForCausalLM
 from .serving import ServingDecoder
+from .unet import (UNET_PRESETS, UNet2DConditionModel, UNetConfig,
+                   timestep_embedding)
 from .vit import VIT_PRESETS, ViTConfig, VisionTransformer
 
 __all__ = ["LLAMA_PRESETS", "LlamaConfig", "LlamaForCausalLM", "KVCache",
@@ -18,4 +20,5 @@ __all__ = ["LLAMA_PRESETS", "LlamaConfig", "LlamaForCausalLM", "KVCache",
            "MoELlamaForCausalLM", "MambaConfig", "MambaForCausalLM",
            "Mamba2Config", "Mamba2ForCausalLM", "RwkvConfig",
            "RwkvForCausalLM", "ViTConfig", "VisionTransformer",
-           "VIT_PRESETS"]
+           "VIT_PRESETS", "UNetConfig", "UNet2DConditionModel",
+           "UNET_PRESETS", "timestep_embedding"]

@@ -15,6 +15,9 @@ f32 and the result is cast back once.
 f32, the normalised value cast to the input dtype before the affine
 multiply and add (``torch.nn.LayerNorm`` rounds elsewhere in bf16).
 
+``silu`` and ``interpolate`` (nearest, on the half-pixel grid of
+``jax.image.resize``: the UNet's upsampling) are the UNet's.
+
 ``gelu`` (exact erf unless ``approximate``), ``scaled_dot_product_attention``
 (``[b, s, h, d]`` into the port's ``flash_attention``, non-causal unless
 ``is_causal``) and the losses (``paddle_tpu/nn/functional.py:741-912``,
@@ -33,7 +36,8 @@ from ..amp import amp_op
 
 __all__ = ["rms_norm", "swiglu", "RMSNorm", "rms_norm_f32", "swiglu_f32",
            "layer_norm", "group_norm", "LayerNorm", "GroupNorm", "gelu",
-           "relu", "scaled_dot_product_attention", "cross_entropy",
+           "relu", "silu", "interpolate", "scaled_dot_product_attention",
+           "cross_entropy",
            "mse_loss", "l1_loss", "nll_loss", "binary_cross_entropy",
            "binary_cross_entropy_with_logits", "smooth_l1_loss", "kl_div",
            "margin_ranking_loss", "cosine_embedding_loss",
@@ -170,6 +174,37 @@ def gelu(x: torch.Tensor, approximate: bool = False) -> torch.Tensor:
 @amp_op("relu")
 def relu(x: torch.Tensor) -> torch.Tensor:
     return F.relu(x)
+
+
+@amp_op("silu")
+def silu(x: torch.Tensor) -> torch.Tensor:
+    """``x * sigmoid(x)``, as ``jax.nn.silu``."""
+    return F.silu(x)
+
+
+@amp_op("interpolate")
+def interpolate(x: torch.Tensor, size=None, scale_factor=None,
+                mode: str = "nearest") -> torch.Tensor:
+    """Resize the trailing spatial axes of an NC... tensor to ``size`` (an
+    int or one per axis) or by ``scale_factor`` (output size ``int(s *
+    f)``), as ``paddle_tpu/nn/functional.py:1054-1069``. Only ``"nearest"``
+    is ported: JAX's ``jax.image.resize(..., "nearest")`` samples output i
+    at input ``floor((i + 0.5) * in / out)``, which is PyTorch's
+    ``"nearest-exact"`` (its ``"nearest"`` is ``floor(i * in / out)``); for
+    integer factors the two agree."""
+    if mode != "nearest":
+        raise NotImplementedError(f"interpolate: mode {mode!r} is not ported "
+                                  f"(only 'nearest')")
+    spatial = x.shape[2:]
+    if size is None:
+        if scale_factor is None:
+            raise ValueError("interpolate: give size or scale_factor")
+        if isinstance(scale_factor, (int, float)):
+            scale_factor = [scale_factor] * len(spatial)
+        size = [int(s * f) for s, f in zip(spatial, scale_factor)]
+    size = [int(s) for s in (size if isinstance(size, (list, tuple))
+                             else [size] * len(spatial))]
+    return F.interpolate(x, size=size, mode="nearest-exact")
 
 
 def scaled_dot_product_attention(query, key, value, attn_mask=None,

@@ -1,11 +1,16 @@
-"""Wrappers of the hand-written flash attention kernels: the forward
-(``csrc/flash_attention.cu``) and the backward (``csrc/flash_attention_bwd.cu``).
+"""Wrappers of the hand-written flash attention kernels: at head dims 64
+and 128 the forward (``csrc/flash_attention.cu``) and the backward
+(``csrc/flash_attention_bwd.cu``), at every other multiple of 16 below 128
+(:data:`MMA_HEAD_DIMS`: the UNet's 16 and 32, ViT-H14's 80) the forward and
+backward of ``csrc/flash_attention_mma.cu``.
 
 They replace the TPU kernels ``paddle_tpu/ops/pallas/flash_attention.py``
-``_fwd`` (``pl.pallas_call`` at :266) and ``_bwd`` (at :453). Both are
-bounded on the H100 by tensor-core operations; both are warp-specialised
-wgmma kernels fed by TMA, so q, k, v, out and dout must start on a 16-byte
-boundary (see each source's header for the design). Both take an optional
+``_fwd`` (``pl.pallas_call`` at :266) and ``_bwd`` (at :453). All are
+bounded on the H100 by tensor-core operations at long sequences; at 64 and
+128 they are warp-specialised wgmma kernels fed by TMA, at the other head
+dims mma.sync kernels fed by cp.async (a simple first design). Either way
+q, k, v, out and dout must start on a 16-byte boundary (see each source's
+header for the design). All take an optional
 mask, additive f32 or bool, read by strides (a broadcast dimension has
 stride 0 and is never materialised), and optional int32 segment ids. The
 plain PyTorch versions and the dispatch between the two live in
@@ -23,13 +28,25 @@ from ..fused.flash_attention import broadcast_mask, check_segments
 from . import _build
 
 __all__ = ["flash_attention_cuda", "flash_attention_bwd_cuda", "launches",
-           "bwd_launches", "misaligned"]
+           "bwd_launches", "mma_launches", "mma_bwd_launches", "misaligned",
+           "HEAD_DIMS", "WGMMA_HEAD_DIMS", "MMA_HEAD_DIMS"]
 
-#: forward wrapper calls (one kernel each) since the count was last set to 0
+#: head dims of the wgmma kernels
+WGMMA_HEAD_DIMS = (64, 128)
+#: head dims of the mma.sync kernels (``csrc/flash_attention_mma.cu``)
+MMA_HEAD_DIMS = (16, 32, 48, 80, 96, 112)
+#: every head dim the wrappers take
+HEAD_DIMS = tuple(sorted(WGMMA_HEAD_DIMS + MMA_HEAD_DIMS))
+
+#: forward wrapper calls at a wgmma head dim (one kernel each) since the
+#: count was last set to 0
 launches = 0
-#: backward wrapper calls since the count was last set to 0; each runs three
-#: kernels (delta, dK/dV, dQ)
+#: backward wrapper calls at a wgmma head dim since the count was last set
+#: to 0; each runs three kernels (delta, dK/dV, dQ)
 bwd_launches = 0
+#: the same two counts at the mma.sync head dims
+mma_launches = 0
+mma_bwd_launches = 0
 
 _c_int, _ptr, _c_ll = ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong
 #: the C entries' mask and segment arguments: mask, q and kv segment ids,
@@ -40,8 +57,12 @@ _MASK_PTRS, _MASK_INTS = [_ptr] * 3, [_c_int] + [_c_ll] * 3
 NO_MASK, ADDITIVE_F32, BOOL_U8 = 0, 1, 2
 
 
-def _fwd_lib():
-    lib = _build.load("flash_attention")
+def _source(d, wgmma, mma):
+    return wgmma if d in WGMMA_HEAD_DIMS else mma
+
+
+def _fwd_lib(d):
+    lib = _build.load(_source(d, "flash_attention", "flash_attention_mma"))
     if lib.ptt_flash_fwd.argtypes is None:
         lib.ptt_flash_fwd.argtypes = [_ptr] * 5 + _MASK_PTRS + [_c_int] * 9 \
             + _MASK_INTS + [ctypes.c_float, _ptr]
@@ -49,8 +70,8 @@ def _fwd_lib():
     return lib
 
 
-def _bwd_lib():
-    lib = _build.load("flash_attention_bwd")
+def _bwd_lib(d):
+    lib = _build.load(_source(d, "flash_attention_bwd", "flash_attention_mma"))
     if lib.ptt_flash_bwd.argtypes is None:
         lib.ptt_flash_bwd.argtypes = [_ptr] * 10 + _MASK_PTRS \
             + [_c_int] * 9 + _MASK_INTS + [ctypes.c_float, _ptr]
@@ -103,8 +124,8 @@ def _check_qkv(what, q, k, v):
         raise ValueError(f"{what}: q {tuple(q.shape)} k {tuple(k.shape)} v "
                          f"{tuple(v.shape)} disagree")
     hk = k.shape[2]
-    if hq % hk or d not in (64, 128):
-        raise ValueError(f"{what}: needs hq % hk == 0 and d in (64, 128), "
+    if hq % hk or d not in HEAD_DIMS:
+        raise ValueError(f"{what}: needs hq % hk == 0 and d in {HEAD_DIMS}, "
                          f"got hq={hq} hk={hk} d={d}")
 
 
@@ -134,14 +155,15 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          attn_mask=None, q_segment_ids=None,
                          kv_segment_ids=None):
     """q ``[b, sq, hq, d]``, k/v ``[b, sk, hk, d]``: contiguous bf16 CUDA
-    tensors, d in {64, 128}, hq a multiple of hk. Row r sees column c iff
-    ``c < kv_len``, when causal ``c <= q_offset + r``, the segment ids of r
-    and c are equal, and the mask lets it (True in a bool mask; an additive
-    one is added to the scaled scores, ``-inf`` hides a column). Returns
+    tensors, d in :data:`HEAD_DIMS`, hq a multiple of hk. Row r sees column
+    c iff ``c < kv_len``, when causal ``c <= q_offset + r``, the segment ids
+    of r and c are equal, and the mask lets it (True in a bool mask; an
+    additive one is added to the scaled scores, ``-inf`` hides a column).
+    Returns
     ``[b, sq, hq, d]`` bf16 and, with ``return_lse``, the f32 row
     logsumexp ``[b, hq, sq]`` (natural log; ``-1e30 * ln 2`` for a row that
     sees no column)."""
-    global launches
+    global launches, mma_launches
     _check_qkv("flash_attention_cuda", q, k, v)
     _check_tensors("flash_attention_cuda", q.device,
                    (("q", q), ("k", k), ("v", v)))
@@ -153,7 +175,7 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ptrs, ints, keep = mask_args("flash_attention_cuda", q, k, attn_mask,
                                  q_segment_ids, kv_segment_ids)
     if sq > 0:
-        lib = _fwd_lib()
+        lib = _fwd_lib(d)
         stream = _build.stream(q)
         rc = lib.ptt_flash_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                                out.data_ptr(),
@@ -162,7 +184,10 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                int(q_offset), int(bool(causal)), *ints,
                                float(scale), stream)
         _build.check(lib, rc, "flash_attention_cuda")
-        launches += 1
+        if d in WGMMA_HEAD_DIMS:
+            launches += 1
+        else:
+            mma_launches += 1
     return (out, lse) if return_lse else out
 
 
@@ -178,7 +203,7 @@ def flash_attention_bwd_cuda(q, k, v, out, lse, dout, causal: bool,
     one CUDA device. dk/dv are summed over each kv head's group of query
     heads; the mask gets no gradient. Runs three kernels (delta =
     rowsum(dout * out), dK/dV, dQ)."""
-    global bwd_launches
+    global bwd_launches, mma_bwd_launches
     _check_qkv("flash_attention_bwd_cuda", q, k, v)
     _check_tensors("flash_attention_bwd_cuda", q.device,
                    (("q", q), ("k", k), ("v", v), ("out", out),
@@ -197,7 +222,7 @@ def flash_attention_bwd_cuda(q, k, v, out, lse, dout, causal: bool,
     delta = torch.empty((b, hq, sq), device=q.device, dtype=torch.float32)
     ptrs, ints, keep = mask_args("flash_attention_bwd_cuda", q, k, attn_mask,
                                  q_segment_ids, kv_segment_ids)
-    lib = _bwd_lib()
+    lib = _bwd_lib(d)
     stream = _build.stream(q)
     rc = lib.ptt_flash_bwd(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                            out.data_ptr(), dout.data_ptr(), lse.data_ptr(),
@@ -206,5 +231,8 @@ def flash_attention_bwd_cuda(q, k, v, out, lse, dout, causal: bool,
                            int(kv_len), int(q_offset), int(bool(causal)),
                            *ints, float(scale), stream)
     _build.check(lib, rc, "flash_attention_bwd_cuda")
-    bwd_launches += 1
+    if d in WGMMA_HEAD_DIMS:
+        bwd_launches += 1
+    else:
+        mma_bwd_launches += 1
     return dq, dk, dv

@@ -193,15 +193,19 @@ def wkv_bwd(r, k, v, logw, u, dy):
     dr, dk, dv = (torch.empty((b, l, h, d), dtype=dt, device=dev)
                   for _ in range(3))
     # dlogw and du partials side by side (one sum); S_in and dS_out scratch
-    # in the I/O type, the type the chunk kernel's products take them in
+    # in the I/O type, the type the chunk kernel's products take them in,
+    # and in bf16 their rounding remainders beside them
+    bf16 = dt == torch.bfloat16
     parts = torch.empty((2, b * nc, h, d), dtype=torch.float32, device=dev)
-    scratch = torch.empty((2, b, nc, h, d, d), dtype=dt, device=dev)
-    rc = _build.entry("wkv", "ptt_wkv_bwd", 13, 5)(
+    scratch = torch.empty((4 if bf16 else 2, b, nc, h, d, d), dtype=dt,
+                          device=dev)
+    lo = [scratch[i].data_ptr() if bf16 else None for i in (2, 3)]
+    rc = _build.entry("wkv", "ptt_wkv_bwd", 15, 5)(
         rk.data_ptr(), kk.data_ptr(), vk.data_ptr(), lw.data_ptr(),
         uf.data_ptr(), dyk.data_ptr(), dr.data_ptr(), dk.data_ptr(),
         dv.data_ptr(), parts[0].data_ptr(), parts[1].data_ptr(),
-        scratch[0].data_ptr(), scratch[1].data_ptr(), b, l, h, d,
-        int(dt == torch.bfloat16), _build.stream(r))
+        scratch[0].data_ptr(), scratch[1].data_ptr(), *lo, b, l, h, d,
+        int(bf16), _build.stream(r))
     _build.check(_build.load("wkv"), rc, what)
     bwd_launches += 1
     dlw, du = parts.sum(1)

@@ -3,6 +3,7 @@ sources on the CPU and hold them to their plain versions, before their
 first call on a card:
 
     python3 -m paddle_tpu_torch.tools.cpu_rehearsal [wkv] [ssd] [selective_scan] [paged_attention]
+        [flash_attention_mma]
 
 Each named source of ``paddle_tpu_torch/csrc/`` is turned into C++ by
 :func:`prep` (the dynamic shared-memory declaration dropped for the
@@ -124,8 +125,11 @@ def build(names):
 
 def install(libs):
     """The stand-in libraries in place of the nvcc builds: CPU tensors then
-    launch the kernels."""
+    launch the kernels (the flash wrappers' CUDA-tensor check is lifted)."""
+    from ..ops.cuda import flash_attention as fa
+
     _build._LIBS.update(libs)
+    fa._check_tensors = lambda *args, **kw: None
     _build._ENTRIES.clear()
     _build.device_of = lambda what, *tensors: "cuda"
     _build.stream = lambda t: 0
@@ -324,6 +328,74 @@ def paged_case(group, d, quant, lens=(0, 1, 15, 16, 17, 100, 257), kvh=2,
     return ok
 
 
+def flash_case(b, sq, sk, hq, hk, d, causal=False, q_offset=None,
+               kv_len=None, mask=None, seed=0):
+    """The mma.sync flash forward (out, lse) and backward (dq, dk, dv)
+    against the plain versions, the backward run twice (bitwise equal).
+    ``mask``: None, "additive", "bool" or "segments"."""
+    from ..ops.cuda import flash_attention as fa
+    from ..ops.fused.flash_attention import (flash_attn_bwd_reference,
+                                             flash_attn_reference)
+
+    g = torch.Generator().manual_seed(seed)
+    q, do = (torch.randn(b, sq, hq, d, generator=g).bfloat16()
+             for _ in range(2))
+    k, v = (torch.randn(b, sk, hk, d, generator=g).bfloat16()
+            for _ in range(2))
+    scale = d ** -0.5
+    kv_len = sk if kv_len is None else kv_len
+    q_offset = kv_len - sq if q_offset is None else q_offset
+    kw = {}
+    if mask == "additive":
+        m = torch.randn(b, 1, sq, sk, generator=g)
+        m[:, :, :, : sk // 3] = float("-inf")
+        kw["attn_mask"] = m
+    elif mask == "bool":
+        kw["attn_mask"] = torch.rand(b, sq, sk, generator=g) > 0.3
+    elif mask == "segments":
+        kw["q_segment_ids"] = (torch.arange(sq) * 3 // sq).repeat(b, 1)
+        kw["kv_segment_ids"] = (torch.arange(sk) * 3 // sk).repeat(b, 1)
+    args = (causal, scale, q_offset, kv_len)
+    out, lse = fa.flash_attention_cuda(q, k, v, *args, return_lse=True,
+                                       **kw)
+    rout, rlse = flash_attn_reference(q, k, v, causal, scale, kv_len,
+                                      q_offset, True, kw.get("attn_mask"),
+                                      kw.get("q_segment_ids"),
+                                      kw.get("kv_segment_ids"))
+    grads = fa.flash_attention_bwd_cuda(q, k, v, out, lse, do, *args, **kw)
+    again = fa.flash_attention_bwd_cuda(q, k, v, out, lse, do, *args, **kw)
+    refs = flash_attn_bwd_reference(q, k, v, out, lse, do, causal, scale,
+                                    kv_len, q_offset, kw.get("attn_mask"),
+                                    kw.get("q_segment_ids"),
+                                    kw.get("kv_segment_ids"))
+    err = (out.float() - rout.float()).abs().max().item()
+    stat = ((lse - rlse).abs() / rlse.abs().clamp_min(1.0)).max().item()
+    what = (f"flash d{d} b{b} sq{sq} sk{sk} heads {hq}/{hk}"
+            + (" causal" if causal else "") + f" q_offset {q_offset}"
+            + f" kv_len {kv_len}" + (f" {mask}" if mask else ""))
+    ok = err <= OUT_ATOL and stat <= STATS_RTOL
+    print(f"  {'ok ' if ok else 'BAD'} {what} forward: out {err:.1e} (<= "
+          f"{OUT_ATOL}), lse {stat:.1e} (<= {STATS_RTOL})", flush=True)
+    if kv_len == 1:
+        # one column: P = 1 and dS = P (dP - delta) = 0 exactly, so dq and
+        # dk are rounding noise on both sides; held against max |dv|
+        scale_of = refs[2].float().abs().max()
+        tol = 2 * BF16_RTOL * scale_of
+        bad = [n for n, a, r in zip(("dq", "dk"), grads, refs)
+               if (a.float() - r.float()).abs().max() > tol]
+        print(f"  {'BAD' if bad else 'ok '} {what} backward: dq, dk within "
+              f"{2 * BF16_RTOL} of max |dv| (dS = 0 exactly)", flush=True)
+        ok = not bad and _report(what + " backward", grads[2:], refs[2:],
+                                 ("dv",), BF16_RTOL * 2) and ok
+    else:
+        ok = _report(what + " backward", grads, refs, ("dq", "dk", "dv"),
+                     BF16_RTOL * 2) and ok
+    if not all(torch.equal(a, r) for a, r in zip(again, grads)):
+        print(f"  BAD {what}: a second backward differs")
+        ok = False
+    return ok
+
+
 CASES = {
     "wkv": lambda f32, bf16: [
         wkv_case(1, 1, 1, 64, f32), wkv_case(1, 17, 1, 64, bf16, clamp=True),
@@ -344,6 +416,19 @@ CASES = {
         scan_case(1, 130, 100, 16, bf16), scan_case(1, 1, 100, 5, f32,
                                                     cancel=True),
         scan_case(2, 70, 100, 16, f32, cancel=True)],
+    "flash_attention_mma": lambda f32, bf16: [
+        flash_case(1, 70, 77, 2, 1, 16),
+        flash_case(2, 100, 100, 4, 2, 32, causal=True),
+        flash_case(1, 65, 1, 2, 2, 80),
+        flash_case(1, 1, 77, 2, 2, 32),
+        flash_case(1, 80, 64, 2, 2, 80, causal=True, q_offset=-16),
+        flash_case(1, 70, 130, 2, 1, 48, causal=True, q_offset=37,
+                   kv_len=100),
+        flash_case(1, 64, 77, 2, 2, 96),
+        flash_case(1, 40, 70, 1, 1, 112, causal=True),
+        flash_case(1, 70, 77, 2, 1, 32, mask="additive"),
+        flash_case(1, 66, 66, 2, 2, 16, causal=True, mask="bool"),
+        flash_case(2, 70, 70, 2, 1, 80, mask="segments")],
     "paged_attention": lambda f32, bf16: [
         paged_case(g, d, quant) for quant in (False, True)
         for g, d in ((1, 64), (4, 128), (8, 64), (8, 128))] + [

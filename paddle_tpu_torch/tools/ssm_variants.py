@@ -474,7 +474,7 @@ def build(names):
             + [ctypes.c_int] * 10 + [ctypes.c_void_p]
         ssd.ptt_ssd_bwd.argtypes = [ctypes.c_void_p] * 15 \
             + [ctypes.c_int] * 11 + [ctypes.c_void_p]
-        wkv.ptt_wkv_bwd.argtypes = [ctypes.c_void_p] * 13 \
+        wkv.ptt_wkv_bwd.argtypes = [ctypes.c_void_p] * 15 \
             + [ctypes.c_int] * 5 + [ctypes.c_void_p]
         wkv.ptt_wkv_fwd.argtypes = [ctypes.c_void_p] * 7 \
             + [ctypes.c_int] * 5 + [ctypes.c_void_p]
@@ -642,11 +642,13 @@ def wkv_case(libs, gen):
         nc = -(-l // lib.ptt_wkv_bwd_chunk(d))
         dr, dk, dv = (torch.empty_like(dy) for _ in range(3))
         parts = torch.empty((2, b * nc, h, d), **f32)
-        scratch = torch.empty((2, b, nc, h, d, d), dtype=bf, device=dev)
+        # S_in, dS_out and, with bf16 I/O, their rounding remainders
+        scratch = torch.empty((4, b, nc, h, d, d), dtype=bf, device=dev)
         rc = lib.ptt_wkv_bwd(*ptrs, dr.data_ptr(), dk.data_ptr(),
                              dv.data_ptr(), parts[0].data_ptr(),
-                             parts[1].data_ptr(), scratch[0].data_ptr(),
-                             scratch[1].data_ptr(), b, l, h, d, 1, st)
+                             parts[1].data_ptr(),
+                             *(scratch[i].data_ptr() for i in range(4)), b, l,
+                             h, d, 1, st)
         assert rc == 0, (name, rc)
         return (dr, dk, dv, *parts.sum(1))
 

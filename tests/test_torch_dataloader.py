@@ -5,6 +5,8 @@ augmentation inside ``__getitem__``; worker info, error propagation, the
 samplers and dataset combinators. The port's batches are torch tensors
 (int64 ids as ``torch.long`` where JAX has int32); values are compared."""
 
+import time
+
 import numpy as np
 import pytest
 import torch
@@ -159,6 +161,30 @@ def test_worker_errors_propagate(shm):
             got.append(b)
     assert len(got) == 2
 
+
+
+class SlowFirst(Broken):
+    """Sample 0 sleeps, so batch [4, 5]'s error reaches the loader before
+    batch [0, 1]'s data."""
+
+    def __getitem__(self, i):
+        if i == 0:
+            time.sleep(1.0)
+        return super().__getitem__(i)
+
+
+@pytest.mark.parametrize("shm", [True, False], ids=["process", "thread"])
+def test_worker_error_waits_for_its_batch(shm):
+    """A later batch's error that overtakes an earlier batch's data is
+    raised in batch order: every batch before it arrives first, whole."""
+    loader = tio.DataLoader(SlowFirst(), batch_size=2, num_workers=2,
+                            use_shared_memory=shm)
+    got = []
+    err = RuntimeError if shm else ValueError
+    with pytest.raises(err, match="bad sample 5"):
+        for b in loader:
+            got.append(b)
+    assert [b.reshape(-1).tolist() for b in got] == [[0, 1], [2, 3]]
 
 def test_iterable_and_combinators_match_jax():
     """An IterableDataset through thread workers (drop_last), ChainDataset,

@@ -261,6 +261,24 @@ def test_vit_logits_and_gradients_match_jax():
         _near(g, jgrads[name], floor=floor)
 
 
+def test_vit_h14_shaped_logits_match_jax():
+    """ViT-H14's widths (patch 14, hidden 1280, 16 heads of 80: the mma.sync
+    flash kernels' head dim on the card) at 2 layers, 224-pixel images (257
+    tokens) and 10 classes: the logits."""
+    from paddle_tpu.models.vit import ViTConfig as JCfg
+    from paddle_tpu_torch.models import ViTConfig
+
+    over = dict(JVIT["vit-h14"].__dict__, num_hidden_layers=2,
+                num_classes=10)
+    paddle.seed(41)
+    jm = JViT(JCfg(**over))
+    tm = VisionTransformer(ViTConfig(**over), device="cpu")
+    assert tm.config.hidden_size // tm.config.num_attention_heads == 80
+    assert tm.config.num_patches + 1 == 257
+    _load(tm, jm)
+    x = _arr((2, 3, 224, 224), 42)
+    _near(tm(torch.from_numpy(x)), jm(paddle.to_tensor(x)))
+
 def test_vit_train_step_matches_jax():
     """12 TrainStep steps (AdamW lr 1e-3, wd 0.05, clip 1.0) on one batch:
     the loss at every step."""
