@@ -64,11 +64,11 @@ Phases, each of which fails the run (non-zero exit, no result line):
    at 256 tokens and cross-attention at 256 x 77, 12 heads of 32; level 2
    at 64 and 64 x 77, heads of 64) and ViT-H14's (b 32, 257 tokens, 16
    heads of 80), each timed beside its bound and SDPA's (the backward run
-   twice, bitwise equal), and at the mma.sync kernels' edges at d 16, 32
+   twice, bitwise equal), and at the head-dim kernels' edges at d 16, 32
    and 80 (sq 200 / sk 333 with GQA 16/4, causal and non-causal with
    kv_len 300, q_offset 37; sk 1, whose dq and dk are 0 exactly and are
    held against max |dv|; sq 1 / sk 77; rows that see nothing) and at d
-   48, 96, 112 (sq 100 / sk 77, GQA 8/2), with the mma.sync kernels'
+   48, 96, 112 (sq 100 / sk 77, GQA 8/2), with the head-dim kernels'
    ptxas lines, local-memory accesses and shared memory; the selective scan's
    forward (y and the chunk states) and backward (du, ddelta, dA, dB, dC)
    at b16 l1024 d1536 n16 and at the chunk-parallel backward's edges
@@ -286,7 +286,7 @@ Phases, each of which fails the run (non-zero exit, no result line):
    parameters, bf16) at full width and depth through ``TrainStep`` with
    AdamW (lr 3e-4) and clip 1.0 as ``bench_vit`` trains ViT-L16, batch 32,
    6 steps: finite losses, 32 x steps forward and backward launches of
-   the mma.sync flash kernels and no other kernel of the port, the step's
+   the head-dim flash kernels and no other kernel of the port, the step's
    host ms, images/s, model-FLOP share and peak memory;
 14. the UNet: ``bench.py:424-446``'s bench_unet, sdxl-small (channels 192,
    384, 768, 12 heads, 2 transformer layers, 275,657,476 parameters, bf16)
@@ -294,7 +294,7 @@ Phases, each of which fails the run (non-zero exit, no result line):
    1000), a 77 x 768 context, ``TrainStep(model, loss_fn, AdamW(lr=
    1e-4))`` with the MSE to a fixed noise, 8 steps: the parameter count,
    finite losses, per step 44 flash forward and 44 backward launches (20
-   at d 32 on the mma.sync kernels, 24 at d 64 on the wgmma ones) and no
+   at d 32 on the head-dim kernels, 24 at d 64 on the 64 / 128 ones) and no
    other kernel of the port; the step's host ms, images/s, peak memory,
    the model-FLOP share of 989 TFLOP/s (3 x the forward's operations,
    counted from the layers' shapes) and a profiled step (idle share,
@@ -1139,7 +1139,7 @@ def check_flash_backward(torch, gen, flush):
 
 
 # phase 3: the flash kernels at the UNet's, ViT-H14's and ViT-L16's shapes
-# (phases 14 and 13) and at the mma.sync kernels' edges: (label, b, sq, sk,
+# (phases 14 and 13) and at the head-dim kernels' edges: (label, b, sq, sk,
 # hq, hk, d, causal, q_offset (None: bottom-right), kv_len (None: sk),
 # timed). sdxl-small at bench_unet's batch 32: level 1 runs 16 x 16 = 256
 # tokens at d 32, level 2 and the middle 8 x 8 = 64 tokens at d 64 (the
@@ -1184,7 +1184,7 @@ def check_flash_head_dims(torch, gen, flush):
     bound and SDPA's forward or backward. Where one column is seen (sk = 1)
     P is 1 and dS = P (dP - delta) is 0 exactly: dq and dk are then rounding
     noise on both sides, and are held to the tolerance against max |dv|.
-    Returns ``(rows, fwd_err, bwd_err)``: the rows of the mma.sync kernels
+    Returns ``(rows, fwd_err, bwd_err)``: the rows of the head-dim kernels
     (timed at UNet level 1's self-attention) and the largest |kernel -
     plain| of the wgmma kernels' forward and backward here."""
     import torch.nn.functional as F
@@ -1295,7 +1295,7 @@ def check_flash_head_dims(torch, gen, flush):
 
 
 def print_mma_flash_ptxas():
-    """ptxas's line and the SASS's local accesses of each mma.sync flash
+    """ptxas's line and the SASS's local accesses of each head-dim flash
     kernel (per head dim, masked or not), and their dynamic shared
     memory."""
     import re
@@ -1312,7 +1312,7 @@ def print_mma_flash_ptxas():
 
     print_ptxas(("flash_attention_mma",), pattern, label)
     smem = _build.load("flash_attention_mma").ptt_flash_mma_smem_bytes
-    print("  mma.sync flash kernels' dynamic shared memory (forward, dK/dV, "
+    print("  head-dim flash kernels' dynamic shared memory (forward, dK/dV, "
           "dQ): " + ", ".join(f"d={d} {smem(d, 0)} / {smem(d, 1)} / "
                               f"{smem(d, 2)}" for d in MMA_HEAD_DIMS))
 
@@ -5307,7 +5307,7 @@ def vit_h14_train(torch, seed):
     of 80, 1000 classes, bf16) at full width and depth through
     ``TrainStep`` with AdamW (lr 3e-4) and clip 1.0 as ``bench.py:258-290``
     trains ViT-L16, batch 32 of seeded images and labels: finite losses,
-    32 x steps forward and backward launches of the mma.sync flash kernels
+    32 x steps forward and backward launches of the head-dim flash kernels
     (head dim 80) and no other kernel of the port; the step's host ms,
     images/s and model-FLOP share (``bench.py:278-280``'s formula)."""
     import dataclasses
@@ -5351,7 +5351,7 @@ def vit_h14_train(torch, seed):
     check(n["flash_attention_mma"] == L * VIT_H14_STEPS
           and n["flash_attention_mma_bwd"] == L * VIT_H14_STEPS
           and not others,
-          f"(f) launches: mma.sync flash fwd {n['flash_attention_mma']}, bwd "
+          f"(f) launches: head-dim flash fwd {n['flash_attention_mma']}, bwd "
           f"{n['flash_attention_mma_bwd']} ({L} x {VIT_H14_STEPS} each), "
           f"other kernels of the port {others or 0}")
     step_ms = statistics.mean(times[2:])
@@ -5406,7 +5406,8 @@ def phase_vit(torch, seed):
 UNET_PRESET, UNET_BATCH, UNET_CTX, UNET_STEPS = "sdxl-small", 32, 77, 8
 UNET_PARAMS = 275_657_476        # UNET_PRESETS["sdxl-small"] in JAX
 # per step: 22 transformer blocks x 2 attentions, 20 at level 1 (d 32, the
-# mma.sync kernels) and 24 at level 2 and the middle (d 64, wgmma)
+# head-dim kernels) and 24 at level 2 and the middle (d 64, the 64 / 128
+# kernels)
 UNET_MMA_PER_STEP, UNET_WGMMA_PER_STEP = 20, 24
 UNET_GROUPS = {"conv": ("conv", "fprop", "dgrad", "wgrad"),
                "flash": ("flash_",), "matmul": TRAIN_GROUPS["matmul"]}
@@ -5457,7 +5458,7 @@ def phase_unet(torch, seed):
     width and depth (275,657,476 parameters), bf16, through ``TrainStep(
     model, loss_fn, AdamW(lr=1e-4))`` with the fixed-noise MSE loss, batch
     32. Checks the parameter count, finite losses, and per step 44 flash
-    forward and 44 backward launches: 20 on the mma.sync kernels (level 1,
+    forward and 44 backward launches: 20 on the head-dim kernels (level 1,
     d 32) and 24 on the wgmma ones (d 64), no plain-route flash call and no
     other kernel of the port. Prints the step's host ms (mean of steps 3
     on), images/s, the losses, peak memory, the model-FLOP share of 989
@@ -5525,7 +5526,7 @@ def phase_unet(torch, seed):
           and n["flash_attention_bwd"] == UNET_WGMMA_PER_STEP * UNET_STEPS
           and not others,
           f"launches over {UNET_STEPS} steps: flash fwd "
-          f"{n['flash_attention_mma']} mma.sync (d 32) + "
+          f"{n['flash_attention_mma']} head-dim (d 32) + "
           f"{n['flash_attention']} wgmma (d 64), bwd "
           f"{n['flash_attention_mma_bwd']} + {n['flash_attention_bwd']} "
           f"({UNET_MMA_PER_STEP} + {UNET_WGMMA_PER_STEP} = 44 a step each), "
@@ -5635,7 +5636,7 @@ def main():
     # the flash backward's on the TrainStep run, fused AdamW's on the eager
     # run, the grouped GEMMs' on the MoE TrainStep run, the scan's on the
     # Mamba run, the WKV's on the RWKV run, the SSD's on the Mamba-2 run and
-    # the mma.sync flash kernels' on the UNet TrainStep run
+    # the head-dim flash kernels' on the UNet TrainStep run
     meta = {
         "flash_attention": ("paddle_tpu_torch/csrc/flash_attention.cu",
                             "paddle_tpu/ops/pallas/flash_attention.py:266"),

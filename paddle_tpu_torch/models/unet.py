@@ -9,7 +9,7 @@ cross-attention to the text context, then a GELU MLP), strided-conv
 downsampling and nearest-neighbour upsampling with skip connections. Every
 attention goes through the port's ``flash_attention(causal=False)``: the
 hand-written kernels on the card (sdxl-small's level 1 at head dim 32 on the
-mma.sync kernels, level 2 and the middle at 64 on the wgmma ones; the
+head-dim kernels, level 2 and the middle at 64 on the 64 / 128 ones; the
 cross-attention at 77 text tokens), the plain version on the CPU. The
 convolutions are ``F.conv2d`` (``nn/conv.py``), the linears ``nn.Linear``:
 as the JAX model leaves both to XLA, they are no kernel of the port.

@@ -6,11 +6,12 @@ backward of ``csrc/flash_attention_mma.cu``.
 
 They replace the TPU kernels ``paddle_tpu/ops/pallas/flash_attention.py``
 ``_fwd`` (``pl.pallas_call`` at :266) and ``_bwd`` (at :453). All are
-bounded on the H100 by tensor-core operations at long sequences; at 64 and
-128 they are warp-specialised wgmma kernels fed by TMA, at the other head
-dims mma.sync kernels fed by cp.async (a simple first design). Either way
-q, k, v, out and dout must start on a 16-byte boundary (see each source's
-header for the design). All take an optional
+warp-specialised wgmma kernels fed by TMA, bounded on the H100 by
+tensor-core operations at long sequences and by bytes at the vision paths'
+short ones; the head-dim kernels lay d out in zero-filled panels and run
+persistent CTAs built for short sequences. Either way q, k, v, out and
+dout must start on a 16-byte boundary (see each source's header for the
+design). All take an optional
 mask, additive f32 or bool, read by strides (a broadcast dimension has
 stride 0 and is never materialised), and optional int32 segment ids. The
 plain PyTorch versions and the dispatch between the two live in
@@ -33,7 +34,7 @@ __all__ = ["flash_attention_cuda", "flash_attention_bwd_cuda", "launches",
 
 #: head dims of the wgmma kernels
 WGMMA_HEAD_DIMS = (64, 128)
-#: head dims of the mma.sync kernels (``csrc/flash_attention_mma.cu``)
+#: head dims of the head-dim kernels (``csrc/flash_attention_mma.cu``)
 MMA_HEAD_DIMS = (16, 32, 48, 80, 96, 112)
 #: every head dim the wrappers take
 HEAD_DIMS = tuple(sorted(WGMMA_HEAD_DIMS + MMA_HEAD_DIMS))
@@ -44,7 +45,7 @@ launches = 0
 #: backward wrapper calls at a wgmma head dim since the count was last set
 #: to 0; each runs three kernels (delta, dK/dV, dQ)
 bwd_launches = 0
-#: the same two counts at the mma.sync head dims
+#: the same two counts at the head-dim kernels' head dims
 mma_launches = 0
 mma_bwd_launches = 0
 

@@ -1,9 +1,9 @@
-"""Run the chunk-parallel SSM kernels' and the paged decode kernel's CUDA
-sources on the CPU and hold them to their plain versions, before their
-first call on a card:
+"""Run the chunk-parallel SSM kernels', the paged decode kernel's and the
+flash kernels' CUDA sources on the CPU and hold them to their plain
+versions, before their first call on a card:
 
     python3 -m paddle_tpu_torch.tools.cpu_rehearsal [wkv] [ssd] [selective_scan] [paged_attention]
-        [flash_attention_mma]
+        [flash_attention_mma] [flash_attention]
 
 Each named source of ``paddle_tpu_torch/csrc/`` is turned into C++ by
 :func:`prep` (the dynamic shared-memory declaration dropped for the
@@ -12,7 +12,11 @@ each ``kern<<<grid, block, smem, stream>>>(args)`` a synchronous
 ``stub_launch``) and built with ``g++ -std=c++20`` into
 ``build/cpu_rehearsal/`` against the stand-in headers of ``tools/cpu_stub/``
 (one std::thread per CUDA thread, a block at a time; ldmatrix, mma.sync and
-the shuffles as warp collectives). The libraries take the place of the nvcc
+the shuffles as warp collectives; wgmma, read through its descriptors, as a
+warpgroup collective; TMA loads and stores with zero fill and the 128-,
+64- and 32-byte swizzles, mbarriers and named barriers as the card runs
+them). ``flash_attention`` builds the d = 64 / 128 sources, which the card
+has run, as a check of that model. The libraries take the place of the nvcc
 builds in ``ops/cuda/_build`` with ``device_of`` answering "cuda", so the
 wrappers launch the kernels on CPU tensors. Every case prints each output's
 max |kernel - plain| / max |plain| against 1e-4 (f32 I/O) or 1e-2 (bf16),
@@ -102,7 +106,7 @@ def build(names):
             tmp.write_text(h.read_text())
             os.replace(tmp, OUT_DIR / h.name)
     procs = {}
-    for name in names:
+    for name in [s for n in names for s in SOURCES.get(n, (n,))]:
         cpp = OUT_DIR / f"{name}.cpp"
         cpp.write_text(prep((_build.SRC_DIR / f"{name}.cu").read_text()))
         so = OUT_DIR / f"lib{name}.so"
@@ -330,8 +334,8 @@ def paged_case(group, d, quant, lens=(0, 1, 15, 16, 17, 100, 257), kvh=2,
 
 def flash_case(b, sq, sk, hq, hk, d, causal=False, q_offset=None,
                kv_len=None, mask=None, seed=0):
-    """The mma.sync flash forward (out, lse) and backward (dq, dk, dv)
-    against the plain versions, the backward run twice (bitwise equal).
+    """The flash forward (out, lse) and backward (dq, dk, dv) against the
+    plain versions, the backward run twice (bitwise equal).
     ``mask``: None, "additive", "bool" or "segments"."""
     from ..ops.cuda import flash_attention as fa
     from ..ops.fused.flash_attention import (flash_attn_bwd_reference,
@@ -396,6 +400,9 @@ def flash_case(b, sq, sk, hq, hk, d, causal=False, q_offset=None,
     return ok
 
 
+#: the sources a name of ``CASES`` builds, where they are not the name's own
+SOURCES = {"flash_attention": ("flash_attention", "flash_attention_bwd")}
+
 CASES = {
     "wkv": lambda f32, bf16: [
         wkv_case(1, 1, 1, 64, f32), wkv_case(1, 17, 1, 64, bf16, clamp=True),
@@ -428,7 +435,14 @@ CASES = {
         flash_case(1, 40, 70, 1, 1, 112, causal=True),
         flash_case(1, 70, 77, 2, 1, 32, mask="additive"),
         flash_case(1, 66, 66, 2, 2, 16, causal=True, mask="bool"),
-        flash_case(2, 70, 70, 2, 1, 80, mask="segments")],
+        flash_case(2, 70, 70, 2, 1, 80, mask="segments"),
+        flash_case(2, 150, 140, 4, 2, 112, causal=True, kv_len=130)],
+    # the d = 64 / 128 kernels, which the card has run: a check of the
+    # stand-ins' TMA, mbarrier and wgmma model
+    "flash_attention": lambda f32, bf16: [
+        flash_case(1, 70, 77, 2, 1, 64), flash_case(1, 130, 130, 2, 2, 128,
+                                                     causal=True),
+        flash_case(1, 65, 70, 2, 1, 64, mask="segments")],
     "paged_attention": lambda f32, bf16: [
         paged_case(g, d, quant) for quant in (False, True)
         for g, d in ((1, 64), (4, 128), (8, 64), (8, 128))] + [

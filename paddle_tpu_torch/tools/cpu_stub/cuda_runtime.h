@@ -1,9 +1,12 @@
 // A CPU stand-in for the CUDA runtime, for tools/cpu_rehearsal.py: each
 // CUDA thread is a std::thread, blocks run one at a time, __syncthreads and
-// the warp collectives (shuffles here, ldmatrix and mma.sync in
-// flash_common.cuh) meet on std::barrier, and the dynamic shared memory is
-// one global buffer filled with 0xff before each block, so a read of an
-// unset value shows as NaN. Atomics act on the host's memory.
+// the warp and warpgroup collectives (shuffles here, ldmatrix and mma.sync
+// in flash_common.cuh, wgmma in hopper.cuh) meet on std::barrier, named
+// barriers are made at first use, and the dynamic shared memory is one
+// global buffer (1024-byte aligned, as a kernel aligns its swizzled tiles)
+// filled with 0xff before each block, so a read of an unset value shows as
+// NaN. Atomics act on the host's memory. A card of 4 SMs, each taking one
+// CTA above 113 KB of shared memory and two below.
 #pragma once
 #include <algorithm>
 #include <atomic>
@@ -15,6 +18,7 @@
 #include <cstring>
 #include <functional>
 #include <memory>
+#include <mutex>
 #include <thread>
 #include <vector>
 #include <math.h>
@@ -27,6 +31,7 @@
 #define __launch_bounds__(...)
 #define __align__(n) alignas(n)
 #define __shared__ static
+#define __grid_constant__
 
 struct dim3 {
   unsigned x, y, z;
@@ -42,7 +47,7 @@ inline float2 make_float2(float a, float b) { return {a, b}; }
 inline float4 make_float4(float a, float b, float c, float d) { return {a, b, c, d}; }
 
 typedef int cudaError_t;
-enum { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
+enum { cudaSuccess = 0, cudaErrorInvalidValue = 1, cudaErrorInvalidConfiguration = 9 };
 enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
 enum cudaDeviceAttr { cudaDevAttrMultiProcessorCount = 16 };
 typedef void* cudaStream_t;
@@ -52,6 +57,11 @@ template <class K> inline cudaError_t cudaFuncSetAttribute(K, cudaFuncAttribute,
 inline cudaError_t cudaGetDevice(int* d) { *d = 0; return 0; }
 // a card of 4 SMs: grids sized by the SM count stay small
 inline cudaError_t cudaDeviceGetAttribute(int* v, cudaDeviceAttr, int) { *v = 4; return 0; }
+template <class K>
+inline cudaError_t cudaOccupancyMaxActiveBlocksPerMultiprocessor(int* n, K, int, size_t smem) {
+  *n = smem <= 115712 ? 2 : 1;
+  return 0;
+}
 
 inline int min(int a, int b) { return a < b ? a : b; }
 inline int max(int a, int b) { return a > b ? a : b; }
@@ -74,16 +84,24 @@ struct StubWarp {
   uint32_t regs[32][8];
   float f[32];
 };
+struct StubGroup {
+  std::barrier<> bar{128};
+  uint32_t regs[128][4];
+};
 struct StubBlock {
   std::unique_ptr<std::barrier<>> bar;
   std::vector<std::unique_ptr<StubWarp>> warps;
+  std::vector<std::unique_ptr<StubGroup>> groups;
+  std::mutex mu;   // guards `named`
+  std::unique_ptr<std::barrier<>> named[16];
 };
 inline dim3 blockIdx, blockDim, gridDim;
 inline thread_local dim3 threadIdx;
 inline StubBlock* g_block = nullptr;
-alignas(128) inline unsigned char smem_raw[232448];
+alignas(1024) inline unsigned char smem_raw[232448];
 
 inline StubWarp& stub_warp() { return *g_block->warps[threadIdx.x / 32]; }
+inline StubGroup& stub_group() { return *g_block->groups[threadIdx.x / 128]; }
 inline void __syncthreads() { g_block->bar->arrive_and_wait(); }
 inline void __syncwarp(unsigned = 0xffffffffu) { stub_warp().bar.arrive_and_wait(); }
 inline float __shfl_xor_sync(unsigned, float v, int o) {
@@ -141,6 +159,7 @@ inline void stub_launch(dim3 grid, dim3 block, std::function<void()> fn) {
         StubBlock b;
         b.bar = std::make_unique<std::barrier<>>(nt);
         for (int w = 0; w < (nt + 31) / 32; ++w) b.warps.push_back(std::make_unique<StubWarp>());
+        for (int w = 0; w < (nt + 127) / 128; ++w) b.groups.push_back(std::make_unique<StubGroup>());
         g_block = &b;
         std::vector<std::thread> th;
         for (int t = 0; t < nt; ++t)

@@ -8,11 +8,15 @@ one: ``.``; an earlier commit: ``git archive COMMIT | tar -x -C
 build/NAME``). Each ROOT runs in a process of its own, in the order given
 (name a root twice to bracket the others: A B B A), which imports that
 checkout's ``ops.cuda.flash_attention`` (built into the checkout's own
-``build/``) and times, causal, bf16, on inputs made from one seed: the
+``build/``) and times, bf16, on inputs made from one seed: causal, the
 forward with lse and the backward at the training shape (b2 S2048 32/32
 d128), the serving forward without lse (b1 S2048 32/8 d128), and the
-forward with lse and the backward at d64 (b2 S2048 64/64); and, where the
-checkout's wrappers take masks, the same training-shape forward and
+forward with lse and the backward at d64 (b2 S2048 64/64); where the
+checkout's wrappers take head dims off 64 and 128, non-causal, the forward
+with lse and the backward at the UNet's level 1 (b32 S256 12/12 d32, and
+its cross-attention over 77 columns), ViT-H14 (b32 S257 16/16 d80), a d16
+case (b16 S1024 8/8) and a causal d112 case (b4 S1024 16/16); and, where
+the checkout's wrappers take masks, the training-shape forward and
 backward with an additive f32 mask ``[b, 1, S, S]``, a bool mask ``[b, S,
 S]`` and packed segment ids (``chip_smoke.py``'s ``flash_mask_case``).
 Each output is held against the plain version (2e-2 absolute forward,
@@ -35,12 +39,22 @@ import subprocess
 import sys
 import time
 
-# (name, b, S, hq, hk, d, lse, backward)
-SHAPES = (("train fwd+lse", 2, 2048, 32, 32, 128, True, False),
-          ("train bwd", 2, 2048, 32, 32, 128, True, True),
-          ("serving fwd", 1, 2048, 32, 8, 128, False, False),
-          ("d64 fwd+lse", 2, 2048, 64, 64, 64, True, False),
-          ("d64 bwd", 2, 2048, 64, 64, 64, True, True))
+# (name, b, sq, sk, hq, hk, d, causal, lse, backward)
+SHAPES = (("train fwd+lse", 2, 2048, 2048, 32, 32, 128, True, True, False),
+          ("train bwd", 2, 2048, 2048, 32, 32, 128, True, True, True),
+          ("serving fwd", 1, 2048, 2048, 32, 8, 128, True, False, False),
+          ("d64 fwd+lse", 2, 2048, 2048, 64, 64, 64, True, True, False),
+          ("d64 bwd", 2, 2048, 2048, 64, 64, 64, True, True, True))
+# the head-dim kernels' shapes (non-causal but the d112 case)
+HEAD_DIM_SHAPES = tuple(
+    (f"{name} {kind}", b, sq, sk, hq, hk, d, causal, True, kind == "bwd")
+    for name, b, sq, sk, hq, hk, d, causal in (
+        ("UNet l1 d32", 32, 256, 256, 12, 12, 32, False),
+        ("UNet l1 cross d32", 32, 256, 77, 12, 12, 32, False),
+        ("ViT-H14 d80", 32, 257, 257, 16, 16, 80, False),
+        ("d16 b16 S1024", 16, 1024, 1024, 8, 8, 16, False),
+        ("d112 b4 S1024 causal", 4, 1024, 1024, 16, 16, 112, True))
+    for kind in ("fwd+lse", "bwd"))
 MASKS = ("additive", "bool", "segments")
 
 
@@ -87,23 +101,25 @@ def worker(root):
     gen = torch.Generator(device="cuda").manual_seed(0)
     masked = "attn_mask" in inspect.signature(fa.flash_attention_cuda).parameters
     cases = [(name, dims, {}) for name, *dims in SHAPES]
+    if 80 in getattr(fa, "HEAD_DIMS", ()):
+        cases += [(name, dims, {}) for name, *dims in HEAD_DIM_SHAPES]
     if masked:
         cases += [(f"{kind} {name}", dims, _mask(torch, gen, kind, 2, 2048))
                   for kind in MASKS for name, *dims in SHAPES[:2]]
     bad, ms, host = [], {}, None
-    for name, (b, s, hq, hk, d, lse, bwd), kw in cases:
-        q, do = (torch.randn(b, s, hq, d, generator=gen, device="cuda")
+    for name, (b, sq, s, hq, hk, d, causal, lse, bwd), kw in cases:
+        q, do = (torch.randn(b, sq, hq, d, generator=gen, device="cuda")
                  .bfloat16() for _ in range(2))
         k, v = (torch.randn(b, s, hk, d, generator=gen, device="cuda")
                 .bfloat16() for _ in range(2))
-        sc = d ** -0.5
-        out, lse_t = fa.flash_attention_cuda(q, k, v, True, sc, 0, s, True,
-                                             **kw)
+        sc, off = d ** -0.5, s - sq
+        out, lse_t = fa.flash_attention_cuda(q, k, v, causal, sc, off, s,
+                                             True, **kw)
         if bwd:
             fn = lambda: fa.flash_attention_bwd_cuda(  # noqa: E731
-                q, k, v, out, lse_t, do, True, sc, 0, s, **kw)
-            refs = ff.flash_attn_bwd_reference(q, k, v, out, lse_t, do, True,
-                                               sc, s, 0, **kw)
+                q, k, v, out, lse_t, do, causal, sc, off, s, **kw)
+            refs = ff.flash_attn_bwd_reference(q, k, v, out, lse_t, do,
+                                               causal, sc, s, off, **kw)
             for g, r in zip(fn(), refs):
                 err = ((g.float() - r.float()).abs().max()
                        / r.float().abs().max()).item()
@@ -111,8 +127,8 @@ def worker(root):
                     bad.append(f"{name}: {err:.3e} of max |plain|")
         else:
             fn = lambda: fa.flash_attention_cuda(  # noqa: E731
-                q, k, v, True, sc, 0, s, lse, **kw)
-            ref = ff.flash_attn_reference(q, k, v, True, sc, s, 0, **kw)
+                q, k, v, causal, sc, off, s, lse, **kw)
+            ref = ff.flash_attn_reference(q, k, v, causal, sc, s, off, **kw)
             err = (out.float() - ref.float()).abs().max().item()
             if not err <= 2e-2:
                 bad.append(f"{name}: max |kernel - plain| {err:.3e}")
