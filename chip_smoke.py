@@ -298,7 +298,41 @@ Phases, each of which fails the run (non-zero exit, no result line):
    other kernel of the port; the step's host ms, images/s, peak memory,
    the model-FLOP share of 989 TFLOP/s (3 x the forward's operations,
    counted from the layers' shapes) and a profiled step (idle share,
-   device ms by group).
+   device ms by group);
+15. Paddle-style block-attention decode: Llama-3-8B at full width and
+   depth (phase 5g (a)'s weights, batch 4 x prompt 512, 32 new tokens),
+   each layer composed from ``incubate.nn.functional``:
+   ``fused_rms_norm(residual=)``, projections through ``fused_linear``
+   (bf16 ``[in, out]``) and in two more runs ``weight_only_linear`` int8
+   and int4 (JAX's ``quant_weights`` layouts of the fused route's
+   quantized values), ``fused_rotary_position_embedding``,
+   ``block_multihead_attention`` over a ``PagedKVCache`` a layer (one
+   prefill at T = 512, then T = 1 decode steps on the paged kernel) and
+   ``swiglu``; the f32 tail. Checks: the greedy tokens agree with
+   ``generate`` (bf16) and with ``fused_generate(quantize=...)`` over the
+   dense model with the run's dequantized weights (int8, int4) under phase
+   4's rule; launches: paged 32 x 31 a run, weight-only 7 x 32 x 31 a
+   quantized run (every decode product passes ``kernel_takes`` at m = 4;
+   the prefill's m = 2048 takes the dequantize route), no flash;
+   ``masked_multihead_attention`` against one more block decode step
+   (bf16 out within 2e-2); each run's host ms a token and peak memory,
+   and the paged and weight-only kernels timed at these shapes beside
+   their bounds;
+16. hybrid parallel on one card: (a) ``init_parallel_env()`` (NCCL, world
+   size 1, a ``file://`` store), ``fleet.init`` and
+   ``ShardedTrainStep(stage=P_G_OS, clip_norm=1.0)`` on phase 6's
+   Llama-2-7B widths at 4 layers with ``context_parallel=True`` (sep 1:
+   attention is the flash call, a ring of one hop), 10 steps on phase 6's
+   seeded weights and batch: losses within 2e-2 of phase 6's ``TrainStep``
+   at every step, L x steps flash forward and backward launches, the step
+   host ms beside phase 6's; (b) the ring schedule of
+   ``ops/fused/ring_attention`` with 4 ranks in one process at phase 6e's
+   long context (S 16384 in four shards of 4096, 32 heads of 128, bf16,
+   causal): out and lse, and dq, dk, dv, against one flash call over the
+   whole sequence within phase 3's flash tolerances, 10 forward and 10
+   backward launches (the 6 strictly later blocks skipped), and Ulysses
+   at n = 4 (4 + 4 launches) the same way; each timed beside the one
+   call.
 
 The last lines are the kernels' JSON, the card's name and power limit, and
 ``{"ok": true, "device": {...}}``.
@@ -4013,9 +4047,12 @@ def phase_train(torch, seed):
           f"(L x steps = {L * TRAIN_STEPS} each), paged "
           f"{n['paged_attention']}, fused_adamw {n['fused_adamw']} (0 each)")
     step_ms4 = sum(times[2:]) / len(times[2:])
+    # the parameters after TRAIN_STEPS steps, for phase 16 (a)
+    params = {k: p.detach().cpu() for k, p in model.named_parameters()}
     profile_train_step(torch, step, ids, step_ms4)
     peak = torch.cuda.max_memory_allocated() / 2**30
     print(f"  peak device memory {peak:.1f} GiB")
+    n = dict(n, losses=losses, step_ms=step_ms4, params=params)
     del model, step
     free_cuda(torch)
     _, _, _, _, times2 = run_train_steps(torch, train_config(2), 4, seed)
@@ -5546,6 +5583,436 @@ def phase_unet(torch, seed):
     return n
 
 
+# ------------------------------------------------------------- phase 15
+BLOCK_PROJS = (("q", "self_attn.q_proj"), ("k", "self_attn.k_proj"),
+               ("v", "self_attn.v_proj"), ("o", "self_attn.o_proj"),
+               ("gate", "mlp.gate_proj"), ("up", "mlp.up_proj"),
+               ("down", "mlp.down_proj"))
+
+
+def block_weights(torch, model, kind):
+    """Each layer's seven projections for :func:`block_decode`: bf16
+    ``[in, out]`` views, or ``(q, scale)`` in JAX's ``quant_weights``
+    layouts (int8 ``[K, N]``; int4 two rows a byte, 2r and 2r + 1) of the
+    values the fused route quantizes (``weight_quantize`` a column)."""
+    from paddle_tpu_torch.incubate.nn.functional import _pack_nibbles
+    from paddle_tpu_torch.ops.quant_ops import weight_quantize
+
+    out = []
+    with torch.no_grad():
+        for layer in model.model.layers:
+            ws = {}
+            for name, path in BLOCK_PROJS:
+                w = layer.get_submodule(path).weight.detach().t()
+                if kind == "bf16":
+                    ws[name] = w
+                    continue
+                q, sc = weight_quantize(w, f"weight_only_{kind}")
+                q = q.contiguous()
+                ws[name] = (_pack_nibbles(q[0::2], q[1::2])
+                            if kind == "int4" else q, sc)
+            out.append(ws)
+    return out
+
+
+def block_decode(torch, model, weights, kind, ids, n_new):
+    """Greedy tokens ``[B, P + n_new]`` from Llama layers composed of the
+    incubate names over a ``PagedKVCache`` a layer: a prefill at T = P,
+    then ``n_new - 1`` steps at T = 1."""
+    import paddle_tpu_torch.incubate.nn.functional as IF
+    from paddle_tpu_torch.models import lm_head_tail
+    from paddle_tpu_torch.ops.fused.block_attention import (
+        PagedKVCache, block_multihead_attention)
+
+    cfg, m = model.config, model.model
+    B, P = ids.shape
+    eps, hd = cfg.rms_norm_eps, cfg.head_dim
+
+    def lin(x, w):
+        if kind == "bf16":
+            return IF.fused_linear(x, w)
+        return IF.weight_only_linear(x, w[0], weight_scale=w[1],
+                                     weight_dtype=kind)
+
+    caches = [PagedKVCache(B, cfg.num_key_value_heads, hd, P + n_new,
+                           device=ids.device)
+              for _ in range(cfg.num_hidden_layers)]
+    toks, x_ids, pos = [], ids, 0
+    with torch.inference_mode():
+        for _ in range(n_new):
+            T = x_ids.shape[1]
+            hidden, residual = m.embed_tokens(x_ids), None
+            cos = m.rope_cos[pos:pos + T][None, :, None, :]
+            sin = m.rope_sin[pos:pos + T][None, :, None, :]
+            for layer, w, cache in zip(m.layers, weights, caches):
+                if residual is None:
+                    x, residual = IF.fused_rms_norm(
+                        hidden, layer.input_layernorm.weight, epsilon=eps), \
+                        hidden
+                else:
+                    x, residual = IF.fused_rms_norm(
+                        hidden, layer.input_layernorm.weight, epsilon=eps,
+                        residual=residual)
+                q = lin(x, w["q"]).view(B, T, -1, hd)
+                k = lin(x, w["k"]).view(B, T, -1, hd)
+                v = lin(x, w["v"]).view(B, T, -1, hd)
+                q, k = IF.fused_rotary_position_embedding(q, k, sin=sin,
+                                                          cos=cos)
+                a, _ = block_multihead_attention(q, k, v, cache)
+                x, residual = IF.fused_rms_norm(
+                    lin(a.reshape(B, T, -1), w["o"]),
+                    layer.post_attention_layernorm.weight, epsilon=eps,
+                    residual=residual)
+                hidden = lin(IF.swiglu(lin(x, w["gate"]), lin(x, w["up"])),
+                             w["down"])
+            last = (hidden + residual)[:, -1]
+            logits = lm_head_tail(last, m.norm.weight,
+                                  model.lm_head.weight.t(), eps)
+            toks.append(logits.argmax(dim=-1))
+            x_ids, pos = toks[-1][:, None], pos + T
+    return torch.cat([ids, torch.stack(toks, dim=1)], dim=1), caches
+
+
+def block_kernel_times(torch, caches, gen, flush):
+    """The paged kernel at the last decode step's shape of phase 15 and the
+    weight-only kernels at its four product shapes (m = 4), each timed
+    beside its bound."""
+    import paddle_tpu_torch.incubate.nn.functional as IF
+    from paddle_tpu_torch.ops.cuda.int8_matmul import (int4_weight_matmul,
+                                                       int8_weight_matmul)
+    from paddle_tpu_torch.ops.cuda.paged_attention import paged_attention
+
+    c = caches[0]
+    kvh, _, page, d = c.k_pages.shape
+    B, h = c.seq_lens.shape[0], 32
+    lens = c.seq_lens
+    q = torch.randn((B, h, d), generator=gen, device="cuda",
+                    dtype=torch.bfloat16)
+    tokens = int(lens.sum().item())
+    ms = time_ms(torch, lambda: paged_attention(
+        q, c.k_pages, c.v_pages, c.page_table, lens), flush=flush)
+    # q k and p v for every query head over its rows' tokens; each kv
+    # head's K and V rows read once
+    b_ms, by = bound(4 * h * d * tokens,
+                     2 * 2 * kvh * d * tokens + 2 * 2 * B * h * d)
+    rows = [("paged_attention", f"b {B}, {h}/{kvh} heads, d {d}, "
+             f"{tokens // B} tokens a row", ms, b_ms, by)]
+    for K, N in ((4096, 4096), (4096, 1024), (4096, 14336), (14336, 4096)):
+        w = torch.randn((K, N), generator=gen, device="cuda") * 0.02
+        x = torch.randn((B, K), generator=gen, device="cuda",
+                        dtype=torch.bfloat16)
+        for kind, fn in (("int8", int8_weight_matmul),
+                         ("int4", int4_weight_matmul)):
+            qw, sc = IF.quant_weights(w, algo=f"weight_only_{kind}")
+            if kind == "int4":      # as weight_only_linear launches it
+                xk = torch.cat([x[:, 0::2], x[:, 1::2]], dim=1)
+            else:
+                xk = x
+            ms = time_ms(torch, lambda: fn(xk, qw, sc), flush=flush)
+            wbytes = K * N // (2 if kind == "int4" else 1)
+            b_ms, by = bound(2 * B * K * N, wbytes + 4 * N + 2 * B * (K + N))
+            rows.append((f"{kind}_matmul", f"m {B}, K {K}, N {N}", ms, b_ms,
+                         by))
+    card = smi()
+    for name, shape, ms, b_ms, by in rows:
+        print(f"  15 {name} at {shape}: {ms:.4f} ms, bound {b_ms:.4f} ms "
+              f"({by}), {b_ms / ms:.1%} of it; on {card}")
+
+
+def phase_block_attention(torch, seed, noise_bf16):
+    """Phase 15: Llama-3-8B decoded through the Paddle inference surface
+    (bf16, int8, int4), held to generate / fused_generate."""
+    print("== phase 15: Paddle-style block-attention decode, Llama-3-8B")
+    import numpy as np
+
+    from paddle_tpu_torch.core.device import make_generator
+    from paddle_tpu_torch.models import (LLAMA_PRESETS, LlamaForCausalLM,
+                                         fused_generate, generate)
+    from paddle_tpu_torch.models.generation import (fused_weights_cached,
+                                                    release_fused_weights)
+    from paddle_tpu_torch.ops.fused.block_attention import (
+        block_multihead_attention, masked_multihead_attention)
+
+    t_phase = time.perf_counter()
+    free_cuda(torch)
+    cfg = LLAMA_PRESETS["llama3-8b"]
+    L, B, P, N = cfg.num_hidden_layers, DECODE_BATCH, DECODE_PROMPT, \
+        NEW_TOKENS
+    model = LlamaForCausalLM(cfg, device="cuda", seed=seed)
+    model.eval()
+    ids = torch.from_numpy(np.random.RandomState(seed + 9).randint(
+        0, cfg.vocab_size, (B, P))).cuda()
+    prompts = [r.cpu().numpy().astype(np.int32) for r in ids]
+    streams, refs, per_token, peaks = {}, {}, {}, {}
+    from paddle_tpu_torch.ops.cuda.int8_matmul import kernel_takes
+
+    H, I, KV = cfg.hidden_size, cfg.intermediate_size, \
+        cfg.num_key_value_heads * cfg.head_dim
+    shapes = ((H, H), (H, KV), (H, KV), (H, H), (H, I), (H, I), (I, H))
+
+    def wo_calls(int4):
+        """Launches of one quantized run: every product of every layer at
+        each decode step (m = B) and at the prefill (m = B P) where
+        ``kernel_takes`` lets the kernel take it."""
+        return L * sum((N - 1) * kernel_takes(B, K, n, int4)
+                       + kernel_takes(B * P, K, n, int4) for K, n in shapes)
+    expects = {"bf16": {"paged_attention": L * (N - 1), "int8_matmul": 0,
+                        "int4_matmul": 0, "flash_attention": 0},
+               "int8": {"paged_attention": L * (N - 1),
+                        "int8_matmul": wo_calls(False), "int4_matmul": 0,
+                        "flash_attention": 0},
+               "int4": {"paged_attention": L * (N - 1), "int8_matmul": 0,
+                        "int4_matmul": wo_calls(True),
+                        "flash_attention": 0}}
+    print(f"  15 expected weight-only launches a quantized run: int8 "
+          f"{wo_calls(False)}, int4 {wo_calls(True)} (7 products x {L} "
+          f"layers x {N - 1} decode steps at m = {B} = {7 * L * (N - 1)}, "
+          f"less what kernel_takes routes away, plus the prefill's at m = "
+          f"{B * P} where it takes them)")
+    caches = None
+    for kind, expect in expects.items():
+        weights = block_weights(torch, model, kind)
+        out, counts, per_token[kind], peaks[kind] = run_decoder(
+            torch, f"15 block decode {kind}",
+            lambda: block_decode(torch, model, weights, kind, ids, N), N,
+            expect)
+        out, caches = out
+        check(tuple(out.shape) == (B, P + N)
+              and bool(torch.equal(out[:, :P], ids)),
+              f"15 {kind}: [{B}, {P + N}] ids, the prompt kept")
+        streams[kind] = out[:, P:].tolist()
+        del weights
+        if kind == "bf16":
+            with torch.inference_mode():
+                refs[kind] = generate(model, ids, max_new_tokens=N)[
+                    :, P:].tolist()
+            # one more decode step of layer 0: the block route against
+            # masked_multihead_attention over the dense cache
+            c0 = caches[0]
+            gen = make_generator(seed + 15, "cuda")
+            q, k, v = (torch.randn((B, 1, n, cfg.head_dim), generator=gen,
+                                   device="cuda", dtype=torch.bfloat16)
+                       for n in (32, 8, 8))
+            with torch.inference_mode():
+                got, _ = block_multihead_attention(q, k, v, c0)
+                S = c0.pages_per_seq * c0.page_size
+                table = c0.page_table.long()
+                dense = lambda pages: pages[:, table].transpose(0, 1) \
+                    .reshape(B, 8, S, cfg.head_dim) \
+                    .repeat_interleave(4, dim=1)  # noqa: E731
+                want = masked_multihead_attention(
+                    q[:, 0], dense(c0.k_pages), dense(c0.v_pages),
+                    c0.seq_lens)
+            err = (got[:, 0].float() - want.float()).abs().max().item()
+            check(err <= OUT_ATOL,
+                  f"15 masked_multihead_attention vs block_multihead_"
+                  f"attention, one decode step at {P + N} tokens: max "
+                  f"|diff| {err:.2e} <= {OUT_ATOL}")
+            block_kernel_times(torch, caches, gen, None)
+        else:
+            refs[kind] = fused_generate(model, ids, max_new_tokens=N,
+                                        quantize=kind)[:, P:].tolist()
+        del caches
+        free_cuda(torch)
+    stream_agreement(torch, model, [(p, streams["bf16"][i], refs["bf16"][i])
+                                    for i, p in enumerate(prompts)],
+                     noise_bf16, "15 block decode bf16 vs generate")
+    fused = {k: fused_weights_cached(model, k) for k in ("int8", "int4")}
+    for kind in ("int8", "int4"):
+        dequantize_into(torch, model, fused[kind], kind == "int4")
+        stream_agreement(torch, model, [
+            (p, streams[kind][i], refs[kind][i])
+            for i, p in enumerate(prompts)], noise_bf16,
+            f"15 block decode {kind} vs fused_generate {kind} (dense "
+            f"reference: the dequantized weights)")
+    release_fused_weights(model)
+    del model, fused
+    free_cuda(torch)
+    print("  15 per token (host ms): " + ", ".join(
+        f"{k} {v:.2f}" for k, v in per_token.items()) + "; peak GiB: "
+        + ", ".join(f"{k} {v:.2f}" for k, v in peaks.items())
+        + f"; on {smi()}")
+    print(f"  [15: {time.perf_counter() - t_phase:.0f} s]")
+
+
+# ------------------------------------------------------------- phase 16
+# 16 (a) against phase 6 (the same kernels, the update summed in another
+# order): each loss within 1e-3 relative (+ 1e-6), each gathered bf16
+# parameter within one bf16 step (2^-7 relative, + 1e-6) of phase 6's
+HYBRID_LOSS_RTOL, HYBRID_PARAM_RTOL, HYBRID_ATOL = 1e-3, 2.0 ** -7, 1e-6
+RING_N = 4                       # 16 (b): ranks of the in-process ring
+
+
+def phase_hybrid(torch, seed, train):
+    """Phase 16: (a) the hybrid-parallel step over NCCL at world size 1,
+    (b) the ring and Ulysses schedules with 4 ranks in one process."""
+    print("== phase 16: hybrid parallel on one card")
+    import torch.distributed as dist
+
+    from paddle_tpu_torch import parallel as Pl
+    from paddle_tpu_torch.models import LlamaForCausalLM
+    from paddle_tpu_torch.optimizer import AdamW
+
+    t_phase = time.perf_counter()
+    train_ms = train["step_ms"]
+    free_cuda(torch)
+    Pl.init_parallel_env()
+    check(dist.get_backend() == "nccl" and Pl.get_world_size() == 1,
+          f"16 (a): process group {dist.get_backend()}, world size "
+          f"{Pl.get_world_size()}")
+    strategy = Pl.DistributedStrategy()
+    strategy.hybrid_configs = {"dp_degree": 1, "sep_degree": 1,
+                               "sharding_degree": 1, "mp_degree": 1}
+    strategy.sharding = True
+    strategy.sharding_configs = {"stage": 3}
+    fl = Pl.fleet.init(is_collective=True, strategy=strategy)
+    L = 4
+    cfg = train_config(L, context_parallel=True)
+    model = LlamaForCausalLM(cfg, seed=seed)
+    step = Pl.ShardedTrainStep(model, None, AdamW(
+        learning_rate=3e-4, weight_decay=0.1, moment_dtype="bfloat16",
+        parameters=model.parameters()), fl.mesh,
+        stage=Pl.ShardingStage.P_G_OS, clip_norm=1.0)
+    ids = train_tokens(torch, seed)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    losses, times = [], []
+    for _ in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        losses.append(step(ids, ids).item())
+        times.append((time.perf_counter() - t0) * 1e3)
+    n = read_counts()
+    check_losses(losses, f"16 (a) ShardedTrainStep x {TRAIN_STEPS}")
+    ref = train["losses"]
+    rel = max(abs(a - b) / (abs(b) + HYBRID_ATOL / HYBRID_LOSS_RTOL)
+              for a, b in zip(losses, ref))
+    check(len(ref) == len(losses) and rel <= HYBRID_LOSS_RTOL,
+          f"16 (a): losses {[f'{x:.6g}' for x in losses]} against phase "
+          f"6's TrainStep {[f'{x:.6g}' for x in ref]}: max |diff| / (|ref| "
+          f"+ {HYBRID_ATOL / HYBRID_LOSS_RTOL:g}) {rel:.2e} <= "
+          f"{HYBRID_LOSS_RTOL}")
+    check_flash_counts(n, L, TRAIN_STEPS, "16 (a) ShardedTrainStep")
+    step_ms = sum(times[2:]) / len(times[2:])
+    print(f"  16 (a) ShardedTrainStep (fleet, stage 3, world size 1, "
+          f"context_parallel): step host ms {step_ms:.1f} (mean of steps "
+          f"3-{TRAIN_STEPS}) against phase 6's TrainStep {train_ms:.1f}; "
+          f"peak {torch.cuda.max_memory_allocated() / 2**30:.1f} GiB on "
+          f"{smi()}")
+    step.gather_params_to_model()
+    worst, differ, total = 0.0, 0, 0
+    with torch.no_grad():
+        for k, p in model.named_parameters():
+            a, b = p.float(), train["params"][k].to(p.device).float()
+            d = (a - b).abs()
+            worst = max(worst, (d / (b.abs() + HYBRID_ATOL
+                                     / HYBRID_PARAM_RTOL)).max().item())
+            differ += int((d > 0).sum())
+            total += d.numel()
+    check(worst <= HYBRID_PARAM_RTOL,
+          f"16 (a): the {total} gathered parameters against phase 6's after "
+          f"{TRAIN_STEPS} steps: {differ} differ, max |diff| / (|ref| + "
+          f"{HYBRID_ATOL / HYBRID_PARAM_RTOL:g}) {worst:.2e} <= "
+          f"{HYBRID_PARAM_RTOL:.2e}")
+    del model, step
+    dist.destroy_process_group()
+    free_cuda(torch)
+    phase_ring(torch, seed)
+    print(f"  [16: {time.perf_counter() - t_phase:.0f} s]")
+
+
+def phase_ring(torch, seed):
+    """Phase 16 (b): the ring schedule and Ulysses with RING_N ranks in
+    one process at the long-context shape, against one flash call."""
+    from paddle_tpu_torch.core.device import make_generator
+    from paddle_tpu_torch.ops.fused.flash_attention import (_backward,
+                                                            _forward)
+    from paddle_tpu_torch.ops.fused.ring_attention import (ring_flash_bwd,
+                                                           ring_flash_fwd,
+                                                           rotate)
+    from paddle_tpu_torch.parallel.sequence_parallel import (
+        local_all_to_all, ulysses_flash)
+
+    n, S, h, d = RING_N, LONG_SEQ, 32, 128
+    gen = make_generator(seed + 16, "cuda")
+    q, k, v, dout = (torch.randn((1, S, h, d), generator=gen, device="cuda",
+                                 dtype=torch.bfloat16) for _ in range(4))
+    sc = 1.0 / math.sqrt(d)
+    ref_out, ref_lse = _forward(q, k, v, True, sc, S, 0, True, None, None,
+                                None)
+    ref_grads = _backward(q, k, v, ref_out, ref_lse, dout, True, sc, S, 0,
+                          None, None, None)
+    split = lambda t: list(t.chunk(n, dim=1))  # noqa: E731
+    qs, ks, vs, ds = split(q), split(k), split(v), split(dout)
+    ranks = list(range(n))
+    reset_counts()
+    outs, lses = ring_flash_fwd(qs, ks, vs, ranks, n, rotate, True)
+    fwd = read_counts()
+    grads = ring_flash_bwd(qs, ks, vs, outs, lses, ds, ranks, n, rotate, True)
+    bwd = read_counts()
+    hops = n * (n + 1) // 2
+    check(fwd["flash_attention"] == hops and fwd["flash_attention_bwd"] == 0
+          and bwd["flash_attention_bwd"] == hops
+          and bwd["flash_attention"] == hops and bwd["flash_dense"] == 0,
+          f"16 (b) ring of {n}: flash forward launches {fwd['flash_attention']}"
+          f", backward {bwd['flash_attention_bwd']} (n (n + 1) / 2 = {hops} "
+          f"each; the {n * (n - 1) // 2} strictly later blocks skipped)")
+    out = torch.cat(outs, 1)
+    lse = torch.cat(lses, 2)
+    err = (out.float() - ref_out.float()).abs().max().item()
+    lerr = ((lse - ref_lse).abs() / ref_lse.abs().clamp_min(1)).max().item()
+    check(err <= OUT_ATOL and lerr <= STATS_RTOL,
+          f"16 (b) ring out vs one flash call over S {S}: max |diff| "
+          f"{err:.2e} <= {OUT_ATOL}; lse {lerr:.2e} <= {STATS_RTOL}")
+    for name, g, r in zip(("dq", "dk", "dv"), grads, ref_grads):
+        g = torch.cat(g, 1)
+        rel = ((g.float() - r.float()).abs().max()
+               / r.float().abs().max()).item()
+        check(rel <= BWD_RTOL, f"16 (b) ring {name}: max |diff| / max |ref| "
+              f"{rel:.2e} <= {BWD_RTOL}")
+    ms = {"one flash call fwd": time_ms(torch, lambda: _forward(
+        q, k, v, True, sc, S, 0, True, None, None, None), reps=3),
+        "ring fwd": time_ms(torch, lambda: ring_flash_fwd(
+            qs, ks, vs, ranks, n, rotate, True), reps=3),
+        "one flash call bwd": time_ms(torch, lambda: _backward(
+            q, k, v, ref_out, ref_lse, dout, True, sc, S, 0, None, None,
+            None), reps=3),
+        "ring bwd": time_ms(torch, lambda: ring_flash_bwd(
+            qs, ks, vs, outs, lses, ds, ranks, n, rotate, True), reps=3)}
+    # Ulysses: the sequence shards to head shards and back, autograd on
+    ts = [t.detach().requires_grad_() for t in (q, k, v)]
+    reset_counts()
+    uo = torch.cat(ulysses_flash(*[split(t) for t in ts], n,
+                                 local_all_to_all), 1)
+    uf = read_counts()
+    uo.backward(dout)
+    ub = read_counts()
+    check(uf["flash_attention"] == n and ub["flash_attention_bwd"] == n
+          and ub["flash_dense"] == 0,
+          f"16 (b) Ulysses of {n}: flash forward launches "
+          f"{uf['flash_attention']}, backward {ub['flash_attention_bwd']} "
+          f"({n} each)")
+    err = (uo.detach().float() - ref_out.float()).abs().max().item()
+    check(err <= OUT_ATOL, f"16 (b) Ulysses out: max |diff| {err:.2e} <= "
+          f"{OUT_ATOL}")
+    for name, t, r in zip(("dq", "dk", "dv"), ts, ref_grads):
+        rel = ((t.grad.float() - r.float()).abs().max()
+               / r.float().abs().max()).item()
+        check(rel <= BWD_RTOL, f"16 (b) Ulysses {name}: max |diff| / max "
+              f"|ref| {rel:.2e} <= {BWD_RTOL}")
+
+    def uly():
+        with torch.no_grad():
+            ulysses_flash(*[split(t) for t in (q, k, v)], n,
+                          local_all_to_all)
+    ms["Ulysses fwd"] = time_ms(torch, uly, reps=3)
+    print(f"  16 (b) device ms at S {S}, {h} heads of {d}, causal: "
+          + ", ".join(f"{k} {v:.2f}" for k, v in ms.items())
+          + f"; on {smi()}")
+    del q, k, v, dout, ts, outs, grads, ref_grads
+    free_cuda(torch)
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -5593,8 +6060,8 @@ def main():
         lap()
         phase_decoding(torch, args.seed, noise)
         lap()
-        launches["flash_attention_bwd"] = \
-            phase_train(torch, args.seed)["flash_attention_bwd"]
+        train = phase_train(torch, args.seed)
+        launches["flash_attention_bwd"] = train["flash_attention_bwd"]
         lap()
         phase_train_32(torch, args.seed)
         lap()
@@ -5628,6 +6095,10 @@ def main():
         lap()
         launches.update({k: unet[k] for k in ("flash_attention_mma",
                                               "flash_attention_mma_bwd")})
+        phase_block_attention(torch, args.seed, noise)
+        lap()
+        phase_hybrid(torch, args.seed, train)
+        lap()
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

@@ -19,6 +19,7 @@ does for ``generate``.
 from __future__ import annotations
 
 import math
+import warnings
 from dataclasses import dataclass
 from typing import Optional
 
@@ -62,9 +63,9 @@ class LlamaConfig:
     # "full": keep only each layer's input; "save_dots": keep the matrix
     # products' and flash's outputs, recompute the elementwise ops
     recompute_policy: str = "full"
-    # the JAX model's ring attention over a mesh's 'sep' axis; the port has
-    # no mesh yet (ROADMAP A8), so it runs flash attention, as the JAX
-    # model does without a 'sep' axis
+    # training attention through parallel.sep_attention: ring attention
+    # over the mesh's 'sep' axis inside a sequence-sharded step (flash
+    # attention on whole sequences, as in JAX)
     context_parallel: bool = False
     # with labels, forward returns (loss, None) from the chunked fused
     # linear + cross-entropy instead of (loss, logits)
@@ -152,6 +153,7 @@ class LlamaAttention(nn.Module):
         self.num_heads = cfg.num_attention_heads
         self.num_kv_heads = cfg.num_key_value_heads
         self.head_dim = hd
+        self.context_parallel = getattr(cfg, "context_parallel", False)
         self.q_proj = nn.Linear(h, self.num_heads * hd, bias=False, **dd)
         self.k_proj = nn.Linear(h, self.num_kv_heads * hd, bias=False, **dd)
         self.v_proj = nn.Linear(h, self.num_kv_heads * hd, bias=False, **dd)
@@ -164,9 +166,11 @@ class LlamaAttention(nn.Module):
         ``kv_len = cache_index + s`` (bottom-right causal: row r sees
         columns ``<= cache_index + r``); returns ``(out, kv_cache)``."""
         b, s = x.shape[0], x.shape[1]
-        q = self.q_proj(x).view(b, s, self.num_heads, self.head_dim)
-        k = self.k_proj(x).view(b, s, self.num_kv_heads, self.head_dim)
-        v = self.v_proj(x).view(b, s, self.num_kv_heads, self.head_dim)
+        # heads from the projections' widths: a tensor-parallel shard holds
+        # its share of them
+        q = self.q_proj(x).view(b, s, -1, self.head_dim)
+        k = self.k_proj(x).view(b, s, -1, self.head_dim)
+        v = self.v_proj(x).view(b, s, -1, self.head_dim)
         q = apply_rotary_position_embedding(q, cos, sin)
         k = apply_rotary_position_embedding(k, cos, sin)
         if kv_cache is not None:
@@ -174,6 +178,19 @@ class LlamaAttention(nn.Module):
             out = flash_attention(q, k, v, causal=True, attn_mask=attn_mask,
                                   kv_len=int(cache_index) + s)
             return self.o_proj(out.reshape(b, s, -1)), kv_cache
+        if self.context_parallel:
+            from ..parallel import sequence_parallel as sp
+
+            if attn_mask is None and segment_ids is None:
+                out = sp.sep_attention(q, k, v, causal=True)
+                return self.o_proj(out.reshape(b, s, -1))
+            if sp.is_sequence_sharded():
+                raise ValueError("context_parallel: ring attention is "
+                                 "causal-only; attn_mask / segment_ids "
+                                 "cannot span the sep shards")
+            warnings.warn("context_parallel=True falls back to dense flash "
+                          "attention when attn_mask/segment_ids are passed "
+                          "(ring attention is causal-only)", stacklevel=2)
         out = flash_attention(q, k, v, causal=True, attn_mask=attn_mask,
                               q_segment_ids=segment_ids,
                               kv_segment_ids=segment_ids)
@@ -353,8 +370,16 @@ class LlamaForCausalLM(nn.Module, GenerationMixin):
                                   self.head_weight.t(),
                                   self.config.rms_norm_eps)
             return logits.view(b, s, -1)
-        return causal_lm_loss(self.model.norm(h), self.head_weight, labels,
-                              self.config.fused_loss)
+        return self.lm_loss(h, labels)
+
+    def lm_loss(self, h: torch.Tensor, labels: torch.Tensor,
+                head: Optional[torch.Tensor] = None):
+        """The labelled forward's tail on the decoder's output ``h``: the
+        final norm, the LM head (``head``, default :attr:`head_weight`) and
+        :func:`causal_lm_loss`."""
+        return causal_lm_loss(self.model.norm(h),
+                              self.head_weight if head is None else head,
+                              labels, self.config.fused_loss)
 
 
 class KVCache:

@@ -6,9 +6,12 @@ update. Each clipped gradient is a new tensor in the gradient's dtype, the
 arithmetic in f32 as the JAX package does it. A parameter whose
 ``need_clip`` attribute is False keeps its gradient.
 
-The JAX ``ClipGradByGlobalNorm`` reduces its squared norm across the
-model-parallel axes when a distributed environment is active; the port has
-no mesh yet, so its norm is the local one (ROADMAP A8).
+``ClipGradByGlobalNorm`` spans every shard when a mesh is set
+(``parallel.HybridMesh``): a gradient whose parameter carries
+``_dist_axes`` (the mesh axes it is sharded over, set by
+``parallel.ShardedTrainStep``) adds its sum of squares over those axes'
+group, a replicated one counts once (the JAX package's hook,
+``paddle_tpu/parallel/env.py:73``, where GSPMD makes the sum global).
 """
 
 from __future__ import annotations
@@ -81,18 +84,29 @@ class ClipGradByGlobalNorm(ClipGradBase):
         self.group_name = group_name
         self.auto_skip_clip = auto_skip_clip
 
-    def _global_norm_sq(self, grads):
-        # the JAX hook reduces this across model-parallel axes (ROADMAP A8)
-        return torch.sum(torch.stack(
-            [torch.sum(torch.square(g.float())) for g in grads]))
+    def _global_norm_sq(self, params_grads):
+        """The f32 sum of squares of every gradient, each sharded one
+        summed over the axes of its parameter's ``_dist_axes``."""
+        sums = {}
+        for p, g in params_grads:
+            axes = tuple(getattr(p, "_dist_axes", ()))
+            sums.setdefault(axes, []).append(torch.sum(torch.square(
+                g.float())))
+        sums = {a: torch.sum(torch.stack(v)) for a, v in sums.items()}
+        if len(sums) == 1 and () in sums:
+            return sums[()]
+        from ..parallel.env import reduce_global_norm_sq
+
+        return reduce_global_norm_sq(sums)
 
     def _clip(self, params_grads):
-        clippable = [g for p, g in params_grads if not _skips(p, g)]
+        clippable = [(p, g) for p, g in params_grads if not _skips(p, g)]
         if not clippable:
             return params_grads
         gnorm = torch.sqrt(self._global_norm_sq(clippable))
         scale = self.clip_norm / torch.clamp_min(gnorm, self.clip_norm)
-        return [(p, g) if _skips(p, g) else (p, (g.float() * scale).to(g.dtype))
+        return [(p, g) if _skips(p, g)
+                else (p, (g.float() * scale).to(g.dtype))
                 for p, g in params_grads]
 
 

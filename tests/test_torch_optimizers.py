@@ -116,12 +116,16 @@ def make(case, dtype="float32", **over):
 
 
 def set_grads(xy, jp, tp):
-    """Both packages' gradients, computed from the port's parameters."""
+    """Both packages' gradients, computed from the port's parameters. The
+    port's are copies: ``jnp.asarray`` of an f32 array may share its memory
+    (the CPU client takes a suitably aligned numpy buffer without a copy),
+    so a port gradient made by ``torch.from_numpy`` of the same array and
+    scaled in place would scale JAX's too."""
     g = grads_of(*xy, *[to_np(p) for p in tp])
     for p, n in zip(jp, SHAPES):
         p.grad = JTensor(jnp.asarray(g[n]).astype(p._data.dtype))
     for p, n in zip(tp, SHAPES):
-        p.grad = torch.from_numpy(g[n]).to(p.dtype)
+        p.grad = torch.from_numpy(g[n].copy()).to(p.dtype)
 
 
 def run(xy, jp, tp, jo, to, steps=STEPS, skip_at=()):
