@@ -73,7 +73,12 @@ Phases, each of which fails the run (non-zero exit, no result line):
    forward (y and the chunk states) and backward (du, ddelta, dA, dB, dC)
    at b16 l1024 d1536 n16 and at the chunk-parallel backward's edges
    (lengths 1, 63, 64, 65, 150 and 1001, d = 100 and 200, n = 5, a strong
-   decay, each in f32 and bf16), the WKV
+   decay, each in f32 and bf16), the log-depth scan's forward (y, the
+   state entering each span) and backward kernels at the same shape
+   (span 64) and at its spans' edges (spans 8, 16, 32 and 64; lengths 1,
+   65, 100, 150 and 1001; d = 72, 100 and 200; a strong decay; B . C
+   cancelling at span 32), each in f32 and bf16, timed beside the
+   sequential kernels, the WKV
    forward (y) and backward (dr, dk, dv, dlogw, du) at b16 l1024 h12 d64
    with the model's decay ramp and at the chunk-parallel kernels' edges
    (lengths 1, 15, 16, 17, 63, 64, 65, 150 and 1001, d = 64 and 128, 1, 3
@@ -228,6 +233,11 @@ Phases, each of which fails the run (non-zero exit, no result line):
    scan forward and 24 scan backward launches and no other kernel of the
    port; prints the step time, tokens/s, the model-FLOP share (``6 N``),
    peak memory and a profiled step;
+9b. Mamba-130m on the log-depth scan: phase 9's model, seed and batch
+   with ``FLAGS_mamba_logdepth_scan`` set, 10 ``TrainStep`` steps; checks
+   every loss within 1e-3 relative of phase 9's and per step 24 log-depth
+   forward and 24 log-depth backward launches, no sequential scan launch
+   and no other kernel; prints the step time beside phase 9's;
 10. RWKV training: ``bench.py``'s RWKV-169m (vocab 32000, hidden 768, 12
    layers, head_dim 64, intermediate 2688, bf16) at full width and depth,
    as phase 9, with 12 WKV forward and 12 WKV backward launches per step;
@@ -237,11 +247,12 @@ Phases, each of which fails the run (non-zero exit, no result line):
    9, with 24 SSD forward and 24 SSD backward launches per step; its
    profiled step is grouped into SSD forward, SSD backward, conv, cuBLAS,
    copies, the AdamW span and the rest;
-12. the Paddle training loop on the Llama-2-7B widths at 4 layers (phase
-   6's config), batch 2 x 2048 from a ``DataLoader`` over 8 seeded numpy
-   rows (shuffled, two forked process workers, ``places="cuda"``):
+12. the Paddle training loop on the Llama-2-7B widths at 2 layers (phase
+   6's config at half its depth), batch 2 x 2048 from a ``DataLoader``
+   over 8 seeded numpy rows (shuffled, two forked process workers,
+   ``places="cuda"``):
    (a) an f32 model under ``auto_cast(level="O1")`` with AdamW, 10 steps:
-   falling losses, 4 x 10 flash forward and backward launches (the
+   falling losses, 2 x 10 flash forward and backward launches (the
    white-listed cast fed the bf16 kernels); (b) ``amp.decorate(level=
    "O2")`` with ``AdamW(multi_precision=True, grad_clip=
    ClipGradByGlobalNorm(1.0))`` over ``LinearWarmup(CosineAnnealingDecay(
@@ -332,7 +343,25 @@ Phases, each of which fails the run (non-zero exit, no result line):
    whole sequence within phase 3's flash tolerances, 10 forward and 10
    backward launches (the 6 strictly later blocks skipped), and Ulysses
    at n = 4 (4 + 4 launches) the same way; each timed beside the one
-   call.
+   call;
+17. pipeline and offload on one card: (a) the 7B widths at 8 layers in
+   bf16, batch 8 x 2048, through ``PipelineTrainStep`` with 4 stages in
+   one process and 8 micro-batches, ``1f1b``, ``vpp`` (2 groups of layers
+   a stage) and ``zb``, 6 steps each on a fresh seeded batch a step,
+   against ``TrainStep`` on the same model and batches (AdamW lr 3e-4,
+   weight decay 0.1, bf16 moments, no
+   clip): every loss within 1e-3 relative; each parameter tensor with at
+   most half of its elements beyond one bf16 step (2^-7 relative + 1e-6)
+   of TrainStep's (the micro-batch gradient sums round otherwise) and
+   within 0.25 of TrainStep's own update of it (|p - p_ref| <= 0.25 |p_ref
+   - p0|: a tensor left unmoved fails); every parameter within one bf16
+   step of the same micro-batches run as one stage; the flash launches (8
+   x 8 forward and backward a step, ``zb``'s B and W one backward), each
+   run's step ms and peak memory; (b) phase 6's configuration through ``OffloadedTrainStep``
+   (NCCL, world size 1, optimizer state pinned on the host): every loss
+   within 1e-3 relative and every parameter within one bf16 step of phase
+   6's, the host state's bytes as predicted, the peak device memory below
+   phase 6's, the step ms and the side stream's copy ms a step.
 
 The last lines are the kernels' JSON, the card's name and power limit, and
 ``{"ok": true, "device": {...}}``.
@@ -603,6 +632,8 @@ def phase_kernels(torch, gen, flush):
     torch.cuda.empty_cache()
     print_ssm_ptxas()
     rows.update(check_selective_scan(torch, gen, flush))
+    torch.cuda.empty_cache()
+    rows.update(check_selective_scan_logdepth(torch, gen, flush, rows))
     torch.cuda.empty_cache()
     rows.update(check_wkv(torch, gen, flush))
     torch.cuda.empty_cache()
@@ -1857,14 +1888,16 @@ def print_wgmma_ptxas():
 
 
 def print_ssm_ptxas():
-    """ptxas's line and the SASS's local accesses of the scan forward and
+    """ptxas's line and the SASS's local accesses of the scan forward, the
+    log-depth scan's forward and backward (per I/O type and span), and
     of each chunk-parallel SSM kernel: the scan backward's three, the SSD
     forward's and backward's two each and the WKV forward's and backward's
     two each (per I/O type; the SSD's per head and state width, the WKV's
     per head width)."""
     import re
 
-    pattern = re.compile(r"(scan_fwd_kernel|scan_bwd_local_kernel|"
+    pattern = re.compile(r"(scan_ld_fwd_kernel|scan_ld_bwd_kernel|"
+                         r"scan_fwd_kernel|scan_bwd_local_kernel|"
                          r"scan_bwd_pass_kernel|scan_bwd_kernel|ssd_fwd_carry_kernel|"
                          r"ssd_fwd_chunk_kernel|ssd_bwd_carry_kernel|"
                          r"ssd_bwd_kernel|wkv_fwd_carry_kernel|"
@@ -2263,6 +2296,114 @@ def check_selective_scan(torch, gen, flush):
           f"is that minus the forward's)")
     rows["selective_scan"]["max_abs_err"] = errs[0]
     rows["selective_scan_bwd"]["max_abs_err"] = errs[1]
+    return rows
+
+
+# phase 3: the log-depth scan (FLAGS_mamba_logdepth_scan) at its spans' edges
+LOGDEPTH_CASES = (               # b, l, d, n, span, strong decay
+    (1, 1, 100, 5, 8, False), (2, 65, 100, 16, 16, False),
+    (2, 150, 200, 5, 64, True), (2, 100, 100, 16, 32, False),
+    (1, 64, 72, 16, 8, True), (2, 1001, 200, 16, 64, False))
+
+
+def check_selective_scan_logdepth(torch, gen, flush, seq_rows):
+    """The log-depth scan's forward (y, the state entering each span) and
+    backward (du, ddelta, dA, dB, dC) kernels against their plain versions
+    (the transcriptions of JAX's ``logdepth=True`` bodies) by the
+    sequential scan's gates: f32 I/O within SSM_F32_RTOL of the plain
+    version in float64, bf16 I/O within SSM_BF16_RTOL of it in f32; at
+    phase 9's shape (b16 l1024 d1536 n16, span 64) and at the spans' edges
+    (``LOGDEPTH_CASES``: one step, lengths off the span, spans 8, 16, 32 and
+    64, d = 72, 100 and 200, n = 5 and 16, a strong decay, and, for span
+    32, every step's B . C cancelling), each in f32 and bf16; the forward
+    and backward twice at the path's shape, bitwise equal. Timed in bf16
+    beside the sequential kernels at the same shape; the bound is the
+    sequential scan's (the same function: 10 / 25 ops per (b, l, d, n) at
+    the f32 non-tensor rate, the same bytes)."""
+    from paddle_tpu_torch.ops.cuda import selective_scan as ss
+
+    names = ("du", "ddelta", "dA", "dB", "dC")
+    rows, errs = {}, [0.0, 0.0]
+    cases = [(*c, dt) for c in LOGDEPTH_CASES
+             for dt in (torch.float32, torch.bfloat16)]
+    cases += [(SSM_B, SSM_L, 1536, 16, 64, False, torch.float32),
+              (SSM_B, SSM_L, 1536, 16, 64, False, torch.bfloat16)]
+
+    def held(what, ins, dy, dt, span):
+        tol = SSM_F32_RTOL if dt == torch.float32 else SSM_BF16_RTOL
+        y, bounds = ss.selective_scan_logdepth_fwd(*ins, span)
+        grads = ss.selective_scan_logdepth_bwd(*ins, bounds, dy, span)
+        torch.cuda.synchronize()
+        ref_dt = torch.float64 if dt == torch.float32 else torch.float32
+        with torch.no_grad():
+            xs = [t.to(ref_dt) for t in ins]
+            y_ref, b_ref = ss.selective_scan_logdepth_reference(*xs, span,
+                                                                ref_dt)
+            g_ref = ss.selective_scan_logdepth_bwd_reference(
+                *xs, b_ref, dy.to(ref_dt), span, ref_dt)
+        errs[0] = max(errs[0], check_pair(
+            what, (y.float(), bounds), (y_ref.to(dt), b_ref),
+            ("y", "span states"), tol))
+        errs[1] = max(errs[1], check_pair(
+            what, grads, [g.to(t.dtype) for g, t in zip(g_ref, ins)], names,
+            tol))
+        del y, bounds, grads, y_ref, b_ref, g_ref, xs
+
+    for b, l, d, n, span, strong, dt in cases:
+        what = (f"log-depth scan span {span} b{b} l{l} d{d} n{n} "
+                f"{str(dt)[6:]}" + (" strong decay" if strong else ""))
+        ins, dy = scan_inputs(torch, gen, b, l, d, n, dt, strong)
+        held(what, ins, dy, dt, span)
+        if span == 32 and dt == torch.float32:
+            u, delta, A, B, C = ins
+            held(what + " B . C cancels", (u, delta, A, B, cancel_bc(B, C)),
+                 dy, dt, span)
+    torch.cuda.empty_cache()
+    span = 64
+    ms = time_ms(torch, lambda: ss.selective_scan_logdepth_fwd(*ins, span),
+                 flush=flush)
+    y, bounds = ss.selective_scan_logdepth_fwd(*ins, span)
+    y2, bounds2 = ss.selective_scan_logdepth_fwd(*ins, span)
+    grads = ss.selective_scan_logdepth_bwd(*ins, bounds, dy, span)
+    again = ss.selective_scan_logdepth_bwd(*ins, bounds, dy, span)
+    torch.cuda.synchronize()
+    check(torch.equal(y, y2) and torch.equal(bounds, bounds2)
+          and all(torch.equal(a, r) for a, r in zip(again, grads)),
+          f"log-depth scan b{b} l{l} d{d} n{n} run twice: forward and "
+          f"backward bitwise equal")
+    del y, y2, bounds2, grads, again
+    bwd_ms = time_ms(torch, lambda: ss.selective_scan_logdepth_bwd(
+        *ins, bounds, dy, span), flush=flush)
+    xs = [t.float() for t in ins]
+    with torch.no_grad():
+        _, b32 = ss.selective_scan_logdepth_reference(*xs, span)
+        plain = time_ms(torch, lambda: ss.selective_scan_logdepth_reference(
+            *xs, span), reps=3)
+        plain_bwd = time_ms(
+            torch, lambda: ss.selective_scan_logdepth_bwd_reference(
+                *xs, b32, dy.float(), span), reps=3)
+    del xs, b32
+    nc = -(-l // span)
+    io = 2                                   # bf16 bytes per element
+    fwd_bytes = (3 * b * l * d * io + 2 * b * l * n * io + 4 * d * n
+                 + 4 * b * nc * n * d)
+    bwd_bytes = (5 * b * l * d * io + 4 * b * l * n * io + 8 * d * n
+                 + 4 * b * nc * n * d)
+    for key, seq, t, plain_t, ops, nbytes in (
+            ("selective_scan_logdepth", "selective_scan", ms, plain, 10,
+             fwd_bytes),
+            ("selective_scan_logdepth_bwd", "selective_scan_bwd", bwd_ms,
+             plain_bwd, 25, bwd_bytes)):
+        b_ms, b_by = bound(ops * b * l * d * n, nbytes, F32_FLOP_PER_S)
+        print(f"  {key} (b{b} l{l} d{d} n{n}, span {span}, bf16): {t:.4f} "
+              f"ms (bound {b_ms:.4f} ms by {b_by}, {b_ms / t:.1%} of it), "
+              f"the sequential kernel {seq_rows[seq]['ms']:.4f} ms "
+              f"({t / seq_rows[seq]['ms']:.2f}x), plain {plain_t:.3f} ms, "
+              f"library: none")
+        rows[key] = dict(ms=t, plain_ms=plain_t, bound_ms=b_ms,
+                         bound_by=b_by, library_ms=None)
+    rows["selective_scan_logdepth"]["max_abs_err"] = errs[0]
+    rows["selective_scan_logdepth_bwd"]["max_abs_err"] = errs[1]
     return rows
 
 
@@ -3948,6 +4089,7 @@ def reset_counts():
     pa.int8_launches = wo.launches = wo.int4_launches = 0
     gg.launches = gg.tgmm_launches = gg.swiglu_launches = 0
     ss.launches = ss.bwd_launches = wk.launches = wk.bwd_launches = 0
+    ss.logdepth_launches = ss.logdepth_bwd_launches = 0
     ssd.launches = ssd.bwd_launches = 0
 
 
@@ -3965,6 +4107,8 @@ def read_counts():
     return {"flash_dense": fd.dense_calls,
             "selective_scan": ss.launches,
             "selective_scan_bwd": ss.bwd_launches,
+            "selective_scan_logdepth": ss.logdepth_launches,
+            "selective_scan_logdepth_bwd": ss.logdepth_bwd_launches,
             "ssd": ssd.launches, "ssd_bwd": ssd.bwd_launches,
             "wkv": wk.launches, "wkv_bwd": wk.bwd_launches,
             "flash_attention": fa.launches,
@@ -4050,9 +4194,9 @@ def phase_train(torch, seed):
     # the parameters after TRAIN_STEPS steps, for phase 16 (a)
     params = {k: p.detach().cpu() for k, p in model.named_parameters()}
     profile_train_step(torch, step, ids, step_ms4)
-    peak = torch.cuda.max_memory_allocated() / 2**30
-    print(f"  peak device memory {peak:.1f} GiB")
-    n = dict(n, losses=losses, step_ms=step_ms4, params=params)
+    peak = torch.cuda.max_memory_allocated()
+    print(f"  peak device memory {peak / 2**30:.1f} GiB")
+    n = dict(n, losses=losses, step_ms=step_ms4, params=params, peak=peak)
     del model, step
     free_cuda(torch)
     _, _, _, _, times2 = run_train_steps(torch, train_config(2), 4, seed)
@@ -4540,13 +4684,14 @@ def phase_ssm_train(torch, seed, family):
     profile_train_step(torch, step, ids, step_ms, groups, top=12)
     del model, step
     free_cuda(torch)
-    return n
+    return dict(n, losses=losses, step_ms=step_ms)
 
 
 # phase 12: the Paddle training loop
 LOOP_ROWS = 8                    # dataset rows: 4 batches an epoch
 LOOP_O1_STEPS, LOOP_O2_STEPS, LOOP_SKIP_STEPS = 10, 20, 6
 LOOP_RESUME_AT, LOOP_INF_STEP = 10, 3
+LOOP_LAYERS = 2                  # cut from 4 to keep the run within its time
 
 
 class LoopRows:
@@ -4659,7 +4804,7 @@ def loop_o1(torch, seed):
     from paddle_tpu_torch.models import LlamaForCausalLM
     from paddle_tpu_torch.optimizer import AdamW
 
-    L = 4
+    L = LOOP_LAYERS
     cfg = dataclasses.replace(train_config(L), dtype="float32")
     torch.cuda.reset_peak_memory_stats()
     model = LlamaForCausalLM(cfg, seed=seed)
@@ -4698,7 +4843,7 @@ def o2_setup(torch, seed):
     from paddle_tpu_torch.optimizer.lr import (CosineAnnealingDecay,
                                                LinearWarmup)
 
-    cfg = dataclasses.replace(train_config(4), dtype="float32")
+    cfg = dataclasses.replace(train_config(LOOP_LAYERS), dtype="float32")
     model = LlamaForCausalLM(cfg, seed=seed)
     sched = LinearWarmup(CosineAnnealingDecay(3e-4, 20), 5, 0, 3e-4)
     opt = AdamW(learning_rate=sched, multi_precision=True, weight_decay=0.1,
@@ -4723,7 +4868,7 @@ def loop_o2(torch, seed):
     from paddle_tpu_torch.optimizer.lr import (CosineAnnealingDecay,
                                                LinearWarmup)
 
-    L = 4
+    L = LOOP_LAYERS
     torch.cuda.reset_peak_memory_stats()
     model, opt, sched, scaler = o2_setup(torch, seed)
     start = [p.detach().float() for p in model.parameters()]
@@ -4816,7 +4961,7 @@ def loop_fused_skip(torch, seed):
     from paddle_tpu_torch.optimizer import FusedAdamW
 
     torch.cuda.reset_peak_memory_stats()
-    model = LlamaForCausalLM(train_config(4), seed=seed)
+    model = LlamaForCausalLM(train_config(LOOP_LAYERS), seed=seed)
     opt = FusedAdamW(learning_rate=3e-4, weight_decay=0.1,
                      parameters=model.parameters())
     scaler = amp.GradScaler(init_loss_scaling=2.0 ** 15)
@@ -4858,12 +5003,12 @@ def loop_fused_skip(torch, seed):
     n = read_counts()
     print(f"  (c) losses {[round(x, 4) for x in losses]}, scales {scales}")
     check(n["fused_adamw"] == LOOP_SKIP_STEPS
-          and n["flash_attention"] == 4 * LOOP_SKIP_STEPS
-          and n["flash_attention_bwd"] == 4 * LOOP_SKIP_STEPS,
+          and n["flash_attention"] == LOOP_LAYERS * LOOP_SKIP_STEPS
+          and n["flash_attention_bwd"] == LOOP_LAYERS * LOOP_SKIP_STEPS,
           f"(c) launches over {LOOP_SKIP_STEPS} steps: fused_adamw "
           f"{n['fused_adamw']} (one a step, the skipped one included), "
           f"flash fwd {n['flash_attention']} and bwd "
-          f"{n['flash_attention_bwd']} ({4 * LOOP_SKIP_STEPS} each)")
+          f"{n['flash_attention_bwd']} ({LOOP_LAYERS * LOOP_SKIP_STEPS} each)")
     loop_report(torch, times, "(c) FusedAdamW + GradScaler")
 
     def step(span):
@@ -4883,8 +5028,9 @@ def loop_fused_skip(torch, seed):
 
 
 def phase_paddle_loop(torch, seed):
-    print("== phase 12: the Paddle training loop on the Llama-2-7B widths "
-          "(4 layers): DataLoader -> auto_cast -> GradScaler -> optimizer")
+    print(f"== phase 12: the Paddle training loop on the Llama-2-7B widths "
+          f"({LOOP_LAYERS} layers): DataLoader -> auto_cast -> GradScaler -> "
+          f"optimizer")
     loop_o1(torch, seed)
     loop_o2(torch, seed)
     loop_fused_skip(torch, seed)
@@ -6013,6 +6159,334 @@ def phase_ring(torch, seed):
     free_cuda(torch)
 
 
+# phase 9 (b): Mamba-130m on the log-depth kernels, against phase 9
+LOGDEPTH_LOSS_RTOL = 1e-3
+
+
+def phase_mamba_logdepth(torch, seed, mamba):
+    """Phase 9 (b): phase 9's Mamba-130m, seed and batch with
+    ``FLAGS_mamba_logdepth_scan`` set, ``SSM_STEPS`` TrainStep steps (AdamW
+    lr 3e-4, bf16 moments, clip 1.0): every loss within 1e-3 relative of
+    phase 9's, L x steps log-depth forward and backward launches and no
+    launch of the sequential kernels or any other; the step time beside
+    phase 9's."""
+    print("== phase 9 (b): Mamba-130m on the log-depth scan kernels")
+    from paddle_tpu_torch.core.flags import set_flags
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.models import MambaForCausalLM
+    from paddle_tpu_torch.optimizer import AdamW
+
+    cfg = mamba_config()
+    L = cfg.num_hidden_layers
+    set_flags({"mamba_logdepth_scan": True})
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        model = MambaForCausalLM(cfg, seed=seed)
+        step = TrainStep(model, None, AdamW(
+            learning_rate=3e-4, moment_dtype="bfloat16",
+            parameters=model.parameters()), clip_norm=1.0)
+        ids = train_tokens(torch, seed, (SSM_B, SSM_L))
+        torch.cuda.synchronize()
+        reset_counts()
+        losses, times = [], []
+        for _ in range(SSM_STEPS):
+            t0 = time.perf_counter()
+            losses.append(step(ids, ids).item())
+            times.append((time.perf_counter() - t0) * 1e3)
+        n = read_counts()
+    finally:
+        set_flags({"mamba_logdepth_scan": False})
+    ref = mamba["losses"]
+    rel = max(abs(a - b) / (abs(b) + 1e-6 / LOGDEPTH_LOSS_RTOL)
+              for a, b in zip(losses, ref))
+    check(len(ref) == len(losses) and rel <= LOGDEPTH_LOSS_RTOL,
+          f"9 (b): losses {[f'{x:.6g}' for x in losses]} against phase 9's "
+          f"{[f'{x:.6g}' for x in ref]}: max |diff| / (|ref| + "
+          f"{1e-6 / LOGDEPTH_LOSS_RTOL:g}) {rel:.2e} <= {LOGDEPTH_LOSS_RTOL}")
+    fwd, bwd = "selective_scan_logdepth", "selective_scan_logdepth_bwd"
+    others = {k: v for k, v in n.items() if k not in (fwd, bwd) and v}
+    check(n[fwd] == L * SSM_STEPS and n[bwd] == L * SSM_STEPS
+          and not others,
+          f"9 (b) launches over {SSM_STEPS} steps: {fwd} {n[fwd]}, {bwd} "
+          f"{n[bwd]} ({L} x steps each), other kernels (the sequential scan "
+          f"among them) {others or 0}")
+    step_ms = sum(times[2:]) / len(times[2:])
+    print(f"  9 (b) step host ms {step_ms:.1f} (mean of steps 3-{SSM_STEPS}) "
+          f"against phase 9's {mamba['step_ms']:.1f} on the sequential "
+          f"kernels ({step_ms / mamba['step_ms']:.2f}x); peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB on {smi()}")
+    del model, step
+    free_cuda(torch)
+    return n
+
+
+# phase 17 (a): the pipeline schedules with their stages in one process
+PP_LAYERS, PP_BATCH, PP_MICRO, PP_STAGES, PP_STEPS = 8, 8, 8, 4, 6
+PP_SCHEDULES = (("1f1b", 1), ("vpp", 2), ("zb", 1))
+# against TrainStep the parameters cannot all stay within one bf16 step:
+# the pipeline sums 8 micro-batch gradients each rounded to bf16 where
+# TrainStep rounds one product over the whole batch, and every update of
+# a bf16 parameter (about 2.5 of its ulps at lr 3e-4 and |p| ~ 0.02) then
+# rounds to a neighbouring value here and there; over 6 steps 22.5% of
+# all elements drift beyond one step (H100 80GB HBM3, 700 W). So each
+# tensor is held on its own: at most PP_PARAM_SHARE of its elements
+# beyond one bf16 step of TrainStep's, and its distance from TrainStep's
+# at most PP_UPDATE_ERR of TrainStep's own update |p_ref - p0| (a tensor
+# TrainStep leaves unmoved must be equal; so the norm of its update lies
+# within PP_UPDATE_ERR of TrainStep's, and a tensor left unmoved, whose
+# distance is TrainStep's whole update, fails). Read on the card (H100
+# 80GB HBM3, 700 W, every schedule alike): the largest share 0.4403
+# (layers 1-3's o_proj), the largest distance 0.1261 of the update (the
+# embedding); the limits sit above them. Against the same micro-batch
+# sums without a schedule (one stage), every element must lie within one
+# bf16 step
+PP_PARAM_SHARE, PP_UPDATE_ERR = 0.5, 0.25
+
+
+def compare_updates(torch, params, ref, init, what):
+    """Each tensor of ``params`` against ``ref``, both trained from
+    ``init`` (each name: tensor): its share of elements farther than one
+    bf16 step (2^-7 relative, + 1e-6) from ``ref`` at most
+    ``PP_PARAM_SHARE``, its distance ``|p - p_ref|`` at most
+    ``PP_UPDATE_ERR`` of ``|p_ref - p0|`` and its update's norm ``|p -
+    p0|`` within ``PP_UPDATE_ERR`` of ``|p_ref - p0|``; prints the three
+    tensors that come nearest each limit."""
+    rows = []
+    with torch.no_grad():
+        for k, p in params.items():
+            a, b = p.float(), ref[k].to(p.device).float()
+            c = init[k].to(p.device).float()
+            r = (a - b).abs() / (b.abs() + HYBRID_ATOL / HYBRID_PARAM_RTOL)
+            share = (r > HYBRID_PARAM_RTOL).float().mean().item()
+            moved = (b - c).norm().item()
+            dist = (a - b).norm().item()
+            mine = (a - c).norm().item()
+            err = dist / moved if moved else (0.0 if dist == 0 else math.inf)
+            ratio = mine / moved if moved else (1.0 if mine == 0 else math.inf)
+            rows.append((k, share, err, ratio, moved))
+            del a, b, c, r
+    for i, name in ((1, "share beyond one bf16 step"),
+                    (2, "|p - p_ref| / |p_ref - p0|")):
+        top = sorted(rows, key=lambda t: -t[i])[:3]
+        print(f"  {what}: largest {name}: "
+              + "; ".join(f"{t[0]} {t[i]:.4g}" for t in top))
+    unmoved = sum(1 for t in rows if t[4] == 0)
+    bad = [t for t in rows if t[1] > PP_PARAM_SHARE or t[2] > PP_UPDATE_ERR
+           or abs(t[3] - 1) > PP_UPDATE_ERR]
+    check(not bad,
+          f"{what}: each of the {len(rows)} tensors against TrainStep's "
+          f"(share beyond one bf16 step <= {PP_PARAM_SHARE:g}, |p - p_ref| "
+          f"<= {PP_UPDATE_ERR:g} |p_ref - p0|, | |p - p0| / |p_ref - p0| - "
+          f"1 | <= {PP_UPDATE_ERR:g}; {unmoved} tensors TrainStep left "
+          f"unmoved, held equal): "
+          + ("all within" if not bad else "; ".join(
+              f"{k} share {sh:.4g} err {e:.4g} ratio {ra:.4g}"
+              for k, sh, e, ra, _ in bad[:8])))
+
+
+def compare_params(torch, params, ref, what, against="TrainStep"):
+    """Every element of ``params`` against ``ref`` (both name: tensor):
+    none farther than one bf16 step (2^-7 relative, + 1e-6); prints the
+    count beyond and the largest such distance."""
+    worst, beyond, total = 0.0, 0, 0
+    with torch.no_grad():
+        for k, p in params.items():
+            a, b = p.float(), ref[k].to(p.device).float()
+            r = (a - b).abs() / (b.abs() + HYBRID_ATOL / HYBRID_PARAM_RTOL)
+            worst = max(worst, r.max().item())
+            beyond += int((r > HYBRID_PARAM_RTOL).sum())
+            total += r.numel()
+    check(beyond == 0,
+          f"{what}: the {total} parameters against {against}'s: {beyond} "
+          f"({beyond / total:.3%}) beyond one bf16 step (2^-7 relative + "
+          f"1e-6), none allowed; the largest |diff| / (|ref| + "
+          f"{HYBRID_ATOL / HYBRID_PARAM_RTOL:g}) {worst:.2e}")
+
+
+def phase_pipeline(torch, seed):
+    """Phase 17 (a): the 7B widths at ``PP_LAYERS`` layers in bf16, batch
+    8 x 2048, through ``PipelineTrainStep`` with its ``PP_STAGES`` stages in
+    this process and 8 micro-batches: ``1f1b``, ``vpp`` (2 groups of layers
+    a stage) and ``zb``, ``PP_STEPS`` steps each on the same seeded
+    batches (a fresh one a step), against ``TrainStep`` on the same model,
+    batches and AdamW (lr 3e-4, weight decay 0.1, bf16 moments; no clip,
+    as the pipelined step has none): every loss within 1e-3 relative and
+    each parameter tensor by ``compare_updates`` against TrainStep's from
+    the same initial weights, and every parameter within one bf16 step of
+    the same micro-batches' sums run as one stage
+    (``PipelineTrainStep(model, opt, 1, 8)``: the schedule alone moves
+    nothing); the flash launches (L x micro-batches forward and backward
+    a step, ``zb`` included: its B and W are one backward), and each run's
+    step ms and peak memory."""
+    print("== phase 17 (a): pipeline schedules, 4 stages in one process")
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.models import LlamaForCausalLM
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.parallel import PipelineTrainStep
+
+    L, M, S = PP_LAYERS, PP_MICRO, PP_STAGES
+    cfg = train_config(L)
+    # a fresh seeded batch a step, the same for every run: on one batch
+    # repeated the loss falls to ~0.01 by step 3, where rounding alone
+    # moves it by more than 1e-3 of itself
+    batches = [train_tokens(torch, seed + 1 + i, (PP_BATCH, TRAIN_SEQ))
+               for i in range(PP_STEPS)]
+
+    def opt(model):
+        return AdamW(learning_rate=3e-4, weight_decay=0.1,
+                     moment_dtype="bfloat16", parameters=model.parameters())
+
+    def run(make_step, what):
+        free_cuda(torch)
+        model = LlamaForCausalLM(cfg, seed=seed)
+        step = make_step(model)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        losses, times = [], []
+        for ids in batches:
+            t0 = time.perf_counter()
+            losses.append(step(ids, ids).item())
+            times.append((time.perf_counter() - t0) * 1e3)
+        n = read_counts()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        ms = sum(times[1:]) / len(times[1:])
+        print(f"  {what}: losses {[round(x, 4) for x in losses]}; step host "
+              f"ms {ms:.1f} (mean of steps 2-{PP_STEPS}), peak device memory "
+              f"{peak:.1f} GiB")
+        check(all(math.isfinite(x) for x in losses),
+              f"{what}: losses finite (fresh uniform tokens: the loss stays "
+              f"near its start)")
+        params = {k: p.detach().clone() for k, p in model.named_parameters()}
+        del model, step
+        return params, losses, ms, peak, n
+
+    def on_host(params):
+        return {k: p.detach().cpu() for k, p in params.items()}
+
+    # the references wait on the host, out of the later runs' peaks
+    init = on_host(dict(LlamaForCausalLM(cfg, seed=seed).named_parameters()))
+    ref_params, ref, ref_ms, ref_peak, _ = run(
+        lambda m: TrainStep(m, None, opt(m)), "17 (a) TrainStep")
+    ref_params = on_host(ref_params)
+    one_params = on_host(run(lambda m: PipelineTrainStep(
+        m, opt(m), 1, num_microbatches=M, remat=False),
+        "17 (a) one stage")[0])
+    out = {}
+    for sched, R in PP_SCHEDULES:
+        what = f"17 (a) {sched}" + (f" (R {R})" if R > 1 else "")
+        params, losses, ms, peak, n = run(
+            lambda m: PipelineTrainStep(m, opt(m), S, num_microbatches=M,
+                                        schedule=sched, num_virtual_stages=R,
+                                        remat=False), what)
+        rel = max(abs(a - b) / (abs(b) + HYBRID_ATOL / HYBRID_LOSS_RTOL)
+                  for a, b in zip(losses, ref))
+        check(rel <= HYBRID_LOSS_RTOL,
+              f"{what}: losses against TrainStep's: max |diff| / (|ref| + "
+              f"{HYBRID_ATOL / HYBRID_LOSS_RTOL:g}) {rel:.2e} <= "
+              f"{HYBRID_LOSS_RTOL}")
+        compare_updates(torch, params, ref_params, init, what)
+        compare_params(torch, params, one_params, what,
+                       against="the one-stage run")
+        bwd = L * M
+        check(n["flash_attention"] == L * M * PP_STEPS
+              and n["flash_attention_bwd"] == bwd * PP_STEPS
+              and n["flash_dense"] == 0,
+              f"{what} launches over {PP_STEPS} steps: flash fwd "
+              f"{n['flash_attention']} (L x M x steps = "
+              f"{L * M * PP_STEPS}), flash bwd {n['flash_attention_bwd']} "
+              f"({bwd * PP_STEPS}), plain route {n['flash_dense']}")
+        print(f"  {what}: step host ms {ms:.1f} against TrainStep's "
+              f"{ref_ms:.1f} ({ms / ref_ms:.2f}x), peak {peak:.1f} GiB "
+              f"against {ref_peak:.1f} GiB on {smi()}")
+        out[sched] = dict(step_ms=ms, peak=peak)
+        del params
+    free_cuda(torch)
+    return out
+
+
+def phase_offload(torch, seed, train):
+    """Phase 17 (b): phase 6's configuration (the 7B widths at 4 layers,
+    batch 2 x 2048, AdamW lr 3e-4, weight decay 0.1, bf16 moments, clip
+    1.0, 10 steps, phase 6's seed) through ``OffloadedTrainStep`` (NCCL,
+    world size 1): every loss within 1e-3 relative of phase 6's, every
+    parameter within one bf16 step of phase 6's, the peak device memory
+    below phase 6's (printed beside the optimizer-state bytes it no longer
+    holds), the step ms and the side stream's host-to-card and card-to-host
+    ms a step (CUDA events)."""
+    print("== phase 17 (b): the offloaded step against phase 6")
+    import torch.distributed as dist
+
+    from paddle_tpu_torch import parallel as Pl
+    from paddle_tpu_torch.models import LlamaForCausalLM
+    from paddle_tpu_torch.optimizer import AdamW
+
+    free_cuda(torch)
+    Pl.init_parallel_env()
+    L = 4
+    model = LlamaForCausalLM(train_config(L), seed=seed)
+    n_params = sum(p.numel() for p in model.parameters())
+    state_bytes = 2 * 2 * n_params           # two bf16 moments a parameter
+    biggest = max(p.numel() for p in model.parameters())
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    step = Pl.OffloadedTrainStep(model, None, AdamW(
+        learning_rate=3e-4, weight_decay=0.1, moment_dtype="bfloat16",
+        parameters=model.parameters()), Pl.HybridMesh(), clip_norm=1.0,
+        timing=True)
+    ids = train_tokens(torch, seed)
+    reset_counts()
+    losses, times, copies = [], [], []
+    for _ in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        losses.append(step(ids, ids).item())
+        times.append((time.perf_counter() - t0) * 1e3)
+        copies.append(step.loader.transfer_ms())
+    torch.cuda.synchronize()
+    n = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    check_losses(losses, f"17 (b) OffloadedTrainStep x {TRAIN_STEPS}")
+    ref = train["losses"]
+    rel = max(abs(a - b) / (abs(b) + HYBRID_ATOL / HYBRID_LOSS_RTOL)
+              for a, b in zip(losses, ref))
+    check(rel <= HYBRID_LOSS_RTOL,
+          f"17 (b): losses {[f'{x:.6g}' for x in losses]} against phase 6's "
+          f"{[f'{x:.6g}' for x in ref]}: max |diff| / (|ref| + "
+          f"{HYBRID_ATOL / HYBRID_LOSS_RTOL:g}) {rel:.2e} <= "
+          f"{HYBRID_LOSS_RTOL}")
+    check_flash_counts(n, L, TRAIN_STEPS, "17 (b) OffloadedTrainStep")
+    step.gather_params_to_model()
+    compare_params(torch, dict(model.named_parameters()), train["params"],
+                   "17 (b)", against="phase 6")
+    host = sum(t.numel() * t.element_size() for st in step._host_state
+               for t in st.values())
+    on_card = all(t.device.type == "cpu" and t.is_pinned()
+                  for st in step._host_state for t in st.values())
+    check(on_card and host == state_bytes,
+          f"17 (b): the optimizer state on the host, pinned: {host} bytes "
+          f"(predicted 2 bf16 moments x {n_params} parameters = "
+          f"{state_bytes})")
+    check(peak < train["peak"],
+          f"17 (b): peak device memory {peak / 2**30:.2f} GiB < phase 6's "
+          f"{train['peak'] / 2**30:.2f} GiB (predicted about phase 6's less "
+          f"the state's {state_bytes / 2**30:.2f} GiB plus two parameters' "
+          f"{4 * 2 * biggest / 2**30:.2f} GiB: "
+          f"{(train['peak'] - state_bytes + 8 * biggest) / 2**30:.2f} GiB)")
+    step_ms = sum(times[2:]) / len(times[2:])
+    h2d = sum(c["h2d"] for c in copies[2:]) / len(copies[2:])
+    d2h = sum(c["d2h"] for c in copies[2:]) / len(copies[2:])
+    rate = lambda ms: (f"{state_bytes / (ms / 1e3) / 1e9:.1f} GB/s"  # noqa: E731
+                       if ms > 0 else "not measured")
+    print(f"  17 (b) step host ms {step_ms:.1f} (mean of steps "
+          f"3-{TRAIN_STEPS}) against phase 6's {train['step_ms']:.1f}; side "
+          f"stream a step: host to card {h2d:.1f} ms ({rate(h2d)}), card to "
+          f"host {d2h:.1f} ms ({rate(d2h)}), {state_bytes / 2**30:.2f} GiB "
+          f"each way, on {smi()}")
+    del model, step
+    dist.destroy_process_group()
+    free_cuda(torch)
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -6079,12 +6553,16 @@ def main():
             "grouped_gemm", "grouped_gemm_tgmm", "grouped_gemm_swiglu")})
         mamba = phase_ssm_train(torch, args.seed, "mamba")
         lap()
+        mamba_ld = phase_mamba_logdepth(torch, args.seed, mamba)
+        lap()
         rwkv = phase_ssm_train(torch, args.seed, "rwkv")
         lap()
         mamba2 = phase_ssm_train(torch, args.seed, "mamba2")
         lap()
         launches.update({k: mamba[k] for k in ("selective_scan",
                                                "selective_scan_bwd")})
+        launches.update({k: mamba_ld[k] for k in (
+            "selective_scan_logdepth", "selective_scan_logdepth_bwd")})
         launches.update({k: rwkv[k] for k in ("wkv", "wkv_bwd")})
         launches.update({k: mamba2[k] for k in ("ssd", "ssd_bwd")})
         phase_paddle_loop(torch, args.seed)
@@ -6099,6 +6577,10 @@ def main():
         lap()
         phase_hybrid(torch, args.seed, train)
         lap()
+        phase_pipeline(torch, args.seed)
+        lap()
+        phase_offload(torch, args.seed, train)
+        lap()
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -6106,8 +6588,9 @@ def main():
     # paged and int8 GEMM's on quantized run A, the int4 GEMM's on run B,
     # the flash backward's on the TrainStep run, fused AdamW's on the eager
     # run, the grouped GEMMs' on the MoE TrainStep run, the scan's on the
-    # Mamba run, the WKV's on the RWKV run, the SSD's on the Mamba-2 run and
-    # the head-dim flash kernels' on the UNet TrainStep run
+    # Mamba run, the log-depth scan's on the Mamba run of 9 (b), the WKV's
+    # on the RWKV run, the SSD's on the Mamba-2 run and the head-dim flash
+    # kernels' on the UNet TrainStep run
     meta = {
         "flash_attention": ("paddle_tpu_torch/csrc/flash_attention.cu",
                             "paddle_tpu/ops/pallas/flash_attention.py:266"),
@@ -6141,6 +6624,12 @@ def main():
                            "paddle_tpu/ops/pallas/selective_scan.py:217"),
         "selective_scan_bwd": ("paddle_tpu_torch/csrc/selective_scan.cu",
                                "paddle_tpu/ops/pallas/selective_scan.py:284"),
+        "selective_scan_logdepth": (
+            "paddle_tpu_torch/csrc/selective_scan.cu",
+            "paddle_tpu/ops/pallas/selective_scan.py:217"),
+        "selective_scan_logdepth_bwd": (
+            "paddle_tpu_torch/csrc/selective_scan.cu",
+            "paddle_tpu/ops/pallas/selective_scan.py:284"),
         "wkv": ("paddle_tpu_torch/csrc/wkv.cu",
                 "paddle_tpu/ops/pallas/wkv.py:301"),
         "wkv_bwd": ("paddle_tpu_torch/csrc/wkv.cu",

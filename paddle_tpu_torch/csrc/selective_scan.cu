@@ -8,6 +8,9 @@
 // in f32 whatever the input type; the skip u * D stays outside, as there.
 // The backward gives du, ddelta, dA (summed over b and t), dB and dC (summed
 // over d), the formulas of `_bwd_kernel` (:120-195).
+// The log-depth variant of both (`logdepth=True`, FLAGS_mamba_logdepth_scan:
+// `_replay_h`'s Hillis-Steele scan, :57-98, and the backward's suffix scan,
+// :148-170) is the second pair of kernels, described above them.
 //
 // What bounds it on the H100: neither bytes nor the tensor cores. The
 // per-channel decay exp(delta A) is elementwise (no product form), so the
@@ -60,6 +63,7 @@
 #include <stdint.h>
 
 #include <atomic>
+#include <type_traits>
 
 #include "flash_common.cuh"
 #include "hopper.cuh"
@@ -683,6 +687,404 @@ int launch_bwd(const void* u, const void* delta, const void* A, const void* B, c
   return int(cudaGetLastError());
 }
 
+// ------------------------------------------------------------- log-depth
+// The log-depth variant of both kernels (FLAGS_mamba_logdepth_scan):
+// `_replay_h(logdepth=True)` and the suffix branch of `_bwd_kernel`
+// (paddle_tpu/ops/pallas/selective_scan.py:57-98, :148-170). The sequence
+// is cut into spans of S steps (S = 8, 16, 32 or 64: JAX's chunk), and
+// inside a span the recurrence runs as an inclusive scan of the pairs
+// (a_t, b_t) = (exp(delta_t A), delta_t B_t u_t) instead of a walk:
+// - forward: the state entering the span is folded into step 0 (b_0 +=
+//   a_0 h_in), then h_t = a_t h_{t-1} + b_t by Hillis-Steele rounds, and the
+//   last step's h enters the next span;
+// - backward: the span's states replayed so from its saved entering state,
+//   then dh_t = C_t dy_t + a_{t+1} dh_{t+1} as a suffix scan with the
+//   carry from the span to the right on the last step; the carry to the
+//   left is a_0 dh_0.
+// The epilogues are the sequential kernels': y_t = C_t . (a_t h_{t-1}) +
+// delta_t u_t (B_t . C_t), and du, ddelta, dB, dC, dA from dh_t, h_{t-1}
+// and the step's carried gradient a_{t+1} dh_{t+1}, B_t . dh_t's own share
+// from the exact dot.
+// Layout: lanes run along time, one step a lane, each lane holding all N
+// states of one channel; a segment of S lanes scans one channel's span in
+// log2(S) rounds of __shfl_up_sync (__shfl_down_sync for the suffix). A
+// span of 64 is two warps: each scans its 32 steps, then warp 1 folds in
+// warp 0's last state (the suffix: warp 0 folds in warp 1's first dh)
+// through shared memory. A block of 256 threads is 256 / S segments and
+// walks 64 channels of one batch row, S / 4 channel groups a span, and the
+// spans in order (the backward from the last); u, delta (dy), B and C of
+// a span are staged in shared memory by rows first. dB and dC (sums over
+// channels) go to the block's partial through shared memory in a fixed
+// order, dA stays in shared memory until the end: no atomics, the same
+// result on every run.
+// What bounds it: like the sequential kernels, the instructions (log2 S
+// rounds of two shuffles and two multiplies a state, against one FMA a
+// state in the walk) beside one exponential per (b, t, d, n) forward and
+// two backward; the bytes are the sequential kernels'.
+constexpr int LD_THREADS = 256;
+constexpr int LD_TILE = 64;                      // channels a block
+constexpr unsigned FULL = 0xffffffffu;
+
+template <int S>
+struct LdGeom {
+  static constexpr int W = S < 32 ? S : 32;      // lanes of a warp's scan
+  static constexpr int G = LD_THREADS / S;       // segments (channels) a group
+  static constexpr int GROUPS = LD_TILE / G;     // channel groups a span
+  static_assert(S == 8 || S == 16 || S == 32 || S == 64, "span");
+};
+
+template <typename T, int S>
+struct LdFwdSmem {
+  T u[S][LD_TILE + 1], delta[S][LD_TILE + 1], y[S][LD_TILE + 1];
+  float B[S][N + 1], C[S][N + 1];
+  float bcdot[S];
+  float A2[LD_TILE][N + 1];                      // A log2(e)
+  float h[LD_TILE][N + 1];                       // the state entering the span
+  float x[2][LdGeom<S>::G][N];                   // S = 64: h_31, by group parity
+};
+
+template <typename T, int S>
+struct LdBwdSmem {
+  T u[S][LD_TILE + 1], delta[S][LD_TILE + 1], dy[S][LD_TILE + 1];   // u and delta
+                                                                    // become du, ddelta
+  float B[S][N + 1], C[S][N + 1];
+  float bcdot[S];
+  float A2[LD_TILE][N + 1];
+  float g[LD_TILE][N + 1];                       // the carry from the span to the right
+  float dA[LD_TILE][N + 1];
+  float red[LD_THREADS][2 * N + 1];              // each lane's dB_t, dC_t shares
+  float acc[S][2 * N];                           // the block's dB (0..N), dC (N..2N)
+  float x[4][LdGeom<S>::G][N];                   // S = 64: h_31, a_32, dh_32, warp 1's dA
+};
+
+// rows [0, len) of one span of a [b, l, D] tensor, channels [ch0, ch0 +
+// LD_TILE), into dst as they are; zero past len and D
+template <typename T, int S>
+__device__ __forceinline__ void ld_stage_cols(T (*dst)[LD_TILE + 1], const T* __restrict__ src,
+                                              size_t row0, int len, int D, int ch0) {
+  for (int i = threadIdx.x; i < S * LD_TILE; i += LD_THREADS) {
+    const int t = i / LD_TILE, c = i % LD_TILE;
+    dst[t][c] = (t < len && ch0 + c < D) ? src[(row0 + t) * D + ch0 + c] : from_f<T>(0.f);
+  }
+}
+
+template <typename T, int S>
+__device__ __forceinline__ void ld_store_cols(T* __restrict__ dst, const T (*src)[LD_TILE + 1],
+                                              size_t row0, int len, int D, int ch0) {
+  for (int i = threadIdx.x; i < len * LD_TILE; i += LD_THREADS) {
+    const int t = i / LD_TILE, c = i % LD_TILE;
+    if (ch0 + c < D) dst[(row0 + t) * D + ch0 + c] = src[t][c];
+  }
+}
+
+// rows [0, len) of one span of a [b, l, n] tensor into dst as f32, zero past
+// len and n; B_t . C_t of each row (row_dot) into bcdot
+template <typename T, int S>
+__device__ __forceinline__ void ld_stage_bc(float (*dB)[N + 1], float (*dC)[N + 1], float* bcdot,
+                                            const T* __restrict__ B, const T* __restrict__ C,
+                                            size_t row0, int len, int n) {
+  for (int i = threadIdx.x; i < S * N; i += LD_THREADS) {
+    const int t = i / N, k = i % N;
+    const bool ok = t < len && k < n;
+    dB[t][k] = ok ? to_f(B[(row0 + t) * n + k]) : 0.f;
+    dC[t][k] = ok ? to_f(C[(row0 + t) * n + k]) : 0.f;
+  }
+  for (int t = threadIdx.x; t < S; t += LD_THREADS)
+    bcdot[t] = t < len ? row_dot(B, C, row0 + t, n) : 0.f;
+}
+
+// A log2(e) of this block's channels, zero past D and n
+__device__ __forceinline__ void ld_stage_a(float (*A2)[N + 1], const float* __restrict__ A, int D,
+                                           int n, int ch0) {
+  for (int i = threadIdx.x; i < LD_TILE * N; i += LD_THREADS) {
+    const int c = i / N, k = i % N;
+    A2[c][k] = (ch0 + c < D && k < n) ? A[size_t(ch0 + c) * n + k] * LOG2E : 0.f;
+  }
+}
+
+// The forward replay of one lane's step t of a span: a0 = exp(delta_t A),
+// h_t by the inclusive scan (the state entering the span, hp on lane 0,
+// folded into step 0), and hp = h_{t-1}. `xh` is shared-memory room for N
+// values of this segment (S = 64: warp 0's last state).
+template <int S>
+__device__ __forceinline__ void ld_replay(float (&a0)[N], float (&h)[N], float (&hp)[N],
+                                          const float* A2, const float* Bt, float dt, float dtu,
+                                          int t, float* xh) {
+  constexpr int W = LdGeom<S>::W;
+  const int tw = t % W;
+  float a[N];
+#pragma unroll
+  for (int k = 0; k < N; ++k) {
+    a0[k] = ex2_approx(dt * A2[k]);
+    a[k] = a0[k];
+    h[k] = dtu * Bt[k];
+    if (t == 0) h[k] = fmaf(a0[k], hp[k], h[k]);
+  }
+#pragma unroll
+  for (int off = 1; off < W; off <<= 1) {
+#pragma unroll
+    for (int k = 0; k < N; ++k) {
+      const float au = __shfl_up_sync(FULL, a[k], off);
+      const float hu = __shfl_up_sync(FULL, h[k], off);
+      if (tw >= off) {
+        h[k] = fmaf(a[k], hu, h[k]);
+        a[k] *= au;
+      }
+    }
+  }
+  if constexpr (S == 64) {
+    if (t == 31) {
+#pragma unroll
+      for (int k = 0; k < N; ++k) xh[k] = h[k];
+    }
+    __syncthreads();
+    if (t >= 32) {
+#pragma unroll
+      for (int k = 0; k < N; ++k) h[k] = fmaf(a[k], xh[k], h[k]);
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < N; ++k) {
+    const float up = __shfl_up_sync(FULL, h[k], 1);
+    if (t != 0) hp[k] = (S == 64 && t == 32) ? xh[k] : up;
+  }
+}
+
+template <typename T, int S>
+__global__ void __launch_bounds__(LD_THREADS)
+scan_ld_fwd_kernel(const T* __restrict__ u, const T* __restrict__ delta,
+                   const float* __restrict__ A, const T* __restrict__ B, const T* __restrict__ C,
+                   T* __restrict__ y, float* __restrict__ bounds, int L, int D, int n) {
+  using Gm = LdGeom<S>;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  LdFwdSmem<T, S>& s = *reinterpret_cast<LdFwdSmem<T, S>*>(smem_raw);
+  const int tid = threadIdx.x, t = tid % S, seg = tid / S;
+  const int ch0 = blockIdx.x * LD_TILE, bi = blockIdx.y;
+  const int nc = (L + S - 1) / S;
+  ld_stage_a(s.A2, A, D, n, ch0);
+  for (int i = tid; i < LD_TILE * N; i += LD_THREADS) s.h[i / N][i % N] = 0.f;
+  for (int c = 0; c < nc; ++c) {
+    const int len = min(S, L - c * S);
+    const size_t row0 = size_t(bi) * L + size_t(c) * S;
+    __syncthreads();                       // span c - 1's y is out, its states in place
+    ld_stage_cols<T, S>(s.u, u, row0, len, D, ch0);
+    ld_stage_cols<T, S>(s.delta, delta, row0, len, D, ch0);
+    ld_stage_bc<T, S>(s.B, s.C, s.bcdot, B, C, row0, len, n);
+    for (int i = tid; i < n * LD_TILE; i += LD_THREADS) {     // the state entering span c
+      const int k = i / LD_TILE, cl = i % LD_TILE;
+      if (ch0 + cl < D) bounds[((size_t(bi) * nc + c) * n + k) * D + ch0 + cl] = s.h[cl][k];
+    }
+    __syncthreads();
+    for (int gr = 0; gr < Gm::GROUPS; ++gr) {
+      const int cl = gr * Gm::G + seg;
+      const float dt = to_f(s.delta[t][cl]), dtu = dt * to_f(s.u[t][cl]);
+      float a0[N], h[N], hp[N];
+#pragma unroll
+      for (int k = 0; k < N; ++k) hp[k] = t == 0 ? s.h[cl][k] : 0.f;
+      ld_replay<S>(a0, h, hp, s.A2[cl], s.B[t], dt, dtu, t, s.x[gr & 1][seg]);
+      // y_t = C_t . (a_t h_{t-1}) + dtu (B_t . C_t)
+      float acc = 0.f;
+#pragma unroll
+      for (int k = 0; k < N; ++k) acc = fmaf(s.C[t][k], a0[k] * hp[k], acc);
+      s.y[t][cl] = from_f<T>(fmaf(dtu, s.bcdot[t], acc));
+      if (t == S - 1) {                    // the state entering span c + 1
+#pragma unroll
+        for (int k = 0; k < N; ++k) s.h[cl][k] = h[k];
+      }
+    }
+    __syncthreads();
+    ld_store_cols<T, S>(y, s.y, row0, len, D, ch0);
+  }
+}
+
+template <typename T, int S>
+__global__ void __launch_bounds__(LD_THREADS)
+scan_ld_bwd_kernel(const T* __restrict__ u, const T* __restrict__ delta,
+                   const float* __restrict__ A, const T* __restrict__ B, const T* __restrict__ C,
+                   const float* __restrict__ bounds, const T* __restrict__ dy, T* __restrict__ du,
+                   T* __restrict__ ddelta, float* __restrict__ dA_part, float* __restrict__ dB_part,
+                   float* __restrict__ dC_part, int batch, int L, int D, int n) {
+  using Gm = LdGeom<S>;
+  constexpr int W = Gm::W;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  LdBwdSmem<T, S>& s = *reinterpret_cast<LdBwdSmem<T, S>*>(smem_raw);
+  const int tid = threadIdx.x, t = tid % S, seg = tid / S, tw = t % W;
+  const int tile = blockIdx.x, ch0 = tile * LD_TILE, bi = blockIdx.y;
+  const int nc = (L + S - 1) / S;
+  ld_stage_a(s.A2, A, D, n, ch0);
+  for (int i = tid; i < LD_TILE * N; i += LD_THREADS) {
+    s.g[i / N][i % N] = 0.f;
+    s.dA[i / N][i % N] = 0.f;
+  }
+  for (int i = tid; i < S * 2 * N; i += LD_THREADS) (&s.acc[0][0])[i] = 0.f;
+  for (int c = nc - 1; c >= 0; --c) {
+    const int len = min(S, L - c * S);
+    const size_t row0 = size_t(bi) * L + size_t(c) * S;
+    __syncthreads();                       // span c + 1's outputs are out
+    ld_stage_cols<T, S>(s.u, u, row0, len, D, ch0);
+    ld_stage_cols<T, S>(s.delta, delta, row0, len, D, ch0);
+    ld_stage_cols<T, S>(s.dy, dy, row0, len, D, ch0);
+    ld_stage_bc<T, S>(s.B, s.C, s.bcdot, B, C, row0, len, n);
+    __syncthreads();
+    for (int gr = 0; gr < Gm::GROUPS; ++gr) {
+      const int cl = gr * Gm::G + seg, ch = ch0 + cl;
+      const float dt = to_f(s.delta[t][cl]), uv = to_f(s.u[t][cl]), dtu = dt * uv;
+      const float dyv = to_f(s.dy[t][cl]);
+      float a0[N], h[N], hp[N];
+#pragma unroll
+      for (int k = 0; k < N; ++k)
+        hp[k] = (t == 0 && ch < D && k < n) ? bounds[((size_t(bi) * nc + c) * n + k) * D + ch] : 0.f;
+      ld_replay<S>(a0, h, hp, s.A2[cl], s.B[t], dt, dtu, t, s.x[0][seg]);
+      // the suffix scan: dh_t = s_t + m_t dh_{t+1}, m_t = a_{t+1} (1 past
+      // the span), the carry from the right on the last step
+      float m0[N], m[N], dh[N];
+      if constexpr (S == 64) {
+        if (t == 32) {
+#pragma unroll
+          for (int k = 0; k < N; ++k) s.x[1][seg][k] = a0[k];
+        }
+        __syncthreads();
+      }
+#pragma unroll
+      for (int k = 0; k < N; ++k) {
+        const float an = __shfl_down_sync(FULL, a0[k], 1);
+        m0[k] = t == S - 1 ? 1.f : (S == 64 && t == 31) ? s.x[1][seg][k] : an;
+        m[k] = m0[k];
+        dh[k] = s.C[t][k] * dyv;
+        if (t == S - 1) dh[k] += s.g[cl][k];
+      }
+#pragma unroll
+      for (int off = 1; off < W; off <<= 1) {
+#pragma unroll
+        for (int k = 0; k < N; ++k) {
+          const float dd = __shfl_down_sync(FULL, dh[k], off);
+          const float md = __shfl_down_sync(FULL, m[k], off);
+          if (tw + off < W) {
+            dh[k] = fmaf(m[k], dd, dh[k]);
+            m[k] *= md;
+          }
+        }
+      }
+      if constexpr (S == 64) {
+        if (t == 32) {
+#pragma unroll
+          for (int k = 0; k < N; ++k) s.x[2][seg][k] = dh[k];
+        }
+        __syncthreads();
+        if (t < 32) {
+#pragma unroll
+          for (int k = 0; k < N; ++k) dh[k] = fmaf(m[k], s.x[2][seg][k], dh[k]);
+        }
+      }
+      // the epilogue, with the step's carried gradient m0 dh_{t+1}
+      float s1 = 0.f, s2 = 0.f, dAl[N];
+#pragma unroll
+      for (int k = 0; k < N; ++k) {
+        const float dn = __shfl_down_sync(FULL, dh[k], 1);
+        const float carried = t == S - 1 ? s.g[cl][k]
+                              : m0[k] * ((S == 64 && t == 31) ? s.x[2][seg][k] : dn);
+        const float common = dh[k] * hp[k] * a0[k];
+        s1 = fmaf(common, s.A2[cl][k], s1);
+        s2 = fmaf(carried, s.B[t][k], s2);
+        dAl[k] = common * dt;
+        s.red[tid][k] = dh[k] * dtu;                // dB_t, this channel's share
+        s.red[tid][N + k] = h[k] * dyv;             // dC_t
+      }
+      s2 = fmaf(dyv, s.bcdot[t], s2);               // B_t . dh_t
+      s.u[t][cl] = from_f<T>(dt * s2);
+      s.delta[t][cl] = from_f<T>(fmaf(s1, LN2, s2 * uv));   // A2 = A log2(e)
+      // dA: the segment's sum over its steps
+#pragma unroll
+      for (int k = 0; k < N; ++k) {
+#pragma unroll
+        for (int o = 1; o < W; o <<= 1) dAl[k] += __shfl_xor_sync(FULL, dAl[k], o);
+      }
+      if constexpr (S == 64) {
+        if (t == 32) {
+#pragma unroll
+          for (int k = 0; k < N; ++k) s.x[3][seg][k] = dAl[k];
+        }
+      }
+      __syncthreads();                     // red is complete; x[3] is in place
+      if (t == 0) {
+#pragma unroll
+        for (int k = 0; k < N; ++k) {
+          s.dA[cl][k] += S == 64 ? dAl[k] + s.x[3][seg][k] : dAl[k];
+          s.g[cl][k] = a0[k] * dh[k];      // the carry into span c - 1
+        }
+      }
+      for (int i = tid; i < S * 2 * N; i += LD_THREADS) {
+        const int tt = i / (2 * N), xx = i % (2 * N);
+        float sum = 0.f;
+#pragma unroll
+        for (int sg = 0; sg < Gm::G; ++sg) sum += s.red[sg * S + tt][xx];
+        s.acc[tt][xx] += sum;
+      }
+      __syncthreads();                     // red, x are reused by the next group
+    }
+    ld_store_cols<T, S>(du, s.u, row0, len, D, ch0);
+    ld_store_cols<T, S>(ddelta, s.delta, row0, len, D, ch0);
+    for (int i = tid; i < S * 2 * N; i += LD_THREADS) {
+      const int tt = i / (2 * N), xx = i % (2 * N), k = xx % N;
+      if (tt < len && k < n) {
+        float* dst = xx < N ? dB_part : dC_part;
+        dst[((size_t(tile) * batch + bi) * L + size_t(c) * S + tt) * n + k] = s.acc[tt][xx];
+      }
+      s.acc[tt][xx] = 0.f;
+    }
+  }
+  __syncthreads();
+  for (int i = tid; i < LD_TILE * n; i += LD_THREADS) {
+    const int cl = i / n, k = i % n;
+    if (ch0 + cl < D) dA_part[(size_t(bi) * D + ch0 + cl) * n + k] = s.dA[cl][k];
+  }
+}
+
+template <typename T, int S>
+int launch_ld_fwd(const void* u, const void* delta, const void* A, const void* B, const void* C,
+                  void* y, void* bounds, int batch, int L, int D, int n, cudaStream_t st) {
+  static std::atomic<uint64_t> done{0};
+  const int smem = int(sizeof(LdFwdSmem<T, S>));
+  cudaError_t err = ptt::allow_smem(scan_ld_fwd_kernel<T, S>, smem, done);
+  if (err != cudaSuccess) return int(err);
+  const dim3 grid((D + LD_TILE - 1) / LD_TILE, batch);
+  scan_ld_fwd_kernel<T, S><<<grid, LD_THREADS, smem, st>>>(
+      static_cast<const T*>(u), static_cast<const T*>(delta), static_cast<const float*>(A),
+      static_cast<const T*>(B), static_cast<const T*>(C), static_cast<T*>(y),
+      static_cast<float*>(bounds), L, D, n);
+  return int(cudaGetLastError());
+}
+
+template <typename T, int S>
+int launch_ld_bwd(const void* u, const void* delta, const void* A, const void* B, const void* C,
+                  const void* bounds, const void* dy, void* du, void* ddelta, void* dA_part,
+                  void* dB_part, void* dC_part, int batch, int L, int D, int n, cudaStream_t st) {
+  static std::atomic<uint64_t> done{0};
+  const int smem = int(sizeof(LdBwdSmem<T, S>));
+  cudaError_t err = ptt::allow_smem(scan_ld_bwd_kernel<T, S>, smem, done);
+  if (err != cudaSuccess) return int(err);
+  const dim3 grid((D + LD_TILE - 1) / LD_TILE, batch);
+  scan_ld_bwd_kernel<T, S><<<grid, LD_THREADS, smem, st>>>(
+      static_cast<const T*>(u), static_cast<const T*>(delta), static_cast<const float*>(A),
+      static_cast<const T*>(B), static_cast<const T*>(C), static_cast<const float*>(bounds),
+      static_cast<const T*>(dy), static_cast<T*>(du), static_cast<T*>(ddelta),
+      static_cast<float*>(dA_part), static_cast<float*>(dB_part), static_cast<float*>(dC_part),
+      batch, L, D, n);
+  return int(cudaGetLastError());
+}
+
+// one of the four spans, as the template argument
+template <typename F>
+int by_span(int span, F&& f) {
+  switch (span) {
+    case 8: return f(std::integral_constant<int, 8>());
+    case 16: return f(std::integral_constant<int, 16>());
+    case 32: return f(std::integral_constant<int, 32>());
+    case 64: return f(std::integral_constant<int, 64>());
+    default: return int(cudaErrorInvalidValue);
+  }
+}
+
 bool bad_shape(int batch, int L, int D, int n) {
   return batch < 1 || batch > 65535 || L < 1 || D < 1 || n < 1 || n > N;
 }
@@ -732,6 +1134,45 @@ int ptt_selective_scan_bwd(const void* u, const void* delta, const void* A, cons
                                     dC_part, carry, dsum, batch, L, D, n, st)
                  : launch_bwd<float>(u, delta, A, B, C, bounds, dy, du, ddelta, dA_part,
                                      dB_part, dC_part, carry, dsum, batch, L, D, n, st);
+}
+
+
+// The log-depth variant (FLAGS_mamba_logdepth_scan) over spans of `span`
+// steps (8, 16, 32 or 64): u, delta, y [batch, L, D] in the I/O type, B, C
+// [batch, L, n], A [D, n] f32, bounds [batch, ceil(L / span), n, D] f32 (the
+// state entering each span). One launch each way. The backward writes du,
+// ddelta [batch, L, D] and f32 partials that the caller sums over their
+// first axis: dA_part [batch, D, n], dB_part and dC_part [ceil(D /
+// ptt_selective_scan_logdepth_channels()), batch, L, n].
+int ptt_selective_scan_logdepth_fwd(const void* u, const void* delta, const void* A,
+                                    const void* B, const void* C, void* y, void* bounds,
+                                    int batch, int L, int D, int n, int span, int bf16_io,
+                                    void* stream) {
+  if (bad_shape(batch, L, D, n)) return int(cudaErrorInvalidValue);
+  const auto st = static_cast<cudaStream_t>(stream);
+  return by_span(span, [&](auto sp) {
+    constexpr int S = decltype(sp)::value;
+    return bf16_io ? launch_ld_fwd<bf16, S>(u, delta, A, B, C, y, bounds, batch, L, D, n, st)
+                   : launch_ld_fwd<float, S>(u, delta, A, B, C, y, bounds, batch, L, D, n, st);
+  });
+}
+
+int ptt_selective_scan_logdepth_channels() { return LD_TILE; }
+
+int ptt_selective_scan_logdepth_bwd(const void* u, const void* delta, const void* A,
+                                    const void* B, const void* C, const void* bounds,
+                                    const void* dy, void* du, void* ddelta, void* dA_part,
+                                    void* dB_part, void* dC_part, int batch, int L, int D, int n,
+                                    int span, int bf16_io, void* stream) {
+  if (bad_shape(batch, L, D, n)) return int(cudaErrorInvalidValue);
+  const auto st = static_cast<cudaStream_t>(stream);
+  return by_span(span, [&](auto sp) {
+    constexpr int S = decltype(sp)::value;
+    return bf16_io ? launch_ld_bwd<bf16, S>(u, delta, A, B, C, bounds, dy, du, ddelta, dA_part,
+                                            dB_part, dC_part, batch, L, D, n, st)
+                   : launch_ld_bwd<float, S>(u, delta, A, B, C, bounds, dy, du, ddelta,
+                                             dA_part, dB_part, dC_part, batch, L, D, n, st);
+  });
 }
 
 }  // extern "C"

@@ -4,7 +4,9 @@ parameter names and shapes (linear weights in PyTorch's ``[out, in]``).
 
 The selective scan runs on CUDA tensors through the hand-written forward
 and backward kernels (``ops/cuda/selective_scan.py``), on CPU tensors
-through their plain version. Every parameter is in the config's dtype, as
+through their plain version; with ``FLAGS_mamba_logdepth_scan`` set
+(``core.flags.set_flags({"mamba_logdepth_scan": True})``) through the
+log-depth kernels and their plain versions. Every parameter is in the config's dtype, as
 ``astype(dtype)`` leaves the JAX model: ``A = -exp(A_log)`` and the skip
 ``D`` are computed in it too.
 """
@@ -22,6 +24,7 @@ from torch import nn
 from ..amp import amp_op
 from ..core.device import make_generator, resolve_device
 from ..core.dtype import to_torch_dtype
+from ..core.flags import flag
 from ..nn.functional import RMSNorm
 from ..ops.cuda import selective_scan as _scan
 from ..ops.cuda._build import device_of
@@ -66,17 +69,45 @@ class _ScanFn(torch.autograd.Function):
         return _scan.selective_scan_bwd(*ctx.saved_tensors, dy.contiguous())
 
 
+class _LogdepthScanFn(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, u, delta, A, B, C, span):
+        y, bounds = _scan.selective_scan_logdepth_fwd(u, delta, A, B, C, span)
+        ctx.save_for_backward(u, delta, A, B, C, bounds)
+        ctx.span = span
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        return (*_scan.selective_scan_logdepth_bwd(
+            *ctx.saved_tensors, dy.contiguous(), ctx.span), None)
+
+
 @amp_op("selective_scan")
 def selective_scan(u, delta, A, B, C, D, chunk: int = 64):
     """``y_t = C_t . h_t + D u_t`` with ``h_t = exp(delta_t A) h_{t-1} +
     delta_t B_t u_t``; u, delta ``[b, l, d]``, A ``[d, n]``, B, C ``[b, l,
     n]``, D ``[d]``; returns ``[b, l, d]`` in u's dtype.
 
-    CUDA tensors take the forward and backward kernels as one autograd
-    function (they keep the state every :data:`KERNEL_CHUNK` steps whatever
-    ``chunk`` says); CPU tensors take the plain chunked version with
-    ``chunk``, whose autograd gives the gradient."""
-    if device_of("selective_scan", u, delta, A, B, C, D) == "cpu":
+    Which chunk each route keeps:
+
+    * ``FLAGS_mamba_logdepth_scan`` on (JAX's ``logdepth=True``): the
+      sequence is cut into spans of ``scan_span(l, chunk)`` steps (the
+      ``selective_scan_blocks`` flag, else ``chunk``, clamped to [8, l], as
+      JAX's Pallas route resolves its chunk) and each span scanned in
+      log depth; CUDA tensors launch the log-depth kernels (spans of 8,
+      16, 32 or 64 steps; another span raises), CPU tensors take their
+      plain versions; one autograd function either way;
+    * off, CUDA tensors: the sequential forward and backward kernels as one
+      autograd function; they keep the state every :data:`KERNEL_CHUNK`
+      steps whatever ``chunk`` says (the result differs from JAX's chunk
+      only in rounding);
+    * off, CPU tensors: the plain chunked version with ``chunk`` (the XLA
+      route's), whose autograd gives the gradient."""
+    if flag("mamba_logdepth_scan"):
+        y = _LogdepthScanFn.apply(u, delta, A, B, C,
+                                  _scan.scan_span(u.shape[1], chunk))
+    elif device_of("selective_scan", u, delta, A, B, C, D) == "cpu":
         y = _scan.selective_scan_reference(u, delta, A, B, C, chunk)
     else:
         y = _ScanFn.apply(u, delta, A, B, C)

@@ -16,6 +16,16 @@ keeps the f32 state entering every chunk of :data:`KERNEL_CHUNK` steps,
 
 CPU tensors take the plain versions; CUDA tensors launch the kernels or
 raise. The kernels take any b, l and d and 1 <= n <= :data:`MAX_STATE`.
+
+The log-depth variant (``FLAGS_mamba_logdepth_scan``, JAX's
+``logdepth=True`` bodies: ``_replay_h`` at :57-98 and the backward's suffix
+scan at :148-170) cuts the sequence into spans of :func:`scan_span` steps
+and runs each span's recurrence as a Hillis-Steele scan:
+:func:`selective_scan_logdepth_fwd` / :func:`selective_scan_logdepth_bwd`
+launch its kernels (spans of :data:`LOGDEPTH_SPANS` steps) on CUDA tensors
+and take its plain versions, :func:`selective_scan_logdepth_reference` and
+:func:`selective_scan_logdepth_bwd_reference` (transcriptions of the JAX
+kernel's arithmetic, in its order), on CPU tensors.
 """
 
 from __future__ import annotations
@@ -23,11 +33,16 @@ from __future__ import annotations
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from ...core.flags import flag
 from . import _build
 
 __all__ = ["selective_scan_fwd", "selective_scan_bwd",
            "selective_scan_reference", "launches", "bwd_launches",
-           "KERNEL_CHUNK", "MAX_STATE"]
+           "KERNEL_CHUNK", "MAX_STATE", "scan_span", "LOGDEPTH_SPANS",
+           "selective_scan_logdepth_fwd", "selective_scan_logdepth_bwd",
+           "selective_scan_logdepth_reference",
+           "selective_scan_logdepth_bwd_reference", "logdepth_launches",
+           "logdepth_bwd_launches"]
 
 #: forward kernel launches since the count was last set to 0
 launches = 0
@@ -35,8 +50,14 @@ launches = 0
 #: set to 0
 bwd_launches = 0
 
+#: log-depth forward kernel launches since the count was last set to 0
+logdepth_launches = 0
+#: log-depth backward kernel launches since the count was last set to 0
+logdepth_bwd_launches = 0
+
 KERNEL_CHUNK = 64        # steps between the states the forward keeps
 MAX_STATE = 16           # states a kernel thread holds
+LOGDEPTH_SPANS = (8, 16, 32, 64)   # the log-depth kernels' spans
 
 
 # ------------------------------------------------------------ plain version
@@ -206,6 +227,214 @@ def selective_scan_bwd(u, delta, A, B, C, bounds, dy):
     dBC = dBC_part.sum(1)
     if B.dtype == C.dtype:
         dBC = dBC.to(B.dtype)
+    return (du.to(u.dtype), ddelta.to(delta.dtype),
+            dA_part.sum(0).to(A.dtype), dBC[0].to(B.dtype),
+            dBC[1].to(C.dtype))
+
+
+# ---------------------------------------------------------------- log-depth
+def scan_span(l: int, chunk: int) -> int:
+    """The log-depth scan's span for a sequence of ``l`` steps: JAX's
+    ``_scan_chunk`` (``paddle_tpu/ops/pallas/selective_scan.py:45-55``)
+    without the autotune cache, the ``selective_scan_blocks`` flag if set,
+    else ``min(chunk, l)``, clamped to ``[8, l]`` (8 wins for l < 8: the
+    sequence is padded to one span)."""
+    raw = str(flag("selective_scan_blocks") or "").split(",")[0].strip()
+    try:
+        over = int(raw)
+    except ValueError:
+        over = 0
+    return max(8, min(over or min(chunk, l), l))
+
+
+def _logdepth_replay(h0, a, x, span):
+    """``_replay_h(logdepth=True)`` over one span: the entering state
+    ``h0 [b, d, n]`` folded into step 0, then the inclusive Hillis-Steele
+    scan of ``(a, x) [b, span, d, n]``; returns every h_t."""
+    x = torch.cat([x[:, :1] + a[:, :1] * h0[:, None], x[:, 1:]], dim=1)
+    shift = 1
+    while shift < span:
+        one = torch.ones_like(a[:, :shift])
+        x = x + a * torch.cat([torch.zeros_like(x[:, :shift]),
+                               x[:, :-shift]], dim=1)
+        a = a * torch.cat([one, a[:, :-shift]], dim=1)
+        shift *= 2
+    return x
+
+
+def _logdepth_inputs(u, delta, A, B, C, span, dtype, *more):
+    b, l, d = u.shape
+    pad = (-l) % span
+    f = [t.to(dtype) for t in (u, delta, B, C) + more]
+    if pad:
+        f = [torch.nn.functional.pad(t, (0, 0, 0, pad)) for t in f]
+    return (l + pad) // span, A.to(dtype), f
+
+
+def selective_scan_logdepth_reference(u, delta, A, B, C, span,
+                                      dtype=torch.float32):
+    """The plain log-depth forward: ``(y, bounds)``, y ``[b, l, d]`` in u's
+    dtype and the state entering each span ``[b, ceil(l / span), n, d]``,
+    computed in ``dtype`` (float64 gives a reference for the f32 kernel) as
+    ``_fwd_kernel(logdepth=True)`` computes them: the sequence padded with
+    zeros to whole spans, ``a = exp(delta A)``, ``x = delta u B``, each
+    span's states by :func:`_logdepth_replay`, ``y_t = sum_n C_t h_t``."""
+    b, l, d = u.shape
+    nc, Af, (uf, df, Bf, Cf) = _logdepth_inputs(u, delta, A, B, C, span,
+                                                dtype)
+    h = torch.zeros(b, d, A.shape[-1], dtype=dtype, device=u.device)
+    ys, bounds = [], []
+    for c0 in range(0, nc * span, span):
+        bounds.append(h)
+        dl = df[:, c0:c0 + span]
+        a = torch.exp(dl[..., None] * Af)                      # [b, c, d, n]
+        x = (dl * uf[:, c0:c0 + span])[..., None] \
+            * Bf[:, c0:c0 + span, None, :]
+        hs = _logdepth_replay(h, a, x, span)
+        ys.append((hs * Cf[:, c0:c0 + span, None, :]).sum(-1))
+        h = hs[:, -1]
+    y = torch.cat(ys, dim=1)[:, :l].to(u.dtype)
+    return y, torch.stack(bounds, dim=1).transpose(2, 3)
+
+
+def selective_scan_logdepth_bwd_reference(u, delta, A, B, C, bounds, dy, span,
+                                          dtype=torch.float32):
+    """The plain log-depth backward: ``(du, ddelta, dA, dB, dC)`` of
+    :func:`selective_scan_logdepth_reference` for the cotangent ``dy``, each
+    in its input's dtype, computed in ``dtype`` as ``_bwd_kernel(logdepth=
+    True)`` computes them: spans from the last, each replayed from its
+    entering state in ``bounds``, ``dh_t = C_t dy_t + a_{t+1} dh_{t+1}`` by
+    the suffix Hillis-Steele scan with the carry from the right on the last
+    step, the carry to the left ``a_0 dh_0``, and the epilogue ``common =
+    dh h_{t-1} a``: ``ddelta = sum_n common A + (sum_n dh B) u``, ``du =
+    delta sum_n dh B``, ``dB = sum_d dh delta u``, ``dC = sum_d h dy``,
+    ``dA = sum common delta``."""
+    b, l, d = u.shape
+    n = A.shape[-1]
+    nc, Af, (uf, df, Bf, Cf, dyf) = _logdepth_inputs(u, delta, A, B, C, span,
+                                                     dtype, dy)
+    g = torch.zeros(b, d, n, dtype=dtype, device=u.device)
+    dA = torch.zeros(d, n, dtype=dtype, device=u.device)
+    parts = []
+    for c in reversed(range(nc)):
+        sl = slice(c * span, (c + 1) * span)
+        h0 = bounds[:, c].transpose(1, 2).to(dtype)            # [b, d, n]
+        dl, uu, Bm, Cm, dyc = df[:, sl], uf[:, sl], Bf[:, sl], Cf[:, sl], \
+            dyf[:, sl]
+        da = torch.exp(dl[..., None] * Af)                     # [b, c, d, n]
+        dlu = dl * uu
+        hs = _logdepth_replay(h0, da, dlu[..., None] * Bm[:, :, None, :],
+                              span)
+        s = Cm[:, :, None, :] * dyc[..., None]
+        s = torch.cat([s[:, :-1], s[:, -1:] + g[:, None]], dim=1)
+        m = torch.cat([da[:, 1:], torch.ones_like(da[:, :1])], dim=1)
+        dh, shift = s, 1
+        while shift < span:
+            one = torch.ones_like(m[:, :shift])
+            dh = dh + m * torch.cat([dh[:, shift:],
+                                     torch.zeros_like(dh[:, :shift])], dim=1)
+            m = m * torch.cat([m[:, shift:], one], dim=1)
+            shift *= 2
+        g = da[:, 0] * dh[:, 0]
+        hprev = torch.cat([h0[:, None], hs[:, :-1]], dim=1)
+        common = dh * hprev * da
+        s1 = (common * Af).sum(-1)                             # [b, c, d]
+        s2 = (dh * Bm[:, :, None, :]).sum(-1)
+        parts.append((dl * s2, s1 + s2 * uu,
+                      (dh * dlu[..., None]).sum(2),            # [b, c, n]
+                      (hs * dyc[..., None]).sum(2)))
+        dA = dA + (common * dl[..., None]).sum((0, 1))
+    du, ddelta, dB, dC = (torch.cat(p[::-1], dim=1)[:, :l]
+                          for p in zip(*parts))
+    return (du.to(u.dtype), ddelta.to(delta.dtype), dA.to(A.dtype),
+            dB.to(B.dtype), dC.to(C.dtype))
+
+
+def _check_span(what, span):
+    if span not in LOGDEPTH_SPANS:
+        raise NotImplementedError(
+            f"{what}: the log-depth kernels scan spans of "
+            f"{LOGDEPTH_SPANS} steps, got a span of {span} (scan_span: "
+            f"FLAGS_selective_scan_blocks or the chunk, clamped to [8, l])")
+
+
+def _span_bounds(what, bounds, b, l, d, n, span, device):
+    nc = -(-l // span)
+    if bounds.shape != (b, nc, n, d) or bounds.dtype != torch.float32 \
+            or bounds.device != device or not bounds.is_contiguous():
+        raise ValueError(f"{what}: bounds must be the forward's contiguous "
+                         f"f32 [{b}, {nc}, {n}, {d}] on {device}")
+
+
+def selective_scan_logdepth_fwd(u, delta, A, B, C, span):
+    """``(y, bounds)`` of the log-depth scan over spans of ``span`` steps:
+    y ``[b, l, d]`` in u's dtype and the f32 state entering each span ``[b,
+    ceil(l / span), n, d]``. One kernel launch on CUDA tensors (a span of
+    :data:`LOGDEPTH_SPANS`, n <= :data:`MAX_STATE`), the plain version on
+    CPU tensors."""
+    global logdepth_launches
+    what = "selective_scan (log-depth)"
+    b, l, d, n = _shapes(what, u, delta, A, B, C)
+    if _build.device_of(what, u, delta, A, B, C) == "cpu":
+        with torch.no_grad():
+            y, bounds = selective_scan_logdepth_reference(u, delta, A, B, C,
+                                                          span)
+        return y, bounds.float().contiguous()
+    _check_states(what, n)
+    _check_span(what, span)
+    dt, (uk, dk, Bk, Ck) = _build.float_io(what, u, delta, B, C)
+    Ak = A.float().contiguous()
+    y = torch.empty((b, l, d), dtype=dt, device=u.device)
+    bounds = torch.empty((b, -(-l // span), n, d), dtype=torch.float32,
+                         device=u.device)
+    rc = _build.entry("selective_scan", "ptt_selective_scan_logdepth_fwd",
+                      7, 6)(
+        uk.data_ptr(), dk.data_ptr(), Ak.data_ptr(), Bk.data_ptr(),
+        Ck.data_ptr(), y.data_ptr(), bounds.data_ptr(), b, l, d, n, span,
+        int(dt == torch.bfloat16), _build.stream(u))
+    _build.check(_build.load("selective_scan"), rc, what)
+    logdepth_launches += 1
+    return y.to(u.dtype), bounds
+
+
+def selective_scan_logdepth_bwd(u, delta, A, B, C, bounds, dy, span):
+    """``(du, ddelta, dA, dB, dC)`` of :func:`selective_scan_logdepth_fwd`
+    for the cotangent ``dy``, each in its input's dtype: one kernel launch
+    on CUDA tensors, then the sums of its partials; the plain version on
+    CPU tensors."""
+    global logdepth_bwd_launches
+    what = "selective_scan backward (log-depth)"
+    b, l, d, n = _shapes(what, u, delta, A, B, C)
+    if dy.shape != u.shape:
+        raise ValueError(f"{what}: dy {tuple(dy.shape)} is not "
+                         f"{tuple(u.shape)}")
+    _span_bounds(what, bounds, b, l, d, n, span, u.device)
+    if _build.device_of(what, u, delta, A, B, C, dy) == "cpu":
+        return selective_scan_logdepth_bwd_reference(u, delta, A, B, C,
+                                                     bounds, dy, span)
+    _check_states(what, n)
+    _check_span(what, span)
+    dt, (uk, dk, Bk, Ck, dyk) = _build.float_io(what, u, delta, B, C, dy)
+    Ak = A.float().contiguous()
+    dev = u.device
+    f32 = dict(dtype=torch.float32, device=dev)
+    du = torch.empty((b, l, d), dtype=dt, device=dev)
+    ddelta = torch.empty((b, l, d), dtype=dt, device=dev)
+    lib = _build.load("selective_scan")
+    tiles = -(-d // lib.ptt_selective_scan_logdepth_channels())
+    dA_part = torch.empty((b, d, n), **f32)
+    dBC_part = torch.empty((2, tiles, b, l, n), **f32)
+    dB_part, dC_part = dBC_part
+    rc = _build.entry("selective_scan", "ptt_selective_scan_logdepth_bwd",
+                      12, 6)(
+        uk.data_ptr(), dk.data_ptr(), Ak.data_ptr(), Bk.data_ptr(),
+        Ck.data_ptr(), bounds.data_ptr(), dyk.data_ptr(), du.data_ptr(),
+        ddelta.data_ptr(), dA_part.data_ptr(), dB_part.data_ptr(),
+        dC_part.data_ptr(), b, l, d, n, span, int(dt == torch.bfloat16),
+        _build.stream(u))
+    _build.check(lib, rc, what)
+    logdepth_bwd_launches += 1
+    dBC = dBC_part.sum(1)
     return (du.to(u.dtype), ddelta.to(delta.dtype),
             dA_part.sum(0).to(A.dtype), dBC[0].to(B.dtype),
             dBC[1].to(C.dtype))

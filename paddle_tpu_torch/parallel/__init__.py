@@ -6,8 +6,8 @@ place the collectives; the port runs one process a rank over
 explicit collectives over one process group a mesh axis, and the kernels
 receive plain local tensors:
 
-* ``env`` / ``topology``: the process group and the ``HybridMesh`` (dp,
-  fsdp, tp, sep; pp and ep wait for the second part of ROADMAP A8);
+* ``env`` / ``topology``: the process group and the ``HybridMesh`` (pp,
+  dp, fsdp, sep, tp; ep waits for the expert-parallel slice);
 * ``collective``: Paddle's collectives with ``group=`` a mesh axis;
 * ``api``: ``ProcessMesh`` and the Shard / Replicate / Partial placements
   on DTensor (the user-facing placements only);
@@ -17,7 +17,14 @@ receive plain local tensors:
 * ``sequence_parallel``: ring and Ulysses attention on the flash kernels;
 * ``checkpoint``: sharded save and resharding load in JAX's format;
 * ``fleet``: the strategy facade;
-* ``moe``: the mixture-of-experts layer (one device).
+* ``moe``: the mixture-of-experts layer (one device);
+* ``pp_layers`` / ``pipeline`` / ``zero_bubble``: pipeline segmentation,
+  ``pipeline_apply`` and ``PipelineTrainStep`` (1F1B, F-then-B, VPP, zero
+  bubble), one stage a process or every stage in one;
+* ``offload``: ``AsyncLoader`` and ``OffloadedTrainStep`` (optimizer state
+  on the host);
+* ``activation_sharding`` / ``shard_map``: layout constraints on DTensors
+  and a function run on each rank's shards.
 """
 
 from . import checkpoint, env, fleet, mp_ops, sequence_parallel
@@ -43,6 +50,13 @@ from .sequence_parallel import (ColumnSequenceParallelLinear,
 from .sharding import (ShardedTrainStep, ShardingStage,
                        llama_sharding_rules, spec_for)
 from .topology import HybridMesh
+from .activation_sharding import (activation_sharding, constrain,
+                                  current_activation_specs)
+from .offload import AsyncLoader, OffloadedTrainStep
+from .pipeline import PipelineTrainStep, pipeline_apply, stack_layer_params
+from .pp_layers import LayerDesc, PipelineLayer, SharedLayerDesc
+from .shard_map import shard_map
+from .zero_bubble import pipeline_apply_zb
 
 __all__ = [
     "init_parallel_env", "get_rank", "get_world_size", "get_mesh",
@@ -63,4 +77,8 @@ __all__ = [
     "checkpoint", "save_state_dict", "load_state_dict",
     "fleet", "DistributedStrategy", "env",
     "NaiveGate", "SwitchGate", "GShardGate", "MLPExperts", "MoELayer",
+    "LayerDesc", "SharedLayerDesc", "PipelineLayer", "PipelineTrainStep",
+    "pipeline_apply", "pipeline_apply_zb", "stack_layer_params",
+    "AsyncLoader", "OffloadedTrainStep", "shard_map",
+    "activation_sharding", "constrain", "current_activation_specs",
 ]

@@ -9,6 +9,8 @@ return the result, tiled as JAX's ``tiled=True``: ``all_gather`` concatenates
 along ``axis``, ``reduce_scatter`` keeps this rank's chunk of the sum along
 ``axis``, ``all_to_all`` splits along ``split_axis`` and concatenates what
 it receives along ``concat_axis``. A group of one rank returns its input.
+``batch_isend_irecv`` posts point-to-point sends and receives together,
+peers by global rank (the pipeline schedule's exchange of a tick).
 """
 
 from __future__ import annotations
@@ -22,7 +24,8 @@ from . import env
 
 __all__ = ["ReduceOp", "Group", "new_group", "get_group", "all_reduce",
            "all_gather", "all_gather_object", "reduce_scatter", "all_to_all",
-           "broadcast", "reduce", "scatter", "barrier", "resolve_group"]
+           "broadcast", "reduce", "scatter", "barrier", "resolve_group",
+           "batch_isend_irecv"]
 
 
 class ReduceOp:
@@ -267,3 +270,18 @@ def barrier(group=None):
     pg, n = resolve_group(group)
     if n > 1:
         dist.barrier(group=pg)
+
+
+def batch_isend_irecv(sends, recvs, group=None):
+    """Post every ``(tensor, dst)`` send and ``(tensor, src)`` receive (global
+    ranks) at once and wait for all of them; every rank of ``group`` must
+    post its matching halves in the same call. Returns the received
+    tensors."""
+    pg, _ = resolve_group(group)
+    ops = [dist.P2POp(dist.isend, t.contiguous(), dst, group=pg)
+           for t, dst in sends]
+    ops += [dist.P2POp(dist.irecv, t, src, group=pg) for t, src in recvs]
+    if ops:
+        for work in dist.batch_isend_irecv(ops):
+            work.wait()
+    return [t for t, _ in recvs]

@@ -5,9 +5,12 @@ the strategy's hybrid degrees over the started process group
 returns a wrapper whose ``train_batch((ids, labels), optimizer)`` runs a
 :class:`~.sharding.ShardedTrainStep` (the ZeRO stage from
 ``sharding_configs`` when ``strategy.sharding``), and
-``distributed_optimizer`` tags the optimizer. ``dp_degree`` 1 or -1
-absorbs the ranks the other degrees leave. Pipeline parallelism
-(``pp_degree > 1``) is not ported yet and raises.
+``distributed_optimizer`` tags the optimizer. With ``pp_degree > 1`` the
+step is a :class:`~.pipeline.PipelineTrainStep` instead, as JAX's fleet
+builds it (``fleet.py:216-230``): ``pipeline_configs["schedule_mode"]``
+``1F1B``, ``FThenB``, ``ZBH1`` or ``VPP`` (with ``vpp_degree``, default 2),
+``accumulate_steps`` micro-batches, ``recompute`` as its remat.
+``dp_degree`` 1 or -1 absorbs the ranks the other degrees leave.
 """
 
 from __future__ import annotations
@@ -86,6 +89,18 @@ class _HCG:
     def get_pipe_parallel_world_size(self):
         return self._hm.sizes["pp"]
 
+    def get_stage_id(self):
+        return self._hm.get_stage_id()
+
+    def is_first_stage(self):
+        return self.get_stage_id() == 0
+
+    def is_last_stage(self):
+        return self.get_stage_id() == self._hm.sizes["pp"] - 1
+
+    def get_pipe_parallel_group(self):
+        return self._hm.get_pipe_parallel_group()
+
     def get_sharding_parallel_world_size(self):
         return self._hm.sizes["fsdp"]
 
@@ -111,9 +126,6 @@ class Fleet:
         env.init_parallel_env(device=device)
         strategy = strategy or DistributedStrategy()
         hc = strategy.hybrid_configs
-        if hc.pp_degree > 1:
-            raise NotImplementedError("fleet: pipeline parallelism "
-                                      "(pp_degree > 1) is not ported yet")
         n = env.get_world_size()
         others = (hc.mp_degree * hc.pp_degree * hc.sharding_degree
                   * hc.sep_degree * hc.ep_degree)
@@ -170,9 +182,15 @@ class Fleet:
         return optimizer
 
 
+#: ``pipeline_configs["schedule_mode"]`` -> ``PipelineTrainStep``'s schedule
+SCHEDULE_MODES = {"1F1B": "1f1b", "FThenB": "fthenb", "ZBH1": "zb",
+                  "VPP": "vpp"}
+
+
 class _DistributedModel:
-    """The model with ``train_batch``: a ShardedTrainStep built on the
-    first batch (when the optimizer arrives)."""
+    """The model with ``train_batch``: a ShardedTrainStep (a
+    PipelineTrainStep with ``pp_degree > 1``) built on the first batch
+    (when the optimizer arrives)."""
 
     def __init__(self, model, fleet_obj: Fleet):
         self._model = model
@@ -191,11 +209,28 @@ class _DistributedModel:
         from .sharding import ShardedTrainStep, ShardingStage
 
         strat = self._fleet._strategy
+        clip = getattr(optimizer, "_grad_clip", None)
+        if strat.hybrid_configs.pp_degree > 1:
+            from .pipeline import PipelineTrainStep
+
+            if clip is not None:
+                raise ValueError(f"train_batch: the pipelined step applies "
+                                 f"no clip ({type(clip).__name__})")
+            cfg = strat.pipeline_configs
+            mode = cfg.get("schedule_mode", "1F1B")
+            sched = SCHEDULE_MODES.get(mode, str(mode).lower())
+            self._step = PipelineTrainStep(
+                self._model, optimizer, self._fleet.mesh,
+                num_microbatches=max(int(cfg.get("accumulate_steps", 1)), 1),
+                schedule=sched,
+                num_virtual_stages=int(cfg.get(
+                    "vpp_degree", 2 if sched == "vpp" else 1)),
+                remat=bool(strat.recompute))
+            return
         stage = int(strat.sharding_configs.get("stage", 1)) \
             if strat.sharding else 0
         # Paddle hands the clip to the optimizer; the step applies a global
         # norm clip over every shard and refuses any other
-        clip = getattr(optimizer, "_grad_clip", None)
         if clip is not None and not isinstance(clip, ClipGradByGlobalNorm):
             raise ValueError(f"train_batch: the sharded step applies only "
                              f"ClipGradByGlobalNorm, not "

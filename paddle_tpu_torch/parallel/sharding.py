@@ -68,12 +68,23 @@ __all__ = ["ShardingStage", "ShardedTrainStep", "llama_sharding_rules",
 IGNORE_INDEX = -100
 
 
+class _Unconstrained:
+    def __repr__(self):
+        return "P.UNCONSTRAINED"
+
+
 class P(tuple):
     """A partition spec (``jax.sharding.PartitionSpec``): one entry a
-    dim, None (replicated), a mesh axis name or a tuple of names."""
+    dim, None (replicated), a mesh axis name or a tuple of names, or
+    ``P.UNCONSTRAINED`` (left as it is; ``activation_sharding``)."""
+
+    UNCONSTRAINED = _Unconstrained()
 
     def __new__(cls, *parts):
         return tuple.__new__(cls, parts)
+
+    def __reduce__(self):
+        return type(self), tuple(self)
 
     def __repr__(self):
         return f"P{tuple.__repr__(self)}"
@@ -276,9 +287,23 @@ class ShardedTrainStep:
         self._sharded = False
         self._overrides: Dict[Tuple[nn.Module, str], object] = {}
         self._shard_model()
-        self._state = optimizer.init_state([self._update_view(s)
+        self._state = self._init_opt_state([self._update_view(s)
                                             for s in self._shards])
         self._step = 0
+
+    def _init_opt_state(self, views):
+        """The optimizer state of each updated view (``offload`` keeps it
+        on the host)."""
+        return self._opt.init_state(views)
+
+    def _grads_enqueued(self) -> None:
+        """Called once the backward has been enqueued (``offload`` starts
+        its first state copy there)."""
+
+    def _apply_update(self, views, grads) -> None:
+        """The optimizer's in-place update of this rank's views."""
+        self._opt.apply_gradients_(views, grads, self._state,
+                                   self._opt.get_lr(), self._step)
 
     # -- placing the model ---------------------------------------------------
     def _local(self, s: _Shard, full):
@@ -548,6 +573,7 @@ class ShardedTrainStep:
             grads = list(torch.autograd.grad(loss, params,
                                              allow_unused=True,
                                              materialize_grads=True))
+        self._grads_enqueued()
         with torch.no_grad():
             grads = self._sync_grads(grads)
             if self._clip_norm is not None:
@@ -556,8 +582,7 @@ class ShardedTrainStep:
                 clip = ClipGradByGlobalNorm(self._clip_norm)
                 grads = [g for _, g in clip._clip(list(zip(holders, grads)))]
             views = [self._update_view(s) for s in self._shards]
-            self._opt.apply_gradients_(views, grads, self._state,
-                                       self._opt.get_lr(), self._step)
+            self._apply_update(views, grads)
             if self._stage < ShardingStage.P_G_OS \
                     and self._mesh.axis_size("fsdp") > 1:
                 for s, v in zip(self._shards, views):

@@ -6,8 +6,11 @@ the row-major coordinate of r in that shape. Each axis has its process
 group (``init_device_mesh``'s); a tuple of axes gets one group per
 combination of the other axes' coordinates, made on first use (every rank
 must ask for it in the same order, as for any ``new_group``), its ranks in
-row-major order of the tuple's axes. Pipeline (``pp``) and expert (``ep``)
-parallelism are not ported yet: a degree above 1 raises.
+row-major order of the tuple's axes. A pipeline rank's stage is its ``pp``
+coordinate (:meth:`HybridMesh.get_stage_id`); :meth:`HybridMesh.group_ranks`
+gives the global ranks of its group, which the schedule's point-to-point
+sends address. Expert parallelism (``ep``) is not ported yet: a degree
+above 1 raises.
 """
 
 from __future__ import annotations
@@ -41,17 +44,18 @@ class HybridMesh:
       fsdp  the sharding (ZeRO) axis, also data parallel
       sep   sequence / context parallel (ring attention)
       tp    tensor (model) parallel
-      pp, ep  pipeline and expert parallel (must be 1 for now)
+      pp    pipeline stages (``parallel.PipelineTrainStep``)
+      ep    expert parallel (must be 1 for now)
     """
 
     def __init__(self, dp: int = 1, fsdp: int = 1, tp: int = 1, sep: int = 1,
                  pp: int = 1, ep: int = 1):
         sizes = {"pp": pp, "dp": dp, "fsdp": fsdp, "sep": sep, "ep": ep,
                  "tp": tp}
-        if pp > 1 or ep > 1:
+        if ep > 1:
             raise NotImplementedError(
-                "HybridMesh: pipeline (pp) and expert (ep) parallelism are "
-                "not ported yet; pp and ep must be 1")
+                "HybridMesh: expert parallelism (ep) is not ported yet; ep "
+                "must be 1")
         total = 1
         for s in sizes.values():
             total *= s
@@ -97,6 +101,15 @@ class HybridMesh:
             r = r * self.sizes[a] + self.axis_rank(a)
         return r
 
+    def group_ranks(self, axes) -> list:
+        """The global ranks of this rank's group of ``axes``, in the order
+        of :meth:`group_rank`."""
+        dims = [AXIS_ORDER.index(a) for a in _axes(axes)]
+        coord = (self._ranks == env.get_rank()).nonzero()[0]
+        index = tuple(slice(None) if i in dims else int(coord[i])
+                      for i in range(len(AXIS_ORDER)))
+        return self._ranks[index].reshape(-1).tolist()
+
     def group(self, axes: Union[str, Sequence[str]]):
         """The process group of ``axes`` (an axis name or a tuple)."""
         key = tuple(sorted(_axes(axes), key=AXIS_ORDER.index))
@@ -126,6 +139,13 @@ class HybridMesh:
 
     def get_pipe_parallel_world_size(self) -> int:
         return self.sizes["pp"]
+
+    def get_stage_id(self) -> int:
+        """This rank's pipeline stage: its ``pp`` coordinate."""
+        return self.axis_rank("pp")
+
+    def get_pipe_parallel_group(self):
+        return self.group("pp")
 
     def get_sharding_parallel_world_size(self) -> int:
         return self.sizes["fsdp"]

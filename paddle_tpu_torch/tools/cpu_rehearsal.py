@@ -27,7 +27,8 @@ the empty rows exact. Exits 1 if a case fails.
 
 The cases are the WKV forward and backward (``wkv``), the SSD forward and
 backward (``ssd``), the selective scan's forward and backward
-(``selective_scan``) and the paged decode on bf16 and int8 pages
+(``selective_scan``, with its log-depth variant over spans of 8, 16,
+32 and 64 steps) and the paged decode on bf16 and int8 pages
 (``paged_attention``, also on the contiguous layout of
 ``fused_multi_transformer_paged``) at their edges, cut to sizes the CPU runs in
 seconds: lengths around the sub-chunks and chunks, d = 64 and 128 (the
@@ -266,6 +267,45 @@ def scan_case(b, l, d, n, dt, strong=False, seed=0, cancel=False):
                    ("du", "ddelta", "dA", "dB", "dC"), tol) and ok
 
 
+def scan_logdepth_case(b, l, d, n, dt, span, strong=False, seed=0,
+                       cancel=False):
+    """The log-depth scan's forward (y, the span states) and backward
+    kernels over spans of ``span`` steps against their plain versions
+    (float64 for f32 I/O), inputs as :func:`scan_case` draws them."""
+    import torch.nn.functional as F
+
+    from ..ops.cuda import selective_scan as ss
+
+    g = torch.Generator().manual_seed(seed)
+    u = torch.randn(b, l, d, generator=g)
+    delta = F.softplus(torch.randn(b, l, d, generator=g))
+    A = -torch.arange(1, n + 1, dtype=torch.float32).expand(d, n).contiguous()
+    if strong:
+        A[:3] = -1e4
+        delta[:, l // 3:l // 2 + 1] = 20.0
+    B, C = torch.randn(b, l, n, generator=g), torch.randn(b, l, n, generator=g)
+    dy = torch.randn(b, l, d, generator=g).to(dt)
+    if cancel:
+        C = _cancel_bc(B, C)
+    ins = (u.to(dt), delta.to(dt), A, B.to(dt), C.to(dt))
+    y, bounds = ss.selective_scan_logdepth_fwd(*ins, span)
+    grads = ss.selective_scan_logdepth_bwd(*ins, bounds, dy, span)
+    ref_dt = torch.float64 if dt == torch.float32 else torch.float32
+    xs = [t.to(ref_dt) for t in ins]
+    y_ref, b_ref = ss.selective_scan_logdepth_reference(*xs, span, ref_dt)
+    g_ref = ss.selective_scan_logdepth_bwd_reference(
+        *xs, b_ref, dy.to(ref_dt), span, ref_dt)
+    tol = F32_RTOL if dt == torch.float32 else BF16_RTOL
+    what = (f"log-depth scan span {span} b{b} l{l} d{d} n{n} "
+            f"{str(dt)[6:]}" + (" strong decay" if strong else "")
+            + (" B . C cancels" if cancel else ""))
+    ok = _report(what + " forward", (y, bounds),
+                 (y_ref.to(dt), b_ref.float()), ("y", "span states"), tol)
+    return _report(what + " backward", grads,
+                   [a.to(t.dtype) for a, t in zip(g_ref, ins)],
+                   ("du", "ddelta", "dA", "dB", "dC"), tol) and ok
+
+
 def _cancel_bc(B, C):
     """C with its last state set so that each step's B . C is about 1e-4 of
     its terms (computed in float64)."""
@@ -422,7 +462,16 @@ CASES = {
         scan_case(1, 150, 72, 5, f32, strong=True),
         scan_case(1, 130, 100, 16, bf16), scan_case(1, 1, 100, 5, f32,
                                                     cancel=True),
-        scan_case(2, 70, 100, 16, f32, cancel=True)],
+        scan_case(2, 70, 100, 16, f32, cancel=True),
+        # the log-depth kernels: spans 8, 16, 32 and 64, one step, lengths
+        # off the span, a strong decay, B . C cancelling
+        scan_logdepth_case(1, 1, 100, 5, f32, 8),
+        scan_logdepth_case(2, 65, 72, 16, bf16, 16),
+        scan_logdepth_case(1, 150, 100, 5, f32, 64, strong=True),
+        scan_logdepth_case(2, 65, 100, 16, f32, 64),
+        scan_logdepth_case(1, 150, 72, 16, bf16, 64, strong=True),
+        scan_logdepth_case(1, 70, 100, 5, f32, 32),
+        scan_logdepth_case(1, 65, 100, 16, f32, 8, cancel=True)],
     "flash_attention_mma": lambda f32, bf16: [
         flash_case(1, 70, 77, 2, 1, 16),
         flash_case(2, 100, 100, 4, 2, 32, causal=True),

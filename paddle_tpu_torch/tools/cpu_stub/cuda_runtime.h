@@ -131,6 +131,15 @@ inline float __shfl_up_sync(unsigned, float v, int o) {
   w.bar.arrive_and_wait();
   return r;
 }
+inline float __shfl_down_sync(unsigned, float v, int o) {
+  auto& w = stub_warp();
+  const int lane = threadIdx.x % 32;
+  w.f[lane] = v;
+  w.bar.arrive_and_wait();
+  const float r = lane + o < 32 ? w.f[lane + o] : v;
+  w.bar.arrive_and_wait();
+  return r;
+}
 inline float __shfl_sync(unsigned, float v, int src) {
   auto& w = stub_warp();
   const int lane = threadIdx.x % 32;

@@ -37,6 +37,11 @@ def test_prep_makes_launches_synchronous():
             "kern<T, 64>(\n    x, y); });") in out
 
 
+#: the cases each source's rehearsal runs (``cpu_rehearsal.CASES``): a
+#: case dropped from the list fails the count
+CASE_COUNTS = {"wkv": 6, "ssd": 5, "selective_scan": 15}
+
+
 @pytest.mark.parametrize("source", ["wkv", "ssd", "selective_scan"])
 def test_kernels_agree_with_plain_versions_on_the_cpu(source):
     """The WKV forward and backward (``wkv``: lengths 1 to 150 around the
@@ -44,7 +49,9 @@ def test_kernels_agree_with_plain_versions_on_the_cpu(source):
     forward and backward (``ssd``: lengths 1 to 150, 3 to 13 heads, every
     state width, a strong decay) and the selective scan's forward and backward
     (``selective_scan``: lengths 1 to 150, d = 72 and 100, n = 5 and 16, a
-    strong decay), each in f32 and bf16, every output finite."""
+    strong decay; and its log-depth variant over spans of 8, 16, 32 and
+    64 steps, lengths 1, 65, 70 and 150, B . C cancelling), each in f32
+    and bf16, every output finite, every case of the source run."""
     if shutil.which("g++") is None:
         pytest.skip("needs g++ to build the CUDA sources against the "
                     "stand-in headers")
@@ -52,4 +59,4 @@ def test_kernels_agree_with_plain_versions_on_the_cpu(source):
         [sys.executable, "-m", "paddle_tpu_torch.tools.cpu_rehearsal",
          source], cwd=ROOT, capture_output=True, text=True, timeout=900)
     assert proc.returncode == 0, proc.stdout[-4000:] + proc.stderr[-4000:]
-    assert "0 disagree" in proc.stdout
+    assert f"{CASE_COUNTS[source]} cases agree, 0 disagree" in proc.stdout

@@ -176,17 +176,48 @@ def test_cancel_queued_and_running(models, plain):
     assert s["pool"]["free_blocks"] == s["pool"]["num_blocks"]
 
 
-def test_deadlines_expire_queued_and_running(models):
+class _Clock:
+    """A ``time`` module whose ``perf_counter`` only the test moves: the
+    serving engine and scheduler read their deadlines through it, so what
+    expires does not depend on the machine's load."""
+
+    def __init__(self):
+        self.t = 1000.0
+
+    def perf_counter(self):
+        return self.t
+
+    def sleep(self, seconds):
+        self.t += seconds
+
+    def __getattr__(self, name):
+        return getattr(time, name)
+
+
+def test_deadlines_expire_queued_and_running(models, monkeypatch):
+    """A request admitted and then past its deadline ends ``timeout`` at
+    the next iteration boundary; one queued behind it (``max_batch=1``)
+    ends ``timeout`` naming what blocked its admission. The engine's clock
+    stands still until the test moves it past both deadlines: under load,
+    a 1 ms deadline on the machine's clock could expire before the first
+    admission had recorded why the request waits."""
+    from paddle_tpu_torch.serving import engine as engine_mod
+    from paddle_tpu_torch.serving import scheduler as scheduler_mod
+
+    clock = _Clock()
+    monkeypatch.setattr(engine_mod, "time", clock)
+    monkeypatch.setattr(scheduler_mod, "time", clock)
     eng = ServingEngine(models[1], ServingConfig(**dict(BASE, max_batch=1)))
     p = _prompts()
     slow = eng.submit(p[0], NEW, deadline_ms=60)
     queued = eng.submit(p[2], NEW, deadline_ms=1)
     eng.step()                                   # slow admitted
-    time.sleep(0.07)
+    assert slow.status == "running" and queued.status == "queued"
+    clock.sleep(0.07)
     eng.run_until_complete()
-    # reaped at the iteration boundary: before its next decode step (or,
-    # on a slow machine, during its prefill)
+    # reaped at the iteration boundary, before its next decode step
     assert slow.status == "timeout" and "ms expired" in slow.error
+    assert "generated token(s)" in slow.error
     assert queued.status == "timeout"
     assert "while queued (admission blocked: no_free_slot)" in queued.error
     s = eng.drain()
